@@ -1,0 +1,210 @@
+"""Ring-step kernel module and the stacked allgathers of the PyTorch port,
+held against the JAX package: the ring schedule, the collectives'
+outputs (bitwise), the hierarchical FSDP gather, and rank independence."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ring_allgather import ring_schedule as ref_ring_schedule
+from repro_torch import bridge
+from repro_torch.configs import CollectiveConfig, MeshConfig
+from repro_torch.core import collectives as C
+from repro_torch.kernels import ring_allgather as K
+from repro_torch.launch.mesh import StackedMesh
+from repro_torch.models import build_model
+from repro_torch.models.transformer import layer_slice
+from repro_torch.runtime.serve_loop import make_prefill_step
+from repro_torch.sharding.ctx import use_ctx
+from repro_torch.sharding.fsdp import gather_leaf, make_param_gather
+from test_torch_support import SMALL, flatten, random_tree, run_reference, serve_run
+
+P8 = 8
+
+
+@pytest.mark.parametrize("p", range(2, 10))
+def test_ring_schedule_matches_reference(p):
+    assert K.ring_schedule(p) == ref_ring_schedule(p)
+
+
+def _id_buffer(p: int, n: int) -> torch.Tensor:
+    """(P, P, n) f32 with shard j of rank j holding j + 1, zeros elsewhere."""
+    buf = torch.zeros(p, p, n)
+    for j in range(p):
+        buf[j, j] = j + 1
+    return buf
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+def test_plain_ring_step_delivers_every_shard_once(p):
+    """Driven through P - 1 steps, the plain ring step moves exactly the
+    triples of ``ring_schedule``: each (receiver, shard) once."""
+    buf = _id_buffer(p, 5)
+    delivered = set()
+    for s, trip in enumerate(K.ring_schedule(p)):
+        before = buf.clone()
+        K.ring_step_plain(buf, s)
+        changed = {(int(r), int(j)) for r, j in
+                   torch.nonzero((buf != before).any(-1)).tolist()}
+        assert changed == {(rcv, shard) for _, rcv, shard in trip}
+        assert not changed & delivered
+        delivered |= changed
+    want = torch.arange(1, p + 1, dtype=torch.float32)[None, :, None].expand(p, p, 5)
+    assert torch.equal(buf, want)
+
+
+def test_ring_step_on_cpu_counts_no_launch():
+    before = K.launches
+    buf = _id_buffer(4, 3)
+    for s in range(3):
+        K.ring_step(buf, s)
+    assert K.launches == before
+    assert torch.equal(buf, _id_buffer(4, 3).sum(0, keepdim=True).expand(4, 4, 3))
+
+
+@pytest.mark.parametrize("bad", [
+    dict(buf=torch.zeros(4, 4, 3, dtype=torch.int32), step=0),
+    dict(buf=torch.zeros(4, 3, 3), step=0),
+    dict(buf=torch.zeros(4, 4, 6)[..., ::2], step=0),
+    dict(buf=torch.zeros(4, 4, 3), step=3),
+    dict(buf=torch.zeros(4, 4, 3), step=0, direction=2),
+    dict(buf=torch.zeros(4, 4, 3), step=0, rounds=3),
+    dict(buf=torch.zeros(4, 4, 3), step=0, split=4),
+])
+def test_ring_step_rejects_what_the_kernel_does_not_take(bad):
+    with pytest.raises((TypeError, ValueError)):
+        K.ring_step(**bad)
+
+
+# ------------------------------------------------ collectives vs the reference
+
+CASES = [("ring", None), ("bidi", None), ("bcast", 1), ("bcast", 2), ("bcast", 4),
+         ("bcast", 8)]
+SIZES = [6, 7]
+
+
+@pytest.fixture(scope="module")
+def ref_collectives():
+    rng = np.random.default_rng(0)
+    inputs = {f"x{n}": rng.standard_normal(P8 * n).astype(np.float32) for n in SIZES}
+    body = f'''
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.core import collectives as C
+mesh = ref_mesh(({P8},), ("x",))
+for n in {SIZES}:
+    x = jax.device_put(IN[f"x{{n}}"], NamedSharding(mesh, P("x")))
+    for mode, chains in {CASES}:
+        out = C.make_allgather(mesh, "x", mode, n_chains=chains)(x)
+        OUT[f"{{mode}}{{chains}}_{{n}}"] = np.asarray(out)
+'''
+    return inputs, run_reference(body, inputs)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("mode,chains", CASES)
+def test_stacked_allgather_matches_jax(ref_collectives, mode, chains, n):
+    """Every rank's gathered copy equals JAX's make_allgather, bitwise."""
+    inputs, ref = ref_collectives
+    mesh = StackedMesh(x=P8)
+    x = torch.from_numpy(inputs[f"x{n}"]).reshape(P8, n)
+    got = C.make_allgather(mesh, "x", mode, n_chains=chains)(x)
+    want = ref[f"{mode}{chains}_{n}"]
+    assert got.shape == (P8, P8 * n)
+    for r in range(P8):
+        np.testing.assert_array_equal(got[r].numpy(), want)
+    plain = C.make_allgather(mesh, "x", "xla")(x)
+    assert torch.equal(plain, got)
+
+
+@pytest.fixture(scope="module")
+def ref_hier_gather():
+    tree = random_tree(SMALL, 3)
+    inputs = {k: v for k, v in flatten(tree).items() if k.startswith("blocks/")}
+    body = '''
+from jax.sharding import NamedSharding
+from repro.configs.base import CollectiveConfig, MeshConfig
+from repro.sharding.fsdp import make_param_gather
+from repro.sharding.specs import param_pspecs
+mesh = ref_mesh((2, 4, 1), ("pod", "data", "model"))
+mcfg = MeshConfig(multi_pod=True)
+blocks = unflatten(IN, "blocks/")
+layer = jax.tree.map(lambda a: a[1], blocks)
+specs = param_pspecs(layer, mesh, mcfg)
+layer = jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(mesh, s)), layer, specs)
+for mode in ("mcast", "mcast_ring", "mcast_bcast"):
+    gather = make_param_gather(mesh, mcfg, CollectiveConfig(fsdp_mode=mode, n_chains=2))
+    out = jax.jit(gather)(layer)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(out)[0]:
+        OUT[mode + "/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+'''
+    return tree, run_reference(body, inputs)
+
+
+@pytest.mark.parametrize("mode", ["mcast", "mcast_ring", "mcast_bcast"])
+def test_hierarchical_param_gather_matches_jax(ref_hier_gather, mode):
+    """On a (pod=2, data=4) mesh the per-layer gather (data ring, then the
+    pod axis by broadcast chains) gives every rank the reference's layer."""
+    tree, ref = ref_hier_gather
+    mesh, mcfg = StackedMesh(pod=2, data=4, model=1), MeshConfig(multi_pod=True)
+    params = bridge.to_torch(tree, mesh, mcfg, dtype=torch.float32, device="cpu")
+    gather = make_param_gather(mesh, mcfg, CollectiveConfig(fsdp_mode=mode, n_chains=2))
+    got = flatten(gather(layer_slice(params["blocks"], 1)))
+    for key, leaf in got.items():
+        want = ref[f"{mode}/{key}"]
+        for r in range(mesh.n_ranks):
+            np.testing.assert_array_equal(leaf[r].numpy(), want, err_msg=key)
+
+
+@pytest.mark.parametrize("mode", ["xla", "bidi", "ring", "bcast"])
+def test_gather_leaf_odd_flat_length(mode):
+    """An odd flat shard takes the plain ring in bidi mode, as the reference's
+    _ag_local does; every mode still reassembles the leaf."""
+    mesh = StackedMesh(data=4, model=1)
+    a = np.arange(4 * 3 * 5, dtype=np.float32).reshape(12, 5)
+    local = torch.from_numpy(a).reshape(4, 3, 5)
+    full = gather_leaf(local, (("data",), None), mesh, ("data",), mode, 2)
+    for r in range(4):
+        np.testing.assert_array_equal(full[r].numpy(), a)
+
+
+def test_corrupt_rank_copy_changes_only_that_rank():
+    """A wrong byte in rank r's gathered copy of a layer changes rank r's
+    batch rows and no others: each rank computes with its own copy."""
+    mesh, bad_rank = StackedMesh(data=P8, model=1), 5
+    params = bridge.to_torch(random_tree(SMALL, 0), mesh, MeshConfig(),
+                             dtype=torch.float32, device="cpu")
+    run = serve_run(SMALL, "mcast", 16, 12)
+    _, ctx, prefill = make_prefill_step(run, mesh, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, SMALL.vocab_size, (16, 12)))
+    clean, _ = prefill(params, {"tokens": tokens})
+
+    paper = make_param_gather(mesh, MeshConfig(), run.collective)
+
+    def corrupting(tree):
+        out = paper(tree)
+        out["attn"]["wq"][bad_rank, 0, 0] += 1.0
+        return out
+
+    api = build_model(SMALL, device="cpu")
+    with use_ctx(dataclasses.replace(ctx, gather_params=corrupting)):
+        dirty, _ = api.prefill_fn(params, {"tokens": tokens})
+    rows = tokens.shape[0] // P8
+    for r in range(P8):
+        same = torch.equal(clean[r * rows:(r + 1) * rows], dirty[r * rows:(r + 1) * rows])
+        assert same == (r != bad_rank), r
+
+
+def test_make_param_gather_xla_is_plain_gather():
+    mesh = StackedMesh(data=P8, model=1)
+    params = bridge.to_torch(random_tree(SMALL, 0), mesh, MeshConfig(),
+                             dtype=torch.float32, device="cpu")
+    layer = layer_slice(params["blocks"], 0)
+    before = K.launches
+    outs = {m: flatten(make_param_gather(mesh, MeshConfig(),
+                                         CollectiveConfig(fsdp_mode=m))(layer))
+            for m in ("xla", "mcast", "mcast_ring", "mcast_bcast")}
+    assert K.launches == before
+    for m, got in outs.items():
+        for key, leaf in got.items():
+            assert torch.equal(leaf, outs["xla"][key]), (m, key)
