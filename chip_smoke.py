@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
-1. the ring-step kernel (csrc/ring_step.cu) against its plain torch version,
-   bitwise, over ranks, lengths, dtypes, directions and round masks;
+0. builds the three kernels (csrc/*.cu), one nvcc each, in parallel;
+1. the ring-step kernel (csrc/ring_step.cu) and its transpose
+   (csrc/ring_step_transpose.cu) against their plain torch versions,
+   bitwise, over ranks, lengths, dtypes, directions and round masks; the
+   matmul kernel (csrc/matmul.cu) against its plain version at every shape
+   the training and serving paths give it (forward and both backward
+   products, bf16 and f32, the tied head's embed^T view included): f32
+   within 1e-5 x max|plain|, bf16 within 1e-2 x max|plain|;
 2. the stacked allgathers (ring, bidi, bcast) against the plain gather;
 3. serving smollm-135m at full width and depth (30 layers, bf16, seeded
    random weights) on a (data=8, model=1) stacked mesh: prefill of a
    128-token prompt for batch 8, then greedy generation of 32 tokens, in
    every fsdp_mode. All modes must give identical logits and tokens, and
-   the kernel's launch count must rise in exactly the mcast modes. A reduced
-   f32 model is also held against a single-rank run.
+   the ring-step launch count must rise in exactly the mcast modes. A
+   reduced f32 model is also held against a single-rank run;
+4. training smollm-135m at full width (30 layers, bf16, batch 16 x 512,
+   remat="full") on the same mesh in every fsdp_mode: one warm-up step and
+   3 timed steps each; the first step's loss must be bitwise equal in all
+   modes, and every kernel must launch. A reduced f32 train step sharded
+   over 8 ranks is held against a single-rank run over 3 steps (loss within
+   1e-5, grad_norm within 1e-4, relative).
 
 Prints the card's name and power limit, per-mode timings (medians of
-host-clock samples; decode is timed on its own), the ring step's times
-beside its HBM bound, a JSON line of kernels, and as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero if any check fails or
-there is no CUDA device.
+host-clock samples; device busy time and idle share from the profiler),
+each kernel's times beside its bound, a JSON line of kernels, and as the
+last line ``{"ok": true, "device": {...}}``. Exits non-zero if any check
+fails or there is no CUDA device.
 """
 from __future__ import annotations
 
@@ -38,23 +50,31 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig,  # noqa: E402
-                                 ShapeConfig, get_model_config, reduced)
+                                 ShapeConfig, TrainConfig, get_model_config, reduced)
 from repro_torch.core import collectives as C  # noqa: E402
+from repro_torch.data.pipeline import SyntheticPipeline  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import collective_matmul as M  # noqa: E402
 from repro_torch.kernels import ring_allgather as K  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
 from repro_torch.runtime.serve_loop import (ServeState, greedy_generate,  # noqa: E402
                                             make_decode_step, make_prefill_step)
+from repro_torch.runtime.train_loop import init_state, make_train_step  # noqa: E402
 from repro_torch.sharding.specs import is_sharded, tree_leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 tensor / f32 FMA
 MODES = ("xla", "mcast", "mcast_ring", "mcast_bcast")
 N_CHAINS = 2
 BATCH, PROMPT, NEW = 8, 128, 32
+TRAIN_SHAPE = ShapeConfig("train", "train", 512, 16)
+TRAIN_TIMED = 3
 REPEATS = 5   # host-clock samples per timed phase; the median is reported
 
 
-def check_kernel() -> tuple[int, float]:
-    """Phase 1: kernel vs plain step, bitwise. Returns (cases, max abs err)."""
+def check_kernel(kernel=K.ring_step, plain=K.ring_step_plain) -> tuple[int, float]:
+    """Phase 1: a ring-step kernel vs its plain step, bitwise. Returns
+    (cases, max abs err)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, max_err = 0, 0.0
     for p in (2, 4, 8):
@@ -71,14 +91,14 @@ def check_kernel() -> tuple[int, float]:
                         for s in range(p - 1):
                             buf = torch.randn((groups, p, p, n), generator=gen,
                                               device="cuda").to(dtype)
-                            want = K.ring_step_plain(buf.clone(), s, **kw)
-                            got = K.ring_step(buf, s, **kw)
+                            want = plain(buf.clone(), s, **kw)
+                            got = kernel(buf, s, **kw)
                             torch.cuda.synchronize()
                             err = (got.float() - want.float()).abs().max().item()
                             max_err = max(max_err, err)
                             if not torch.equal(got, want):
                                 raise AssertionError(
-                                    f"ring_step != plain: P={p} n={n} {dtype} G={groups} "
+                                    f"{kernel.__name__} != plain: P={p} n={n} {dtype} G={groups} "
                                     f"{kw} step {s}: max err {err}")
                             cases += 1
     return cases, max_err
@@ -126,8 +146,8 @@ def check_small_reference() -> float:
     return err
 
 
-def serve() -> int:
-    """Phase 3: the main path in every mode. Returns its ring-step launches."""
+def serve() -> None:
+    """Phase 3: the serving path in every mode."""
     cfg = get_model_config("smollm-135m")
     mesh = StackedMesh(data=8, model=1)
     t0 = time.perf_counter()
@@ -140,7 +160,6 @@ def serve() -> int:
     n_sharded = sum(1 for leaf in tree_leaves(params["blocks"])
                     if is_sharded(leaf.spec, ("data",)))
     ref = None
-    K.launches = 0   # counts from here are the main path's
     for mode in MODES:
         run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", PROMPT, BATCH),
                         collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
@@ -154,12 +173,16 @@ def serve() -> int:
             return greedy_generate(prefill, decode, params, tokens, NEW, PROMPT + NEW)
 
         do_prefill()   # warm-up
-        (logits, pre), _, launches = _run(do_prefill)
-        out, _, gen_launches = _run(do_generate)
+        (logits, pre), _, counts = _run(do_prefill)
+        out, _, gen_counts = _run(do_generate)
+        launches, gen_launches = counts["ring_step"], gen_counts["ring_step"]
+        if counts["matmul"] == 0 or counts["ring_step_transpose"] != 0:
+            raise AssertionError(f"{mode}: prefill launched {counts}")
         prefill_s = _wall(do_prefill)
         dev_prefill, prefill_prof_ms = _device_times(do_prefill)
         busy_ms = sum(dev_prefill.values())
         ring_ms = sum(t for k, t in dev_prefill.items() if "ring_step_kernel" in k)
+        matmul_ms = sum(t for k, t in dev_prefill.items() if "matmul_" in k)
 
         # decode on its own: the NEW - 1 steps of greedy_generate, from the
         # prefilled cache (rewritten in place with the same values each call)
@@ -199,10 +222,12 @@ def serve() -> int:
                "prefill_ms_median": statistics.median(prefill_s) * 1e3,
                "prefill_ms_samples": [t * 1e3 for t in prefill_s],
                "ring_step_launches_per_prefill": launches,
+               "matmul_launches_per_prefill": counts["matmul"],
                "prefill_device_busy_ms": busy_ms,
                "prefill_profiled_wall_ms": prefill_prof_ms,
                "prefill_device_idle_share": 1 - busy_ms / prefill_prof_ms,
                "prefill_ring_step_device_ms": ring_ms,
+               "prefill_matmul_device_ms": matmul_ms,
                "decode_steps": NEW - 1,
                "decode_ms_median": statistics.median(decode_s) * 1e3,
                "decode_ms_samples": [t * 1e3 for t in decode_s],
@@ -216,16 +241,25 @@ def serve() -> int:
         top = sorted(dev_prefill.items(), key=lambda kv: -kv[1])[:6]
         print(f"[serve] {mode} prefill, top device time (ms): "
               + json.dumps({k[:60]: t for k, t in top}), flush=True)
-    return K.launches
+
+
+def _counts() -> dict[str, int]:
+    return {"ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
+            "matmul": M.launches}
+
+
+def _zero_counts() -> None:
+    K.launches = K.transpose_launches = M.launches = 0
 
 
 def _run(fn):
-    """(result, wall seconds, ring-step launches) of one synchronised call."""
+    """(result, wall seconds, kernel launches by name) of one synchronised call."""
     torch.cuda.synchronize()
-    before, t0 = K.launches, time.perf_counter()
+    before, t0 = _counts(), time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, K.launches - before
+    dt = time.perf_counter() - t0
+    return out, dt, {k: v - before[k] for k, v in _counts().items()}
 
 
 def _wall(fn, repeats: int = REPEATS) -> list[float]:
@@ -248,12 +282,19 @@ def _device_times(fn, iters: int = 1) -> tuple[dict[str, float], float]:
              if e.self_device_time_total}, wall_ms)
 
 
-def _time(fn, iters: int = 200) -> float:
-    """ms per call: CUDA events around ``iters`` back-to-back calls."""
-    for _ in range(10):
-        fn()
+def _time(fn, target_s: float = 0.05) -> float:
+    """ms per call: CUDA events around back-to-back calls, as many as fill
+    about ``target_s`` (at least 3, at most 200), after a warm-up."""
+    fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = int(min(200, max(3, target_s * 1e3 / max(start.elapsed_time(end), 1e-3))))
+    for _ in range(min(iters, 10)):
+        fn()
     start.record()
     for _ in range(iters):
         fn()
@@ -262,36 +303,241 @@ def _time(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ring_step(cfg) -> dict:
-    """The ring step at the shapes of one smollm-135m layer at P=8 (the flat
-    rank shard of each sharded leaf), one unidirectional step per call:
-    kernel, plain version, and one advanced-index copy of the same step."""
+def _layer_leaves(cfg) -> dict[str, tuple[int, int]]:
+    """(fan-in, fan-out) of each projection of one dense layer."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+
+def time_ring_steps(cfg) -> dict:
+    """The ring step and its transpose at the shapes of one smollm-135m layer
+    at P=8 (the flat rank shard of each sharded leaf), one unidirectional
+    step per call: kernel, plain version, and one library call of the same
+    step (an advanced-index copy; an index_add_)."""
     p = 8
-    d, f, q, kv = cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim, \
-        cfg.num_kv_heads * cfg.head_dim
-    shapes = {"wq": d * q, "wk": d * kv, "wv": d * kv, "wo": q * d,
-              "w_gate": d * f, "w_up": d * f, "w_down": f * d}
     rank = torch.arange(p, device="cuda")
     src, rcv = rank % p, (rank + 1) % p   # step 0: rank d sends its own slot
+    leaves = _layer_leaves(cfg)
     tot: dict = {}
-    for name, numel in shapes.items():
-        n = numel // p
+    for name, (fan_in, fan_out) in leaves.items():
+        n = fan_in * fan_out // p
         buf = torch.randn((p, p, n), device="cuda").to(torch.bfloat16)
+        rows = buf.view(p * p, n)
         fns = {"": lambda: K.ring_step(buf, 0),
                "bidi_": lambda: K.ring_step(buf, 0, split=n // 2),
                "plain_": lambda: K.ring_step_plain(buf, 0),
-               "library_": lambda: buf.index_put_((rcv, src), buf[rank, src])}
+               "library_": lambda: buf.index_put_((rcv, src), buf[rank, src]),
+               "t_": lambda: K.ring_step_transpose(buf, 0),
+               "t_plain_": lambda: K.ring_step_transpose_plain(buf, 0),
+               "t_library_": lambda: rows.index_add_(0, rank * p + src, rows[rcv * p + src])}
         row = {f"{k}ms": _time(fn) for k, fn in fns.items()}
         row.update({f"{k}device_ms": sum(_device_times(fn, 50)[0].values()) or None
                     for k, fn in fns.items()})
         row["bound_ms"] = 2 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3
+        row["t_bound_ms"] = 3 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3
         print(f"[ring_step] {name}: P={p} n={n} bf16 " + json.dumps(row), flush=True)
         for k, v in row.items():
-            if v is not None and tot.get(k, 0.0) is not None:
-                tot[k] = tot.get(k, 0.0) + v / len(shapes)
-            else:
-                tot[k] = None
+            known = v is not None and tot.get(k, 0.0) is not None
+            tot[k] = tot.get(k, 0.0) + v / len(leaves) if known else None
     return tot
+
+
+# ------------------------------------------------------------------ matmul
+
+
+def _operand(r: int, rows: int, cols: int, transposed: bool, dtype, gen) -> torch.Tensor:
+    """(r, rows, cols), or the transposed view of a contiguous (r, cols, rows)."""
+    if transposed:
+        return torch.randn((r, cols, rows), device="cuda", generator=gen).to(dtype).transpose(1, 2)
+    return torch.randn((r, rows, cols), device="cuda", generator=gen).to(dtype)
+
+
+def matmul_cases(cfg, r: int, m: int, dtype, *, train: bool,
+                 head_m: int | None = None) -> dict:
+    """Every matmul the path launches per step: {(r, m, k, n, a_t, b_t,
+    dtype): launches}, a_t / b_t marking an operand given as a transposed
+    view. ``m`` is the tokens per rank, ``head_m`` the head's rows per rank
+    (default ``m``; a prefill's last position). With ``train`` (remat="full"), each
+    layer's forward products run twice (the checkpointed recompute), then
+    dY W^T and X^T dY; the head's forward runs twice (the checkpointed
+    cross-entropy chunk), then its two backward products."""
+    cases: dict = {}
+
+    def add(key, count):
+        cases[key] = cases.get(key, 0) + count
+
+    for k, n in _layer_leaves(cfg).values():
+        add((r, m, k, n, False, False, dtype), cfg.num_layers * (2 if train else 1))
+        if train:
+            add((r, m, n, k, False, True, dtype), cfg.num_layers)    # dY W^T
+            add((r, k, m, n, True, False, dtype), cfg.num_layers)    # X^T dY
+    d, v = cfg.d_model, cfg.vocab_size
+    m = m if head_m is None else head_m
+    add((r, m, d, v, False, True, dtype), 2 if train else 1)         # x embed^T
+    if train:
+        add((r, m, v, d, False, False, dtype), 1)                    # dY embed
+        add((r, d, m, v, True, False, dtype), 1)                     # x^T dY
+    return cases
+
+
+def check_matmul(cases) -> float:
+    """Phase 1: the kernel vs its plain version at every case. Returns the
+    max abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err = 0.0
+    for (r, m, k, n, a_t, b_t, dtype) in cases:
+        a = _operand(r, m, k, a_t, dtype, gen)
+        b = _operand(r, k, n, b_t, dtype, gen)
+        want = M.matmul_plain(a, b)
+        got = M.matmul(a, b)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
+        if not err <= tol or got.dtype != dtype:
+            raise AssertionError(f"matmul != plain at {(r, m, k, n, a_t, b_t, dtype)}: "
+                                 f"max err {err} > {tol}")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def time_matmul(cases: dict) -> dict:
+    """Per case: kernel, plain and torch.bmm (the library call) ms, and the
+    bound; then their sums over one step's launches, and means per launch."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    for key, count in cases.items():
+        r, m, k, n, a_t, b_t, dtype = key
+        a = _operand(r, m, k, a_t, dtype, gen)
+        b = _operand(r, k, n, b_t, dtype, gen)
+        item = a.element_size()
+        row = {"ms": _time(lambda: M.matmul(a, b)),
+               "plain_ms": _time(lambda: M.matmul_plain(a, b)),
+               "library_ms": _time(lambda: torch.bmm(a, b)),
+               "bound_ms": max(2 * r * m * n * k / FLOPS[dtype],
+                               r * (m * k + k * n + m * n) * item / HBM_BYTES_PER_S) * 1e3}
+        print(f"[matmul] R={r} M={m} K={k} N={n} a^T={a_t} b^T={b_t} {str(dtype)[6:]} "
+              f"x{count} per step " + json.dumps(row), flush=True)
+        for name, v in row.items():
+            tot[name] += v * count
+        tot["launches"] += count
+    per = {f"{name}_per_launch": tot[name] / tot["launches"]
+           for name in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {**tot, **per}
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_run(cfg, shape, mode: str) -> RunConfig:
+    return RunConfig(model=cfg, shape=shape, train=TrainConfig(remat="full"),
+                     collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+
+
+def check_train_reference() -> float:
+    """Reduced smollm-135m in f32: the train step sharded over 8 ranks
+    (mcast, then mcast_bcast) against a single-rank run of the same step, 3
+    steps. Returns the largest relative loss difference."""
+    cfg = reduced(get_model_config("smollm-135m"))
+    shape = ShapeConfig("t", "train", 64, 8)
+    tree = bridge.random_params(cfg, seed=1)
+    batches = [SyntheticPipeline(cfg, shape).next_batch(i) for i in range(3)]
+    out = {}
+    for mode, mesh in (("mcast", None), ("mcast", StackedMesh(data=8, model=1)),
+                       ("mcast_bcast", StackedMesh(data=8, model=1))):
+        run = _train_run(cfg, shape, mode)
+        _, _, step = make_train_step(run, mesh)
+        state = init_state(run, mesh, tree)
+        rows = []
+        for b in batches:
+            state, m = step(state, b)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        out[mode, mesh is None] = rows
+    worst = 0.0
+    for key in (("mcast", False), ("mcast_bcast", False)):
+        for (loss, gn), (l1, g1) in zip(out[key], out["mcast", True]):
+            worst = max(worst, abs(loss - l1) / abs(l1))
+            if not (abs(loss - l1) <= 1e-5 * abs(l1) and abs(gn - g1) <= 1e-4 * abs(g1)):
+                raise AssertionError(f"{key[0]} sharded vs single-rank train step: loss "
+                                     f"{loss} vs {l1}, grad_norm {gn} vs {g1}")
+    print(f"[reference] reduced f32 train step, 8 ranks vs 1: {json.dumps(out[('mcast', False)])}"
+          f" vs {json.dumps(out[('mcast', True)])}", flush=True)
+    return worst
+
+
+def train() -> dict[str, int]:
+    """Phase 4: the training path at full width in every mode. Returns the
+    launches per step of each kernel in the mcast mode."""
+    cfg = get_model_config("smollm-135m")
+    mesh = StackedMesh(data=8, model=1)
+    tree = bridge.random_params(cfg, seed=0)
+    pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
+    batches = [pipe.next_batch(i) for i in range(TRAIN_TIMED + 2)]
+    gather_steps = cfg.num_layers * len(_layer_leaves(cfg)) * (mesh.n_ranks - 1)
+    want_matmul = sum(matmul_cases(cfg, mesh.n_ranks, TRAIN_SHAPE.global_batch
+                                   // mesh.n_ranks * TRAIN_SHAPE.seq_len,
+                                   torch.bfloat16, train=True).values())
+    rounds = {"xla": 0, "mcast": 1, "mcast_ring": 1, "mcast_bcast": mesh.n_ranks // N_CHAINS}
+    first_loss, per_step = {}, {}
+    for mode in MODES:
+        run = _train_run(cfg, TRAIN_SHAPE, mode)
+        _, _, step = make_train_step(run, mesh)
+        state = init_state(run, mesh, tree)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[0])   # warm-up
+        losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+        warm_s = time.perf_counter() - t0
+        first_loss[mode] = losses[0]
+        samples = []
+        for b in batches[1:TRAIN_TIMED + 1]:
+            (state, m), dt, counts = _run(lambda b=b: step(state, b))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            samples.append(dt)
+            want = {"ring_step": 2 * gather_steps * rounds[mode],   # remat: gathered twice
+                    "ring_step_transpose": gather_steps * rounds[mode],
+                    "matmul": want_matmul}
+            if counts != want:
+                raise AssertionError(f"{mode}: launches per train step {counts}, expected {want}")
+        holder = {"state": state}
+
+        def profiled():
+            holder["state"], _ = step(holder["state"], batches[TRAIN_TIMED + 1])
+
+        dev, prof_ms = _device_times(profiled)
+        busy = sum(dev.values())
+        if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+            raise AssertionError(f"{mode}: non-finite loss or grad norm {losses} {norms}")
+        if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+            raise AssertionError(f"{mode}: first loss {losses[0]} far from ln V at random init")
+        row = {"mode": mode, "losses": losses, "grad_norms": norms,
+               "warmup_step_ms": warm_s * 1e3,
+               "step_ms_median": statistics.median(samples) * 1e3,
+               "step_ms_samples": [t * 1e3 for t in samples],
+               "tokens_per_s": TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+               / statistics.median(samples),
+               "launches_per_step": counts,
+               "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
+               "device_idle_share": 1 - busy / prof_ms,
+               "matmul_device_ms": sum(t for k, t in dev.items() if "matmul_" in k),
+               "ring_step_device_ms": sum(t for k, t in dev.items()
+                                          if "ring_step_kernel" in k),
+               "ring_step_transpose_device_ms": sum(t for k, t in dev.items()
+                                                    if "ring_step_transpose_kernel" in k)}
+        print("[train] " + json.dumps(row), flush=True)
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[train] {mode} step, top device time (ms): "
+              + json.dumps({k[:60]: t for k, t in top}), flush=True)
+        per_step[mode] = counts
+        del state, holder, m
+        torch.cuda.empty_cache()
+    if len({first_loss[mode] for mode in MODES}) != 1:
+        raise AssertionError(f"first-step losses differ between modes: {first_loss}")
+    print(f"[train] first-step loss bitwise equal in every mode: {first_loss['xla']!r}",
+          flush=True)
+    return per_step["mcast"]
 
 
 def main() -> int:
@@ -304,31 +550,89 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    build.build()
+    print(f"[build] {len(build.SOURCES)} kernels built in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
+    cfg = get_model_config("smollm-135m")
+    small = reduced(cfg)
     t0 = time.perf_counter()
-    cases, max_err = check_kernel()
-    print(f"[kernel] ring_step == plain on {cases} cases, max abs err {max_err} "
-          f"({time.perf_counter() - t0:.1f} s incl. build)", flush=True)
+    cases, ring_err = check_kernel()
+    t_cases, t_err = check_kernel(K.ring_step_transpose, K.ring_step_transpose_plain)
+    print(f"[kernel] ring_step == plain on {cases} cases, max abs err {ring_err}; "
+          f"ring_step_transpose == plain on {t_cases} cases, max abs err {t_err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    train_cases = matmul_cases(cfg, 8, TRAIN_SHAPE.global_batch // 8 * TRAIN_SHAPE.seq_len,
+                               torch.bfloat16, train=True)
+    path_cases = {**train_cases,                                    # full-width serving:
+                  **matmul_cases(cfg, 8, PROMPT, torch.bfloat16, train=False, head_m=1),
+                  **matmul_cases(cfg, 8, 1, torch.bfloat16, train=False),   # decode
+                  # the reduced f32 references: prefill, decode, train, 8 ranks and 1
+                  **matmul_cases(small, 8, 32, torch.float32, train=False, head_m=1),
+                  **matmul_cases(small, 1, 256, torch.float32, train=False, head_m=8),
+                  **matmul_cases(small, 8, 1, torch.float32, train=False),
+                  **matmul_cases(small, 1, 8, torch.float32, train=False),
+                  **matmul_cases(small, 8, 64, torch.float32, train=True),
+                  **matmul_cases(small, 1, 512, torch.float32, train=True)}
+    t0 = time.perf_counter()
+    mm_err = check_matmul(path_cases)
+    print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, max abs "
+          f"err {mm_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"[collectives] {check_collectives()} cases equal the "
           "plain gather", flush=True)
     err = check_small_reference()
     print(f"[reference] reduced f32 sharded vs single-rank: max abs logit diff {err}",
           flush=True)
+    worst = check_train_reference()
+    print(f"[reference] reduced f32 train step within limits; largest relative loss "
+          f"difference {worst}", flush=True)
+
+    launches = {k: 0 for k in _counts()}
     torch.cuda.reset_peak_memory_stats()
-    launches = serve()
-    print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
-          flush=True)
-    timing = time_ring_step(get_model_config("smollm-135m"))
-    print(f"[ring_step] mean over one layer's leaves: {json.dumps(timing)}", flush=True)
+    _zero_counts()   # counts from here to the read are the serving path's
+    serve()
+    serve_counts = _counts()
+    print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"launches {json.dumps(serve_counts)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()   # counts from here to the read are the training path's
+    per_step = train()
+    train_counts = _counts()
+    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"launches {json.dumps(train_counts)}", flush=True)
+    for name in launches:
+        launches[name] = serve_counts[name] + train_counts[name]
+        if train_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the training path")
+    if serve_counts["ring_step"] == 0 or serve_counts["matmul"] == 0:
+        raise AssertionError(f"a kernel was not launched on the serving path: {serve_counts}")
+
+    ring = time_ring_steps(cfg)
+    print(f"[ring_step] mean over one layer's leaves: {json.dumps(ring)}", flush=True)
+    mm = time_matmul(train_cases)
+    print(f"[matmul] one train step's {mm['launches']} launches (mcast counted "
+          f"{per_step['matmul']}): {json.dumps(mm)}", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_step.cu",
-        "replaces": "src/repro/kernels/ring_allgather.py:46", "launches": launches,
-        "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": "bytes",
-        "library_ms": timing["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        {"name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_step.cu",
+         "replaces": "src/repro/kernels/ring_allgather.py:46",
+         "launches": launches["ring_step"], "max_abs_err": ring_err, "ms": ring["ms"],
+         "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"], "bound_by": "bytes",
+         "library_ms": ring["library_ms"]},
+        {"name": "ring_step_transpose", "route": "cuda",
+         "source": "src/repro_torch/csrc/ring_step_transpose.cu",
+         "replaces": "src/repro/kernels/ring_allgather.py:46",
+         "launches": launches["ring_step_transpose"], "max_abs_err": t_err,
+         "ms": ring["t_ms"], "plain_ms": ring["t_plain_ms"], "bound_ms": ring["t_bound_ms"],
+         "bound_by": "bytes", "library_ms": ring["t_library_ms"]},
+        {"name": "matmul", "route": "cuda", "source": "src/repro_torch/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/collective_matmul.py:43",
+         "launches": launches["matmul"], "max_abs_err": mm_err,
+         "ms": mm["ms_per_launch"], "plain_ms": mm["plain_ms_per_launch"],
+         "bound_ms": mm["bound_ms_per_launch"], "bound_by": "operations",
+         "library_ms": mm["library_ms_per_launch"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,9 @@ tree of ``Stacked`` leaves: every leaf that ``param_pspecs`` shards over dp
 is split into the stacked (R, *local) layout, rank r's shard at index r; a
 leaf replicated over dp is one tensor expanded over the rank dim.
 
+``to_numpy`` is the inverse: stacked leaves back to the global numpy tree,
+so that tests can compare parameters and optimizer moments after steps.
+
 ``random_params`` draws such a tree from a seed with numpy, in the
 reference's init scales (``repro.models.layers``), for runs without a
 checkpoint.
@@ -20,7 +23,7 @@ import torch
 from repro_torch.configs.base import MeshConfig, ModelConfig
 from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models.layers import device_of
-from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, is_sharded,
+from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, is_sharded, tree_map,
                                        tree_map_with_path)
 
 # norm scales stay float32 whatever the weights' dtype, as the reference
@@ -28,25 +31,45 @@ from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, is_sharded
 _F32_LEAVES = ("ln1", "ln2", "final_ln")
 
 
-def _split(a: np.ndarray, spec, mesh: StackedMesh, dp: tuple[str, ...]) -> np.ndarray:
-    """(*global) -> (R, *local): rank r's shard, ranks row-major over ``dp``."""
+def _dp_entry(entry, dp: tuple[str, ...]) -> list[str]:
+    axes = (entry,) if isinstance(entry, str) else (entry or ())
+    return [ax for ax in axes if ax in dp]
+
+
+def _rank_index(r: int, shape: tuple, spec, mesh: StackedMesh,
+                dp: tuple[str, ...]) -> tuple:
+    """The index of rank r's shard in a global array of ``shape``, ranks
+    row-major over ``dp``."""
     sizes = [mesh.shape[ax] for ax in dp]
-    shards = []
-    for r in range(math.prod(sizes)):
-        coord = dict(zip(dp, np.unravel_index(r, sizes)))
-        index = []
-        for dim, entry in enumerate(spec):
-            axes = (entry,) if isinstance(entry, str) else (entry or ())
-            axes = [ax for ax in axes if ax in dp]
-            if not axes:
-                index.append(slice(None))
-                continue
-            chunk = int(np.ravel_multi_index([coord[ax] for ax in axes],
-                                             [mesh.shape[ax] for ax in axes]))
-            size = a.shape[dim] // math.prod(mesh.shape[ax] for ax in axes)
-            index.append(slice(chunk * size, (chunk + 1) * size))
-        shards.append(a[tuple(index)])
-    return np.stack(shards)
+    coord = dict(zip(dp, np.unravel_index(r, sizes)))
+    index = []
+    for dim, entry in enumerate(spec):
+        axes = _dp_entry(entry, dp)
+        if not axes:
+            index.append(slice(None))
+            continue
+        chunk = int(np.ravel_multi_index([coord[ax] for ax in axes],
+                                         [mesh.shape[ax] for ax in axes]))
+        size = shape[dim] // math.prod(mesh.shape[ax] for ax in axes)
+        index.append(slice(chunk * size, (chunk + 1) * size))
+    return tuple(index)
+
+
+def _split(a: np.ndarray, spec, mesh: StackedMesh, dp: tuple[str, ...]) -> np.ndarray:
+    """(*global) -> (R, *local): rank r's shard at index r."""
+    return np.stack([a[_rank_index(r, a.shape, spec, mesh, dp)]
+                     for r in range(mesh.n_ranks)])
+
+
+def _unsplit(a: np.ndarray, spec, mesh: StackedMesh, dp: tuple[str, ...]) -> np.ndarray:
+    """(R, *local) -> (*global), the inverse of ``_split``."""
+    shape = list(a.shape[1:])
+    for dim, entry in enumerate(spec):
+        shape[dim] *= math.prod(mesh.shape[ax] for ax in _dp_entry(entry, dp))
+    out = np.empty(shape, a.dtype)
+    for r in range(mesh.n_ranks):
+        out[_rank_index(r, tuple(shape), spec, mesh, dp)] = a[r]
+    return out
 
 
 def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
@@ -70,6 +93,22 @@ def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
         return Stacked(full.expand(n, *full.shape), spec)
 
     return tree_map_with_path(leaf, tree)
+
+
+def to_numpy(params, mesh: StackedMesh | None, mesh_cfg: MeshConfig) -> dict:
+    """The inverse of ``to_torch``: a tree of ``Stacked`` leaves (R, ...) ->
+    the global numpy tree, float32 for floating leaves (numpy has no
+    bfloat16). A replicated leaf is read from rank 0."""
+    dp = dp_axes(mesh_cfg)
+
+    def leaf(s: Stacked) -> np.ndarray:
+        t = s.local.detach()
+        a = (t.float() if t.is_floating_point() else t).cpu().numpy()
+        if mesh is None or not is_sharded(s.spec, dp):
+            return np.ascontiguousarray(a[0])
+        return _unsplit(a, s.spec, mesh, dp)
+
+    return tree_map(leaf, params)
 
 
 def random_params(cfg: ModelConfig, seed: int) -> dict:

@@ -91,16 +91,17 @@ cudaError_t launch(void* buf, long long groups, int p, long long n, int step, in
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success). The caller
-// checks arguments: itemsize 2 or 4, groups * p <= 65535, 0 <= step < p,
-// dir = +-1, 0 < split <= n, p % rounds == 0, 0 <= active_round < rounds.
-extern "C" int ring_step(void* buf, int itemsize, long long groups, int p, long long n,
+// checks arguments: dtype 0 (f32), 1 (bf16) or 2 (f16), groups * p <= 65535,
+// 0 <= step < p, dir = +-1, 0 < split <= n, p % rounds == 0,
+// 0 <= active_round < rounds.
+extern "C" int ring_step(void* buf, int dtype, long long groups, int p, long long n,
                          int step, int dir, long long split, int rounds, int active_round,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (itemsize == 2)
+  if (dtype == 1 || dtype == 2)
     err = launch<uint16_t>(buf, groups, p, n, step, dir, split, rounds, active_round, st);
-  else if (itemsize == 4)
+  else if (dtype == 0)
     err = launch<uint32_t>(buf, groups, p, n, step, dir, split, rounds, active_round, st);
   return static_cast<int>(err);
 }

@@ -1,43 +1,51 @@
-"""Ring-step kernel of the stacked collective backend.
+"""Ring-step kernels of the stacked collective backend: the allgather's
+step and its exact transpose.
 
-Replaces ``ring_allgather_tpu`` (src/repro/kernels/ring_allgather.py:46), the
-Pallas kernel in which device d remote-DMAs shard ``(d - s) % P`` to device
-``(d + 1) % P`` at grid step s of P - 1. On one GPU the P ranks are dim 1 of
-a stacked buffer ``(G, P_rank, P_slot, n)`` and a launch of
-``csrc/ring_step.cu`` does one step for every rank at once, following the
-same ``ring_schedule``.
+``ring_step`` replaces ``ring_allgather_tpu``
+(src/repro/kernels/ring_allgather.py:46), the Pallas kernel in which device
+d remote-DMAs shard ``(d - s) % P`` to device ``(d + 1) % P`` at grid step s
+of P - 1. On one GPU the P ranks are dim 1 of a stacked buffer
+``(G, P_rank, P_slot, n)`` and a launch of ``csrc/ring_step.cu`` does one
+step for every rank at once, following the same ``ring_schedule``.
 
-Bound: HBM bytes. A step reads and writes one slot per rank,
-2 * P * n * itemsize bytes, with no arithmetic. The kernel copies 16-byte
-vectors in a grid-stride loop over one rank's slot per block row, with a
-scalar head and tail for spans off a 16-byte boundary. At the shapes of a
-smollm-135m layer a step moves a few MB, about a microsecond at HBM speed,
-so the launch itself dominates; fusing steps is later work.
+``ring_step_transpose`` (``csrc/ring_step_transpose.cu``) is the adjoint of
+one such step over the same (sender, receiver, slot) triples:
+``g[..., snd, src] += g[..., rcv, src]``. The data flows against the ring:
+a rank receives its neighbour's partial sum, adds its own cotangent, and
+passes it on at the next step. Replayed in reverse step order it is the
+backward of the gathers (``core/collectives.py``) and the port's ring
+reduce-scatter; the TPU has no kernel for it (JAX transposes the
+``ppermute`` ring itself).
 
-``ring_step`` launches the kernel for a CUDA tensor and runs
-``ring_step_plain`` only for a CPU tensor. ``launches`` counts kernel
-launches. The kernel is compiled with ``nvcc`` into ``build/`` at the root
-of the checkout at its first launch.
+Bound: HBM bytes. A step copies one slot per rank, 2 * P * n * itemsize
+bytes; the transposed step reads two slots and writes one, 3 * P * n *
+itemsize. Both kernels walk 16-byte vectors in a grid-stride loop over one
+rank's slot per block row, with a scalar head and tail for spans off a
+16-byte boundary. At the shapes of a smollm-135m layer a step moves a few
+MB, about a microsecond at HBM speed, so the launch itself dominates;
+fusing steps is later work.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version only for a CPU tensor. ``launches`` and ``transpose_launches``
+count kernel launches. The kernels are built with ``nvcc`` into ``build/``
+at their first launch (``kernels/build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-launches = 0
+from repro_torch.kernels import build
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "ring_step.cu"
-_BUILD = Path(__file__).resolve().parents[3] / "build"
+launches = 0             # ring_step kernel launches
+transpose_launches = 0   # ring_step_transpose kernel launches
+
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _MAX_ROWS = 65535  # gridDim.y
-_lib = None
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def ring_schedule(n_devices: int) -> list[list[tuple[int, int, int]]]:
@@ -99,39 +107,48 @@ def ring_step_plain(buf: torch.Tensor, step: int, *, direction: int = 1,
     return buf
 
 
-def _build() -> Path:
-    """Compile csrc/ring_step.cu into build/ (named by its content hash)."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = _BUILD / f"ring_step-{digest}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builds all end with one file
-    return out
+def ring_step_transpose_plain(buf: torch.Tensor, step: int, *, direction: int = 1,
+                              split: int | None = None, rounds: int = 1,
+                              active_round: int = 0) -> torch.Tensor:
+    """The adjoint of ``ring_step_plain`` with the same arguments, in place
+    on a cotangent buffer (..., P, P, n): ``buf[..., d, src] +=
+    buf[..., (d + dir) % P, src]`` over the same triples and masks. The
+    receiver's slot keeps its value: it is never read again in reverse
+    order, and only the diagonal is read at the end."""
+    split = _check(buf, step, direction, split, rounds, active_round)
+    p, n = buf.shape[-2], buf.shape[-1]
+    d = torch.arange(p, device=buf.device)
+    for lo, hi, dr in ((0, split, direction), (split, n, -direction)):
+        if hi == lo:
+            continue
+        src = (d - dr * step) % p
+        keep = src % rounds == active_round
+        snd, src = d[keep], src[keep]
+        rcv = (snd + dr) % p
+        buf[..., snd, src, lo:hi] += buf[..., rcv, src, lo:hi]
+    return buf
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
-        lib.ring_step.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.ring_step.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _launch(name: str, buf: torch.Tensor, step: int, direction: int, split: int | None,
+            rounds: int, active_round: int) -> None:
+    if buf.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {buf.device}")
+    split = _check(buf, step, direction, split, rounds, active_round)
+    p, n = buf.shape[-2], buf.shape[-1]
+    if split == 0:  # everything moves along -direction
+        direction, split = -direction, n
+    groups = buf.numel() // (p * p * n)
+    if groups * p > _MAX_ROWS:
+        raise ValueError(f"{groups} groups x {p} ranks exceed {_MAX_ROWS} block rows")
+    fn = getattr(build.load(name), name)
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    dtype_code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[buf.dtype]
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        err = fn(buf.data_ptr(), dtype_code, groups, p, n, step, direction, split, rounds,
+                 active_round, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
@@ -144,21 +161,21 @@ def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
     if buf.device.type == "cpu":
         return ring_step_plain(buf, step, direction=direction, split=split,
                                rounds=rounds, active_round=active_round)
-    if buf.device.type != "cuda":
-        raise ValueError(f"ring_step runs on cuda or cpu tensors, got {buf.device}")
-    split = _check(buf, step, direction, split, rounds, active_round)
-    p, n = buf.shape[-2], buf.shape[-1]
-    if split == 0:  # everything moves along -direction
-        direction, split = -direction, n
-    groups = buf.numel() // (p * p * n)
-    if groups * p > _MAX_ROWS:
-        raise ValueError(f"{groups} groups x {p} ranks exceed {_MAX_ROWS} block rows")
-    lib = _library()
-    with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = lib.ring_step(buf.data_ptr(), buf.element_size(), groups, p, n, step,
-                            direction, split, rounds, active_round, stream)
-    if err:
-        raise RuntimeError(f"ring_step launch failed: cudaError {err}")
+    _launch("ring_step", buf, step, direction, split, rounds, active_round)
     launches += 1
+    return buf
+
+
+def ring_step_transpose(buf: torch.Tensor, step: int, *, direction: int = 1,
+                        split: int | None = None, rounds: int = 1,
+                        active_round: int = 0) -> torch.Tensor:
+    """The transposed ring step, in place on a cotangent buffer (..., P, P, n);
+    see ``ring_step_transpose_plain``. Launches the CUDA kernel for a CUDA
+    tensor, runs the plain version for a CPU tensor, raises otherwise."""
+    global transpose_launches
+    if buf.device.type == "cpu":
+        return ring_step_transpose_plain(buf, step, direction=direction, split=split,
+                                         rounds=rounds, active_round=active_round)
+    _launch("ring_step_transpose", buf, step, direction, split, rounds, active_round)
+    transpose_launches += 1
     return buf

@@ -3,7 +3,8 @@
 Counterpart of ``repro.models.layers``. Functions that take weights work per
 rank: activations carry a leading rank dim R and every weight is the rank's
 own gathered copy, (R, *global shape), so rank r computes only with
-``w[r]``. The matrix products are batched over R.
+``w[r]``. The matrix products are batched over R, on the port's matmul
+kernel.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.collective_matmul import RankMatmul
 
 Params = Any  # nested dict of tensors
 
@@ -34,9 +36,10 @@ def device_of(name: str | torch.device) -> torch.device:
 
 
 def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (R, ..., k) @ w (R, k, n) -> (R, ..., n), rank by rank."""
+    """x (R, ..., k) @ w (R, k, n) -> (R, ..., n), rank by rank, on the matmul
+    kernel (``kernels/collective_matmul.py``) forward and backward."""
     r = x.shape[0]
-    y = torch.bmm(x.reshape(r, -1, x.shape[-1]), w.to(x.dtype))
+    y = RankMatmul.apply(x.reshape(r, -1, x.shape[-1]), w.to(x.dtype))
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

@@ -13,11 +13,12 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
-from repro_torch.sharding.ctx import get_ctx, maybe_gather_params, shard
+from repro_torch.sharding.ctx import get_ctx, maybe_gather_params, shard, use_ctx
 from repro_torch.sharding.fsdp import gather_leaf
 from repro_torch.sharding.specs import Stacked, tree_map
 
@@ -31,7 +32,7 @@ def plain_gather(leaf: Stacked) -> torch.Tensor:
     return gather_leaf(leaf.local, leaf.spec, c.mesh, c.dp_axes, "xla", 1)
 
 
-def _to_ranks(t: torch.Tensor, r: int) -> torch.Tensor:
+def to_ranks(t: torch.Tensor, r: int) -> torch.Tensor:
     """Global batch (B, ...) -> (R, B/R, ...): rank r's rows."""
     if t.shape[0] % r:
         raise ValueError(
@@ -117,36 +118,65 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     return shard(x, "dp", "sp", None)
 
 
+def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    """Every rank's copy of the output head (R, D, V): the tied embedding's
+    transpose (a view) or the untied head."""
+    if cfg.tie_embeddings:
+        return plain_gather(params["embed"]).transpose(1, 2)
+    return plain_gather(params["lm_head"])
+
+
+def final_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return layers.rms_norm(x, plain_gather(params["final_ln"]), cfg.norm_eps)
+
+
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (R, ..., D) -> (R, ..., V)."""
-    x = layers.rms_norm(x, plain_gather(params["final_ln"]), cfg.norm_eps)
-    if cfg.tie_embeddings:
-        head = plain_gather(params["embed"]).transpose(1, 2)
-    else:
-        head = plain_gather(params["lm_head"])
-    return layers.rank_matmul(x, head)
+    return layers.rank_matmul(final_hidden(params, cfg, x), head_matrix(params, cfg))
 
 
 # --------------------------------------------------------------- dense forward
 
 
-def _scan_blocks(params, cfg, x, positions, *, want_kv):
-    """Layer loop: gather layer i's weights, then apply the block."""
+def check_remat(remat: str) -> None:
+    if remat == "dots":
+        raise NotImplementedError("remat='dots' (checkpoint_dots) is not ported; "
+                                  "use 'full' or 'none'")
+    if remat not in ("none", "full"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def _scan_blocks(params, cfg, x, positions, *, want_kv, remat: str = "none"):
+    """Layer loop: gather layer i's weights, then apply the block. With
+    remat="full" the gather and the block are one checkpointed body, so the
+    backward gathers the layer again, as the reference's jax.checkpoint of
+    its scan body does."""
+    check_remat(remat)
+    ctx = get_ctx()   # the backward's recompute runs under the same context
+
+    def body(x, layer):
+        with use_ctx(ctx):
+            bp = maybe_gather_params(layer)
+            return dense_block_apply(bp, x, cfg, positions=positions, want_kv=want_kv)
+
     kvs = []
     for i in range(cfg.num_layers):
-        bp = maybe_gather_params(layer_slice(params["blocks"], i))
-        x, kv = dense_block_apply(bp, x, cfg, positions=positions, want_kv=want_kv)
+        layer = layer_slice(params["blocks"], i)
+        if remat == "full":
+            x, kv = checkpoint(body, x, layer, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, kv = body(x, layer)
         kvs.append(kv)
     return x, kvs
 
 
-def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False):
+def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
     """batch: tokens (B, S). Returns (hidden (R, B/R, S, D), cache | None);
     the cache is {"k", "v"} of (L, B, KV, S, hd)."""
-    tokens = _to_ranks(batch["tokens"], n_ranks(params))
+    tokens = to_ranks(batch["tokens"], n_ranks(params))
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[2], device=x.device)[None, :]
-    x, kvs = _scan_blocks(params, cfg, x, positions, want_kv=want_cache)
+    x, kvs = _scan_blocks(params, cfg, x, positions, want_kv=want_cache, remat=remat)
     cache = None
     if want_cache:
         cache = {"k": torch.stack([k for k, _ in kvs]),
@@ -157,8 +187,8 @@ def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False):
 def dense_decode_step(params, cfg: ModelConfig, cache, token, pos):
     """token (B,), pos (B,). Returns (logits (B, V), cache updated in place)."""
     r = n_ranks(params)
-    x = embed_tokens(params, cfg, _to_ranks(token[:, None], r))[:, :, 0]   # (R,B,D)
-    pos_r = _to_ranks(pos, r)
+    x = embed_tokens(params, cfg, to_ranks(token[:, None], r))[:, :, 0]   # (R,B,D)
+    pos_r = to_ranks(pos, r)
     for i in range(cfg.num_layers):
         bp = maybe_gather_params(layer_slice(params["blocks"], i))
         x = dense_block_decode(bp, x, cfg, cache["k"][i], cache["v"][i], pos_r)

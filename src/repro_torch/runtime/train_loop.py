@@ -1,14 +1,34 @@
-"""Sharding context of a run (the part of ``repro.runtime.train_loop`` that
-serving uses; the training step comes with the training slice)."""
+"""Training step factory (counterpart of ``repro.runtime.train_loop``): the
+FSDP train step with gradient accumulation, remat and AdamW, the paper's
+gathers wired in through ``ShardCtx`` (fsdp_mode = "xla" | "mcast" |
+"mcast_ring" | "mcast_bcast").
+
+Each layer's dp-sharded weights are gathered by the mode's allgather; the
+gradient flows back through the gather's exact transpose (the transposed
+ring step in the mcast modes), so each shard receives the sum over ranks of
+its gradient, the reduce-scatter the reference's AD derives.
+"""
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, NamedTuple
 
+import torch
+
+from repro_torch import bridge
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch.mesh import StackedMesh
-from repro_torch.sharding.ctx import ShardCtx
-from repro_torch.sharding.fsdp import make_param_gather
-from repro_torch.sharding.specs import dp_axes
+from repro_torch.models import build_model
+from repro_torch.models.layers import dtype_of
+from repro_torch.optim import adamw
+from repro_torch.sharding.ctx import ShardCtx, use_ctx
+from repro_torch.sharding.fsdp import at_use, make_param_gather, trainable
+from repro_torch.sharding.specs import Stacked, dp_axes, tree_leaves, tree_map
+
+
+class TrainState(NamedTuple):
+    params: Any           # tree of Stacked leaf tensors (``fsdp.trainable``)
+    opt: adamw.OptState
 
 
 def _dp_size(run: RunConfig, mesh: StackedMesh) -> int:
@@ -37,3 +57,62 @@ def make_ctx(run: RunConfig, mesh: StackedMesh | None, *,
         seq_parallel=not for_decode,
         gather_params=make_param_gather(mesh, run.mesh, coll),
     )
+
+
+def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
+                    device: str | torch.device = "cuda"):
+    """Returns (api, ctx, train_step). train_step: (state, batch) ->
+    (state, metrics); the state is updated in place and returned."""
+    if run.collective.prefetch:
+        raise NotImplementedError("CollectiveConfig.prefetch (the gather of layer i+1 "
+                                  "during layer i) is not ported")
+    cfg, tc = run.model, run.train
+    api = build_model(cfg, remat=tc.remat, device=device)
+    ctx = make_ctx(run, mesh)
+    n_ranks = 1 if mesh is None else mesh.n_ranks
+
+    def value_and_grad(state: TrainState, batch):
+        params = at_use(state.params, n_ranks, ctx.dp_axes)
+        loss, metrics = api.loss_fn(params, batch)
+        leaves = tree_leaves(state.params)
+        grads = torch.autograd.grad(loss, [s.local for s in leaves])
+        it = iter(grads)
+        return loss.detach(), metrics, tree_map(lambda s: Stacked(next(it), s.spec),
+                                                state.params)
+
+    def train_step(state: TrainState, batch):
+        with use_ctx(ctx):
+            if tc.grad_accum > 1:
+                a = tc.grad_accum
+                micro = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])
+                         for k, v in batch.items()}
+                grads = tree_map(lambda s: Stacked(torch.zeros_like(s.local, dtype=torch.float32),
+                                                   s.spec), state.params)
+                loss = 0.0
+                for i in range(a):
+                    mb_loss, _, g = value_and_grad(state, {k: v[i] for k, v in micro.items()})
+                    for acc, gg in zip(tree_leaves(grads), tree_leaves(g)):
+                        acc.local.add_(gg.local.float())
+                    loss = loss + mb_loss
+                grads = tree_map(lambda s: Stacked(s.local / a, s.spec), grads)
+                loss = loss / a
+                metrics = {"xent": loss}
+            else:
+                loss, metrics, grads = value_and_grad(state, batch)
+            params, opt, om = adamw.apply_updates(state.params, grads, state.opt, tc)
+            metrics = dict(metrics)
+            metrics.update(om)
+            metrics["loss"] = loss
+        return TrainState(params, opt), metrics
+
+    return api, ctx, train_step
+
+
+def init_state(run: RunConfig, mesh: StackedMesh | None, tree: dict, *,
+               device: str | torch.device = "cuda") -> TrainState:
+    """The train state over a dense numpy parameter tree (``bridge``):
+    parameters in ``param_dtype`` (norm scales f32), zero f32 moments."""
+    params = bridge.to_torch(tree, mesh, run.mesh, dtype=dtype_of(run.model.param_dtype),
+                             device=device)
+    params = trainable(params, dp_axes(run.mesh))
+    return TrainState(params, adamw.init(params))

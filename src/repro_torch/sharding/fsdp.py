@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs.base import CollectiveConfig, MeshConfig
 from repro_torch.core import collectives as C
 from repro_torch.launch.mesh import StackedMesh
-from repro_torch.sharding.specs import Spec, Stacked, dp_axes, tree_map
+from repro_torch.sharding.specs import Spec, Stacked, dp_axes, is_sharded, tree_map
 
 
 def _remove_axis(entry, axis):
@@ -68,6 +68,31 @@ def gather_leaf(x: torch.Tensor, spec: Spec, mesh: StackedMesh, dp: tuple[str, .
             pod_mode = "bcast" if a == "pod" and mode != "xla" else mode
             x, spec = gather_dim(x, spec, a, dim, mesh, pod_mode, n_chains)
     return x
+
+
+def trainable(params, dp: tuple[str, ...]):
+    """A tree of ``Stacked`` leaves -> the same tree over fresh leaf tensors
+    that require grad: a dp-sharded leaf keeps its (R, *local) layout; a
+    replicated leaf is its one (*global) tensor, so its gradient is the sum
+    over ranks (the all-reduce GSPMD inserts in the reference) and an
+    optimizer step updates it once. ``at_use`` expands it over the ranks."""
+    def one(leaf: Stacked) -> Stacked:
+        t = leaf.local if is_sharded(leaf.spec, dp) else leaf.local[0]
+        return Stacked(t.detach().clone().requires_grad_(), leaf.spec)
+
+    return tree_map(one, params)
+
+
+def at_use(params, n_ranks: int, dp: tuple[str, ...]):
+    """A trainable tree (``trainable``) -> the tree of ``Stacked`` leaves the
+    model takes: every replicated leaf expanded over the ``n_ranks`` ranks,
+    inside autograd's sight."""
+    def one(leaf: Stacked) -> Stacked:
+        if is_sharded(leaf.spec, dp):
+            return leaf
+        return Stacked(leaf.local.expand(n_ranks, *leaf.local.shape), leaf.spec)
+
+    return tree_map(one, params)
 
 
 def make_param_gather(mesh: StackedMesh, mesh_cfg: MeshConfig,

@@ -208,3 +208,141 @@ def test_make_param_gather_xla_is_plain_gather():
     for m, got in outs.items():
         for key, leaf in got.items():
             assert torch.equal(leaf, outs["xla"][key]), (m, key)
+
+
+# ------------------------------------------- the gathers' backward and the RS
+
+GRAD_CASES = [("ring", None), ("bidi", None), ("bcast", 2)]
+RS_CASES = [("ring", 1), ("ring", -1), ("bidi", None)]
+
+
+@pytest.fixture(scope="module")
+def ref_transposes():
+    """jax.vjp of the reference's gathers under a shard_map whose out_specs
+    is P('x'), so that each device's gathered copy is its own output with
+    its own cotangent; and the reference's ring reduce-scatters, each device
+    with its own contribution."""
+    rng = np.random.default_rng(5)
+    inputs = {}
+    for n in SIZES:
+        inputs[f"x{n}"] = rng.standard_normal(P8 * n).astype(np.float32)
+        inputs[f"g{n}"] = rng.standard_normal(P8 * P8 * n).astype(np.float32)
+    body = f'''
+import functools
+from jax.sharding import PartitionSpec as P
+from repro import compat
+from repro.core import collectives as C
+mesh = ref_mesh(({P8},), ("x",))
+gathers = {{"ring": functools.partial(C.ring_allgather_local, axis="x"),
+           "bidi": functools.partial(C.bidi_ring_allgather_local, axis="x"),
+           "bcast": functools.partial(C.bcast_allgather_local, axis="x", n_chains=2)}}
+scatters = {{"ring1": functools.partial(C.ring_reduce_scatter_local, axis="x", direction=1),
+            "ring-1": functools.partial(C.ring_reduce_scatter_local, axis="x", direction=-1),
+            "bidiNone": functools.partial(C.bidi_ring_reduce_scatter_local, axis="x")}}
+def per_device(fn):
+    return jax.jit(compat.shard_map(fn, mesh=mesh, in_specs=P("x"), out_specs=P("x"),
+                                    check_vma=False))
+for n in {SIZES}:
+    for name, fn in gathers.items():
+        _, vjp = jax.vjp(per_device(fn), IN[f"x{{n}}"])
+        OUT[f"{{name}}_{{n}}"] = np.asarray(vjp(IN[f"g{{n}}"])[0])
+    for name, fn in scatters.items():
+        OUT[f"rs_{{name}}_{{n}}"] = np.asarray(per_device(fn)(IN[f"g{{n}}"]))
+'''
+    return inputs, run_reference(body, inputs)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("mode,chains", GRAD_CASES)
+def test_gather_backward_matches_jax_vjp(ref_transposes, mode, chains, n):
+    """The stacked gather's backward (the transposed ring steps in reverse
+    order) against JAX's transpose of the same ring, for a random cotangent
+    per rank's copy. It sums each shard along its chain in JAX's nesting,
+    and the results are bitwise equal in f32."""
+    inputs, ref = ref_transposes
+    mesh = StackedMesh(x=P8)
+    x = torch.from_numpy(inputs[f"x{n}"]).reshape(P8, n).requires_grad_()
+    g = torch.from_numpy(inputs[f"g{n}"]).reshape(P8, P8 * n)
+    y = C.make_allgather(mesh, "x", mode, n_chains=chains)(x)
+    (got,) = torch.autograd.grad(y, x, g)
+    np.testing.assert_array_equal(got.numpy().reshape(-1), ref[f"{mode}_{n}"])
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("mode,direction", RS_CASES)
+def test_reduce_scatter_matches_jax(ref_transposes, mode, direction, n):
+    """The port's ring reduce-scatters (transposed ring steps, no new
+    kernel) against the reference's, each rank with its own contribution:
+    the same sums in the same order, bitwise equal in f32."""
+    inputs, ref = ref_transposes
+    mesh = StackedMesh(x=P8)
+    contrib = torch.from_numpy(inputs[f"g{n}"]).reshape(P8, P8 * n)
+    if mode == "ring":
+        got = C.over_axis(contrib, mesh, "x",
+                          lambda c: C.ring_reduce_scatter_local(c, direction=direction))
+    else:
+        got = C.make_reduce_scatter(mesh, "x", mode)(contrib)
+    assert got.shape == (P8, n)
+    np.testing.assert_array_equal(got.numpy().reshape(-1), ref[f"rs_{mode}{direction}_{n}"])
+    want = contrib.reshape(P8, P8, n).sum(0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+@pytest.mark.parametrize("kw", [dict(), dict(direction=-1), dict(split=3),
+                                dict(direction=-1, split=0), dict(rounds=2, active_round=1)])
+def test_transposed_step_is_the_adjoint(p, kw):
+    """<step(a), b> == <a, step^T(b)> for every step. The forward overwrites
+    the receivers' slots, so the exact adjoint zeroes their cotangent; the
+    transposed step leaves it in place, as no later (reverse-order) step
+    reads it and only the diagonal is read at the end."""
+    if p % kw.get("rounds", 1):
+        kw = dict(rounds=p, active_round=1)  # P = 3: three one-chain rounds
+    gen = torch.Generator().manual_seed(p)
+    for s in range(p - 1):
+        a = torch.randn(2, p, p, 5, generator=gen)
+        b = torch.randn(2, p, p, 5, generator=gen)
+        fwd = K.ring_step_plain(a.clone(), s, **kw)
+        received = fwd != a
+        bt = K.ring_step_transpose_plain(b.clone(), s, **kw)
+        torch.testing.assert_close((fwd * b).sum(), (a * bt.masked_fill(received, 0)).sum())
+        assert torch.equal(bt[received], b[received])
+
+
+def test_transposed_step_on_cpu_counts_no_launch():
+    before = K.transpose_launches
+    buf = torch.ones(4, 4, 3)
+    for s in reversed(range(3)):
+        K.ring_step_transpose(buf, s)
+    assert K.transpose_launches == before
+    # every diagonal slot summed all four ranks' ones
+    assert torch.equal(buf.diagonal(dim1=0, dim2=1), torch.full((3, 4), 4.0))
+
+
+@pytest.mark.parametrize("bad", [
+    dict(buf=torch.zeros(4, 4, 3, dtype=torch.int32), step=0),
+    dict(buf=torch.zeros(4, 3, 3), step=0),
+    dict(buf=torch.zeros(4, 4, 3), step=3),
+    dict(buf=torch.zeros(4, 4, 3), step=0, rounds=3),
+])
+def test_transposed_step_rejects_what_the_kernel_does_not_take(bad):
+    with pytest.raises((TypeError, ValueError)):
+        K.ring_step_transpose(**bad)
+
+
+@pytest.mark.parametrize("mode", ["xla", "bidi", "ring", "bcast"])
+def test_hierarchical_gather_backward_sums_over_ranks(mode):
+    """Through gather_leaf on a (pod=2, data=4) mesh, each shard's gradient
+    is the sum over all 8 ranks of the cotangent of its piece."""
+    mesh = StackedMesh(pod=2, data=4, model=1)
+    spec = ((("pod", "data")), None)
+    a = torch.randn(16, 6)
+    local = bridge._split(a.numpy(), spec, mesh, ("pod", "data"))
+    x = torch.from_numpy(local).requires_grad_()
+    g = torch.randn(8, 16, 6)
+    y = gather_leaf(x, spec, mesh, ("pod", "data"), mode, 2)
+    for r in range(8):
+        assert torch.equal(y[r].detach(), a)
+    (got,) = torch.autograd.grad(y, x, g)
+    want = bridge._split(g.sum(0).numpy(), spec, mesh, ("pod", "data"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -28,7 +28,9 @@ from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeC
                                  get_model_config, reduced)
 from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models import build_model
+from repro_torch.data.pipeline import SyntheticPipeline
 from repro_torch.runtime.serve_loop import make_decode_step, make_prefill_step
+from repro_torch.runtime.train_loop import init_state, make_train_step
 from repro_torch.sharding import specs
 from repro_torch.sharding.fsdp import gather_leaf
 
@@ -199,8 +201,8 @@ def test_specs_match_reference(axes, multi_pod):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Importing repro_torch and running a CPU prefill and decode step loads
-    no jax and no module of the JAX package."""
+    """Importing repro_torch and running a CPU prefill, decode and train
+    step loads no jax and no module of the JAX package."""
     code = (
         "import sys, numpy as np, torch\n"
         "from repro_torch import bridge\n"
@@ -220,6 +222,14 @@ def test_port_imports_neither_jax_nor_repro():
         "toks = torch.zeros((8, 16), dtype=torch.long)\n"
         "out = greedy_generate(pre, dec, params, toks, 2, 17)\n"
         "assert out.shape == (8, 18)\n"
+        "from repro_torch.data.pipeline import SyntheticPipeline\n"
+        "from repro_torch.runtime.train_loop import init_state, make_train_step\n"
+        "run = RunConfig(model=cfg, shape=ShapeConfig('t', 'train', 16, 8),\n"
+        "                collective=CollectiveConfig(fsdp_mode='mcast_bcast'))\n"
+        "_, _, step = make_train_step(run, mesh, device='cpu')\n"
+        "state = init_state(run, mesh, bridge.random_params(cfg, 0), device='cpu')\n"
+        "state, m = step(state, SyntheticPipeline(cfg, run.shape, device='cpu').next_batch(0))\n"
+        "assert float(m['loss']) > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -250,11 +260,15 @@ def test_entry_points_default_to_cuda():
     mesh = StackedMesh(data=8, model=1)
     run = serve_run(SMALL, "mcast", 8, 16)
     tree = random_tree(SMALL, 0)
+    train_run = serve_run(SMALL, "mcast", 8, 16, kind="train")
     calls = [
         lambda: build_model(SMALL),
         lambda: make_prefill_step(run, mesh),
         lambda: make_decode_step(run, mesh),
         lambda: bridge.to_torch(tree, mesh, MeshConfig(), dtype=torch.float32),
+        lambda: make_train_step(train_run, mesh),
+        lambda: init_state(train_run, mesh, tree),
+        lambda: SyntheticPipeline(SMALL, train_run.shape),
     ]
     if torch.cuda.is_available():
         assert build_model(SMALL).init_cache(8, 4)["k"].device.type == "cuda"
