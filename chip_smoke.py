@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py
 
-0. builds the three kernels (csrc/*.cu), one nvcc each, in parallel;
+0. builds the six kernels (csrc/*.cu), one nvcc each, in parallel;
 1. the ring-step kernel (csrc/ring_step.cu) and its transpose
    (csrc/ring_step_transpose.cu) against their plain torch versions,
    bitwise, over ranks, lengths, dtypes, directions and round masks; the
    matmul kernel (csrc/matmul.cu) against its plain version at every shape
    the training and serving paths give it (forward and both backward
    products, bf16 and f32, the tied head's embed^T view included): f32
-   within 1e-5 x max|plain|, bf16 within 1e-2 x max|plain|;
+   within 1e-5 x max|plain|, bf16 within 1e-2 x max|plain|; the receive
+   datapath's kernels against their plain versions, all exactly
+   (torch.equal): the pool scan with its RNR mask (csrc/pool.cu, f64, rows
+   1 to 511, rows up to 16389 long, 1 to 16 workers, +inf-padded ragged rows
+   and tied arrivals), bitmap pack, OR across rows and popcount
+   (csrc/bitmap.cu, up to 512 rows and 2^20 flags), chunk reassembly
+   (csrc/chunk_reassembly.cu: duplicate PSNs, n_valid below n_staged and 0,
+   four dtypes, 4096-byte chunks and an odd width);
 2. the stacked allgathers (ring, bidi, bcast) against the plain gather;
 3. serving smollm-135m at full width and depth (30 layers, bf16, seeded
    random weights) on a (data=8, model=1) stacked mesh: prefill of a
@@ -23,16 +30,29 @@
    3 timed steps each; the first step's loss must be bitwise equal in all
    modes, and every kernel must launch. A reduced f32 train step sharded
    over 8 ranks is held against a single-rank run over 3 steps (loss within
-   1e-5, grad_norm within 1e-4, relative).
+   1e-5, grad_norm within 1e-4, relative);
+5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
+   receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
+   Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
+   staging ring overflows), Gilbert-Elliott loss at 1 % in bursts of 8,
+   seed 4; both with 1 us jitter and aggregated NACKs. Each must equal the
+   same call's CPU run field for field (delivery orders and round traces
+   included). Then every one of A's 511 leaves replays its delivery order
+   (``protocol.reassemble``, on chunk reassembly) into a zeroed buffer,
+   which must equal the root's, its bitmap packed and counted to 16384
+   chunks.
 
-Prints the card's name and power limit, per-mode timings (medians of
-host-clock samples; device busy time and idle share from the profiler),
+Prints the card's name and power limit, per-mode and per-broadcast timings
+(medians of host-clock samples after a warm-up call; device busy time and
+idle share from the profiler; the CPU run's wall times, taken the same
+way, beside each broadcast),
 each kernel's times beside its bound, a JSON line of kernels, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero if any check
 fails or there is no CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -52,9 +72,15 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig,  # noqa: E402
                                  ShapeConfig, TrainConfig, get_model_config, reduced)
 from repro_torch.core import collectives as C  # noqa: E402
+from repro_torch.core import engine as E  # noqa: E402
+from repro_torch.core import packet as PK  # noqa: E402
+from repro_torch.core import protocol  # noqa: E402
 from repro_torch.data.pipeline import SyntheticPipeline  # noqa: E402
+from repro_torch.kernels import bitmap as BM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import chunk_reassembly as CR  # noqa: E402
 from repro_torch.kernels import collective_matmul as M  # noqa: E402
+from repro_torch.kernels import pool as PL  # noqa: E402
 from repro_torch.kernels import ring_allgather as K  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
 from repro_torch.runtime.serve_loop import (ServeState, greedy_generate,  # noqa: E402
@@ -243,13 +269,21 @@ def serve() -> None:
               + json.dumps({k[:60]: t for k, t in top}), flush=True)
 
 
+MODEL_KERNELS = ("ring_step", "ring_step_transpose", "matmul")
+PACKET_KERNELS = ("pool", "bitmap_pack", "bitmap_or_rows", "bitmap_popcount",
+                  "chunk_reassembly")
+
+
 def _counts() -> dict[str, int]:
     return {"ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
-            "matmul": M.launches}
+            "matmul": M.launches, "pool": PL.launches, "bitmap_pack": BM.pack_launches,
+            "bitmap_or_rows": BM.or_launches, "bitmap_popcount": BM.popcount_launches,
+            "chunk_reassembly": CR.launches}
 
 
 def _zero_counts() -> None:
-    K.launches = K.transpose_launches = M.launches = 0
+    K.launches = K.transpose_launches = M.launches = PL.launches = CR.launches = 0
+    BM.pack_launches = BM.or_launches = BM.popcount_launches = 0
 
 
 def _run(fn):
@@ -496,7 +530,8 @@ def train() -> dict[str, int]:
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             samples.append(dt)
-            want = {"ring_step": 2 * gather_steps * rounds[mode],   # remat: gathered twice
+            want = {**{k: 0 for k in PACKET_KERNELS},
+                    "ring_step": 2 * gather_steps * rounds[mode],   # remat: gathered twice
                     "ring_step_transpose": gather_steps * rounds[mode],
                     "matmul": want_matmul}
             if counts != want:
@@ -540,6 +575,226 @@ def train() -> dict[str, int]:
     return per_step["mcast"]
 
 
+# ------------------------------------------------------- packet broadcast
+
+# name: (hosts, bytes, WorkerParams, loss per leaf, seed); FabricParams() for
+# both (MTU 4096, 1 us jitter), aggregated NACKs
+BCASTS = {"A": (512, 64 << 20, dict(n_recv_workers=8), 1e-3, 0),
+          "B": (64, 64 << 20, dict(), ("ge", 0.01, 8.0), 4)}
+
+
+def _bcast(name: str, device: str) -> PK.PacketBcastResult:
+    p, n_bytes, wk, loss, seed = BCASTS[name]
+    if isinstance(loss, tuple):
+        loss = PK.GilbertElliottLoss.from_rate(loss[1], mean_burst=loss[2])
+    return PK.simulate_packet_broadcast(p, n_bytes, E.FabricParams(), E.WorkerParams(**wk),
+                                        np.random.default_rng(seed), loss=loss,
+                                        collect_delivery=True, device=device)
+
+
+def _assert_same(a: PK.PacketBcastResult, b: PK.PacketBcastResult, what: str) -> None:
+    """Every field of two results, exactly."""
+    if not np.array_equal(a.completion, b.completion):
+        raise AssertionError(f"{what}: completion times differ")
+    for name in ("phases", "delivered_fast", "recovered", "rnr_drops", "bytes_fast",
+                 "bytes_recovery", "bytes_total", "link_bytes", "rounds",
+                 "retransmit_wire_bytes", "duplicates", "completed"):
+        if getattr(a, name) != getattr(b, name):
+            raise AssertionError(f"{what}: {name} {getattr(a, name)} != {getattr(b, name)}")
+    if sorted(a.delivery_order) != sorted(b.delivery_order) or not all(
+            np.array_equal(a.delivery_order[k], b.delivery_order[k]) for k in a.delivery_order):
+        raise AssertionError(f"{what}: delivery orders differ")
+
+
+def _exact(name: str, got, want, case) -> float:
+    """Raise unless every tensor of ``got`` equals ``want``; the max abs
+    difference (0.0 when equal) for the kernels line."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.uint32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        same = g == w
+        if not bool(same.all()):
+            diff = (g.double() - w.double()).abs()
+            err = max(err, float(diff[~same].max()))
+            raise AssertionError(f"{name} != plain at {case}: max abs err {err}")
+    return err
+
+
+def check_rx_kernels() -> dict[str, tuple[int, float]]:
+    """Phase 1: the receive datapath's kernels vs their plain versions,
+    exactly. Returns {kernel: (cases, max abs err)}."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out: dict[str, list] = {k: [0, 0.0] for k in PACKET_KERNELS}
+
+    def record(name, got, want, case):
+        torch.cuda.synchronize()
+        out[name][1] = max(out[name][1], _exact(name, got, want, case))
+        out[name][0] += 1
+
+    for rows in (1, 7, 511):
+        for n in (1, 31, 4096, 16389):
+            a = torch.rand((rows, n), generator=gen, device="cuda", dtype=torch.float64)
+            a = torch.sort(torch.round(a * 40) / 4, dim=1).values   # tied arrivals
+            if rows > 1:
+                a[rows // 2, n // 3:] = float("inf")                # a ragged row
+            for w in (1, 8, 16):
+                for staging in (3, 8192):
+                    record("pool", PL.pool_completion_rows(a, w, 0.3, staging),
+                           PL.pool_completion_rows_plain(a, w, 0.3, staging),
+                           (rows, n, w, staging))
+    for rows, n in ((1, 32), (1, 1 << 20), (7, 4096), (16, 1 << 20), (512, 16384),
+                    (512, 16416)):
+        for density in (0.3, 1e-3):
+            flags = torch.rand((rows, n), generator=gen, device="cuda") < density
+            for f in (flags, flags.to(torch.uint8), flags.to(torch.int32)):
+                record("bitmap_pack", (BM.bitmap_pack(f),), (BM.bitmap_pack_plain(f),),
+                       (rows, n, f.dtype))
+            words = BM.bitmap_pack(flags)
+            record("bitmap_or_rows", (BM.bitmap_or_rows(words),),
+                   (BM.bitmap_or_rows_plain(words),), (rows, n))
+            record("bitmap_popcount", (BM.bitmap_popcount_rows(words), BM.bitmap_popcount(words)),
+                   (BM.bitmap_popcount_rows_plain(words), BM.bitmap_popcount_plain(words)),
+                   (rows, n))
+    for dtype in (torch.uint8, torch.bfloat16, torch.float32, torch.int32):
+        for chunk in (4096 // torch.empty((), dtype=dtype).element_size(), 1023):
+            for n_staged, n_chunks, n_valid, dups in ((20, 32, 15, True), (300, 100, 250, True),
+                                                      (10, 16, 0, True), (64, 64, 64, False)):
+                staging = (torch.rand((n_staged, chunk), generator=gen, device="cuda")
+                           * 100).to(dtype)
+                psn = (torch.randint(0, n_chunks, (n_staged,), generator=gen, device="cuda")
+                       if dups else torch.randperm(n_chunks, generator=gen, device="cuda"))
+                user = (torch.rand((n_chunks, chunk), generator=gen, device="cuda")
+                        * 100).to(dtype)
+                record("chunk_reassembly", CR.chunk_reassembly(staging, psn, user.clone(), n_valid),
+                       CR.chunk_reassembly_plain(staging, psn, user.clone(), n_valid),
+                       (dtype, chunk, n_staged, n_chunks, n_valid))
+    return {k: (c, e) for k, (c, e) in out.items()}
+
+
+def replay(res: PK.PacketBcastResult, n_bytes: int) -> int:
+    """Every leaf's receive datapath replayed in its delivery order into a
+    zeroed buffer: it must rebuild the root's buffer, its bitmap full."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    src = protocol.segment(torch.randint(0, 256, (n_bytes,), generator=gen, device="cuda",
+                                         dtype=torch.uint8))
+    for leaf in res.delivery_order:
+        user, flags = protocol.reassemble(res, src, leaf)
+        got = int(BM.bitmap_popcount(BM.bitmap_pack(flags)))
+        if got != src.shape[0] or not torch.equal(user, src):
+            raise AssertionError(f"leaf {leaf}: replay rebuilt {got} of {src.shape[0]} chunks, "
+                                 f"buffer equal: {torch.equal(user, src)}")
+    return len(res.delivery_order)
+
+
+def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
+    """Phase 5: broadcasts A and B on the card against their CPU runs, and
+    the delivery replay. Returns the path's launches and the card results."""
+    cpu, cpu_wall = {}, {}
+    for name in BCASTS:
+        cpu[name] = _bcast(name, "cpu")   # also the warm-up of its timing
+        cpu_wall[name] = _wall(lambda name=name: _bcast(name, "cpu"))
+    _zero_counts()   # counts from here to the read are the packet path's
+    card = {name: _bcast(name, "cuda") for name in BCASTS}
+    leaves = replay(card["A"], BCASTS["A"][1])
+    torch.cuda.synchronize()
+    counts = _counts()
+    for name in PACKET_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the packet path: {counts}")
+    for name in BCASTS:
+        _assert_same(card[name], cpu[name], f"broadcast {name}, card vs CPU")
+    print(f"[packet] A and B on the card equal their CPU runs field for field; all {leaves} "
+          f"leaves of A rebuilt the root's buffer by reassembly", flush=True)
+    dev, prof_ms = _device_times(lambda: replay(card["A"], BCASTS["A"][1]))
+    print("[packet] replay of A, device ms of the whole replay: "
+          + json.dumps({"reassembly_winner_kernel": sum(t for k, t in dev.items()
+                                                        if "winner_kernel" in k),
+                        "reassembly_scatter_kernel": sum(t for k, t in dev.items()
+                                                         if "scatter_kernel" in k),
+                        "busy_ms": sum(dev.values()), "profiled_wall_ms": prof_ms,
+                        "leaves": leaves}), flush=True)
+    for name in BCASTS:
+        def call(name=name):
+            return _bcast(name, "cuda")
+
+        _, _, per_call = _run(call)
+        wall = _wall(call)
+        dev, prof_ms = _device_times(call)
+        busy = sum(dev.values())
+        res = card[name]
+        p, n_bytes, wk, loss, seed = BCASTS[name]
+        row = {"broadcast": name, "hosts": p, "bytes": n_bytes, "workers": wk, "loss": loss,
+               "seed": seed, "rounds": [dataclasses.astuple(r) for r in res.rounds],
+               "time_s": res.time, "rnr_drops": res.rnr_drops, "recovered": res.recovered,
+               "duplicates": res.duplicates, "completed": res.completed,
+               "wall_ms_median": statistics.median(wall) * 1e3,
+               "wall_ms_samples": [t * 1e3 for t in wall],
+               "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
+               "device_idle_share": 1 - busy / prof_ms,
+               "launches_per_call": {k: per_call[k] for k in PACKET_KERNELS},
+               "kernel_device_ms": {k: sum(t for key, t in dev.items() if k in key)
+                                    for k in ("pool_rows_kernel", "pack_kernel",
+                                              "or_rows_kernel", "popcount_rows_kernel")},
+               "cpu_wall_ms_median": statistics.median(cpu_wall[name]) * 1e3,
+               "cpu_wall_ms_samples": [t * 1e3 for t in cpu_wall[name]]}
+        print("[packet] " + json.dumps(row), flush=True)
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[packet] {name}, top device time (ms): "
+              + json.dumps({k[:60]: t for k, t in top}), flush=True)
+    return counts, card
+
+
+def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
+    """Each receive-datapath kernel at the shape broadcast A gives it:
+    kernel, plain version and (for reassembly) one library call, ms per call
+    from CUDA events (a reassembly call is two launches), beside the bound: bytes (each input read once, each
+    output written once) over 3.35 TB/s. The kernels' device times come
+    from the profiled broadcast and replay calls of ``packet_path``."""
+    p, n_bytes, wk, _, _ = BCASTS["A"]
+    fab, workers = E.FabricParams(), E.WorkerParams(**wk)
+    n, chunk = n_bytes // fab.mtu, fab.mtu
+    service = chunk / workers.thread_tput
+    rows, nackers = p - 1, res_a.rounds[0].nack_leaves
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    a = torch.sort(torch.rand((rows, n), generator=gen, device="cuda", dtype=torch.float64)
+                   * (n * service), dim=1).values
+    flags = torch.rand((nackers, n), generator=gen, device="cuda") < 1e-3
+    words = BM.bitmap_pack(flags)
+    agg = BM.bitmap_or_rows(words)
+    src = torch.randint(0, 256, (n, chunk), generator=gen, device="cuda", dtype=torch.uint8)
+    psn = torch.randperm(n, generator=gen, device="cuda")
+    staging, user = src[psn], torch.zeros_like(src)
+    w = n // 32
+    cases = {
+        "pool": ((rows, n), rows * n * 17,    # 8 B in, 8 B done + 1 B mask out
+                 lambda: PL.pool_completion_rows(a, workers.n_recv_workers, service,
+                                                 workers.staging_chunks),
+                 lambda: PL.pool_completion_rows_plain(a, workers.n_recv_workers, service,
+                                                       workers.staging_chunks), None),
+        "bitmap_pack": ((nackers, n), nackers * n + nackers * w * 4,
+                        lambda: BM.bitmap_pack(flags), lambda: BM.bitmap_pack_plain(flags), None),
+        "bitmap_or_rows": ((nackers, w), nackers * w * 4 + w * 4,
+                           lambda: BM.bitmap_or_rows(words),
+                           lambda: BM.bitmap_or_rows_plain(words), None),
+        "bitmap_popcount": ((w,), w * 4 + 8,
+                            lambda: BM.bitmap_popcount(agg),
+                            lambda: BM.bitmap_popcount_plain(agg), None),
+        "chunk_reassembly": ((n, chunk), 2 * n * chunk + n * (8 + 4),
+                             lambda: CR.chunk_reassembly(staging, psn, user),
+                             lambda: CR.chunk_reassembly_plain(staging, psn, user),
+                             lambda: user.index_copy_(0, psn, staging)),
+    }
+    out = {}
+    for name, (shape, nbytes, kernel, plain, library) in cases.items():
+        row = {"shape": shape, "ms": _time(kernel), "plain_ms": _time(plain),
+               "library_ms": _time(library) if library else None,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        print(f"[{name}] " + json.dumps(row), flush=True)
+        out[name] = row
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -578,6 +833,11 @@ def main() -> int:
     mm_err = check_matmul(path_cases)
     print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, max abs "
           f"err {mm_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    rx = check_rx_kernels()
+    print("[kernel] receive datapath == plain (exact): "
+          + json.dumps({k: {"cases": c, "max_abs_err": e} for k, (c, e) in rx.items()})
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"[collectives] {check_collectives()} cases equal the "
           "plain gather", flush=True)
     err = check_small_reference()
@@ -587,7 +847,7 @@ def main() -> int:
     print(f"[reference] reduced f32 train step within limits; largest relative loss "
           f"difference {worst}", flush=True)
 
-    launches = {k: 0 for k in _counts()}
+    launches = {}
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()   # counts from here to the read are the serving path's
     serve()
@@ -600,20 +860,42 @@ def main() -> int:
     train_counts = _counts()
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
           f"launches {json.dumps(train_counts)}", flush=True)
-    for name in launches:
+    for name in MODEL_KERNELS:
         launches[name] = serve_counts[name] + train_counts[name]
         if train_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
     if serve_counts["ring_step"] == 0 or serve_counts["matmul"] == 0:
         raise AssertionError(f"a kernel was not launched on the serving path: {serve_counts}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packet_counts, card = packet_path()   # zeroes the counts before driving the path
+    print(f"[packet] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"launches {json.dumps(packet_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches.update({name: packet_counts[name] for name in PACKET_KERNELS})
 
     ring = time_ring_steps(cfg)
     print(f"[ring_step] mean over one layer's leaves: {json.dumps(ring)}", flush=True)
     mm = time_matmul(train_cases)
     print(f"[matmul] one train step's {mm['launches']} launches (mcast counted "
           f"{per_step['matmul']}): {json.dumps(mm)}", flush=True)
+    rx_t = time_rx_kernels(card["A"])
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    replaces = {"pool": ("src/repro_torch/csrc/pool.cu",
+                         "src/repro/kernels/pool.py:53, src/repro/kernels/pool.py:86"),
+                "bitmap_pack": ("src/repro_torch/csrc/bitmap.cu", "src/repro/kernels/bitmap.py:40"),
+                "bitmap_or_rows": ("src/repro_torch/csrc/bitmap.cu",
+                                   "src/repro/core/packet.py:952"),
+                "bitmap_popcount": ("src/repro_torch/csrc/bitmap.cu",
+                                    "src/repro/kernels/bitmap.py:78"),
+                "chunk_reassembly": ("src/repro_torch/csrc/chunk_reassembly.cu",
+                                     "src/repro/kernels/chunk_reassembly.py:41")}
+    rx_rows = [{"name": name, "route": "cuda", "source": replaces[name][0],
+                "replaces": replaces[name][1], "launches": launches[name],
+                "max_abs_err": rx[name][1], "ms": rx_t[name]["ms"],
+                "plain_ms": rx_t[name]["plain_ms"], "bound_ms": rx_t[name]["bound_ms"],
+                "bound_by": "bytes", "library_ms": rx_t[name]["library_ms"]}
+               for name in PACKET_KERNELS]
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_step.cu",
@@ -632,7 +914,7 @@ def main() -> int:
          "launches": launches["matmul"], "max_abs_err": mm_err,
          "ms": mm["ms_per_launch"], "plain_ms": mm["plain_ms_per_launch"],
          "bound_ms": mm["bound_ms_per_launch"], "bound_by": "operations",
-         "library_ms": mm["library_ms_per_launch"]}]}))
+         "library_ms": mm["library_ms_per_launch"]}, *rx_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

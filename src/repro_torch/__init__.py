@@ -5,7 +5,11 @@ dim 0 of "stacked" tensors on the one device (``launch/mesh.py``). The
 paper's allgathers move shards between them with a hand-written ring-step
 kernel, their backward runs its transpose (``kernels/ring_allgather.py``),
 and every product of a gathered weight runs on a hand-written matmul
-kernel (``kernels/collective_matmul.py``); the CUDA sources are in
-``csrc/``. Importing the package needs neither a GPU nor ``nvcc``: kernels
-are built at first launch (``kernels/build.py``).
+kernel (``kernels/collective_matmul.py``). The packet-level reliable
+Broadcast (``core/packet.py``) keeps its leaves' receive datapath on the
+device: the worker-pool scan (``kernels/pool.py``), the NACK bitmaps
+(``kernels/bitmap.py``) and, for the delivery replay, chunk reassembly
+(``kernels/chunk_reassembly.py``). The CUDA sources are in ``csrc/``.
+Importing the package needs neither a GPU nor ``nvcc``: kernels are built
+at first launch (``kernels/build.py``).
 """

@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MeshConfig, ModelConfig
+from repro_torch.device import device_of
 from repro_torch.launch.mesh import StackedMesh
-from repro_torch.models.layers import device_of
 from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, is_sharded, tree_map,
                                        tree_map_with_path)
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.layers import device_of
+from repro_torch.device import device_of
 from repro_torch.models.model_builder import batch_dims
 
 

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the root of
-the checkout, named by the hash of its source, so an edited source builds
-anew and an unchanged one is reused. ``build`` starts one ``nvcc`` per
+the checkout, named by the hash of its source and flags, so an edited
+source builds anew and an unchanged one is reused. ``pool.cu`` is built
+with ``-fmad=false``: its f64 scan must round each multiply and add on its
+own, as numpy does. ``build`` starts one ``nvcc`` per
 missing library, all at once, and waits for them; ``load`` builds one
 library if needed and opens it. Nothing is built when a module is imported.
 """
@@ -19,13 +21,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("ring_step", "ring_step_transpose", "matmul")
+SOURCES = ("ring_step", "ring_step_transpose", "matmul", "pool", "bitmap", "chunk_reassembly")
+_FLAGS = {"pool": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    key = (CSRC / f"{name}.cu").read_bytes() + " ".join(_FLAGS.get(name, ())).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD / f"{name}-{digest}.so"
 
 
@@ -47,7 +51,8 @@ def build(names=SOURCES) -> dict[str, Path]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(CSRC / f"{name}.cu")]
+               "-shared", "-Xcompiler", "-fPIC", *_FLAGS.get(name, ()), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True), tmp)
     errors = []

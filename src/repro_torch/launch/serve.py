@@ -33,9 +33,10 @@ def main(argv: list[str] | None = None) -> None:
     from repro_torch import bridge
     from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
                                      get_model_config, reduced)
+    from repro_torch.device import device_of
     from repro_torch.kernels import ring_allgather
     from repro_torch.launch.mesh import StackedMesh
-    from repro_torch.models.layers import device_of, dtype_of
+    from repro_torch.models.layers import dtype_of
     from repro_torch.runtime.serve_loop import (greedy_generate, make_decode_step,
                                                 make_prefill_step)
 

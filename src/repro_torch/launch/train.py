@@ -39,8 +39,8 @@ def main(argv: list[str] | None = None) -> None:
                                      get_model_config, reduced)
     from repro_torch.configs.base import SHAPES
     from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.device import device_of
     from repro_torch.launch.mesh import StackedMesh
-    from repro_torch.models.layers import device_of
     from repro_torch.runtime.train_loop import init_state, make_train_step
 
     device = device_of(args.device)

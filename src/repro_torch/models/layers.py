@@ -24,17 +24,6 @@ def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def device_of(name: str | torch.device) -> torch.device:
-    """The device an entry point runs on; raises if it asks for CUDA where
-    there is none, rather than falling back to the CPU."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(name)!r} requested but CUDA is not available; "
-            "pass device='cpu' to run on the CPU")
-    return dev
-
-
 def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (R, ..., k) @ w (R, k, n) -> (R, ..., n), rank by rank, on the matmul
     kernel (``kernels/collective_matmul.py``) forward and backward."""

@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import device_of
 from repro_torch.models import layers, transformer
 
 XENT_CHUNK = 512
@@ -73,7 +74,7 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported; only dense")
     transformer.check_remat(remat)
-    dev = layers.device_of(device)
+    dev = device_of(device)
     dt = layers.dtype_of(cfg.param_dtype)
 
     def forward_fn(params, batch):

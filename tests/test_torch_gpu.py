@@ -3,11 +3,18 @@ This file imports no jax, so it also runs on a machine that has none:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import collectives as C
+from repro_torch.core import engine as E
+from repro_torch.core import packet as PK
+from repro_torch.core import protocol
+from repro_torch.kernels import bitmap as BM
+from repro_torch.kernels import chunk_reassembly as CR
 from repro_torch.kernels import collective_matmul as M
+from repro_torch.kernels import pool as PL
 from repro_torch.kernels import ring_allgather as K
 from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models import layers
@@ -150,3 +157,91 @@ def test_rank_matmul_backward_on_cuda():
     rx, rw = torch.autograd.grad(y2, (x2, w2), g)
     for got, want in ((gx, rx), (gw, rw)):
         assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 8, 16, 1024])
+def test_pool_kernel_matches_plain(w):
+    """Bitwise in f64, ragged +inf-padded rows and tied arrivals included;
+    one launch per call."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(w)
+    for rows in (1, 7, 300):
+        for n in (1, 31, 4096, 16389):
+            a = torch.rand(rows, n, device="cuda", dtype=torch.float64, generator=gen)
+            a = torch.sort(torch.round(a * 40) / 4, dim=1).values
+            a[rows // 2, n // 3:] = float("inf")
+            for staging in (3, 8192):
+                want = PL.pool_completion_rows_plain(a, w, 0.3, staging)
+                before = PL.launches
+                got = PL.pool_completion_rows(a, w, 0.3, staging)
+                torch.cuda.synchronize()
+                assert PL.launches == before + 1
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                    (rows, n, staging)
+            assert torch.equal(PL.pool_scan_rows(a, w, 0.3), want[0])
+
+
+@pytest.mark.gpu
+def test_bitmap_kernels_match_plain():
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows, n in ((1, 32), (1, 1 << 20), (5, 4096), (512, 16384)):
+        flags = torch.rand(rows, n, device="cuda", generator=gen) < 0.2
+        for f in (flags, flags.to(torch.uint8), flags.to(torch.int32)):
+            assert torch.equal(BM.bitmap_pack(f), BM.bitmap_pack_plain(f))
+        words = BM.bitmap_pack(flags)
+        assert torch.equal(BM.bitmap_or_rows(words), BM.bitmap_or_rows_plain(words))
+        assert torch.equal(BM.bitmap_popcount_rows(words), BM.bitmap_popcount_rows_plain(words))
+        assert int(BM.bitmap_popcount(words)) == int(flags.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32, torch.int32])
+def test_reassembly_kernel_matches_plain(dtype):
+    """Duplicates (the later staged copy wins), n_valid below n_staged and
+    0, a 4096-byte chunk (16-byte copies) and an odd width (byte copies)."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for chunk in (4096 // torch.empty(0, dtype=dtype).element_size(), 1023):
+        for n_staged, n_chunks, n_valid in ((20, 32, 15), (300, 100, 250), (10, 16, 0)):
+            staging = (torch.rand(n_staged, chunk, device="cuda", generator=gen) * 100).to(dtype)
+            psn = torch.randint(0, n_chunks, (n_staged,), device="cuda", generator=gen)
+            user = (torch.rand(n_chunks, chunk, device="cuda", generator=gen) * 100).to(dtype)
+            want = CR.chunk_reassembly_plain(staging, psn, user.clone(), n_valid)
+            got = CR.chunk_reassembly(staging, psn, user.clone(), n_valid)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wk,loss", [(dict(n_recv_workers=8), 1e-3), (dict(), "ge")])
+def test_packet_broadcast_on_cuda_equals_cpu(wk, loss):
+    """The packet broadcast with its datapath on the card equals its CPU run
+    field for field, and launches every receive-datapath kernel; every
+    leaf's replay on the card rebuilds the root's buffer."""
+    _need_cuda()
+    out = {}
+    before = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+    for dev in ("cpu", "cuda"):
+        lm = PK.GilbertElliottLoss.from_rate(0.01, mean_burst=8.0) if loss == "ge" else loss
+        out[dev] = PK.simulate_packet_broadcast(64, 8 << 20, E.FabricParams(),
+                                                E.WorkerParams(**wk), np.random.default_rng(0),
+                                                loss=lm, collect_delivery=True, device=dev)
+    a, b = out["cpu"], out["cuda"]
+    after = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+    assert all(x > y for x, y in zip(after, before)) and a.rounds
+    assert np.array_equal(a.completion, b.completion) and a.phases == b.phases
+    assert a.rounds == b.rounds
+    for name in ("delivered_fast", "recovered", "rnr_drops", "duplicates", "completed",
+                 "retransmit_wire_bytes"):
+        assert getattr(a, name) == getattr(b, name), name
+    for leaf, order in a.delivery_order.items():
+        assert np.array_equal(order, b.delivery_order[leaf])
+    src = protocol.segment(torch.randint(0, 256, (8 << 20,), dtype=torch.uint8, device="cuda"))
+    before = CR.launches
+    for leaf in b.delivery_order:
+        user, flags = protocol.reassemble(b, src, leaf)
+        assert torch.equal(user, src)
+        assert int(BM.bitmap_popcount(BM.bitmap_pack(flags))) == src.shape[0]
+    assert CR.launches == before + 2 * len(b.delivery_order)

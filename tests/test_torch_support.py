@@ -26,6 +26,9 @@ from repro.sharding import specs as ref_specs
 from repro_torch import bridge
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
                                  get_model_config, reduced)
+from repro_torch.core.engine import FabricParams, WorkerParams
+from repro_torch.core.packet import simulate_packet_broadcast
+from repro_torch.core.protocol import broadcast_time
 from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models import build_model
 from repro_torch.data.pipeline import SyntheticPipeline
@@ -202,7 +205,8 @@ def test_specs_match_reference(axes, multi_pod):
 
 def test_port_imports_neither_jax_nor_repro():
     """Importing repro_torch and running a CPU prefill, decode and train
-    step loads no jax and no module of the JAX package."""
+    step and a lossy packet broadcast loads no jax and no module of the JAX
+    package."""
     code = (
         "import sys, numpy as np, torch\n"
         "from repro_torch import bridge\n"
@@ -230,6 +234,11 @@ def test_port_imports_neither_jax_nor_repro():
         "state = init_state(run, mesh, bridge.random_params(cfg, 0), device='cpu')\n"
         "state, m = step(state, SyntheticPipeline(cfg, run.shape, device='cpu').next_batch(0))\n"
         "assert float(m['loss']) > 0\n"
+        "from repro_torch.core import engine, packet, protocol\n"
+        "r = packet.simulate_packet_broadcast(16, 1 << 18, engine.FabricParams(),\n"
+        "    engine.WorkerParams(), np.random.default_rng(0), loss=0.01, device='cpu')\n"
+        "assert r.completed and r.rounds\n"
+        "assert protocol.broadcast_time(8, 1 << 16, device='cpu') > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -269,6 +278,9 @@ def test_entry_points_default_to_cuda():
         lambda: make_train_step(train_run, mesh),
         lambda: init_state(train_run, mesh, tree),
         lambda: SyntheticPipeline(SMALL, train_run.shape),
+        lambda: simulate_packet_broadcast(8, 1 << 16, FabricParams(), WorkerParams(),
+                                          np.random.default_rng(0)),
+        lambda: broadcast_time(8, 1 << 16),
     ]
     if torch.cuda.is_available():
         assert build_model(SMALL).init_cache(8, 4)["k"].device.type == "cuda"
