@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-0. builds the six kernels (csrc/*.cu), one nvcc each, in parallel;
+0. builds the seven kernel sources (csrc/*.cu), one nvcc each, in parallel;
 1. the ring-step kernel (csrc/ring_step.cu) and its transpose
    (csrc/ring_step_transpose.cu) against their plain torch versions,
    bitwise, over ranks, lengths, dtypes, directions and round masks; the
@@ -40,7 +40,23 @@
    included). Then every one of A's 511 leaves replays its delivery order
    (``protocol.reassemble``, on chunk reassembly) into a zeroed buffer,
    which must equal the root's, its bitmap packed and counted to 16384
-   chunks.
+   chunks;
+6. the collective layer's remaining entry points, each driven once with the
+   launch counts zeroed before and read after: (a) the double-buffered
+   drain (csrc/double_buffer_drain.cu) equal to its plain version on every
+   case (torch.equal: the received shards of (b), the reference test's
+   shapes, odd shapes in uint8 and int32, views off a 16-byte boundary);
+   (b) ``make_allgather_matmul`` at smollm-135m's widths, bf16, on the
+   (data=8, model=1) mesh, 128 and 1,024 rows per rank times each of the
+   block's projections 576 -> 576, 576 -> 192, 576 -> 1536 and 1536 -> 576,
+   the ring steps on a side stream beside the matmul kernel: bitwise equal
+   to the plain gather followed by the same kernel, within the matmul's
+   limits of the plain product; overlapped, one-stream, plain and library
+   times beside the bound, and the device's busy time and idle share; (c)
+   ``make_broadcast`` of ``flatten_bucket`` over layer 0 (about 3.5 M f32)
+   from roots 0 and 7 in 8 and 64 chunks, every rank bitwise equal to
+   root's row; (d) ``concurrent_ag_rs_local`` on that bucket's shards, both
+   halves bitwise equal to the separate calls, on two streams and on one.
 
 Prints the card's name and power limit, per-mode and per-broadcast timings
 (medians of host-clock samples after a warm-up call; device busy time and
@@ -86,6 +102,7 @@ from repro_torch.launch.mesh import StackedMesh  # noqa: E402
 from repro_torch.runtime.serve_loop import (ServeState, greedy_generate,  # noqa: E402
                                             make_decode_step, make_prefill_step)
 from repro_torch.runtime.train_loop import init_state, make_train_step  # noqa: E402
+from repro_torch.sharding.fsdp import flatten_bucket  # noqa: E402
 from repro_torch.sharding.specs import is_sharded, tree_leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -272,18 +289,21 @@ def serve() -> None:
 MODEL_KERNELS = ("ring_step", "ring_step_transpose", "matmul")
 PACKET_KERNELS = ("pool", "bitmap_pack", "bitmap_or_rows", "bitmap_popcount",
                   "chunk_reassembly")
+LAYER_KERNELS = ("allgather_matmul", "double_buffer_drain")
 
 
 def _counts() -> dict[str, int]:
     return {"ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
             "matmul": M.launches, "pool": PL.launches, "bitmap_pack": BM.pack_launches,
             "bitmap_or_rows": BM.or_launches, "bitmap_popcount": BM.popcount_launches,
-            "chunk_reassembly": CR.launches}
+            "chunk_reassembly": CR.launches, "allgather_matmul": M.allgather_launches,
+            "double_buffer_drain": K.drain_launches}
 
 
 def _zero_counts() -> None:
     K.launches = K.transpose_launches = M.launches = PL.launches = CR.launches = 0
     BM.pack_launches = BM.or_launches = BM.popcount_launches = 0
+    M.allgather_launches = K.drain_launches = 0
 
 
 def _run(fn):
@@ -530,7 +550,7 @@ def train() -> dict[str, int]:
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             samples.append(dt)
-            want = {**{k: 0 for k in PACKET_KERNELS},
+            want = {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS},
                     "ring_step": 2 * gather_steps * rounds[mode],   # remat: gathered twice
                     "ring_step_transpose": gather_steps * rounds[mode],
                     "matmul": want_matmul}
@@ -795,6 +815,229 @@ def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
     return out
 
 
+# ------------------------------------------------------- the collective layer
+
+AGMM_ROWS = (BATCH * PROMPT // 8, TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len // 8)
+AGMM_WIDTHS = ((576, 576), (576, 192), (576, 1536), (1536, 576))   # the block's projections
+# matmul_pallas refuses K or N = 576 or 192 at its default 128 tiles (its
+# precondition, which the port keeps); 64 divides every width
+AGMM_TILES = dict(bk=64, bn=64)
+
+
+def _host_ms(fn, repeats: int = REPEATS) -> float:
+    """Median host ms to issue one call of ``fn`` (after a synchronise; no
+    synchronise after it): the launch overhead alone."""
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def _device_ms(fn, n: int = 20) -> float:
+    """Device ms per call of ``fn``: n calls queued behind a spin kernel, so
+    that the CUDA events around them time device work alone, not the host's
+    issue (the calls end with the current stream waiting for any side
+    stream, so both streams are inside the events). The spin is lengthened
+    until it outlasts the host's issue of the n calls."""
+    fn()
+    spin_ms = 2 * n * _host_ms(fn) + 1.0
+    while True:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        marks[0].record()
+        torch.cuda._sleep(int(spin_ms * 1.5e6))     # cycles at >= 1.5 GHz
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        if marks[0].elapsed_time(marks[1]) > issue_ms:
+            return marks[1].elapsed_time(marks[2]) / n
+        spin_ms *= 2
+
+
+def check_drain() -> tuple[int, float]:
+    """Phase 6a: the drain kernel vs its plain version, exactly."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [torch.randn((8, rows, 576), generator=gen, device="cuda").bfloat16()
+             for rows in AGMM_ROWS]
+    cases += [torch.randn(shape, generator=gen, device="cuda") for shape in ((6, 8, 128),
+                                                                             (3, 16, 64))]
+    cases += [torch.randint(0, 256, (5, 7, 33), generator=gen, device="cuda").to(torch.uint8),
+              torch.randint(-99, 99, (3, 17, 5), generator=gen, device="cuda").int(),
+              torch.randint(0, 256, (1 + 4 * 300 * 77,), generator=gen, device="cuda")
+              .to(torch.uint8)[1:].view(4, 300, 77),
+              torch.randn((1 + 2 * 64 * 513,), generator=gen, device="cuda")
+              .bfloat16()[1:].view(2, 64, 513)]
+    for staged in cases:
+        got = K.local_double_buffer_drain(staged)
+        torch.cuda.synchronize()
+        _exact("double_buffer_drain", (got,), (K.local_double_buffer_drain_plain(staged),),
+               (tuple(staged.shape), staged.dtype, staged.data_ptr() % 16))
+    return len(cases), 0.0
+
+
+def _agmm_inputs() -> dict:
+    """{(rows, K, N): (x (8, rows, K), w (K, N))}, bf16, w at its init scale."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    return {(rows, k, n): (torch.randn((8, rows, k), generator=gen, device="cuda").bfloat16(),
+                           (torch.randn((k, n), generator=gen, device="cuda")
+                            / k ** 0.5).bfloat16())
+            for rows in AGMM_ROWS for k, n in AGMM_WIDTHS}
+
+
+def _gathered(x: torch.Tensor) -> torch.Tensor:
+    p, m, k = x.shape
+    return C.plain_allgather_local(x.reshape(p, m * k)).reshape(p, p * m, k)
+
+
+def layer_path() -> tuple[dict[str, int], dict]:
+    """Phase 6b: the allgather-matmul and the drain through their entry
+    points, launch counts zeroed before and read after; then each result
+    against gather-then-matmul (bitwise) and the plain product. Returns the
+    path's launches and the inputs with their max abs error vs plain."""
+    mesh = StackedMesh(data=8, model=1)
+    agmm = M.make_allgather_matmul(mesh, "data", **AGMM_TILES)
+    inputs = _agmm_inputs()
+    x_rows = {rows: x for (rows, _, _), (x, _) in inputs.items()}
+    torch.cuda.synchronize()
+    _zero_counts()   # counts from here to the read are the collective layer's path
+    got = {key: agmm(x, w) for key, (x, w) in inputs.items()}
+    drained = {rows: K.local_double_buffer_drain(x) for rows, x in x_rows.items()}
+    torch.cuda.synchronize()
+    counts = _counts()
+    for name in ("allgather_matmul", "ring_step", "matmul", "double_buffer_drain"):
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the collective layer's path: "
+                                 f"{counts}")
+    per_call = (counts["ring_step"] // len(inputs), counts["matmul"] // len(inputs))
+    if per_call != (7, 15) or counts["allgather_matmul"] != len(inputs):
+        raise AssertionError(f"launches {counts} for {len(inputs)} allgather-matmul calls")
+    errs = {}
+    for key, (x, w) in inputs.items():
+        rows = _gathered(x)
+        wr = w.expand(8, *w.shape)
+        if not torch.equal(got[key], M.matmul(rows, wr)):
+            raise AssertionError(f"allgather_matmul {key} != gather then matmul")
+        plain = M.matmul_plain(rows, wr)
+        err = (got[key].float() - plain.float()).abs().max().item()
+        if not err <= 1e-2 * plain.float().abs().max().item():
+            raise AssertionError(f"allgather_matmul {key} vs plain: max err {err}")
+        errs[key] = err
+    for rows, x in x_rows.items():
+        if not torch.equal(drained[rows], x):
+            raise AssertionError(f"the drain of the {rows}-row shards differs")
+    print(f"[layer] {len(inputs)} allgather-matmul calls equal gather-then-matmul bitwise; "
+          f"launches {json.dumps(counts)}", flush=True)
+    return counts, {"inputs": inputs, "errs": errs}
+
+
+def time_layer(path: dict) -> dict[str, dict]:
+    """Phase 6b's times: per case the overlapped call and the same kernels
+    on one stream (ms per call back to back from CUDA events; the median
+    of REPEATS synchronised calls; the host's issue time; the device time,
+    and the idle share it leaves of the synchronised call), the plain
+    version (plain gather, then the plain product) and the library route
+    (plain gather, then one torch.bmm), beside the bound. Then the drain at
+    the shards' shapes (L2-resident, as freshly received shards are).
+    Returns the kernels-line means. Device times come from ``_device_ms``:
+    the profiler drops records on this path (a call's summed kernel time
+    came out below that of the same kernels on one stream)."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops_ms": 0.0,
+           "bytes_ms": 0.0}
+    for (m, k, n), (x, w) in path["inputs"].items():
+        p = x.shape[0]
+        wr = w.expand(p, k, n)
+        fns = {"ms": lambda: M.allgather_matmul_local(x, w, **AGMM_TILES),
+               "one_stream_ms": lambda: M._allgather_matmul(x, w, M.matmul, overlap=False),
+               "plain_ms": lambda: M.matmul_plain(_gathered(x), wr),
+               "library_ms": lambda: torch.bmm(_gathered(x), wr)}
+        row = {name: _time(fn) for name, fn in fns.items()}
+        wall, wall1 = _wall(fns["ms"]), _wall(fns["one_stream_ms"])
+        dev, dev1 = _device_ms(fns["ms"]), _device_ms(fns["one_stream_ms"])
+        flops_ms = p * (p * m) * k * n * 2 / FLOPS[torch.bfloat16] * 1e3
+        bytes_ms = (x.numel() + w.numel() + p * p * m * n) * 2 / HBM_BYTES_PER_S * 1e3
+        row.update({"rows_per_rank": m, "K": k, "N": n,
+                    "wall_ms_median": statistics.median(wall) * 1e3,
+                    "wall_ms_samples": [t * 1e3 for t in wall],
+                    "one_stream_wall_ms_median": statistics.median(wall1) * 1e3,
+                    "host_issue_ms": _host_ms(fns["ms"]),
+                    "one_stream_host_issue_ms": _host_ms(fns["one_stream_ms"]),
+                    "device_ms": dev, "one_stream_device_ms": dev1,
+                    "library_device_ms": _device_ms(fns["library_ms"]),
+                    "device_idle_share": 1 - dev / (statistics.median(wall) * 1e3),
+                    "one_stream_device_idle_share": 1 - dev1 / (statistics.median(wall1) * 1e3),
+                    "bound_ms": max(flops_ms, bytes_ms),
+                    "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+                    "max_abs_err_vs_plain": path["errs"][m, k, n]})
+        print("[allgather_matmul] " + json.dumps(row), flush=True)
+        for name in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[name] += row[name] / len(path["inputs"])
+        tot["flops_ms"] += flops_ms
+        tot["bytes_ms"] += bytes_ms
+    tot["bound_by"] = "operations" if tot["flops_ms"] >= tot["bytes_ms"] else "bytes"
+    tot["max_abs_err"] = max(path["errs"].values())
+    drain = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for m in AGMM_ROWS:
+        x = next(x for (rows, _, _), (x, _) in path["inputs"].items() if rows == m)
+        row = {"shape": tuple(x.shape), "ms": _time(lambda: K.local_double_buffer_drain(x)),
+               "plain_ms": _time(lambda: K.local_double_buffer_drain_plain(x)),
+               "library_ms": _time(lambda: x.clone()),
+               "bound_ms": 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3,
+               "device_ms": _device_ms(lambda: K.local_double_buffer_drain(x)),
+               "library_device_ms": _device_ms(lambda: x.clone())}
+        print("[double_buffer_drain] " + json.dumps(row), flush=True)
+        for name in drain:
+            drain[name] += row[name] / len(AGMM_ROWS)
+    return {"allgather_matmul": tot, "double_buffer_drain": drain}
+
+
+def bucket_collectives(cfg) -> None:
+    """Phases 6c and 6d: the pipelined broadcast and concurrent AG/RS on
+    the flat f32 bucket of layer 0 of the seeded smollm-135m weights."""
+    def layer0(tree):
+        if isinstance(tree, dict):
+            return {k: layer0(v) for k, v in tree.items()}
+        return torch.from_numpy(tree[0]).cuda()
+
+    layer = layer0(bridge.random_params(cfg, seed=0)["blocks"])
+    flat, unflatten = flatten_bucket(layer, pad_to=8 * 64)
+    if not torch.equal(unflatten(flat)["mlp"]["w_up"], layer["mlp"]["w_up"]):
+        raise AssertionError("flatten_bucket did not round-trip")
+    mesh = StackedMesh(data=8, model=1)
+    x = torch.stack([flat + r for r in range(8)])   # rank r's row; only root's is sent
+    row = {"bucket_elements": flat.numel()}
+    for root in (0, 7):
+        for chunks in (8, 64):
+            bcast = C.make_broadcast(mesh, "data", root=root, n_chunks=chunks)
+            if not torch.equal(bcast(x), x[root].expand(8, -1)):
+                raise AssertionError(f"broadcast from {root} in {chunks} chunks differs")
+            row[f"broadcast_root{root}_chunks{chunks}_wall_ms_median"] = statistics.median(
+                _wall(lambda: bcast(x))) * 1e3
+    ag = flat.reshape(8, -1)
+    rs = torch.stack([flat * (r + 1) for r in range(8)])
+    got = C.concurrent_ag_rs_local(ag, rs)
+    if not (torch.equal(got[0], C.ring_allgather_local(ag))
+            and torch.equal(got[1], C.ring_reduce_scatter_local(rs, direction=-1))):
+        raise AssertionError("concurrent AG/RS differs from the separate calls")
+    row["concurrent_ag_rs_two_streams_wall_ms_median"] = statistics.median(
+        _wall(lambda: C.concurrent_ag_rs_local(ag, rs))) * 1e3
+    row["concurrent_ag_rs_one_stream_wall_ms_median"] = statistics.median(
+        _wall(lambda: C._concurrent_ag_rs(ag, rs, overlap=False))) * 1e3
+    row["concurrent_ag_rs_two_streams_device_ms"] = _device_ms(
+        lambda: C.concurrent_ag_rs_local(ag, rs))
+    row["concurrent_ag_rs_one_stream_device_ms"] = _device_ms(
+        lambda: C._concurrent_ag_rs(ag, rs, overlap=False))
+    print("[bucket] broadcast and concurrent AG/RS bitwise as required: " + json.dumps(row),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -872,6 +1115,13 @@ def main() -> int:
     print(f"[packet] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
           f"launches {json.dumps(packet_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches.update({name: packet_counts[name] for name in PACKET_KERNELS})
+    t0 = time.perf_counter()
+    drain_cases, drain_err = check_drain()
+    print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)
+    layer_counts, layer = layer_path()   # zeroes the counts before driving the path
+    launches.update({name: layer_counts[name] for name in LAYER_KERNELS})
+    bucket_collectives(cfg)
+    print(f"[layer] phase 6 checks passed ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     ring = time_ring_steps(cfg)
     print(f"[ring_step] mean over one layer's leaves: {json.dumps(ring)}", flush=True)
@@ -879,6 +1129,9 @@ def main() -> int:
     print(f"[matmul] one train step's {mm['launches']} launches (mcast counted "
           f"{per_step['matmul']}): {json.dumps(mm)}", flush=True)
     rx_t = time_rx_kernels(card["A"])
+    t0 = time.perf_counter()
+    layer_t = time_layer(layer)
+    print(f"[layer] timed ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     replaces = {"pool": ("src/repro_torch/csrc/pool.cu",
@@ -896,6 +1149,20 @@ def main() -> int:
                 "plain_ms": rx_t[name]["plain_ms"], "bound_ms": rx_t[name]["bound_ms"],
                 "bound_by": "bytes", "library_ms": rx_t[name]["library_ms"]}
                for name in PACKET_KERNELS]
+    agmm_t, drain_t = layer_t["allgather_matmul"], layer_t["double_buffer_drain"]
+    layer_rows = [
+        {"name": "allgather_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/collective_matmul.py",
+         "replaces": "src/repro/kernels/collective_matmul.py:68",
+         "launches": launches["allgather_matmul"], "max_abs_err": agmm_t["max_abs_err"],
+         "ms": agmm_t["ms"], "plain_ms": agmm_t["plain_ms"], "bound_ms": agmm_t["bound_ms"],
+         "bound_by": agmm_t["bound_by"], "library_ms": agmm_t["library_ms"]},
+        {"name": "double_buffer_drain", "route": "cuda",
+         "source": "src/repro_torch/csrc/double_buffer_drain.cu",
+         "replaces": "src/repro/kernels/ring_allgather.py:94",
+         "launches": launches["double_buffer_drain"], "max_abs_err": drain_err,
+         "ms": drain_t["ms"], "plain_ms": drain_t["plain_ms"], "bound_ms": drain_t["bound_ms"],
+         "bound_by": "bytes", "library_ms": drain_t["library_ms"]}]
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_step.cu",
@@ -914,7 +1181,7 @@ def main() -> int:
          "launches": launches["matmul"], "max_abs_err": mm_err,
          "ms": mm["ms_per_launch"], "plain_ms": mm["plain_ms_per_launch"],
          "bound_ms": mm["bound_ms_per_launch"], "bound_by": "operations",
-         "library_ms": mm["library_ms_per_launch"]}, *rx_rows]}))
+         "library_ms": mm["library_ms_per_launch"]}, *rx_rows, *layer_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,11 @@ the schedule is the reference's step for step.
                          broadcast chains, P - 1 masked steps per round
   plain_allgather        the plain tensor gather: the counterpart of the
                          gather GSPMD inserts in the reference (``xla``)
+  pipelined_broadcast    constant-time Broadcast (§III): root's buffer in
+                         C chunks down the chain, C + P - 2 steps
+  concurrent_ag_rs       Insight 2: a ring allgather along +1 and a ring
+                         reduce-scatter along -1 at once, their steps on
+                         two CUDA streams
 
 The three ring gathers are ``torch.autograd.Function``s. The forward fills
 the ring buffer in place, out of autograd's sight; the backward replays the
@@ -29,10 +34,12 @@ rank's own full contribution.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
+from repro_torch.device import overlapped
 from repro_torch.kernels.ring_allgather import ring_step, ring_step_transpose
 from repro_torch.launch.mesh import StackedMesh
 
@@ -136,6 +143,82 @@ def plain_allgather_local(x: torch.Tensor) -> torch.Tensor:
     return full.expand(*x.shape[:-2], p, p * n).contiguous()
 
 
+def pipelined_broadcast_local(x: torch.Tensor, *, root: int = 0,
+                              n_chunks: int = 8) -> torch.Tensor:
+    """Chain-pipelined broadcast of rank ``root``'s row of x (..., P, n) (the
+    other ranks' rows are ignored) -> (..., P, n), every rank holding it.
+    The reference's schedule step for step (core/collectives.py:46): the
+    buffer is C = n_chunks chunks; at step t of C + P - 2 the root sends
+    chunk min(t, C - 1), every other rank forwards what it received at step
+    t - 1, all along +1, and the rank at distance dist from the root keeps
+    what it receives as chunk t - (dist - 1) where that is a chunk. The
+    chunk indices depend on nothing but t and dist, so they are worked out
+    on the host; the moves are plain tensor ops (no TPU kernel computes
+    this)."""
+    p, n = x.shape[-2:]
+    if n % n_chunks:
+        raise ValueError(f"{n} elements do not split into {n_chunks} chunks")
+    root %= p
+    xc = x.reshape(*x.shape[:-1], n_chunks, n // n_chunks)
+    dist = [(d - root) % p for d in range(p)]
+    out = torch.zeros_like(xc)
+    out[..., root, :, :] = xc[..., root, :, :]
+    cur = x.new_zeros(*x.shape[:-1], n // n_chunks)
+    for t in range(n_chunks + p - 2):
+        cur[..., root, :] = xc[..., root, min(t, n_chunks - 1), :]
+        cur = cur.roll(1, dims=-2)                 # rank d receives from d - 1
+        ranks = [d for d in range(p) if dist[d] > 0 and 0 <= t - (dist[d] - 1) < n_chunks]
+        if ranks:
+            chunk = [t - (dist[d] - 1) for d in ranks]
+            out[..., ranks, chunk, :] = cur[..., ranks, :]
+    return out.reshape(x.shape)
+
+
+def concurrent_ag_rs_local(ag: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Tensor,
+                                                                         torch.Tensor]:
+    """Insight 2: a ring allgather along +1 and a ring reduce-scatter along
+    -1, progressed together. ag (..., P, n) rank shards, rs (..., P, P m)
+    per-rank full contributions -> (ag gathered (..., P, P n), rs reduced
+    (..., P, m)), each equal, bitwise, to ``ring_allgather_local(ag)`` and
+    ``ring_reduce_scatter_local(rs, direction=-1)`` (the reference's
+    ``concurrent_ag_rs_local``, core/collectives.py:190: the partial sums
+    start at rank d + 1 and travel -1). On the card the allgather's steps
+    run on the side stream and the reduce-scatter's on the current stream:
+    the port's form of "the two streams use opposite directions"."""
+    if ag.requires_grad or rs.requires_grad:
+        raise NotImplementedError("concurrent_ag_rs_local has no backward in the port; "
+                                  "use ring_allgather_local and ring_reduce_scatter_local")
+    return _concurrent_ag_rs(ag, rs, overlap=ag.device.type == "cuda")
+
+
+def _concurrent_ag_rs(ag: torch.Tensor, rs: torch.Tensor,
+                      overlap: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The steps of ``concurrent_ag_rs_local``: with ``overlap`` the
+    allgather's on the side stream; without, both in turn on the current
+    stream."""
+    p = ag.shape[-2]
+    if rs.shape[-2] != p or rs.shape[-1] % p:
+        raise ValueError(f"rs {tuple(rs.shape)} is not (..., {p}, {p} m)")
+    if ag.device != rs.device:
+        raise ValueError(f"ag on {ag.device}, rs on {rs.device}")
+    buf = _ring_buffer(ag)
+    # the reduce-scatter along -1 is the transpose of the ring along +1
+    acc = rs.reshape(*rs.shape[:-1], p, rs.shape[-1] // p).clone(
+        memory_format=torch.contiguous_format)
+    steps = zip(range(p - 1), reversed(range(p - 1)))
+    if overlap:
+        with overlapped(ag.device, buf) as side:
+            for s, t in steps:
+                with torch.cuda.stream(side):
+                    ring_step(buf, s)
+                ring_step_transpose(acc, t)
+    else:
+        for s, t in steps:
+            ring_step(buf, s)
+            ring_step_transpose(acc, t)
+    return _flat(buf), acc.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
+
+
 def over_axis(x: torch.Tensor, mesh: StackedMesh, axis: str,
               gather: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """Run ``gather`` over mesh axis ``axis`` of a stacked (R, n) tensor,
@@ -173,4 +256,11 @@ def make_reduce_scatter(mesh: StackedMesh, axis: str, mode: str = "bidi"):
     axis. mode: ring | bidi."""
     local = {"ring": ring_reduce_scatter_local,
              "bidi": bidi_ring_reduce_scatter_local}[mode]
+    return lambda x: over_axis(x, mesh, axis, local)
+
+
+def make_broadcast(mesh: StackedMesh, axis: str, *, root: int = 0, n_chunks: int = 8):
+    """Stacked broadcast over ``axis``: (R, n) rank rows -> (R, n), every
+    rank of each group holding the row of the group's rank ``root``."""
+    local = functools.partial(pipelined_broadcast_local, root=root, n_chunks=n_chunks)
     return lambda x: over_axis(x, mesh, axis, local)

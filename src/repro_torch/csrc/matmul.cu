@@ -1,6 +1,6 @@
 // Rank-batched matrix product with an f32 accumulator:
 //
-//     C[r] (M x N, row-major, contiguous) = A[r] (M x K) . B[r] (K x N)
+//     C[r] (M x N) = A[r] (M x K) . B[r] (K x N)
 //
 // Hopper counterpart of `matmul_pallas` (src/repro/kernels/collective_matmul.py:43),
 // the (bm, bk, bn)-tiled Pallas product that keeps an f32 accumulator in VMEM
@@ -9,9 +9,10 @@
 // between them), each block owns one output tile of one rank (blockIdx.z),
 // and the sum is rounded once to the element type at the end.
 //
-// A and B are given by element strides (rank, row, column), so transposed
+// A, B and C are given by element strides (rank, row, column), so transposed
 // views (the backward products dY . W^T and X^T . dY, and the tied head
-// embed^T) need no copy. Each operand's tile is kept in shared memory along
+// embed^T) need no copy, and a product can land in a strided view of a
+// larger output (the diagonals of the allgather-matmul's output). Each operand's tile is kept in shared memory along
 // that operand's unit-stride dim and read back as a row- or col-major
 // fragment, so either layout is read coalesced; any element outside M, N or
 // K is loaded as zero, so no dim need divide a tile.
@@ -96,7 +97,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a, long long sar, long long sam,
                    long long sak, bool vec_a, const __nv_bfloat16* __restrict__ b,
                    long long sbr, long long sbk, long long sbn, bool vec_b,
-                   __nv_bfloat16* __restrict__ c, int m, int n, int k) {
+                   __nv_bfloat16* __restrict__ c, long long scr, long long scm,
+                   long long scn, int m, int n, int k) {
   constexpr int A_ROWS = AK ? BM : BK, A_COLS = AK ? BK : BM;
   constexpr int B_ROWS = BNF ? BK : BN, B_COLS = BNF ? BN : BK;
   constexpr int A_STAGE = A_ROWS * (A_COLS + PAD), B_STAGE = B_ROWS * (B_COLS + PAD);
@@ -113,7 +115,7 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a, long long sar, long long
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   a += r * sar;
   b += r * sbr;
-  c += r * static_cast<long long>(m) * n;
+  c += r * scr;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;  // this warp's 64 x 32 sub-tile
 
@@ -179,7 +181,7 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a, long long sar, long long
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int gm = m0 + wm + i * 16 + e / 16, gn = n0 + wn + j * 16 + e % 16;
-        if (gm < m && gn < n) c[static_cast<long long>(gm) * n + gn] = __float2bfloat16_rn(cs[e]);
+        if (gm < m && gn < n) c[gm * scm + gn * scn] = __float2bfloat16_rn(cs[e]);
       }
       __syncwarp();
     }
@@ -188,11 +190,12 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a, long long sar, long long
 template <bool AK, bool BNF>
 void launch_bf16(dim3 grid, cudaStream_t st, const void* a, long long sar, long long sam,
                  long long sak, bool vec_a, const void* b, long long sbr, long long sbk,
-                 long long sbn, bool vec_b, void* c, int m, int n, int k) {
+                 long long sbn, bool vec_b, void* c, long long scr, long long scm,
+                 long long scn, int m, int n, int k) {
   matmul_bf16_kernel<AK, BNF><<<grid, kThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(a), sar, sam, sak, vec_a,
       static_cast<const __nv_bfloat16*>(b), sbr, sbk, sbn, vec_b,
-      static_cast<__nv_bfloat16*>(c), m, n, k);
+      static_cast<__nv_bfloat16*>(c), scr, scm, scn, m, n, k);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -204,7 +207,8 @@ constexpr int FM = 64, FN = 64, FK = 16;
 __global__ void __launch_bounds__(kThreads)
 matmul_f32_kernel(const float* __restrict__ a, long long sar, long long sam, long long sak,
                   const float* __restrict__ b, long long sbr, long long sbk, long long sbn,
-                  float* __restrict__ c, int m, int n, int k) {
+                  float* __restrict__ c, long long scr, long long scm, long long scn, int m,
+                  int n, int k) {
   __shared__ float as[FK][FM + 4];  // k-major: a thread reads 4 rows of one k at once
   __shared__ float bs[FK][FN + 4];
 
@@ -212,7 +216,7 @@ matmul_f32_kernel(const float* __restrict__ a, long long sar, long long sam, lon
   const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
   a += r * sar;
   b += r * sbr;
-  c += r * static_cast<long long>(m) * n;
+  c += r * scr;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;  // outputs (ty + 16i, tx + 16j)
   const bool a_k_fast = sak == 1;
   const bool b_n_fast = sbn == 1;
@@ -257,7 +261,7 @@ matmul_f32_kernel(const float* __restrict__ a, long long sar, long long sam, lon
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
-      if (gm < m && gn < n) c[static_cast<long long>(gm) * n + gn] = acc[i][j];
+      if (gm < m && gn < n) c[gm * scm + gn * scn] = acc[i][j];
     }
 }
 
@@ -265,10 +269,12 @@ matmul_f32_kernel(const float* __restrict__ a, long long sar, long long sam, lon
 
 // Returns cudaGetLastError() after the launch (0 on success). dtype 0 is f32,
 // 1 is bf16; strides are in elements. The caller checks arguments: r <=
-// 65535, m, n, k >= 1, m < 65535 * 128, and a row-major contiguous c.
+// 65535, m, n, k >= 1, m < 65535 * 128, and a c whose elements do not
+// overlap.
 extern "C" int matmul(int dtype, const void* a, long long sar, long long sam, long long sak,
                       const void* b, long long sbr, long long sbk, long long sbn, void* c,
-                      int r, int m, int n, int k, void* stream) {
+                      long long scr, long long scm, long long scn, int r, int m, int n, int k,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, r);
@@ -283,15 +289,16 @@ extern "C" int matmul(int dtype, const void* a, long long sar, long long sam, lo
                             : sbk == 1 && k % 8 == 0 && sbn % 8 == 0);
     using Launch = void (*)(dim3, cudaStream_t, const void*, long long, long long, long long,
                             bool, const void*, long long, long long, long long, bool, void*,
-                            int, int, int);
+                            long long, long long, long long, int, int, int);
     const Launch launch = ak ? (bnf ? launch_bf16<true, true> : launch_bf16<true, false>)
                              : (bnf ? launch_bf16<false, true> : launch_bf16<false, false>);
-    launch(grid, st, a, sar, sam, sak, vec_a, b, sbr, sbk, sbn, vec_b, c, m, n, k);
+    launch(grid, st, a, sar, sam, sak, vec_a, b, sbr, sbk, sbn, vec_b, c, scr, scm, scn, m, n,
+           k);
   } else if (dtype == 0) {
     const dim3 grid((n + FN - 1) / FN, (m + FM - 1) / FM, r);
     matmul_f32_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(a), sar, sam, sak, static_cast<const float*>(b), sbr, sbk,
-        sbn, static_cast<float*>(c), m, n, k);
+        sbn, static_cast<float*>(c), scr, scm, scn, m, n, k);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

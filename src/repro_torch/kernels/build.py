@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("ring_step", "ring_step_transpose", "matmul", "pool", "bitmap", "chunk_reassembly")
+SOURCES = ("ring_step", "ring_step_transpose", "matmul", "pool", "bitmap", "chunk_reassembly",
+           "double_buffer_drain")
 _FLAGS = {"pool": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}

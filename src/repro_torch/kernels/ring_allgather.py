@@ -25,10 +25,17 @@ rank's slot per block row, with a scalar head and tail for spans off a
 MB, about a microsecond at HBM speed, so the launch itself dominates;
 fusing steps is later work.
 
+``local_double_buffer_drain`` replaces the Pallas kernel of the same name
+(src/repro/kernels/ring_allgather.py:94): the local-copy half of the ring
+engine, staged chunks drained in order through a two-slot staging ring
+(``csrc/double_buffer_drain.cu``). It is an identity copy, bitwise, of
+``staged (n_steps, rows, cols)`` in any dtype; bound by HBM bytes, 2 *
+staged.nbytes.
+
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version only for a CPU tensor. ``launches`` and ``transpose_launches``
-count kernel launches. The kernels are built with ``nvcc`` into ``build/``
-at their first launch (``kernels/build.py``).
+version only for a CPU tensor. ``launches``, ``transpose_launches`` and
+``drain_launches`` count kernel launches. The kernels are built with
+``nvcc`` into ``build/`` at their first launch (``kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.kernels import build
 
 launches = 0             # ring_step kernel launches
 transpose_launches = 0   # ring_step_transpose kernel launches
+drain_launches = 0       # double_buffer_drain kernel launches
 
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _MAX_ROWS = 65535  # gridDim.y
@@ -179,3 +187,56 @@ def ring_step_transpose(buf: torch.Tensor, step: int, *, direction: int = 1,
     _launch("ring_step_transpose", buf, step, direction, split, rounds, active_round)
     transpose_launches += 1
     return buf
+
+
+# ------------------------------------------------- the double-buffered drain
+
+_DRAIN_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p]
+
+
+def _check_staged(staged: torch.Tensor) -> None:
+    if staged.dim() != 3:
+        raise ValueError(f"staged must be (n_steps, rows, cols), got {tuple(staged.shape)}")
+    if not staged.is_contiguous():
+        raise ValueError("staged must be contiguous")
+
+
+def local_double_buffer_drain_plain(staged: torch.Tensor) -> torch.Tensor:
+    """The same drain in plain torch: ``out[s] = staged[s]``, step by step,
+    as the Pallas grid runs."""
+    _check_staged(staged)
+    out = torch.empty_like(staged)
+    for s in range(staged.shape[0]):
+        out[s] = staged[s]
+    return out
+
+
+def local_double_buffer_drain(staged: torch.Tensor) -> torch.Tensor:
+    """staged (n_steps, rows, cols), the chunks received per step -> a new
+    tensor holding them drained in order, equal to ``staged`` bitwise.
+    Launches the CUDA kernel for a CUDA tensor, runs the plain version for
+    a CPU tensor, and raises for any other device."""
+    global drain_launches
+    if staged.device.type == "cpu":
+        return local_double_buffer_drain_plain(staged)
+    if staged.device.type != "cuda":
+        raise ValueError(f"local_double_buffer_drain runs on cuda or cpu tensors, got "
+                         f"{staged.device}")
+    _check_staged(staged)
+    n_steps = staged.shape[0]
+    if n_steps > _MAX_ROWS:
+        raise ValueError(f"{n_steps} steps exceed {_MAX_ROWS} block rows")
+    out = torch.empty_like(staged, memory_format=torch.contiguous_format)
+    if staged.numel() == 0:
+        return out
+    fn = build.load("double_buffer_drain").double_buffer_drain
+    fn.argtypes, fn.restype = _DRAIN_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(staged.device):
+        stream = torch.cuda.current_stream(staged.device).cuda_stream
+        err = fn(staged.data_ptr(), out.data_ptr(), n_steps,
+                 staged.numel() // n_steps * staged.element_size(), stream)
+    if err:
+        raise RuntimeError(f"double_buffer_drain launch failed: cudaError {err}")
+    drain_launches += 1
+    return out

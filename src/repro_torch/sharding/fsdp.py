@@ -107,3 +107,57 @@ def make_param_gather(mesh: StackedMesh, mesh_cfg: MeshConfig,
         return gather_leaf(leaf.local, leaf.spec, mesh, dp, mode, coll.n_chains)
 
     return lambda tree: tree_map(one, tree)
+
+
+# ----------------------------------------------------- flat-bucket utilities
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a tree of dicts, lists and tuples in JAX's order: a
+    dict's keys sorted (``jax.tree.flatten``), sequences in order, None an
+    empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors replaced, in ``_leaves`` order, from the
+    iterator ``leaves``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        new = {key: _rebuild(tree[key], leaves) for key in sorted(tree)}
+        return {key: new[key] for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(item, leaves) for item in tree)
+    return next(leaves)
+
+
+def flatten_bucket(tree, pad_to: int = 1):
+    """A tree of tensors -> (one contiguous f32 bucket, zero-padded to a
+    multiple of ``pad_to``; ``unflatten``, which cuts a bucket back into
+    the tree's shapes and dtypes). The paper's collectives move flat
+    buffers; the leaf order is the reference's (``sharding/fsdp.py:122``),
+    so the bucket equals its bucket element for element."""
+    leaves = _leaves(tree)
+    flat = torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves])
+    n = flat.shape[0]
+    padded = -(-n // pad_to) * pad_to
+    if padded != n:
+        flat = torch.nn.functional.pad(flat, (0, padded - n))
+    shapes = [(leaf.shape, leaf.dtype) for leaf in leaves]
+
+    def unflatten(buf: torch.Tensor):
+        out, off = [], 0
+        for shape, dtype in shapes:
+            k = shape.numel()
+            out.append(buf[off:off + k].reshape(shape).to(dtype))
+            off += k
+        return _rebuild(tree, iter(out))
+
+    return flat, unflatten

@@ -245,3 +245,128 @@ def test_packet_broadcast_on_cuda_equals_cpu(wk, loss):
         assert torch.equal(user, src)
         assert int(BM.bitmap_popcount(BM.bitmap_pack(flags))) == src.shape[0]
     assert CR.launches == before + 2 * len(b.delivery_order)
+
+
+# ------------------------------------------------ the collective layer
+
+
+@pytest.mark.gpu
+def test_drain_kernel_matches_plain():
+    """Bitwise for any dtype: the allgather-matmul's received shards, the
+    reference test's shapes, odd shapes, and views that start off a 16-byte
+    boundary (byte-wise stores); one launch per call."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [torch.randn(8, 128, 576, device="cuda", generator=gen).bfloat16(),
+             torch.randn(6, 8, 128, device="cuda", generator=gen),
+             torch.randn(3, 16, 64, device="cuda", generator=gen),
+             torch.randint(0, 256, (5, 7, 33), device="cuda", generator=gen).to(torch.uint8),
+             torch.randint(-9, 9, (3, 1, 1), device="cuda", generator=gen).int(),
+             torch.randint(0, 256, (1 + 4 * 300 * 77,), device="cuda", generator=gen)
+             .to(torch.uint8)[1:].view(4, 300, 77),
+             torch.randn(1 + 2 * 64 * 513, device="cuda", generator=gen)
+             .bfloat16()[1:].view(2, 64, 513)]
+    for staged in cases:
+        before = K.drain_launches
+        got = K.local_double_buffer_drain(staged)
+        torch.cuda.synchronize()
+        assert K.drain_launches == before + 1
+        assert got.data_ptr() != staged.data_ptr()
+        assert torch.equal(got, K.local_double_buffer_drain_plain(staged)), staged.shape
+
+
+def _gather_then_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    p, m, k = x.shape
+    rows = C.plain_allgather_local(x.reshape(p, m * k)).reshape(p, p * m, k)
+    return M.matmul(rows, w.expand(p, k, w.shape[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,m,k,n", [(8, 16, 64, 32), (8, 128, 576, 192), (8, 3, 33, 7),
+                                     (4, 1, 33, 130), (3, 5, 576, 1536)])
+def test_allgather_matmul_on_cuda(dtype, p, m, k, n):
+    """Bitwise equal to the plain gather then the matmul kernel, within the
+    matmul's limits of the plain product; P - 1 ring steps and 2 P - 1
+    products per call; use_pallas=False launches no matmul."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(p + m + k + n)
+    x = torch.randn(p, m, k, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(k, n, device="cuda", generator=gen).to(dtype)
+    before = (K.launches, M.launches)
+    got = M.allgather_matmul_local(x, w, bm=1, bk=1, bn=1)
+    torch.cuda.synchronize()
+    assert (K.launches - before[0], M.launches - before[1]) == (p - 1, 2 * p - 1)
+    assert torch.equal(got, _gather_then_matmul(x, w))
+    plain = M.allgather_matmul_local(x, w, use_pallas=False)
+    tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * plain.float().abs().max().item()
+    assert (got.float() - plain.float()).abs().max().item() <= tol
+    mesh = StackedMesh(pod=2, data=4, model=1)
+    if p == 8:
+        y = M.make_allgather_matmul(mesh, "data", bm=1, bk=1, bn=1)(x, w)
+        for r in range(8):
+            assert torch.equal(y[r], _gather_then_matmul(x[r // 4 * 4:r // 4 * 4 + 4], w)[0])
+
+
+@pytest.mark.gpu
+def test_allgather_matmul_back_to_back():
+    """50 calls with fresh inputs and no synchronisation between them (the
+    side stream's buffers recycled by the caching allocator): every
+    result equals its gather-then-matmul."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w = torch.randn(576, 192, device="cuda", generator=gen).bfloat16()
+    inputs, outputs = [], []
+    for i in range(50):
+        x = torch.randn(8, 128, 576, device="cuda", generator=gen).bfloat16()
+        inputs.append(x)
+        outputs.append(M.allgather_matmul_local(x, w, bk=64, bn=64))
+    torch.cuda.synchronize()
+    for x, y in zip(inputs, outputs):
+        assert torch.equal(y, _gather_then_matmul(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_out_into_diagonal_views(dtype):
+    """``out=`` views with a rank stride of (P + 1) rows: each equals the
+    product of contiguous copies, and nothing else of the output moves."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p, m, k, n = 8, 128, 576, 192
+    buf = torch.randn(p, p, m, k, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(k, n, device="cuda", generator=gen).to(dtype)
+    out = torch.zeros(p, p, m, n, device="cuda", dtype=dtype)
+    for a, y in zip(M._diagonals(buf, 3), M._diagonals(out, 3)):
+        before = M.launches
+        M.matmul(a, w.expand(a.shape[0], k, n), out=y)
+        torch.cuda.synchronize()
+        assert M.launches == before + 1
+        assert torch.equal(y, M.matmul(a.contiguous(), w.expand(a.shape[0], k, n)))
+    for d in range(p):
+        for j in range(p):
+            if j != (d - 3) % p:
+                assert not out[d, j].any()
+
+
+@pytest.mark.gpu
+def test_broadcast_and_concurrent_ag_rs_on_cuda():
+    """The broadcast equals root's row everywhere; concurrent AG/RS on two
+    streams equals the separate calls bitwise and launches both ring
+    kernels P - 1 times."""
+    _need_cuda()
+    mesh = StackedMesh(data=8, model=1)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(8, 4096, device="cuda", generator=gen)
+    for root, chunks in ((0, 8), (7, 64)):
+        y = C.make_broadcast(mesh, "data", root=root, n_chunks=chunks)(x)
+        assert torch.equal(y, x[root].expand(8, -1))
+    ag = torch.randn(8, 1000, device="cuda", generator=gen)
+    rs = torch.randn(8, 8 * 1000, device="cuda", generator=gen)
+    before = (K.launches, K.transpose_launches)
+    got_ag, got_rs = C.concurrent_ag_rs_local(ag, rs)
+    torch.cuda.synchronize()
+    assert (K.launches - before[0], K.transpose_launches - before[1]) == (7, 7)
+    assert torch.equal(got_ag, C.ring_allgather_local(ag))
+    assert torch.equal(got_rs, C.ring_reduce_scatter_local(rs, direction=-1))
+    assert torch.equal(got_rs.cpu(), C.ring_reduce_scatter_local(rs.cpu(), direction=-1))

@@ -205,7 +205,9 @@ def test_specs_match_reference(axes, multi_pod):
 
 def test_port_imports_neither_jax_nor_repro():
     """Importing repro_torch and running a CPU prefill, decode and train
-    step and a lossy packet broadcast loads no jax and no module of the JAX
+    step, a lossy packet broadcast, and the collective layer's entry points
+    (the allgather-matmul through ``kernels.ops``, the drain, a bucket
+    broadcast and concurrent AG/RS) loads no jax and no module of the JAX
     package."""
     code = (
         "import sys, numpy as np, torch\n"
@@ -239,6 +241,18 @@ def test_port_imports_neither_jax_nor_repro():
         "    engine.WorkerParams(), np.random.default_rng(0), loss=0.01, device='cpu')\n"
         "assert r.completed and r.rounds\n"
         "assert protocol.broadcast_time(8, 1 << 16, device='cpu') > 0\n"
+        "from repro_torch.core import collectives as C\n"
+        "from repro_torch.kernels import ops, ring_allgather\n"
+        "from repro_torch.sharding.fsdp import flatten_bucket\n"
+        "x = torch.randn(8, 4, 16)\n"
+        "y = ops.make_allgather_matmul(mesh, 'data')(x, torch.randn(16, 8))\n"
+        "assert y.shape == (8, 32, 8)\n"
+        "assert torch.equal(ring_allgather.local_double_buffer_drain(x), x)\n"
+        "flat, unflatten = flatten_bucket({'b': x, 'a': [x[0]]}, pad_to=64)\n"
+        "rows = flat.reshape(8, -1)\n"
+        "assert torch.equal(C.make_broadcast(mesh, 'data', root=3)(rows)[0], rows[3])\n"
+        "ag, rs = C.concurrent_ag_rs_local(x.reshape(8, -1), torch.randn(8, 16))\n"
+        "assert ag.shape == (8, 512) and rs.shape == (8, 2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
