@@ -10,7 +10,11 @@
    matmul kernel (csrc/matmul.cu) against its plain version at every shape
    the training and serving paths give it (forward and both backward
    products, bf16 and f32, the tied head's embed^T view included): f32
-   within 1e-5 x max|plain|, bf16 within 1e-2 x max|plain|; the receive
+   within 1e-5 x max|plain|, bf16 within 1e-2 x max|plain|, every bf16
+   product on the wgmma + TMA path; then that path's edge cases (the four
+   operand layouts at one 128 x 192 tile, ragged M, N and K, operands
+   expanded over the ranks, out= views) and the wmma path's (K = 33, N = 7,
+   a base off 16 bytes), on integer inputs, bitwise; the receive
    datapath's kernels against their plain versions, all exactly
    (torch.equal): the pool scan with its RNR mask (csrc/pool.cu, f64, rows
    1 to 511, rows up to 16389 long, 1 to 16 workers, +inf-padded ragged rows
@@ -22,8 +26,9 @@
 3. serving smollm-135m at full width and depth (30 layers, bf16, seeded
    random weights) on a (data=8, model=1) stacked mesh: prefill of a
    128-token prompt for batch 8, then greedy generation of 32 tokens, in
-   every fsdp_mode. All modes must give identical logits and tokens, and
-   the ring-step launch count must rise in exactly the mcast modes. A
+   every fsdp_mode. All modes must give identical logits and tokens, the
+   ring-step launch count must rise in exactly the mcast modes, and no
+   product may reach the wmma or f32 kernel. A
    reduced f32 model is also held against a single-rank run;
 4. training smollm-135m at full width (30 layers, bf16, batch 16 x 512,
    remat="full") on the same mesh in every fsdp_mode: one warm-up step and
@@ -49,10 +54,12 @@
    (b) ``make_allgather_matmul`` at smollm-135m's widths, bf16, on the
    (data=8, model=1) mesh, 128 and 1,024 rows per rank times each of the
    block's projections 576 -> 576, 576 -> 192, 576 -> 1536 and 1536 -> 576,
-   the ring steps on a side stream beside the matmul kernel: bitwise equal
-   to the plain gather followed by the same kernel, within the matmul's
-   limits of the plain product; overlapped, one-stream, plain and library
-   times beside the bound, and the device's busy time and idle share; (c)
+   each call one launch of the wgmma kernel that reads every rank's shard
+   in place (no ring step): bitwise equal to the plain gather followed by
+   the same kernel, within the matmul's limits of the plain product; its
+   times beside the ring schedule's on one stream (the ring-step kernel and
+   2P - 1 products), the plain and library times and the bound, and the
+   device's busy time and idle share; (c)
    ``make_broadcast`` of ``flatten_bucket`` over layer 0 (about 3.5 M f32)
    from roots 0 and 7 in 8 and 64 chunks, every rank bitwise equal to
    root's row; (d) ``concurrent_ag_rs_local`` on that bucket's shards, both
@@ -219,8 +226,9 @@ def serve() -> None:
         (logits, pre), _, counts = _run(do_prefill)
         out, _, gen_counts = _run(do_generate)
         launches, gen_launches = counts["ring_step"], gen_counts["ring_step"]
-        if counts["matmul"] == 0 or counts["ring_step_transpose"] != 0:
-            raise AssertionError(f"{mode}: prefill launched {counts}")
+        if (counts["matmul"] == 0 or counts["ring_step_transpose"] != 0
+                or any(counts[k] or gen_counts[k] for k in OFF_PATH)):
+            raise AssertionError(f"{mode}: prefill launched {counts}, generation {gen_counts}")
         prefill_s = _wall(do_prefill)
         dev_prefill, prefill_prof_ms = _device_times(do_prefill)
         busy_ms = sum(dev_prefill.values())
@@ -287,6 +295,7 @@ def serve() -> None:
 
 
 MODEL_KERNELS = ("ring_step", "ring_step_transpose", "matmul")
+OFF_PATH = ("matmul_wmma", "matmul_f32")   # matmul paths no main-path product takes
 PACKET_KERNELS = ("pool", "bitmap_pack", "bitmap_or_rows", "bitmap_popcount",
                   "chunk_reassembly")
 LAYER_KERNELS = ("allgather_matmul", "double_buffer_drain")
@@ -294,7 +303,8 @@ LAYER_KERNELS = ("allgather_matmul", "double_buffer_drain")
 
 def _counts() -> dict[str, int]:
     return {"ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
-            "matmul": M.launches, "pool": PL.launches, "bitmap_pack": BM.pack_launches,
+            "matmul": M.launches, "matmul_wmma": M.launches_wmma,
+            "matmul_f32": M.launches_f32, "pool": PL.launches, "bitmap_pack": BM.pack_launches,
             "bitmap_or_rows": BM.or_launches, "bitmap_popcount": BM.popcount_launches,
             "chunk_reassembly": CR.launches, "allgather_matmul": M.allgather_launches,
             "double_buffer_drain": K.drain_launches}
@@ -302,6 +312,7 @@ def _counts() -> dict[str, int]:
 
 def _zero_counts() -> None:
     K.launches = K.transpose_launches = M.launches = PL.launches = CR.launches = 0
+    M.launches_wmma = M.launches_f32 = 0
     BM.pack_launches = BM.or_launches = BM.popcount_launches = 0
     M.allgather_launches = K.drain_launches = 0
 
@@ -437,16 +448,19 @@ def matmul_cases(cfg, r: int, m: int, dtype, *, train: bool,
 
 
 def check_matmul(cases) -> float:
-    """Phase 1: the kernel vs its plain version at every case. Returns the
-    max abs error."""
+    """Phase 1: the kernel vs its plain version at every case, every bf16
+    product on the wgmma path (one launch each). Returns the max abs error."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     max_err = 0.0
     for (r, m, k, n, a_t, b_t, dtype) in cases:
         a = _operand(r, m, k, a_t, dtype, gen)
         b = _operand(r, k, n, b_t, dtype, gen)
         want = M.matmul_plain(a, b)
+        kind, before = M.path(a, b), M.launches
         got = M.matmul(a, b)
         torch.cuda.synchronize()
+        if dtype == torch.bfloat16 and (kind != "wgmma" or M.launches != before + 1):
+            raise AssertionError(f"bf16 matmul {(r, m, k, n, a_t, b_t)} took the {kind} path")
         err = (got.float() - want.float()).abs().max().item()
         tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
         if not err <= tol or got.dtype != dtype:
@@ -456,25 +470,84 @@ def check_matmul(cases) -> float:
     return max_err
 
 
+def _ints(*shape, gen) -> torch.Tensor:
+    """Integers in [-2, 2] as bf16: every f32 sum of their products is exact."""
+    return torch.randint(-2, 3, shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def check_matmul_edges() -> int:
+    """Phase 1: the edge cases of the two bf16 paths, on integer inputs so
+    that each result must equal the plain product bitwise: the four operand
+    layouts at one 128 x 192 tile and at ragged M, N, K; odd extents where
+    not contiguous; operands expanded over the ranks; out= views; and what
+    TMA cannot describe (K = 33, N = 7 MN-major, a base off 16 bytes) on the
+    wmma kernel. Returns the number of cases."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def operand(r, rows, cols, transposed):
+        return (_ints(r, cols, rows, gen=gen).transpose(1, 2) if transposed
+                else _ints(r, rows, cols, gen=gen))
+
+    cases = []   # (a, b, out, path)
+    for a_t in (False, True):
+        for b_t in (False, True):
+            for r, m, k, n in ((1, 128, 64, 192), (2, 136, 72, 200), (1, 1000, 520, 584)):
+                cases.append((operand(r, m, k, a_t), operand(r, k, n, b_t), None, "wgmma"))
+    cases += [(operand(2, 65, 72, False), operand(2, 72, 7, True), None, "wgmma"),
+              (_ints(1024, 576, gen=gen).expand(8, 1024, 576),
+               _ints(576, 192, gen=gen).expand(8, 576, 192), None, "wgmma")]
+    a, b = _ints(2, 130, 64, gen=gen), _ints(2, 64, 200, gen=gen)
+    for out in (torch.zeros(2, 200, 130, dtype=torch.bfloat16, device="cuda").transpose(1, 2),
+                torch.zeros(2 * 130 * 200 + 1, dtype=torch.bfloat16, device="cuda")[1:]
+                .view(2, 130, 200),
+                torch.zeros(2, 130, 202, dtype=torch.bfloat16, device="cuda")[:, :, :200],
+                torch.zeros(2, 130, 456, dtype=torch.bfloat16, device="cuda")[:, :, 256:]):
+        cases.append((a, b, out, "wgmma"))
+    off = torch.zeros(2 * 40 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(2, 40, 64)
+    off.copy_(_ints(2, 40, 64, gen=gen))
+    cases += [(_ints(2, 40, 33, gen=gen), _ints(2, 33, 64, gen=gen), None, "wmma"),
+              (_ints(2, 40, 64, gen=gen), _ints(2, 64, 7, gen=gen), None, "wmma"),
+              (off, _ints(2, 64, 64, gen=gen), None, "wmma")]
+    for a, b, out, kind in cases:
+        case = (tuple(a.shape), a.stride(), tuple(b.shape), b.stride())
+        before = (M.launches, M.launches_wmma)
+        got = M.matmul(a, b, out=out)
+        torch.cuda.synchronize()
+        took = "wgmma" if M.launches > before[0] else "wmma" if M.launches_wmma > before[1] \
+            else None
+        if M.path(a, b) != kind or took != kind:
+            raise AssertionError(f"matmul {case} took {took}, expected {kind}")
+        if not torch.equal(got, M.matmul_plain(a, b)):
+            raise AssertionError(f"matmul {case} ({kind}) != plain on integer inputs")
+    return len(cases)
+
+
 def time_matmul(cases: dict) -> dict:
     """Per case: kernel, plain and torch.bmm (the library call) ms, and the
     bound; then their sums over one step's launches, and means per launch."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
+           "library_device_ms": 0.0, "launches": 0}
     for key, count in cases.items():
         r, m, k, n, a_t, b_t, dtype = key
         a = _operand(r, m, k, a_t, dtype, gen)
         b = _operand(r, k, n, b_t, dtype, gen)
         item = a.element_size()
-        row = {"ms": _time(lambda: M.matmul(a, b)),
+        row = {"path": M.path(a, b), "ms": _time(lambda: M.matmul(a, b)),
                "plain_ms": _time(lambda: M.matmul_plain(a, b)),
                "library_ms": _time(lambda: torch.bmm(a, b)),
                "bound_ms": max(2 * r * m * n * k / FLOPS[dtype],
                                r * (m * k + k * n + m * n) * item / HBM_BYTES_PER_S) * 1e3}
+        row.update({"host_ms": _host_ms(lambda: M.matmul(a, b)),
+                    "device_ms": _device_ms(lambda: M.matmul(a, b)),
+                    "library_device_ms": _device_ms(lambda: torch.bmm(a, b))})
+        row["device_tflops"] = 2 * r * m * n * k / row["device_ms"] / 1e9
+        row["library_device_tflops"] = 2 * r * m * n * k / row["library_device_ms"] / 1e9
         print(f"[matmul] R={r} M={m} K={k} N={n} a^T={a_t} b^T={b_t} {str(dtype)[6:]} "
               f"x{count} per step " + json.dumps(row), flush=True)
-        for name, v in row.items():
-            tot[name] += v * count
+        for name in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                     "library_device_ms"):
+            tot[name] += row[name] * count
         tot["launches"] += count
     per = {f"{name}_per_launch": tot[name] / tot["launches"]
            for name in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -550,7 +623,7 @@ def train() -> dict[str, int]:
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             samples.append(dt)
-            want = {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS},
+            want = {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + OFF_PATH},
                     "ring_step": 2 * gather_steps * rounds[mode],   # remat: gathered twice
                     "ring_step_transpose": gather_steps * rounds[mode],
                     "matmul": want_matmul}
@@ -912,13 +985,16 @@ def layer_path() -> tuple[dict[str, int], dict]:
     drained = {rows: K.local_double_buffer_drain(x) for rows, x in x_rows.items()}
     torch.cuda.synchronize()
     counts = _counts()
-    for name in ("allgather_matmul", "ring_step", "matmul", "double_buffer_drain"):
+    for name in ("allgather_matmul", "matmul", "double_buffer_drain"):
         if counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the collective layer's path: "
                                  f"{counts}")
-    per_call = (counts["ring_step"] // len(inputs), counts["matmul"] // len(inputs))
-    if per_call != (7, 15) or counts["allgather_matmul"] != len(inputs):
-        raise AssertionError(f"launches {counts} for {len(inputs)} allgather-matmul calls")
+    # one group per call: one wgmma launch that reads the shards in place
+    want = {**{name: 0 for name in counts}, "allgather_matmul": len(inputs),
+            "matmul": len(inputs), "double_buffer_drain": len(x_rows)}
+    if counts != want:
+        raise AssertionError(f"launches {counts} for {len(inputs)} allgather-matmul calls, "
+                             f"expected {want}")
     errs = {}
     for key, (x, w) in inputs.items():
         rows = _gathered(x)
@@ -939,40 +1015,43 @@ def layer_path() -> tuple[dict[str, int], dict]:
 
 
 def time_layer(path: dict) -> dict[str, dict]:
-    """Phase 6b's times: per case the overlapped call and the same kernels
-    on one stream (ms per call back to back from CUDA events; the median
-    of REPEATS synchronised calls; the host's issue time; the device time,
-    and the idle share it leaves of the synchronised call), the plain
-    version (plain gather, then the plain product) and the library route
-    (plain gather, then one torch.bmm), beside the bound. Then the drain at
-    the shards' shapes (L2-resident, as freshly received shards are).
-    Returns the kernels-line means. Device times come from ``_device_ms``:
-    the profiler drops records on this path (a call's summed kernel time
-    came out below that of the same kernels on one stream)."""
+    """Phase 6b's times: per case the call (one launch) and the reference's
+    ring schedule on one stream (the ring-step kernel and 2P - 1 products
+    on the matmul kernel): ms per call back to back from CUDA events; the
+    median of REPEATS synchronised calls; the host's issue time; the device
+    time, and the idle share it leaves of the synchronised call; then the
+    plain version (plain gather, then the plain product) and the library
+    route (plain gather, then one torch.bmm), beside the bound. Then the
+    drain at the shards' shapes (L2-resident, as freshly received shards
+    are). Returns the kernels-line means. Device times come from
+    ``_device_ms``: the profiler drops records on the card's machine."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops_ms": 0.0,
            "bytes_ms": 0.0}
     for (m, k, n), (x, w) in path["inputs"].items():
         p = x.shape[0]
         wr = w.expand(p, k, n)
         fns = {"ms": lambda: M.allgather_matmul_local(x, w, **AGMM_TILES),
-               "one_stream_ms": lambda: M._allgather_matmul(x, w, M.matmul, overlap=False),
+               "ring_schedule_ms": lambda: M._allgather_matmul(x, w, M.matmul),
                "plain_ms": lambda: M.matmul_plain(_gathered(x), wr),
                "library_ms": lambda: torch.bmm(_gathered(x), wr)}
         row = {name: _time(fn) for name, fn in fns.items()}
-        wall, wall1 = _wall(fns["ms"]), _wall(fns["one_stream_ms"])
-        dev, dev1 = _device_ms(fns["ms"]), _device_ms(fns["one_stream_ms"])
-        flops_ms = p * (p * m) * k * n * 2 / FLOPS[torch.bfloat16] * 1e3
+        wall, wall1 = _wall(fns["ms"]), _wall(fns["ring_schedule_ms"])
+        dev, dev1 = _device_ms(fns["ms"]), _device_ms(fns["ring_schedule_ms"])
+        flops = p * (p * m) * k * n * 2
+        flops_ms = flops / FLOPS[torch.bfloat16] * 1e3
         bytes_ms = (x.numel() + w.numel() + p * p * m * n) * 2 / HBM_BYTES_PER_S * 1e3
         row.update({"rows_per_rank": m, "K": k, "N": n,
                     "wall_ms_median": statistics.median(wall) * 1e3,
                     "wall_ms_samples": [t * 1e3 for t in wall],
-                    "one_stream_wall_ms_median": statistics.median(wall1) * 1e3,
+                    "ring_schedule_wall_ms_median": statistics.median(wall1) * 1e3,
                     "host_issue_ms": _host_ms(fns["ms"]),
-                    "one_stream_host_issue_ms": _host_ms(fns["one_stream_ms"]),
-                    "device_ms": dev, "one_stream_device_ms": dev1,
+                    "ring_schedule_host_issue_ms": _host_ms(fns["ring_schedule_ms"]),
+                    "device_ms": dev, "ring_schedule_device_ms": dev1,
+                    "device_tflops": flops / dev / 1e9,
                     "library_device_ms": _device_ms(fns["library_ms"]),
                     "device_idle_share": 1 - dev / (statistics.median(wall) * 1e3),
-                    "one_stream_device_idle_share": 1 - dev1 / (statistics.median(wall1) * 1e3),
+                    "ring_schedule_device_idle_share":
+                        1 - dev1 / (statistics.median(wall1) * 1e3),
                     "bound_ms": max(flops_ms, bytes_ms),
                     "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
                     "max_abs_err_vs_plain": path["errs"][m, k, n]})
@@ -1074,8 +1153,12 @@ def main() -> int:
                   **matmul_cases(small, 1, 512, torch.float32, train=True)}
     t0 = time.perf_counter()
     mm_err = check_matmul(path_cases)
-    print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, max abs "
-          f"err {mm_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, every "
+          f"bf16 one on the wgmma path, max abs err {mm_err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    edge_cases = check_matmul_edges()
+    print(f"[kernel] matmul == plain (integer inputs, exact) on {edge_cases} edge cases of the "
+          "wgmma and wmma paths", flush=True)
     t0 = time.perf_counter()
     rx = check_rx_kernels()
     print("[kernel] receive datapath == plain (exact): "
@@ -1109,6 +1192,9 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the training path")
     if serve_counts["ring_step"] == 0 or serve_counts["matmul"] == 0:
         raise AssertionError(f"a kernel was not launched on the serving path: {serve_counts}")
+    if any(serve_counts[k] or train_counts[k] for k in OFF_PATH):
+        raise AssertionError(f"a serving or training product left the wgmma path: serving "
+                             f"{serve_counts}, training {train_counts}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     packet_counts, card = packet_path()   # zeroes the counts before driving the path
@@ -1152,7 +1238,7 @@ def main() -> int:
     agmm_t, drain_t = layer_t["allgather_matmul"], layer_t["double_buffer_drain"]
     layer_rows = [
         {"name": "allgather_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/collective_matmul.py",
+         "source": "src/repro_torch/csrc/matmul.cu",
          "replaces": "src/repro/kernels/collective_matmul.py:68",
          "launches": launches["allgather_matmul"], "max_abs_err": agmm_t["max_abs_err"],
          "ms": agmm_t["ms"], "plain_ms": agmm_t["plain_ms"], "bound_ms": agmm_t["bound_ms"],

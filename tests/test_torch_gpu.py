@@ -25,6 +25,11 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
+def _matmul_launches() -> int:
+    """Launches of the matmul kernels, every path (wgmma, wmma, f32)."""
+    return M.launches + M.launches_wmma + M.launches_f32
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", [2, 4, 8])
 def test_ring_step_kernel_matches_plain(p):
@@ -106,10 +111,10 @@ def test_matmul_kernel_matches_plain(dtype, rmkn):
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     for a, b in ((x, w), (xt, w), (x, wt), (xt, wt), (xo, w)):
         want = M.matmul_plain(a, b)
-        before = M.launches
+        before = _matmul_launches()
         got = M.matmul(a, b)
         torch.cuda.synchronize()
-        assert M.launches == before + 1 and got.dtype == dtype and got.is_contiguous()
+        assert _matmul_launches() == before + 1 and got.dtype == dtype and got.is_contiguous()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * want.float().abs().max().item(), (rmkn, a.stride(), b.stride(), err)
         assert torch.equal(M.matmul(a, b), got)   # deterministic
@@ -149,9 +154,9 @@ def test_rank_matmul_backward_on_cuda():
     x = torch.randn(8, 2, 64, 576, device="cuda", generator=gen).requires_grad_()
     w = torch.randn(8, 576, 1536, device="cuda", generator=gen).requires_grad_()
     g = torch.randn(8, 2, 64, 1536, device="cuda", generator=gen)
-    before = M.launches
+    before = _matmul_launches()
     gx, gw = torch.autograd.grad(layers.rank_matmul(x, w), (x, w), g)
-    assert M.launches == before + 3
+    assert _matmul_launches() == before + 3
     x2, w2 = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
     y2 = torch.bmm(x2.reshape(8, -1, 576), w2).reshape(8, 2, 64, 1536)
     rx, rw = torch.autograd.grad(y2, (x2, w2), g)
@@ -287,18 +292,22 @@ def _gather_then_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                      (4, 1, 33, 130), (3, 5, 576, 1536)])
 def test_allgather_matmul_on_cuda(dtype, p, m, k, n):
     """Bitwise equal to the plain gather then the matmul kernel, within the
-    matmul's limits of the plain product; P - 1 ring steps and 2 P - 1
-    products per call; use_pallas=False launches no matmul."""
+    matmul's limits of the plain product; no ring step and one matmul
+    launch per call (every rank's product reads the shards in place);
+    use_pallas=False launches no matmul."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(p + m + k + n)
     x = torch.randn(p, m, k, device="cuda", generator=gen).to(dtype)
     w = torch.randn(k, n, device="cuda", generator=gen).to(dtype)
-    before = (K.launches, M.launches)
+    before = (K.launches, _matmul_launches(), M.allgather_launches)
     got = M.allgather_matmul_local(x, w, bm=1, bk=1, bn=1)
     torch.cuda.synchronize()
-    assert (K.launches - before[0], M.launches - before[1]) == (p - 1, 2 * p - 1)
+    assert (K.launches - before[0], _matmul_launches() - before[1],
+            M.allgather_launches - before[2]) == (0, 1, 1)
     assert torch.equal(got, _gather_then_matmul(x, w))
+    before = _matmul_launches()
     plain = M.allgather_matmul_local(x, w, use_pallas=False)
+    assert _matmul_launches() == before
     tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * plain.float().abs().max().item()
     assert (got.float() - plain.float()).abs().max().item() <= tol
     mesh = StackedMesh(pod=2, data=4, model=1)
@@ -311,7 +320,7 @@ def test_allgather_matmul_on_cuda(dtype, p, m, k, n):
 @pytest.mark.gpu
 def test_allgather_matmul_back_to_back():
     """50 calls with fresh inputs and no synchronisation between them (the
-    side stream's buffers recycled by the caching allocator): every
+    caching allocator recycles the inputs' and outputs' memory): every
     result equals its gather-then-matmul."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -338,10 +347,10 @@ def test_matmul_out_into_diagonal_views(dtype):
     w = torch.randn(k, n, device="cuda", generator=gen).to(dtype)
     out = torch.zeros(p, p, m, n, device="cuda", dtype=dtype)
     for a, y in zip(M._diagonals(buf, 3), M._diagonals(out, 3)):
-        before = M.launches
+        before = _matmul_launches()
         M.matmul(a, w.expand(a.shape[0], k, n), out=y)
         torch.cuda.synchronize()
-        assert M.launches == before + 1
+        assert _matmul_launches() == before + 1
         assert torch.equal(y, M.matmul(a.contiguous(), w.expand(a.shape[0], k, n)))
     for d in range(p):
         for j in range(p):
