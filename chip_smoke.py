@@ -3,10 +3,18 @@
 
     python3 chip_smoke.py
 
-0. builds the seven kernel sources (csrc/*.cu), one nvcc each, in parallel;
+0. builds the eight kernel sources (csrc/*.cu), one nvcc each, in parallel;
 1. the ring-step kernel (csrc/ring_step.cu) and its transpose
    (csrc/ring_step_transpose.cu) against their plain torch versions,
    bitwise, over ranks, lengths, dtypes, directions and round masks; the
+   order check of the ring-allgather kernel (csrc/ring_allgather.cu): for
+   every prefix length k (0 included) of the ring (both directions) and
+   bidi schedules at P = 2, 3, 5, 8 and 33, of the broadcasts' (M = 1, 2,
+   4) and a mixed schedule at P = 8, and of the broadcasts' with one chain
+   at P = 16 (240 entries: a launch per 128), the call on the first k
+   entries equals the shards installed on the diagonal and then k plain
+   ring steps, on the same buffer of random values, bitwise (bf16 and f32;
+   n = 1, 7, 24, 41,472 and 41,473; one and two groups); the
    matmul kernel (csrc/matmul.cu) against its plain version at every shape
    the training and serving paths give it (forward and both backward
    products, bf16 and f32, the tied head's embed^T view included): f32
@@ -26,14 +34,19 @@
 3. serving smollm-135m at full width and depth (30 layers, bf16, seeded
    random weights) on a (data=8, model=1) stacked mesh: prefill of a
    128-token prompt for batch 8, then greedy generation of 32 tokens, in
-   every fsdp_mode. All modes must give identical logits and tokens, the
-   ring-step launch count must rise in exactly the mcast modes, and no
-   product may reach the wmma or f32 kernel. A
+   every fsdp_mode. All modes must give identical logits and tokens; each
+   gather of the mcast modes is one ring-allgather launch (210 per prefill)
+   that runs its mode's schedule (bidi, ring, broadcasts: 1,470 / 1,470 /
+   5,880 entries), no ring step is launched, and no product may reach the
+   wmma or f32 kernel. A
    reduced f32 model is also held against a single-rank run;
 4. training smollm-135m at full width (30 layers, bf16, batch 16 x 512,
    remat="full") on the same mesh in every fsdp_mode: one warm-up step and
    3 timed steps each; the first step's loss must be bitwise equal in all
-   modes, and every kernel must launch. A reduced f32 train step sharded
+   modes; a step launches 420 ring-allgather kernels running 2,940 / 2,940
+   / 11,760 schedule entries of its mode's kind in mcast / mcast_ring /
+   mcast_bcast, no ring step, and the transposes and matmuls as before.
+   A reduced f32 train step sharded
    over 8 ranks is held against a single-rank run over 3 steps (loss within
    1e-5, grad_norm within 1e-4, relative);
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
@@ -63,7 +76,9 @@
    ``make_broadcast`` of ``flatten_bucket`` over layer 0 (about 3.5 M f32)
    from roots 0 and 7 in 8 and 64 chunks, every rank bitwise equal to
    root's row; (d) ``concurrent_ag_rs_local`` on that bucket's shards, both
-   halves bitwise equal to the separate calls, on two streams and on one.
+   halves bitwise equal to the separate calls, on two streams and on one;
+   its launches (counts zeroed before, read after) are the ring step's in
+   the kernels line: the main path no longer launches it.
 
 Prints the card's name and power limit, per-mode and per-broadcast timings
 (medians of host-clock samples after a warm-up call; device busy time and
@@ -154,6 +169,59 @@ def check_kernel(kernel=K.ring_step, plain=K.ring_step_plain) -> tuple[int, floa
     return cases, max_err
 
 
+def _mixed_schedule(n: int) -> tuple:
+    """Entries of every kind in no schedule's order, at P = 8: whole slots,
+    splits at 0, inside and at n, both directions, round masks."""
+    return ((0, 1, None, 1, 0), (1, 1, n // 3, 1, 0), (2, -1, 0, 1, 0), (0, -1, n, 2, 1),
+            (3, 1, n // 2, 4, 3), (6, -1, min(1, n), 1, 0), (5, 1, n, 8, 5))
+
+
+def _order_schedules(p: int, n: int) -> dict[str, tuple]:
+    if p == 16:   # more entries than a launch carries
+        return {"bcast1": C._bcast_schedule(p, 1)}
+    out = {"ring": C._ring_schedule(p), "ring-": C._ring_schedule(p, -1),
+           "bidi": C._bidi_schedule(p, n)}
+    if p == 8:
+        out.update({f"bcast{m}": C._bcast_schedule(p, m) for m in (1, 2, 4)})
+        out["mixed"] = _mixed_schedule(n)
+    return out
+
+
+def check_allgather() -> tuple[int, float]:
+    """Phase 1: the order check of the ring-allgather kernel. For every
+    prefix length k of every schedule, k = 0 included, the call on its
+    first k entries (one launch per 128) equals the shards installed on the
+    diagonal and then k plain steps, on the same buffer of random values,
+    bitwise: every slot, reached or not. Returns (launches, max abs err)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    launches, max_err = 0, 0.0
+    for p in (2, 3, 5, 8, 16, 33):   # 33: more ranks than a warp's lanes, the wide kernel
+        for dtype in (torch.bfloat16, torch.float32):
+            for n in (1, 7, 24, 41472, 41473):
+                for name, sched in _order_schedules(p, n).items():
+                    for groups in (1, 2):
+                        x = torch.randn((groups, p, n), generator=gen, device="cuda").to(dtype)
+                        buf = torch.randn((groups, p, p, n), generator=gen,
+                                          device="cuda").to(dtype)
+                        want = buf.clone()
+                        want.diagonal(dim1=-3, dim2=-2).copy_(x.transpose(-1, -2))
+                        for k in range(len(sched) + 1):
+                            if k:
+                                step, direction, split, rounds, active = sched[k - 1]
+                                K.ring_step_plain(want, step, direction=direction, split=split,
+                                                  rounds=rounds, active_round=active)
+                            before = K.allgather_launches
+                            got = K.ring_allgather(x, sched[:k], out=buf.clone())
+                            torch.cuda.synchronize()
+                            max_err = max(max_err, _exact("ring_allgather", (got,), (want,),
+                                                          (p, dtype, n, name, groups, k)))
+                            if K.allgather_launches - before != max(1, -(-k // 128)):
+                                raise AssertionError(f"ring_allgather: {k} entries took "
+                                                     f"{K.allgather_launches - before} launches")
+                            launches += K.allgather_launches - before
+    return launches, max_err
+
+
 def check_collectives() -> int:
     """Phase 2: the paper's stacked allgathers equal the plain gather."""
     mesh = StackedMesh(data=8, model=1)
@@ -225,14 +293,14 @@ def serve() -> None:
         do_prefill()   # warm-up
         (logits, pre), _, counts = _run(do_prefill)
         out, _, gen_counts = _run(do_generate)
-        launches, gen_launches = counts["ring_step"], gen_counts["ring_step"]
+        launches, gen_launches = counts["ring_allgather"], gen_counts["ring_allgather"]
         if (counts["matmul"] == 0 or counts["ring_step_transpose"] != 0
-                or any(counts[k] or gen_counts[k] for k in OFF_PATH)):
+                or any(counts[k] or gen_counts[k] for k in OFF_PATH + ("ring_step",))):
             raise AssertionError(f"{mode}: prefill launched {counts}, generation {gen_counts}")
         prefill_s = _wall(do_prefill)
         dev_prefill, prefill_prof_ms = _device_times(do_prefill)
         busy_ms = sum(dev_prefill.values())
-        ring_ms = sum(t for k, t in dev_prefill.items() if "ring_step_kernel" in k)
+        ring_ms = sum(t for k, t in dev_prefill.items() if "ring_allgather_kernel" in k)
         matmul_ms = sum(t for k, t in dev_prefill.items() if "matmul_" in k)
 
         # decode on its own: the NEW - 1 steps of greedy_generate, from the
@@ -257,12 +325,15 @@ def serve() -> None:
             raise AssertionError(f"{mode}: bad logits {tuple(logits.shape)}")
         if out.shape != (BATCH, PROMPT + NEW) or not torch.equal(out[:, :PROMPT], tokens):
             raise AssertionError(f"{mode}: bad generated tokens {tuple(out.shape)}")
-        steps = cfg.num_layers * n_sharded * (mesh.n_ranks - 1)   # one ring per leaf
-        want = {"xla": 0, "mcast": steps, "mcast_ring": steps,
-                "mcast_bcast": steps * (mesh.n_ranks // N_CHAINS)}[mode]
-        if launches != want or gen_launches != want:
-            raise AssertionError(f"{mode}: {launches} ring-step launches per prefill and "
-                                 f"{gen_launches} in generation, expected {want}")
+        gathers = cfg.num_layers * n_sharded   # one per sharded leaf
+        want = 0 if mode == "xla" else gathers
+        entries = _want_entries(mode, gathers * (mesh.n_ranks - 1), mesh.n_ranks)
+        if (launches != want or gen_launches != want or _entries(counts) != entries
+                or _entries(gen_counts) != entries):
+            raise AssertionError(f"{mode}: {launches} ring-allgather launches per prefill and "
+                                 f"{gen_launches} in generation, expected {want}; schedule "
+                                 f"entries {_entries(counts)} and {_entries(gen_counts)}, "
+                                 f"expected {entries}")
         if ref is None:
             ref = (logits, out)
         diff = (logits.float() - ref[0].float()).abs().max().item()
@@ -272,12 +343,13 @@ def serve() -> None:
         row = {"mode": mode,
                "prefill_ms_median": statistics.median(prefill_s) * 1e3,
                "prefill_ms_samples": [t * 1e3 for t in prefill_s],
-               "ring_step_launches_per_prefill": launches,
+               "ring_allgather_launches_per_prefill": launches,
+               "schedule_entries_per_prefill": _entries(counts),
                "matmul_launches_per_prefill": counts["matmul"],
                "prefill_device_busy_ms": busy_ms,
                "prefill_profiled_wall_ms": prefill_prof_ms,
                "prefill_device_idle_share": 1 - busy_ms / prefill_prof_ms,
-               "prefill_ring_step_device_ms": ring_ms,
+               "prefill_ring_allgather_device_ms": ring_ms,
                "prefill_matmul_device_ms": matmul_ms,
                "decode_steps": NEW - 1,
                "decode_ms_median": statistics.median(decode_s) * 1e3,
@@ -294,15 +366,34 @@ def serve() -> None:
               + json.dumps({k[:60]: t for k, t in top}), flush=True)
 
 
-MODEL_KERNELS = ("ring_step", "ring_step_transpose", "matmul")
+MODEL_KERNELS = ("ring_allgather", "ring_step_transpose", "matmul")
+# the kind of schedule entry each mode's gathers run (mcast: the bidirectional ring)
+ENTRY_KIND = {"mcast": "bidi", "mcast_ring": "ring", "mcast_bcast": "bcast"}
 OFF_PATH = ("matmul_wmma", "matmul_f32")   # matmul paths no main-path product takes
 PACKET_KERNELS = ("pool", "bitmap_pack", "bitmap_or_rows", "bitmap_popcount",
                   "chunk_reassembly")
 LAYER_KERNELS = ("allgather_matmul", "double_buffer_drain")
 
 
+def _entries(counts: dict[str, int]) -> dict[str, int]:
+    return {k: v for k, v in counts.items() if k.startswith("entries_")}
+
+
+def _want_entries(mode: str, steps: int, p: int) -> dict[str, int]:
+    """Schedule entries that gathers of ``steps`` ring steps in all run in
+    ``mode`` over P = p ranks: one per step, on each of P / M rounds for
+    the broadcasts."""
+    out = {f"entries_{kind}": 0 for kind in K.entries}
+    if mode != "xla":
+        rounds = p // N_CHAINS if mode == "mcast_bcast" else 1
+        out[f"entries_{ENTRY_KIND[mode]}"] = steps * rounds
+    return out
+
+
 def _counts() -> dict[str, int]:
-    return {"ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
+    return {"ring_allgather": K.allgather_launches,
+            **{f"entries_{kind}": n for kind, n in K.entries.items()},
+            "ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
             "matmul": M.launches, "matmul_wmma": M.launches_wmma,
             "matmul_f32": M.launches_f32, "pool": PL.launches, "bitmap_pack": BM.pack_launches,
             "bitmap_or_rows": BM.or_launches, "bitmap_popcount": BM.popcount_launches,
@@ -311,6 +402,8 @@ def _counts() -> dict[str, int]:
 
 
 def _zero_counts() -> None:
+    K.allgather_launches = 0
+    K.entries.update(dict.fromkeys(K.entries, 0))
     K.launches = K.transpose_launches = M.launches = PL.launches = CR.launches = 0
     M.launches_wmma = M.launches_f32 = 0
     BM.pack_launches = BM.or_launches = BM.popcount_launches = 0
@@ -376,11 +469,33 @@ def _layer_leaves(cfg) -> dict[str, tuple[int, int]]:
             "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
 
 
+def _steps(x: torch.Tensor, sched: tuple) -> torch.Tensor:
+    """The gather as the main path ran it before the one-launch kernel: the
+    zeroed ring buffer with the shards copied in, then one ring-step launch
+    per schedule entry."""
+    buf = C._ring_buffer(x)
+    for step, direction, split, rounds, active in sched:
+        K.ring_step(buf, step, direction=direction, split=split, rounds=rounds,
+                    active_round=active)
+    return buf
+
+
 def time_ring_steps(cfg) -> dict:
-    """The ring step and its transpose at the shapes of one smollm-135m layer
-    at P=8 (the flat rank shard of each sharded leaf), one unidirectional
-    step per call: kernel, plain version, and one library call of the same
-    step (an advanced-index copy; an index_add_)."""
+    """At the shapes of one smollm-135m layer at P=8 (the flat rank shard of
+    each sharded leaf, bf16): the whole gather of each mode's schedule
+    (``mcast``: bidi, ``mcast_ring``: ring, ``mcast_bcast``: M = 2) as the
+    main path calls it, ``ring_allgather(x, schedule)``: the output's
+    allocation and one launch that installs the shards and runs the
+    schedule; ms per call from Python and device ms, beside what it
+    replaces (the zeroed buffer, the shards' copy and 7 or 28 ring-step
+    launches), its plain version (the install and the plain steps) and the
+    plain gather (``plain_allgather_local``, one tensor op: the library
+    call), and the bound: (P * P + P) * n * 2 bytes, the shards read once
+    and the gathered buffer written once. Then one step per call of the ring
+    step and its transpose: kernel, plain version, and one library call of
+    the same step (an advanced-index copy; an index_add_). Device ms from
+    ``_device_ms``. Returns the means over the leaves (and, for the
+    gather, over the three schedules)."""
     p = 8
     rank = torch.arange(p, device="cuda")
     src, rcv = rank % p, (rank + 1) % p   # step 0: rank d sends its own slot
@@ -388,8 +503,28 @@ def time_ring_steps(cfg) -> dict:
     tot: dict = {}
     for name, (fan_in, fan_out) in leaves.items():
         n = fan_in * fan_out // p
-        buf = torch.randn((p, p, n), device="cuda").to(torch.bfloat16)
+        x = torch.randn((p, n), device="cuda").to(torch.bfloat16)
+        buf = C._ring_buffer(x)   # the ring step's and its transpose's buffer
         rows = buf.view(p * p, n)
+        row = {"bound_ms": 2 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3,
+               "t_bound_ms": 3 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3,
+               "gather_bound_ms": (p * p + p) * n * buf.element_size() / HBM_BYTES_PER_S * 1e3,
+               "gather_library_ms": _time(lambda: C.plain_allgather_local(x)),
+               "gather_library_device_ms": _device_ms(lambda: C.plain_allgather_local(x))}
+        gather = {}
+        for mode, sched in (("mcast", C._bidi_schedule(p, n)), ("mcast_ring", C._ring_schedule(p)),
+                            ("mcast_bcast", C._bcast_schedule(p, N_CHAINS))):
+            one = {"ms": lambda: K.ring_allgather(x, sched),
+                   "replaced_ms": lambda: _steps(x, sched),
+                   "plain_ms": lambda: K.ring_allgather_plain(x, sched)}
+            gather[mode] = {"entries": len(sched),
+                            **{k: _time(fn) for k, fn in one.items()},
+                            "device_ms": _device_ms(one["ms"]),
+                            "replaced_device_ms": _device_ms(one["replaced_ms"]),
+                            "host_ms": _host_ms(one["ms"])}
+        row["gather"] = gather
+        for k in ("ms", "plain_ms", "device_ms"):
+            row[f"gather_{k}"] = statistics.mean(g[k] for g in gather.values())
         fns = {"": lambda: K.ring_step(buf, 0),
                "bidi_": lambda: K.ring_step(buf, 0, split=n // 2),
                "plain_": lambda: K.ring_step_plain(buf, 0),
@@ -397,15 +532,18 @@ def time_ring_steps(cfg) -> dict:
                "t_": lambda: K.ring_step_transpose(buf, 0),
                "t_plain_": lambda: K.ring_step_transpose_plain(buf, 0),
                "t_library_": lambda: rows.index_add_(0, rank * p + src, rows[rcv * p + src])}
-        row = {f"{k}ms": _time(fn) for k, fn in fns.items()}
-        row.update({f"{k}device_ms": sum(_device_times(fn, 50)[0].values()) or None
-                    for k, fn in fns.items()})
-        row["bound_ms"] = 2 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3
-        row["t_bound_ms"] = 3 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3
-        print(f"[ring_step] {name}: P={p} n={n} bf16 " + json.dumps(row), flush=True)
+        row.update({f"{k}ms": _time(fn) for k, fn in fns.items()})
+        row.update({f"{k}device_ms": _device_ms(fn) for k, fn in fns.items()
+                    if k in ("", "library_", "t_", "t_library_")})
+        print(f"[ring] {name}: P={p} n={n} bf16 " + json.dumps(row), flush=True)
         for k, v in row.items():
-            known = v is not None and tot.get(k, 0.0) is not None
-            tot[k] = tot.get(k, 0.0) + v / len(leaves) if known else None
+            if k == "gather":
+                for mode, g in v.items():
+                    for gk, gv in g.items():
+                        key = f"{mode}_{gk}"
+                        tot[key] = tot.get(key, 0.0) + gv / len(leaves)
+            else:
+                tot[k] = tot.get(k, 0.0) + v / len(leaves)
     return tot
 
 
@@ -601,7 +739,8 @@ def train() -> dict[str, int]:
     tree = bridge.random_params(cfg, seed=0)
     pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
     batches = [pipe.next_batch(i) for i in range(TRAIN_TIMED + 2)]
-    gather_steps = cfg.num_layers * len(_layer_leaves(cfg)) * (mesh.n_ranks - 1)
+    gathers = cfg.num_layers * len(_layer_leaves(cfg))
+    gather_steps = gathers * (mesh.n_ranks - 1)
     want_matmul = sum(matmul_cases(cfg, mesh.n_ranks, TRAIN_SHAPE.global_batch
                                    // mesh.n_ranks * TRAIN_SHAPE.seq_len,
                                    torch.bfloat16, train=True).values())
@@ -624,7 +763,8 @@ def train() -> dict[str, int]:
             norms.append(float(m["grad_norm"]))
             samples.append(dt)
             want = {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + OFF_PATH},
-                    "ring_step": 2 * gather_steps * rounds[mode],   # remat: gathered twice
+                    "ring_allgather": 2 * gathers if rounds[mode] else 0,   # remat: twice
+                    **_want_entries(mode, 2 * gather_steps, mesh.n_ranks), "ring_step": 0,
                     "ring_step_transpose": gather_steps * rounds[mode],
                     "matmul": want_matmul}
             if counts != want:
@@ -650,8 +790,8 @@ def train() -> dict[str, int]:
                "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
                "device_idle_share": 1 - busy / prof_ms,
                "matmul_device_ms": sum(t for k, t in dev.items() if "matmul_" in k),
-               "ring_step_device_ms": sum(t for k, t in dev.items()
-                                          if "ring_step_kernel" in k),
+               "ring_allgather_device_ms": sum(t for k, t in dev.items()
+                                               if "ring_allgather_kernel" in k),
                "ring_step_transpose_device_ms": sum(t for k, t in dev.items()
                                                     if "ring_step_transpose_kernel" in k)}
         print("[train] " + json.dumps(row), flush=True)
@@ -1023,7 +1163,8 @@ def time_layer(path: dict) -> dict[str, dict]:
     plain version (plain gather, then the plain product) and the library
     route (plain gather, then one torch.bmm), beside the bound. Then the
     drain at the shards' shapes (L2-resident, as freshly received shards
-    are). Returns the kernels-line means. Device times come from
+    are), timed in turns with ``clone()`` (medians of REPEATS each).
+    Returns the kernels-line means. Device times come from
     ``_device_ms``: the profiler drops records on the card's machine."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops_ms": 0.0,
            "bytes_ms": 0.0}
@@ -1065,9 +1206,15 @@ def time_layer(path: dict) -> dict[str, dict]:
     drain = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for m in AGMM_ROWS:
         x = next(x for (rows, _, _), (x, _) in path["inputs"].items() if rows == m)
-        row = {"shape": tuple(x.shape), "ms": _time(lambda: K.local_double_buffer_drain(x)),
+        turns = {"ms": [], "library_ms": []}   # the drain and clone() in turns
+        for _ in range(REPEATS):
+            turns["ms"].append(_time(lambda: K.local_double_buffer_drain(x)))
+            turns["library_ms"].append(_time(lambda: x.clone()))
+        row = {"shape": tuple(x.shape), "ms": statistics.median(turns["ms"]),
+               "ms_samples": turns["ms"],
                "plain_ms": _time(lambda: K.local_double_buffer_drain_plain(x)),
-               "library_ms": _time(lambda: x.clone()),
+               "library_ms": statistics.median(turns["library_ms"]),
+               "library_ms_samples": turns["library_ms"],
                "bound_ms": 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3,
                "device_ms": _device_ms(lambda: K.local_double_buffer_drain(x)),
                "library_device_ms": _device_ms(lambda: x.clone())}
@@ -1077,9 +1224,11 @@ def time_layer(path: dict) -> dict[str, dict]:
     return {"allgather_matmul": tot, "double_buffer_drain": drain}
 
 
-def bucket_collectives(cfg) -> None:
+def bucket_collectives(cfg) -> dict[str, int]:
     """Phases 6c and 6d: the pipelined broadcast and concurrent AG/RS on
-    the flat f32 bucket of layer 0 of the seeded smollm-135m weights."""
+    the flat f32 bucket of layer 0 of the seeded smollm-135m weights.
+    Returns the launches of one concurrent AG/RS call (counts zeroed
+    before, read after): the ring step's and its transpose's."""
     def layer0(tree):
         if isinstance(tree, dict):
             return {k: layer0(v) for k, v in tree.items()}
@@ -1101,7 +1250,14 @@ def bucket_collectives(cfg) -> None:
                 _wall(lambda: bcast(x))) * 1e3
     ag = flat.reshape(8, -1)
     rs = torch.stack([flat * (r + 1) for r in range(8)])
+    torch.cuda.synchronize()
+    _zero_counts()   # counts from here to the read are concurrent AG/RS's
     got = C.concurrent_ag_rs_local(ag, rs)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**dict.fromkeys(counts, 0), "ring_step": 7, "ring_step_transpose": 7}
+    if counts != want:
+        raise AssertionError(f"concurrent AG/RS launched {counts}, expected {want}")
     if not (torch.equal(got[0], C.ring_allgather_local(ag))
             and torch.equal(got[1], C.ring_reduce_scatter_local(rs, direction=-1))):
         raise AssertionError("concurrent AG/RS differs from the separate calls")
@@ -1115,6 +1271,7 @@ def bucket_collectives(cfg) -> None:
         lambda: C._concurrent_ag_rs(ag, rs, overlap=False))
     print("[bucket] broadcast and concurrent AG/RS bitwise as required: " + json.dumps(row),
           flush=True)
+    return counts
 
 
 def main() -> int:
@@ -1139,6 +1296,10 @@ def main() -> int:
     print(f"[kernel] ring_step == plain on {cases} cases, max abs err {ring_err}; "
           f"ring_step_transpose == plain on {t_cases} cases, max abs err {t_err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    ag_cases, ag_err = check_allgather()
+    print(f"[kernel] ring_allgather == plain steps on every prefix: {ag_cases} launches, max "
+          f"abs err {ag_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
     train_cases = matmul_cases(cfg, 8, TRAIN_SHAPE.global_batch // 8 * TRAIN_SHAPE.seq_len,
                                torch.bfloat16, train=True)
     path_cases = {**train_cases,                                    # full-width serving:
@@ -1190,7 +1351,7 @@ def main() -> int:
         launches[name] = serve_counts[name] + train_counts[name]
         if train_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
-    if serve_counts["ring_step"] == 0 or serve_counts["matmul"] == 0:
+    if serve_counts["ring_allgather"] == 0 or serve_counts["matmul"] == 0:
         raise AssertionError(f"a kernel was not launched on the serving path: {serve_counts}")
     if any(serve_counts[k] or train_counts[k] for k in OFF_PATH):
         raise AssertionError(f"a serving or training product left the wgmma path: serving "
@@ -1206,11 +1367,11 @@ def main() -> int:
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)
     layer_counts, layer = layer_path()   # zeroes the counts before driving the path
     launches.update({name: layer_counts[name] for name in LAYER_KERNELS})
-    bucket_collectives(cfg)
+    launches["ring_step"] = bucket_collectives(cfg)["ring_step"]
     print(f"[layer] phase 6 checks passed ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     ring = time_ring_steps(cfg)
-    print(f"[ring_step] mean over one layer's leaves: {json.dumps(ring)}", flush=True)
+    print(f"[ring] mean over one layer's leaves: {json.dumps(ring)}", flush=True)
     mm = time_matmul(train_cases)
     print(f"[matmul] one train step's {mm['launches']} launches (mcast counted "
           f"{per_step['matmul']}): {json.dumps(mm)}", flush=True)
@@ -1251,6 +1412,13 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": drain_t["library_ms"]}]
     print(smi)
     print(json.dumps({"kernels": [
+        {"name": "ring_allgather", "route": "cuda",
+         "source": "src/repro_torch/csrc/ring_allgather.cu",
+         "replaces": "src/repro/kernels/ring_allgather.py:46",
+         "launches": launches["ring_allgather"], "max_abs_err": ag_err,
+         "ms": ring["gather_ms"], "plain_ms": ring["gather_plain_ms"],
+         "bound_ms": ring["gather_bound_ms"], "bound_by": "bytes",
+         "library_ms": ring["gather_library_ms"]},
         {"name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_step.cu",
          "replaces": "src/repro/kernels/ring_allgather.py:46",
          "launches": launches["ring_step"], "max_abs_err": ring_err, "ms": ring["ms"],

@@ -2,8 +2,9 @@
 
 The layout mirrors ``repro`` module for module. The dp ranks of a mesh are
 dim 0 of "stacked" tensors on the one device (``launch/mesh.py``). The
-paper's allgathers move shards between them with a hand-written ring-step
-kernel, their backward runs its transpose (``kernels/ring_allgather.py``),
+paper's allgathers move shards between them with a hand-written kernel
+that runs a gather's whole ring schedule in one launch, their backward runs
+the transposed ring steps (``kernels/ring_allgather.py``),
 and every product of a gathered weight runs on a hand-written matmul
 kernel (``kernels/collective_matmul.py``). The packet-level reliable
 Broadcast (``core/packet.py``) keeps its leaves' receive datapath on the

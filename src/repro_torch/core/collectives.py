@@ -6,9 +6,9 @@ Counterpart of the allgathers and reduce-scatters of
 are one dim of a tensor on one device: a stacked input ``(..., P, n)`` holds
 rank d's shard at ``[..., d, :]`` (leading dims are independent groups, e.g.
 the other dp axis of a hierarchical mesh), and the output ``(..., P, P * n)``
-is every rank's own gathered copy, in rank order. Each ring step is one
-launch of the ring-step kernel on the buffer ``(..., P_rank, P_slot, n)``, so
-the schedule is the reference's step for step.
+is every rank's own gathered copy, in rank order. A gather's schedule is the
+reference's step for step, on the buffer ``(..., P_rank, P_slot, n)``; on the
+card one launch of the ring-allgather kernel runs all of its steps.
 
   ring_allgather_local   unidirectional ring, P - 1 steps
   bidi_ring_allgather    half of each shard travels each direction; one
@@ -24,7 +24,8 @@ the schedule is the reference's step for step.
                          two CUDA streams
 
 The three ring gathers are ``torch.autograd.Function``s. The forward fills
-the ring buffer in place, out of autograd's sight; the backward replays the
+the ring buffer out of autograd's sight (``ring_allgather``: one launch per
+gather installs each rank's shard and runs the schedule); the backward replays the
 same steps in reverse order (rounds too) through the transposed ring step,
 which adds each receiver's cotangent into its sender's, and reads the
 diagonal: rank d's gradient is the sum of every rank's cotangent of shard d,
@@ -40,14 +41,17 @@ from typing import Callable
 import torch
 
 from repro_torch.device import overlapped
-from repro_torch.kernels.ring_allgather import ring_step, ring_step_transpose
+from repro_torch.kernels.ring_allgather import ring_allgather, ring_step, ring_step_transpose
 from repro_torch.launch.mesh import StackedMesh
 
-Schedule = tuple  # ((step, kwargs of ring_step), ...) in launch order
+# ((step, direction, split, rounds, active_round), ...) in launch order; split
+# None moves the whole slot along direction
+Schedule = tuple
 
 
 def _ring_buffer(x: torch.Tensor) -> torch.Tensor:
-    """(..., P, n) -> zeros (..., P, P, n) with rank d's shard in its slot d."""
+    """(..., P, n) -> zeros (..., P, P, n) with rank d's shard in its slot d:
+    the buffer that the ring steps of concurrent AG/RS start from."""
     p, n = x.shape[-2:]
     buf = x.new_zeros(*x.shape[:-2], p, p, n)
     buf.diagonal(dim1=-3, dim2=-2).copy_(x.transpose(-1, -2))
@@ -66,8 +70,9 @@ def _transposed(g: torch.Tensor, schedule: Schedule) -> torch.Tensor:
     # a copy: the transposed steps write in place
     buf = g.reshape(*g.shape[:-1], p, g.shape[-1] // p).clone(
         memory_format=torch.contiguous_format)
-    for step, kw in reversed(schedule):
-        ring_step_transpose(buf, step, **kw)
+    for step, direction, split, rounds, active_round in reversed(schedule):
+        ring_step_transpose(buf, step, direction=direction, split=split, rounds=rounds,
+                            active_round=active_round)
     return buf.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
 
 
@@ -75,10 +80,7 @@ class _RingGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, schedule: Schedule) -> torch.Tensor:
         ctx.schedule = schedule
-        buf = _ring_buffer(x)
-        for step, kw in schedule:
-            ring_step(buf, step, **kw)
-        return _flat(buf)
+        return _flat(ring_allgather(x.contiguous(), schedule))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -87,19 +89,18 @@ class _RingGather(torch.autograd.Function):
 
 
 def _ring_schedule(p: int, direction: int = +1) -> Schedule:
-    return tuple((s, dict(direction=direction)) for s in range(p - 1))
+    return tuple((s, direction, None, 1, 0) for s in range(p - 1))
 
 
 def _bidi_schedule(p: int, n: int, direction: int = +1) -> Schedule:
-    return tuple((s, dict(direction=direction, split=n // 2)) for s in range(p - 1))
+    return tuple((s, direction, n // 2, 1, 0) for s in range(p - 1))
 
 
 def _bcast_schedule(p: int, n_chains: int) -> Schedule:
     if p % n_chains:
         raise ValueError(f"{p} ranks do not split into {n_chains} chains")
     rounds = p // n_chains
-    return tuple((s, dict(rounds=rounds, active_round=r))
-                 for r in range(rounds) for s in range(p - 1))
+    return tuple((s, 1, None, rounds, r) for r in range(rounds) for s in range(p - 1))
 
 
 def ring_allgather_local(x: torch.Tensor, *, direction: int = +1) -> torch.Tensor:

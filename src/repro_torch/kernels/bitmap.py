@@ -63,18 +63,8 @@ def _check_words(words: torch.Tensor, dims: tuple[int, ...]) -> None:
 
 
 def _device(t: torch.Tensor, name: str) -> None:
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
-
-
-def _fn(name: str, argtypes):
-    fn = getattr(build.load("bitmap"), name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ------------------------------------------------------------------- plain
@@ -120,7 +110,7 @@ def bitmap_pack(flags: torch.Tensor) -> torch.Tensor:
     """(..., n) 0/1 flags -> (..., n / 32) u32 words. Launches the CUDA
     kernel for a CUDA tensor, runs the plain version for a CPU tensor."""
     global pack_launches
-    if flags.device.type == "cpu":
+    if flags.is_cpu:
         return bitmap_pack_plain(flags)
     _device(flags, "bitmap_pack")
     _check_flags(flags)
@@ -129,11 +119,8 @@ def bitmap_pack(flags: torch.Tensor) -> torch.Tensor:
     words = torch.empty((*f.shape[:-1], f.shape[-1] // 32), dtype=torch.int32,
                         device=f.device)
     if n_words:
-        with torch.cuda.device(f.device):
-            err = _fn("bitmap_pack", _ARG_PACK)(f.data_ptr(), _FLAG_BYTES[f.dtype],
-                                                words.data_ptr(), n_words, _stream(f))
-        if err:
-            raise RuntimeError(f"bitmap_pack launch failed: cudaError {err}")
+        build.launch(build.function("bitmap", "bitmap_pack", _ARG_PACK), f, f.data_ptr(),
+                     _FLAG_BYTES[f.dtype], words.data_ptr(), n_words)
         pack_launches += 1
     return words.view(torch.uint32)
 
@@ -142,18 +129,15 @@ def bitmap_or_rows(words: torch.Tensor) -> torch.Tensor:
     """(R, w) u32 words -> (w,) u32, the OR of every row (the aggregated
     NACK). Launches the CUDA kernel for a CUDA tensor; plain on the CPU."""
     global or_launches
-    if words.device.type == "cpu":
+    if words.is_cpu:
         return bitmap_or_rows_plain(words)
     _device(words, "bitmap_or_rows")
     _check_words(words, (2,))
     w = words.contiguous()
     out = torch.zeros(w.shape[1], dtype=torch.int32, device=w.device)
     if w.numel():
-        with torch.cuda.device(w.device):
-            err = _fn("bitmap_or_rows", _ARG_ROWS)(w.data_ptr(), out.data_ptr(), w.shape[0],
-                                                   w.shape[1], _stream(w))
-        if err:
-            raise RuntimeError(f"bitmap_or_rows launch failed: cudaError {err}")
+        build.launch(build.function("bitmap", "bitmap_or_rows", _ARG_ROWS), w, w.data_ptr(),
+                     out.data_ptr(), w.shape[0], w.shape[1])
         or_launches += 1
     return out.view(torch.uint32)
 
@@ -162,25 +146,22 @@ def bitmap_popcount_rows(words: torch.Tensor) -> torch.Tensor:
     """(R, w) u32 words -> (R,) int64 set-bit counts. Launches the CUDA
     kernel for a CUDA tensor; plain on the CPU."""
     global popcount_launches
-    if words.device.type == "cpu":
+    if words.is_cpu:
         return bitmap_popcount_rows_plain(words)
     _device(words, "bitmap_popcount")
     _check_words(words, (2,))
     w = words.contiguous()
     out = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
     if w.numel():
-        with torch.cuda.device(w.device):
-            err = _fn("bitmap_popcount_rows", _ARG_ROWS)(w.data_ptr(), out.data_ptr(),
-                                                         w.shape[0], w.shape[1], _stream(w))
-        if err:
-            raise RuntimeError(f"bitmap_popcount launch failed: cudaError {err}")
+        build.launch(build.function("bitmap", "bitmap_popcount_rows", _ARG_ROWS), w,
+                     w.data_ptr(), out.data_ptr(), w.shape[0], w.shape[1])
         popcount_launches += 1
     return out
 
 
 def bitmap_popcount(words: torch.Tensor) -> torch.Tensor:
     """Total set bits of (..., w) u32 words, a 0-d int64 tensor."""
-    if words.device.type == "cpu":
+    if words.is_cpu:
         return bitmap_popcount_plain(words)
     _check_words(words, tuple(range(1, 9)))
     return bitmap_popcount_rows(words.reshape(1, -1))[0]

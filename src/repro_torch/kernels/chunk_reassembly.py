@@ -82,9 +82,9 @@ def chunk_reassembly(staging: torch.Tensor, psn: torch.Tensor, user: torch.Tenso
     bitmap). Launches the CUDA kernel for CUDA tensors, runs the plain
     version for CPU tensors, and raises for any other device."""
     global launches
-    if staging.device.type == "cpu":
+    if staging.is_cpu:
         return chunk_reassembly_plain(staging, psn, user, n_valid)
-    if staging.device.type != "cuda":
+    if not staging.is_cuda:
         raise ValueError(f"chunk_reassembly runs on cuda or cpu tensors, got {staging.device}")
     n_valid = _check(staging, psn, user, n_valid)
     if not user.is_contiguous():
@@ -97,13 +97,8 @@ def chunk_reassembly(staging: torch.Tensor, psn: torch.Tensor, user: torch.Tenso
     row_bytes = user.shape[1] * user.element_size()
     if n_valid:
         winner = torch.full((user.shape[0],), -1, dtype=torch.int32, device=user.device)
-        fn = build.load("chunk_reassembly").chunk_reassembly
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        with torch.cuda.device(user.device):
-            stream = torch.cuda.current_stream(user.device).cuda_stream
-            err = fn(s.data_ptr(), p.data_ptr(), winner.data_ptr(), user.data_ptr(),
-                     bitmap.data_ptr(), n_valid, row_bytes, stream)
-        if err:
-            raise RuntimeError(f"chunk_reassembly launch failed: cudaError {err}")
+        build.launch(build.function("chunk_reassembly", "chunk_reassembly", _ARGTYPES), user,
+                     s.data_ptr(), p.data_ptr(), winner.data_ptr(), user.data_ptr(),
+                     bitmap.data_ptr(), n_valid, row_bytes)
         launches += 2   # winner_kernel, scatter_kernel
     return user, bitmap.view(torch.uint32)

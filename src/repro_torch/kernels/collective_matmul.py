@@ -142,14 +142,6 @@ def path(x: torch.Tensor, w: torch.Tensor) -> str:
     return _plan(x, w)[0]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("matmul")
-    if lib.matmul_wgmma.argtypes is None:
-        lib.matmul.argtypes, lib.matmul.restype = _ARGTYPES, ctypes.c_int
-        lib.matmul_wgmma.argtypes, lib.matmul_wgmma.restype = _WGMMA_ARGTYPES, ctypes.c_int
-    return lib
-
-
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
            out: torch.Tensor | None = None) -> torch.Tensor:
     """(R, M, K) @ (R, K, N) -> (R, M, N) in x.dtype, into ``out`` when given
@@ -157,9 +149,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     ``path`` picks for CUDA tensors, runs the plain version for CPU
     tensors, and raises for any other device."""
     global launches, launches_wmma, launches_f32
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if x.is_cpu and w.is_cpu:
         return matmul_plain(x, w, out=out)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"matmul runs on cuda or cpu tensors, got {x.device}")
     _check(x, w)
     r, m, k = x.shape
@@ -171,17 +163,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     else:
         _check_out(x, w, out)
     kind, la, lb = _plan(x, w)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if kind == "wgmma":
-            err = lib.matmul_wgmma(x.data_ptr(), *la, w.data_ptr(), *lb, out.data_ptr(),
-                                   *out.stride(), r, m, n, k, stream)
-        else:
-            err = lib.matmul(_DTYPES[x.dtype], x.data_ptr(), *x.stride(), w.data_ptr(),
-                             *w.stride(), out.data_ptr(), *out.stride(), r, m, n, k, stream)
-    if err:
-        raise RuntimeError(f"matmul ({kind}) launch failed: error {err}")
+    if kind == "wgmma":
+        build.launch(build.function("matmul", "matmul_wgmma", _WGMMA_ARGTYPES), x,
+                     x.data_ptr(), *la, w.data_ptr(), *lb, out.data_ptr(), *out.stride(),
+                     r, m, n, k)
+    else:
+        build.launch(build.function("matmul", "matmul", _ARGTYPES), x, _DTYPES[x.dtype],
+                     x.data_ptr(), *x.stride(), w.data_ptr(), *w.stride(), out.data_ptr(),
+                     *out.stride(), r, m, n, k)
     if kind == "wgmma":
         launches += 1
     elif kind == "wmma":

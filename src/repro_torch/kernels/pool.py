@@ -80,7 +80,7 @@ def pool_completion_rows_plain(arrivals: torch.Tensor, n_workers: int, service: 
 def _launch(arrivals: torch.Tensor, n_workers: int, service: float,
             staging: int | None) -> tuple[torch.Tensor, torch.Tensor | None]:
     global launches
-    if arrivals.device.type != "cuda":
+    if not arrivals.is_cuda:
         raise ValueError(f"the pool scan runs on cuda or cpu tensors, got {arrivals.device}")
     _check(arrivals)
     if arrivals.dtype != torch.float64:
@@ -99,14 +99,9 @@ def _launch(arrivals: torch.Tensor, n_workers: int, service: float,
         return done, mask
     if rows >= 1 << 31:
         raise ValueError(f"{rows} rows exceed the kernel's grid")
-    fn = build.load("pool").pool_completion_rows
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), done.data_ptr(), None if mask is None else mask.data_ptr(),
-                 rows, n, w, float(service), 0 if staging is None else staging, stream)
-    if err:
-        raise RuntimeError(f"pool_completion_rows launch failed: cudaError {err}")
+    build.launch(build.function("pool", "pool_completion_rows", _ARGTYPES), a, a.data_ptr(),
+                 done.data_ptr(), None if mask is None else mask.data_ptr(), rows, n, w,
+                 float(service), 0 if staging is None else staging)
     launches += 1
     return done, mask
 
@@ -115,7 +110,7 @@ def pool_scan_rows(arrivals: torch.Tensor, n_workers: int, service: float) -> to
     """(R, n) sorted arrival rows -> (R, n) pool completion times. Launches
     the CUDA kernel for a CUDA tensor, runs the plain version for a CPU
     tensor, and raises for any other device."""
-    if arrivals.device.type == "cpu":
+    if arrivals.is_cpu:
         return pool_scan_rows_plain(arrivals, n_workers, service)
     return _launch(arrivals, n_workers, service, None)[0]
 
@@ -124,6 +119,6 @@ def pool_completion_rows(arrivals: torch.Tensor, n_workers: int, service: float,
                          staging: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan + staging-ring RNR mask of (R, n) sorted arrival rows, in one
     launch for a CUDA tensor; the plain version for a CPU tensor."""
-    if arrivals.device.type == "cpu":
+    if arrivals.is_cpu:
         return pool_completion_rows_plain(arrivals, n_workers, service, staging)
     return _launch(arrivals, n_workers, service, staging)

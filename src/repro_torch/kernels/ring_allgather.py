@@ -1,12 +1,21 @@
-"""Ring-step kernels of the stacked collective backend: the allgather's
-step and its exact transpose.
+"""Ring kernels of the stacked collective backend: the allgather (a whole
+schedule in one launch, or one step), the step's exact transpose, and the
+double-buffered drain.
 
-``ring_step`` replaces ``ring_allgather_tpu``
+``ring_allgather`` replaces ``ring_allgather_tpu``
 (src/repro/kernels/ring_allgather.py:46), the Pallas kernel in which device
 d remote-DMAs shard ``(d - s) % P`` to device ``(d + 1) % P`` at grid step s
-of P - 1. On one GPU the P ranks are dim 1 of a stacked buffer
-``(G, P_rank, P_slot, n)`` and a launch of ``csrc/ring_step.cu`` does one
-step for every rank at once, following the same ``ring_schedule``.
+of P - 1. On one GPU the P ranks are dim 1 of the stacked shards ``x (G,
+P_rank, n)`` and of a buffer ``(G, P_rank, P_slot, n)``, and one launch of
+``csrc/ring_allgather.cu`` installs each rank's own shard in its own slot,
+as the TPU kernel does, then runs every entry of a schedule, in order, each
+entry one ring step for every rank at once (a schedule longer than the
+128 entries a launch carries takes one launch per 128). A schedule is a tuple of entries ``(step, direction,
+split, rounds, active_round)`` (``split`` None: the whole slot), as
+``core/collectives.py`` builds them for the ring, the bidirectional ring
+and the composition of broadcasts; any prefix of one is a schedule too.
+``ring_step`` (``csrc/ring_step.cu``) is one entry in one launch, which
+concurrent AG/RS and the CPU's allgather-matmul schedule still take.
 
 ``ring_step_transpose`` (``csrc/ring_step_transpose.cu``) is the adjoint of
 one such step over the same (sender, receiver, slot) triples:
@@ -17,13 +26,13 @@ backward of the gathers (``core/collectives.py``) and the port's ring
 reduce-scatter; the TPU has no kernel for it (JAX transposes the
 ``ppermute`` ring itself).
 
-Bound: HBM bytes. A step copies one slot per rank, 2 * P * n * itemsize
-bytes; the transposed step reads two slots and writes one, 3 * P * n *
-itemsize. Both kernels walk 16-byte vectors in a grid-stride loop over one
-rank's slot per block row, with a scalar head and tail for spans off a
-16-byte boundary. At the shapes of a smollm-135m layer a step moves a few
-MB, about a microsecond at HBM speed, so the launch itself dominates;
-fusing steps is later work.
+Bound: HBM bytes. A whole gather reads every rank's shard once and writes
+every rank's gathered copy once, (P * P + P) * n * itemsize bytes per
+group. A step copies one slot per rank, 2 * P * n * itemsize bytes; the
+transposed step reads two slots and writes one, 3 * P * n * itemsize. At the
+shapes of a smollm-135m layer a step moves a few MB, about a microsecond at
+HBM speed, so a launch per step is set by the host; one launch per gather
+pays that once.
 
 ``local_double_buffer_drain`` replaces the Pallas kernel of the same name
 (src/repro/kernels/ring_allgather.py:94): the local-copy half of the ring
@@ -33,27 +42,38 @@ engine, staged chunks drained in order through a two-slot staging ring
 staged.nbytes.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version only for a CPU tensor. ``launches``, ``transpose_launches`` and
-``drain_launches`` count kernel launches. The kernels are built with
-``nvcc`` into ``build/`` at their first launch (``kernels/build.py``).
+version only for a CPU tensor. ``allgather_launches``, ``launches``,
+``transpose_launches`` and ``drain_launches`` count kernel launches;
+``entries`` counts the schedule entries that ``ring_allgather`` launches
+ran, by kind: "ring", "bidi" (a split inside the slot) and "bcast" (a round
+mask). The kernels are built with ``nvcc`` into ``build/`` at their first
+launch and bound once (``kernels/build.py``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 
+allgather_launches = 0   # ring_allgather kernel launches
+entries = {"ring": 0, "bidi": 0, "bcast": 0}   # schedule entries those launches ran
 launches = 0             # ring_step kernel launches
 transpose_launches = 0   # ring_step_transpose kernel launches
 drain_launches = 0       # double_buffer_drain kernel launches
 
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_ROWS = 65535  # gridDim.y
+_MAX_ENTRIES = 128  # kMaxEntries of csrc/ring_allgather.cu: entries per launch
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ALLGATHER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.c_int, ctypes.c_void_p]
 
 
 def ring_schedule(n_devices: int) -> list[list[tuple[int, int, int]]]:
@@ -68,19 +88,25 @@ def ring_schedule(n_devices: int) -> list[list[tuple[int, int, int]]]:
     return steps
 
 
-def _check(buf: torch.Tensor, step: int, direction: int, split: int | None,
-           rounds: int, active_round: int) -> int:
+def _check_buf(buf: torch.Tensor) -> tuple[int, int]:
+    """(P, n) of a ring buffer (..., P, P, n) that the kernels take."""
     if buf.dim() < 3:
         raise ValueError(f"ring buffer must be (..., P, P, n), got {tuple(buf.shape)}")
     p, p2, n = buf.shape[-3:]
     if p != p2:
         raise ValueError(f"ring buffer needs P ranks x P slots, got {tuple(buf.shape)}")
     if buf.dtype not in _DTYPES:
-        raise TypeError(f"ring_step supports {_DTYPES}, got {buf.dtype}")
+        raise TypeError(f"ring kernels support {_DTYPES}, got {buf.dtype}")
     if not buf.is_contiguous():
         raise ValueError("ring buffer must be contiguous")
     if n < 1:
         raise ValueError("ring buffer slots are empty")
+    return p, n
+
+
+def _check_entry(p: int, n: int, step: int, direction: int, split: int | None,
+                 rounds: int, active_round: int) -> int:
+    """The entry's split (n for None), after checking the entry against P and n."""
     if not 0 <= step < p - 1:
         raise ValueError(f"step {step} outside 0..{p - 2}")
     if direction not in (1, -1):
@@ -91,6 +117,12 @@ def _check(buf: torch.Tensor, step: int, direction: int, split: int | None,
     if not 0 <= split <= n:
         raise ValueError(f"split {split} outside 0..{n}")
     return split
+
+
+def _check(buf: torch.Tensor, step: int, direction: int, split: int | None,
+           rounds: int, active_round: int) -> int:
+    p, n = _check_buf(buf)
+    return _check_entry(p, n, step, direction, split, rounds, active_round)
 
 
 def ring_step_plain(buf: torch.Tensor, step: int, *, direction: int = 1,
@@ -139,7 +171,7 @@ def ring_step_transpose_plain(buf: torch.Tensor, step: int, *, direction: int = 
 
 def _launch(name: str, buf: torch.Tensor, step: int, direction: int, split: int | None,
             rounds: int, active_round: int) -> None:
-    if buf.device.type != "cuda":
+    if not buf.is_cuda:
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {buf.device}")
     split = _check(buf, step, direction, split, rounds, active_round)
     p, n = buf.shape[-2], buf.shape[-1]
@@ -148,15 +180,9 @@ def _launch(name: str, buf: torch.Tensor, step: int, direction: int, split: int 
     groups = buf.numel() // (p * p * n)
     if groups * p > _MAX_ROWS:
         raise ValueError(f"{groups} groups x {p} ranks exceed {_MAX_ROWS} block rows")
-    fn = getattr(build.load(name), name)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    dtype_code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[buf.dtype]
-    with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = fn(buf.data_ptr(), dtype_code, groups, p, n, step, direction, split, rounds,
-                 active_round, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    build.launch(build.function(name, name, _ARGTYPES), buf, buf.data_ptr(),
+                 _DTYPE_CODES[buf.dtype], groups, p, n, step, direction, split, rounds,
+                 active_round)
 
 
 def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
@@ -166,7 +192,7 @@ def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
     Launches the CUDA kernel for a CUDA tensor, runs the plain version for a
     CPU tensor, and raises for any other device."""
     global launches
-    if buf.device.type == "cpu":
+    if buf.is_cpu:
         return ring_step_plain(buf, step, direction=direction, split=split,
                                rounds=rounds, active_round=active_round)
     _launch("ring_step", buf, step, direction, split, rounds, active_round)
@@ -181,12 +207,97 @@ def ring_step_transpose(buf: torch.Tensor, step: int, *, direction: int = 1,
     see ``ring_step_transpose_plain``. Launches the CUDA kernel for a CUDA
     tensor, runs the plain version for a CPU tensor, raises otherwise."""
     global transpose_launches
-    if buf.device.type == "cpu":
+    if buf.is_cpu:
         return ring_step_transpose_plain(buf, step, direction=direction, split=split,
                                          rounds=rounds, active_round=active_round)
     _launch("ring_step_transpose", buf, step, direction, split, rounds, active_round)
     transpose_launches += 1
     return buf
+
+
+# ------------------------------------------------ a whole schedule, one launch
+
+
+def _gather_out(x: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    """``out``, or a new buffer (..., P, P, n) for the shards x (..., P, n),
+    after checking that it is one."""
+    if x.dim() < 2:
+        raise ValueError(f"shards must be (..., P, n), got {tuple(x.shape)}")
+    shape = (*x.shape[:-2], x.shape[-2], *x.shape[-2:])
+    if out is None:
+        return x.new_empty(shape)
+    if tuple(out.shape) != shape or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} is not "
+                         f"{shape} {x.dtype} on {x.device}")
+    return out
+
+
+def ring_allgather_plain(x: torch.Tensor, schedule: tuple,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """The gather in plain torch: rank d's shard ``x[..., d, :]`` into slot
+    d of its own row of ``out`` (..., P, P, n) (a new buffer if None), then
+    ``ring_step_plain`` over the schedule's entries ``(step, direction,
+    split, rounds, active_round)``, in order, in place. A slot that no entry
+    reaches keeps what ``out`` held."""
+    out = _gather_out(x, out)
+    out.diagonal(dim1=-3, dim2=-2).copy_(x.transpose(-1, -2))
+    for step, direction, split, rounds, active_round in schedule:
+        ring_step_plain(out, step, direction=direction, split=split, rounds=rounds,
+                        active_round=active_round)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _packed(schedule: tuple, p: int, n: int) -> tuple[tuple[tuple[ctypes.Array, int], ...],
+                                                      tuple[tuple[str, int], ...]]:
+    """A schedule checked against P and n, as the kernel takes it: one
+    (entries, count) per launch, at most 128 entries each and at least one
+    launch (it installs the shards), five int64 per entry (step, direction,
+    split, rounds, active_round); and its entries counted by kind. Cached:
+    a gather passes the same few schedules again and again."""
+    flat, kinds = [], {}
+    for step, direction, split, rounds, active_round in schedule:
+        split = _check_entry(p, n, step, direction, split, rounds, active_round)
+        flat.append((step, direction, split, rounds, active_round))
+        kind = "bcast" if rounds > 1 else "bidi" if 0 < split < n else "ring"
+        kinds[kind] = kinds.get(kind, 0) + 1
+    chunks = tuple(flat[i:i + _MAX_ENTRIES] for i in range(0, len(flat), _MAX_ENTRIES)) or ((),)
+    return (tuple(((ctypes.c_longlong * (5 * len(c)))(*[v for e in c for v in e]), len(c))
+                  for c in chunks),
+            tuple(kinds.items()))
+
+
+def ring_allgather(x: torch.Tensor, schedule: tuple,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """The shards x (..., P, n) gathered by ``schedule`` (a tuple of
+    ``(step, direction, split, rounds, active_round)`` tuples) into ``out``
+    (..., P, P, n), a new buffer if None; see ``ring_allgather_plain``. For
+    a CUDA tensor one launch of the kernel installs the shards and runs
+    every entry (one more launch per further 128 entries); a CPU tensor
+    takes the plain version; any other device raises."""
+    global allgather_launches
+    if x.is_cpu:
+        return ring_allgather_plain(x, schedule, out)
+    if not x.is_cuda:
+        raise ValueError(f"ring_allgather runs on cuda or cpu tensors, got {x.device}")
+    out = _gather_out(x, out)
+    p, n = _check_buf(out)
+    if not x.is_contiguous():
+        raise ValueError("shards must be contiguous")
+    chunks, kinds = _packed(tuple(schedule), p, n)
+    groups = out.numel() // (p * p * n)
+    if groups > _MAX_ROWS:
+        raise ValueError(f"{groups} groups exceed {_MAX_ROWS} block rows")
+    fn = build.function("ring_allgather", "ring_allgather", _ALLGATHER_ARGTYPES)
+    src = x.data_ptr()
+    for packed, count in chunks:   # only the first launch installs the shards
+        build.launch(fn, out, src, out.data_ptr(), _DTYPE_CODES[out.dtype], groups, p, n,
+                     packed, count)
+        allgather_launches += 1
+        src = None
+    for kind, count in kinds:
+        entries[kind] += count
+    return out
 
 
 # ------------------------------------------------- the double-buffered drain
@@ -218,25 +329,19 @@ def local_double_buffer_drain(staged: torch.Tensor) -> torch.Tensor:
     Launches the CUDA kernel for a CUDA tensor, runs the plain version for
     a CPU tensor, and raises for any other device."""
     global drain_launches
-    if staged.device.type == "cpu":
+    if staged.is_cpu:
         return local_double_buffer_drain_plain(staged)
-    if staged.device.type != "cuda":
+    if not staged.is_cuda:
         raise ValueError(f"local_double_buffer_drain runs on cuda or cpu tensors, got "
                          f"{staged.device}")
     _check_staged(staged)
     n_steps = staged.shape[0]
     if n_steps > _MAX_ROWS:
         raise ValueError(f"{n_steps} steps exceed {_MAX_ROWS} block rows")
-    out = torch.empty_like(staged, memory_format=torch.contiguous_format)
+    out = torch.empty_like(staged)   # contiguous, as staged is
     if staged.numel() == 0:
         return out
-    fn = build.load("double_buffer_drain").double_buffer_drain
-    fn.argtypes, fn.restype = _DRAIN_ARGTYPES, ctypes.c_int
-    with torch.cuda.device(staged.device):
-        stream = torch.cuda.current_stream(staged.device).cuda_stream
-        err = fn(staged.data_ptr(), out.data_ptr(), n_steps,
-                 staged.numel() // n_steps * staged.element_size(), stream)
-    if err:
-        raise RuntimeError(f"double_buffer_drain launch failed: cudaError {err}")
+    build.launch(build.function("double_buffer_drain", "double_buffer_drain", _DRAIN_ARGTYPES),
+                 staged, staged.data_ptr(), out.data_ptr(), n_steps, staged.nbytes // n_steps)
     drain_launches += 1
     return out

@@ -59,7 +59,7 @@ def main(argv: list[str] | None = None) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    before = ring_allgather.launches
+    before = ring_allgather.allgather_launches
     t0 = time.perf_counter()
     seqs = greedy_generate(prefill, decode, params, tokens, args.new_tokens,
                            args.prompt_len + args.new_tokens)
@@ -69,7 +69,8 @@ def main(argv: list[str] | None = None) -> None:
     print(f"[serve] {model.name} on {device} ({args.fsdp_mode}, dp={DP}): "
           f"{args.batch} seqs, {args.prompt_len} prompt + {args.new_tokens} new tokens "
           f"in {dt:.2f}s ({total_new / dt:.1f} tok/s, prefill included); "
-          f"{ring_allgather.launches - before} ring-step kernel launches", flush=True)
+          f"{ring_allgather.allgather_launches - before} ring-allgather kernel launches",
+          flush=True)
     print("[serve] sample continuation token ids:",
           seqs[0, args.prompt_len:args.prompt_len + 8].tolist())
 

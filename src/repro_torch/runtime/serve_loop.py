@@ -2,8 +2,8 @@
 (counterpart of ``repro.runtime.serve_loop``).
 
 Prefill gathers every layer's dp-sharded weights with the run's
-``fsdp_mode``: the paper's allgathers on the ring-step kernel in the mcast
-modes. Decode gathers with the plain gather in every mode, as the reference
+``fsdp_mode``: the paper's allgathers on the ring-allgather kernel in the
+mcast modes. Decode gathers with the plain gather in every mode, as the reference
 installs no explicit gather for decode.
 """
 from __future__ import annotations

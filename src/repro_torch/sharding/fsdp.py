@@ -7,7 +7,8 @@ stacked backend (counterpart of ``repro.sharding.fsdp``).
   "mcast" / "mcast_ring" / "mcast_bcast"
           — the paper's schedule, explicit: per layer, each dp-sharded weight
             is gathered by the bidirectional ring, the ring, or the M-chain
-            broadcast composition, every step on the ring-step kernel.
+            broadcast composition, each gather's steps in one launch of
+            the ring-allgather kernel.
 
 On a multi-pod mesh the gather is hierarchical: the intra-pod "data" ring
 first, then the "pod" axis through the M-chain broadcast composition.

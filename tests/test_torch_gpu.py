@@ -61,12 +61,89 @@ def test_ring_step_kernel_rejects_other_dtypes():
 @pytest.mark.parametrize("mode,chains", [("ring", None), ("bidi", None), ("bcast", 2),
                                          ("bcast", 4)])
 def test_stacked_allgather_on_cuda_equals_plain(mode, chains):
+    """Each gather is one launch of the ring-allgather kernel and no ring
+    step, and equals the plain gather."""
     _need_cuda()
     mesh = StackedMesh(data=8, model=1)
     for n in (1, 7, 4096):
         x = torch.randn(8, n, device="cuda").to(torch.bfloat16)
         want = C.make_allgather(mesh, "data", "xla")(x)
-        assert torch.equal(C.make_allgather(mesh, "data", mode, n_chains=chains)(x), want)
+        before = (K.allgather_launches, K.launches)
+        got = C.make_allgather(mesh, "data", mode, n_chains=chains)(x)
+        assert (K.allgather_launches - before[0], K.launches - before[1]) == (1, 0)
+        assert torch.equal(got, want)
+
+
+def _mixed_schedule(n: int) -> tuple:
+    """Entries of every kind in no schedule's order, at P = 8: whole slots,
+    splits at 0, inside and at n, both directions, round masks."""
+    return ((0, 1, None, 1, 0), (1, 1, n // 3, 1, 0), (2, -1, 0, 1, 0), (0, -1, n, 2, 1),
+            (3, 1, n // 2, 4, 3), (6, -1, min(1, n), 1, 0), (5, 1, n, 8, 5))
+
+
+PREFIX_SCHEDULES = ([("ring", p, None) for p in (2, 3, 5, 8, 33)]
+                    + [("ring-", p, None) for p in (2, 3, 5, 8)]
+                    + [("bidi", p, None) for p in (2, 3, 5, 8, 33)]
+                    + [("bcast", 8, m) for m in (1, 2, 4)] + [("mixed", 8, None)]
+                    + [("bcast", 16, 1)])   # 240 entries: two launches
+
+
+def _prefix_schedule(mode: str, p: int, n: int, chains: int | None) -> tuple:
+    return {"ring": lambda: C._ring_schedule(p), "ring-": lambda: C._ring_schedule(p, -1),
+            "bidi": lambda: C._bidi_schedule(p, n),
+            "bcast": lambda: C._bcast_schedule(p, chains),
+            "mixed": lambda: _mixed_schedule(n)}[mode]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,p,chains", PREFIX_SCHEDULES)
+def test_ring_allgather_every_prefix_matches_plain_steps(mode, p, chains):
+    """For every prefix length k of a schedule, k = 0 included, one launch
+    of the ring-allgather kernel on its first k entries equals the plain
+    version: the shards installed on the diagonal, then k plain ring steps,
+    on the same buffer, bitwise: every slot, reached or not, on a buffer of
+    random values. A copy of every shard out of the diagonal fails at
+    k = 1. bf16 and f32; n = 1, odd (element copies), 24 (a 16-byte vector
+    that the bidi split cuts) and 41,472 (wq's shard at P = 8); one and
+    two groups; P = 33 takes the kernel for more ranks than a warp has
+    lanes, and bcast at P = 16 with one chain (240 entries) one launch per
+    128 entries. Each call counts its launches and k entries."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(p)
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 7, 24, 41472):
+            sched = _prefix_schedule(mode, p, n, chains)
+            for groups in (1, 2):
+                x = torch.randn(groups, p, n, device="cuda", generator=gen).to(dtype)
+                buf = torch.randn(groups, p, p, n, device="cuda", generator=gen).to(dtype)
+                want = buf.clone()
+                want.diagonal(dim1=-3, dim2=-2).copy_(x.transpose(-1, -2))
+                for k in range(len(sched) + 1):
+                    if k:
+                        step, direction, split, rounds, active = sched[k - 1]
+                        K.ring_step_plain(want, step, direction=direction, split=split,
+                                          rounds=rounds, active_round=active)
+                    before = (K.allgather_launches, sum(K.entries.values()))
+                    got = K.ring_allgather(x, sched[:k], out=buf.clone())
+                    torch.cuda.synchronize()
+                    assert (K.allgather_launches - before[0],
+                            sum(K.entries.values()) - before[1]) == (max(1, -(-k // 128)), k)
+                    assert torch.equal(got, want), (mode, p, chains, dtype, n, groups, k)
+
+
+@pytest.mark.gpu
+def test_ring_allgather_refuses_shards_it_cannot_read():
+    """On the card the shards must be contiguous, and ``out`` the shards'
+    buffer (..., P, P, n) of their dtype."""
+    _need_cuda()
+    x = torch.randn(8, 16, device="cuda")
+    with pytest.raises(ValueError):
+        K.ring_allgather(x[:, ::2], C._ring_schedule(8))
+    with pytest.raises(ValueError):
+        K.ring_allgather(x, C._ring_schedule(8), out=torch.empty(8, 8, 16, device="cuda",
+                                                                 dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        K.ring_allgather(x, C._ring_schedule(8), out=torch.empty(8, 4, 16, device="cuda"))
 
 
 @pytest.mark.gpu
@@ -379,3 +456,82 @@ def test_broadcast_and_concurrent_ag_rs_on_cuda():
     assert torch.equal(got_ag, C.ring_allgather_local(ag))
     assert torch.equal(got_rs, C.ring_reduce_scatter_local(rs, direction=-1))
     assert torch.equal(got_rs.cpu(), C.ring_reduce_scatter_local(rs.cpu(), direction=-1))
+
+
+@pytest.mark.gpu
+def test_wrappers_launch_on_the_current_stream():
+    """The drain, the ring step, the one-launch gather and the matmul,
+    called under a side stream while the default stream sleeps: each
+    result, read on the side stream after synchronising that stream
+    alone, equals the plain version. A launch on any other stream would
+    still be queued behind the sleep."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    staged = torch.randn(8, 128, 576, device="cuda", generator=gen).bfloat16()
+    buf = torch.randn(1, 8, 8, 41472, device="cuda", generator=gen).bfloat16()
+    shards = torch.randn(1, 8, 41472, device="cuda", generator=gen).bfloat16()
+    x = torch.randn(8, 128, 576, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(8, 576, 192, device="cuda", generator=gen).bfloat16()
+    sched = C._bidi_schedule(8, 41472)
+    calls = {"drain": (lambda: K.local_double_buffer_drain(staged),
+                       K.local_double_buffer_drain_plain(staged)),
+             "ring_step": (lambda: K.ring_step(buf.clone(), 3, split=100),
+                           K.ring_step_plain(buf.clone(), 3, split=100)),
+             "ring_allgather": (lambda: K.ring_allgather(shards, sched),
+                                K.ring_allgather_plain(shards, sched)),
+             "matmul": (lambda: M.matmul(x, w), M.matmul_plain(x, w))}
+    side = torch.cuda.Stream()
+    for name, (call, want) in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)   # about 0.1 s on the default stream
+        with torch.cuda.stream(side):
+            got = call()
+            side.synchronize()
+            if name == "matmul":   # the plain product sums in f32 in another order
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= 1e-2 * want.float().abs().max().item(), name
+            else:
+                assert torch.equal(got, want), name
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
+    """With every plain version replaced by one that raises, each wrapper
+    still runs on CUDA tensors and counts its launch."""
+    _need_cuda()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((K, "ring_step_plain"), (K, "ring_step_transpose_plain"),
+                      (K, "ring_allgather_plain"), (K, "local_double_buffer_drain_plain"),
+                      (M, "matmul_plain"), (PL, "pool_scan_rows_plain"),
+                      (PL, "pool_completion_rows_plain"), (BM, "bitmap_pack_plain"),
+                      (BM, "bitmap_or_rows_plain"), (BM, "bitmap_popcount_rows_plain"),
+                      (BM, "bitmap_popcount_plain"), (CR, "chunk_reassembly_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    buf = torch.randn(8, 8, 64, device="cuda", generator=gen)
+    before = (K.launches, K.transpose_launches, K.allgather_launches, K.drain_launches,
+              _matmul_launches(), PL.launches, BM.pack_launches, BM.or_launches,
+              BM.popcount_launches, CR.launches)
+    K.ring_step(buf, 0)
+    K.ring_step_transpose(buf, 0)
+    K.ring_allgather(buf[0], C._ring_schedule(8))
+    K.local_double_buffer_drain(buf)
+    M.matmul(buf, buf.transpose(1, 2))
+    M.matmul(buf.bfloat16(), buf.bfloat16().transpose(1, 2))
+    a = torch.sort(torch.rand(3, 64, device="cuda", dtype=torch.float64, generator=gen)).values
+    PL.pool_scan_rows(a, 4, 0.3)
+    PL.pool_completion_rows(a, 4, 0.3, 8)
+    words = BM.bitmap_pack(torch.rand(4, 64, device="cuda", generator=gen) < 0.5)
+    BM.bitmap_or_rows(words)
+    BM.bitmap_popcount_rows(words)
+    BM.bitmap_popcount(words)
+    CR.chunk_reassembly(buf[0], torch.arange(8, device="cuda"), torch.zeros_like(buf[0]))
+    torch.cuda.synchronize()
+    after = (K.launches, K.transpose_launches, K.allgather_launches, K.drain_launches,
+             _matmul_launches(), PL.launches, BM.pack_launches, BM.or_launches,
+             BM.popcount_launches, CR.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 2, 2, 1, 1, 2, 2]

@@ -1,6 +1,7 @@
-"""Ring-step kernel module and the stacked allgathers of the PyTorch port,
-held against the JAX package: the ring schedule, the collectives'
-outputs (bitwise), the hierarchical FSDP gather, and rank independence."""
+"""Ring kernel module and the stacked allgathers of the PyTorch port, held
+against the JAX package: the ring schedule, the one-launch gather's plain
+version step by step, the collectives' outputs (bitwise), the hierarchical
+FSDP gather, and rank independence."""
 import dataclasses
 
 import numpy as np
@@ -36,6 +37,11 @@ def _id_buffer(p: int, n: int) -> torch.Tensor:
     return buf
 
 
+def _id_shards(p: int, n: int) -> torch.Tensor:
+    """(P, n) f32, rank j's shard holding j + 1."""
+    return torch.arange(1, p + 1, dtype=torch.float32)[:, None].expand(p, n).contiguous()
+
+
 @pytest.mark.parametrize("p", [2, 3, 4, 8])
 def test_plain_ring_step_delivers_every_shard_once(p):
     """Driven through P - 1 steps, the plain ring step moves exactly the
@@ -54,15 +60,80 @@ def test_plain_ring_step_delivers_every_shard_once(p):
     assert torch.equal(buf, want)
 
 
-def test_ring_step_on_cpu_counts_no_launch():
-    before = K.launches
+def _schedule(mode: str, p: int, n: int, chains: int | None) -> tuple:
+    return {"ring": lambda: C._ring_schedule(p), "ring-": lambda: C._ring_schedule(p, -1),
+            "bidi": lambda: C._bidi_schedule(p, n),
+            "bcast": lambda: C._bcast_schedule(p, chains)}[mode]()
+
+
+def _delivered(p: int, mode: str, chains: int | None, k: int) -> set:
+    """(receiver, shard) pairs that the reference's ``ring_schedule``
+    delivers in the first k entries of the mode's schedule: the ring's
+    steps in order (mirrored, rank r -> -r, along -1), and for the
+    broadcasts round r's steps moving only the shards with shard % R == r."""
+    ref = ref_ring_schedule(p)
+    if mode == "ring-":
+        ref = [[(-d % p, -r % p, -j % p) for d, r, j in trip] for trip in ref]
+    rounds = p // chains if mode == "bcast" else 1
+    out = set()
+    for i in range(k):
+        r, s = divmod(i, p - 1)
+        out |= {(rcv, j) for _, rcv, j in ref[s] if j % rounds == r}
+    return out
+
+
+PREFIX_CASES = ([("ring", p, None) for p in (2, 3, 5, 8)]
+                + [("ring-", p, None) for p in (2, 3, 5, 8)]
+                + [("bidi", p, None) for p in (2, 3, 5, 8)]
+                + [("bcast", 8, m) for m in (1, 2, 4)])
+
+
+@pytest.mark.parametrize("mode,p,chains", PREFIX_CASES)
+def test_every_prefix_fills_the_reference_slots(mode, p, chains):
+    """After the first k entries of a gather's schedule, for every k, the
+    plain one-launch gather has filled exactly the slots that the JAX
+    package's ``ring_schedule`` delivers by then (bidi: the first half of
+    each slot along +1, the second half on the mirrored ring), each with
+    its shard, and left every other slot of ``out`` as it was (k = 0: the
+    shards installed on the diagonal). A copy of every shard out of the
+    diagonal at once fails at k = 1."""
+    n = 6
+    sched = _schedule(mode, p, n, chains)
+    assert len(sched) == (p - 1) * (p // chains if chains else 1)
+    for k in range(len(sched) + 1):
+        buf = torch.zeros(p, p, n)
+        got = K.ring_allgather_plain(_id_shards(p, n), sched[:k], out=buf)
+        assert got is buf
+        halves = ((0, n // 2, "ring"), (n // 2, n, "ring-")) if mode == "bidi" else \
+            ((0, n, mode),)
+        for lo, hi, half in halves:
+            want = {(j, j) for j in range(p)} | _delivered(p, half, chains, k)
+            filled = {(r, j) for r, j in torch.nonzero(got[..., lo:hi].any(-1)).tolist()}
+            assert filled == want, (k, lo)
+            for r, j in filled:
+                assert torch.equal(got[r, j, lo:hi], torch.full((hi - lo,), j + 1.0))
+
+
+def _counters() -> tuple:
+    return K.launches, K.allgather_launches, dict(K.entries)
+
+
+@pytest.mark.parametrize("one_launch", [False, True])
+def test_ring_step_on_cpu_counts_no_launch(one_launch):
+    """On a CPU tensor neither ``ring_step`` nor ``ring_allgather`` counts a
+    launch or a schedule entry; both run the plain steps."""
+    before = _counters()
     buf = _id_buffer(4, 3)
-    for s in range(3):
-        K.ring_step(buf, s)
-    assert K.launches == before
+    if one_launch:
+        buf = K.ring_allgather(_id_shards(4, 3), C._ring_schedule(4))
+    else:
+        for s in range(3):
+            K.ring_step(buf, s)
+    assert _counters() == before
     assert torch.equal(buf, _id_buffer(4, 3).sum(0, keepdim=True).expand(4, 4, 3))
 
 
+@pytest.mark.parametrize("one_launch", [False, True])
 @pytest.mark.parametrize("bad", [
     dict(buf=torch.zeros(4, 4, 3, dtype=torch.int32), step=0),
     dict(buf=torch.zeros(4, 3, 3), step=0),
@@ -70,11 +141,51 @@ def test_ring_step_on_cpu_counts_no_launch():
     dict(buf=torch.zeros(4, 4, 3), step=3),
     dict(buf=torch.zeros(4, 4, 3), step=0, direction=2),
     dict(buf=torch.zeros(4, 4, 3), step=0, rounds=3),
+    dict(buf=torch.zeros(4, 4, 3), step=0, rounds=2, active_round=2),
     dict(buf=torch.zeros(4, 4, 3), step=0, split=4),
+    dict(buf=torch.zeros(4, 4, 3), step=0, split=-1),
 ])
-def test_ring_step_rejects_what_the_kernel_does_not_take(bad):
+def test_ring_step_rejects_what_the_kernel_does_not_take(bad, one_launch):
+    """Both wrappers refuse the dtype, a non-square or non-contiguous buffer,
+    a step, direction or round mask outside the ring, and a split outside
+    0..n. ``ring_allgather`` refuses them given the buffer as ``out`` (a
+    non-square one is not the shards' buffer), and so do the checks its
+    kernel path makes (the buffer's, then the schedule's, cached per
+    schedule)."""
+    if not one_launch:
+        with pytest.raises((TypeError, ValueError)):
+            K.ring_step(**bad)
+        return
+    bad = dict(bad)
+    buf = bad.pop("buf")
+    entry = (bad.pop("step"), bad.get("direction", 1), bad.get("split"),
+             bad.get("rounds", 1), bad.get("active_round", 0))
+    x = torch.zeros(buf.shape[0], buf.shape[-1], dtype=buf.dtype)
     with pytest.raises((TypeError, ValueError)):
-        K.ring_step(**bad)
+        K.ring_allgather(x, (entry,), out=buf)
+    with pytest.raises((TypeError, ValueError)):
+        p, n = K._check_buf(buf)
+        K._packed((entry,), p, n)
+
+
+@pytest.mark.parametrize("p,chains,counts", [(1, 1, (0,)), (8, 4, (14,)), (8, 1, (56,)),
+                                             (16, 1, (128, 112)), (24, 2, (128, 128, 20))])
+def test_ring_allgather_splits_a_long_schedule_into_launches(p, chains, counts):
+    """A launch's parameters carry at most 128 schedule entries: a longer
+    schedule (bcast at P = 16 with one chain has 240) goes as one launch per
+    128 entries, in order, and an empty one (P = 1) as one launch that only
+    installs the shards. On the CPU the whole schedule gathers every shard
+    to every rank."""
+    n = 5
+    sched = C._bcast_schedule(p, chains)
+    chunks, kinds = K._packed(sched, p, n)
+    assert tuple(count for _, count in chunks) == counts
+    flat = [v for packed, count in chunks for v in packed[:5 * count]]
+    assert flat == [v for e in sched for v in (e[0], e[1], n, e[3], e[4])]
+    assert dict(kinds) == ({"bcast": len(sched)} if p // chains > 1 else
+                           {"ring": len(sched)} if sched else {})
+    x = torch.from_numpy(np.random.default_rng(p).standard_normal((p, n)).astype(np.float32))
+    assert torch.equal(C._flat(K.ring_allgather(x, sched)), C.plain_allgather_local(x))
 
 
 # ------------------------------------------------ collectives vs the reference
@@ -101,14 +212,21 @@ for n in {SIZES}:
     return inputs, run_reference(body, inputs)
 
 
+@pytest.mark.parametrize("via", ["make_allgather", "ring_allgather_plain"])
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("mode,chains", CASES)
-def test_stacked_allgather_matches_jax(ref_collectives, mode, chains, n):
-    """Every rank's gathered copy equals JAX's make_allgather, bitwise."""
+def test_stacked_allgather_matches_jax(ref_collectives, mode, chains, n, via):
+    """Every rank's gathered copy equals JAX's make_allgather, bitwise:
+    through the port's entry point, and as ``ring_allgather_plain`` over
+    the mode's whole schedule on the ring buffer."""
     inputs, ref = ref_collectives
     mesh = StackedMesh(x=P8)
     x = torch.from_numpy(inputs[f"x{n}"]).reshape(P8, n)
-    got = C.make_allgather(mesh, "x", mode, n_chains=chains)(x)
+    if via == "make_allgather":
+        got = C.make_allgather(mesh, "x", mode, n_chains=chains)(x)
+    else:
+        sched = _schedule(mode, P8, n, chains)
+        got = C._flat(K.ring_allgather_plain(x, sched))
     want = ref[f"{mode}{chains}_{n}"]
     assert got.shape == (P8, P8 * n)
     for r in range(P8):

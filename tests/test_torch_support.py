@@ -310,7 +310,7 @@ def test_serve_launcher_runs_on_cpu(capsys):
     serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--prompt-len", "8",
                 "--new-tokens", "3", "--fsdp-mode", "mcast_bcast"])
     out = capsys.readouterr().out
-    assert "8 prompt + 3 new tokens" in out and "0 ring-step kernel launches" in out
+    assert "8 prompt + 3 new tokens" in out and "0 ring-allgather kernel launches" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--arch", "smollm-135m", "--smoke"])
