@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-0. builds the eight kernel sources (csrc/*.cu), one nvcc each, in parallel;
+0. builds the nine kernel sources (csrc/*.cu), one nvcc each, in parallel;
 1. the ring-step kernel (csrc/ring_step.cu) and its transpose
    (csrc/ring_step_transpose.cu) against their plain torch versions,
    bitwise, over ranks, lengths, dtypes, directions and round masks; the
@@ -14,7 +14,12 @@
    at P = 16 (240 entries: a launch per 128), the call on the first k
    entries equals the shards installed on the diagonal and then k plain
    ring steps, on the same buffer of random values, bitwise (bf16 and f32;
-   n = 1, 7, 24, 41,472 and 41,473; one and two groups); the
+   n = 1, 7, 24, 41,472 and 41,473; one and two groups); the same order
+   check of the transpose kernel (csrc/ring_allgather_transpose.cu) over
+   the same schedules and prefixes against its plain version (a copy of the
+   cotangent, the plain transposed steps in reverse order, the diagonal),
+   bitwise, f16 too at n = 24, the two-group cotangent a non-contiguous
+   view, max(1, ceil(k / 128)) launches a call; the
    matmul kernel (csrc/matmul.cu) against its plain version at every shape
    the training and serving paths give it (forward and both backward
    products, bf16 and f32, the tied head's embed^T view included): f32
@@ -45,7 +50,9 @@
    3 timed steps each; the first step's loss must be bitwise equal in all
    modes; a step launches 420 ring-allgather kernels running 2,940 / 2,940
    / 11,760 schedule entries of its mode's kind in mcast / mcast_ring /
-   mcast_bcast, no ring step, and the transposes and matmuls as before.
+   mcast_bcast, and 210 transpose kernels (one per gather backward) running
+   1,470 / 1,470 / 5,880, no ring step, no transposed step, and the
+   matmuls as before.
    A reduced f32 train step sharded
    over 8 ranks is held against a single-rank run over 3 steps (loss within
    1e-5, grad_norm within 1e-4, relative);
@@ -77,8 +84,9 @@
    from roots 0 and 7 in 8 and 64 chunks, every rank bitwise equal to
    root's row; (d) ``concurrent_ag_rs_local`` on that bucket's shards, both
    halves bitwise equal to the separate calls, on two streams and on one;
-   its launches (counts zeroed before, read after) are the ring step's in
-   the kernels line: the main path no longer launches it.
+   its launches (counts zeroed before, read after) are the ring step's and
+   the transposed step's in the kernels line: the main path launches
+   neither.
 
 Prints the card's name and power limit, per-mode and per-broadcast timings
 (medians of host-clock samples after a warm-up call; device busy time and
@@ -222,6 +230,44 @@ def check_allgather() -> tuple[int, float]:
     return launches, max_err
 
 
+def check_allgather_transpose() -> tuple[int, float]:
+    """Phase 1: the order check of the transpose kernel. For every prefix
+    length k of every schedule, k = 0 included, the call on its first k
+    entries (one launch per 128) equals the plain version on the same
+    cotangent, bitwise: bf16 and f32 at every n of ``check_allgather``, f16
+    at n = 24; one group contiguous, two as a transposed view (copied by
+    the wrapper); the cotangent unchanged. Returns (launches, max abs
+    err)."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    launches, max_err = 0, 0.0
+    sizes = [(dtype, n) for dtype in (torch.bfloat16, torch.float32)
+             for n in (1, 7, 24, 41472, 41473)] + [(torch.float16, 24)]
+    for p in (2, 3, 5, 8, 16, 33):
+        for dtype, n in sizes:
+            for name, sched in _order_schedules(p, n).items():
+                for groups in (1, 2):
+                    g = torch.randn((groups, p, n, p), generator=gen,
+                                    device="cuda").to(dtype).transpose(-1, -2)
+                    g = g if groups == 2 else g.contiguous()
+                    kept = g.clone()
+                    for k in range(len(sched) + 1):
+                        want = K.ring_allgather_transpose_plain(g, sched[:k])
+                        before = K.allgather_transpose_launches
+                        got = K.ring_allgather_transpose(g, sched[:k])
+                        torch.cuda.synchronize()
+                        max_err = max(max_err, _exact("ring_allgather_transpose", (got,), (want,),
+                                                      (p, dtype, n, name, groups, k)))
+                        if K.allgather_transpose_launches - before != max(1, -(-k // 128)):
+                            raise AssertionError(
+                                f"ring_allgather_transpose: {k} entries took "
+                                f"{K.allgather_transpose_launches - before} launches")
+                        launches += K.allgather_transpose_launches - before
+                    if not torch.equal(g, kept):
+                        raise AssertionError(f"ring_allgather_transpose wrote its cotangent at "
+                                             f"{(p, dtype, n, name, groups)}")
+    return launches, max_err
+
+
 def check_collectives() -> int:
     """Phase 2: the paper's stacked allgathers equal the plain gather."""
     mesh = StackedMesh(data=8, model=1)
@@ -294,8 +340,8 @@ def serve() -> None:
         (logits, pre), _, counts = _run(do_prefill)
         out, _, gen_counts = _run(do_generate)
         launches, gen_launches = counts["ring_allgather"], gen_counts["ring_allgather"]
-        if (counts["matmul"] == 0 or counts["ring_step_transpose"] != 0
-                or any(counts[k] or gen_counts[k] for k in OFF_PATH + ("ring_step",))):
+        if counts["matmul"] == 0 or any(counts[k] or gen_counts[k] for k in OFF_PATH + (
+                "ring_step", "ring_step_transpose", "ring_allgather_transpose")):
             raise AssertionError(f"{mode}: prefill launched {counts}, generation {gen_counts}")
         prefill_s = _wall(do_prefill)
         dev_prefill, prefill_prof_ms = _device_times(do_prefill)
@@ -366,7 +412,7 @@ def serve() -> None:
               + json.dumps({k[:60]: t for k, t in top}), flush=True)
 
 
-MODEL_KERNELS = ("ring_allgather", "ring_step_transpose", "matmul")
+MODEL_KERNELS = ("ring_allgather", "ring_allgather_transpose", "matmul")
 # the kind of schedule entry each mode's gathers run (mcast: the bidirectional ring)
 ENTRY_KIND = {"mcast": "bidi", "mcast_ring": "ring", "mcast_bcast": "bcast"}
 OFF_PATH = ("matmul_wmma", "matmul_f32")   # matmul paths no main-path product takes
@@ -379,20 +425,22 @@ def _entries(counts: dict[str, int]) -> dict[str, int]:
     return {k: v for k, v in counts.items() if k.startswith("entries_")}
 
 
-def _want_entries(mode: str, steps: int, p: int) -> dict[str, int]:
-    """Schedule entries that gathers of ``steps`` ring steps in all run in
-    ``mode`` over P = p ranks: one per step, on each of P / M rounds for
-    the broadcasts."""
-    out = {f"entries_{kind}": 0 for kind in K.entries}
+def _want_entries(mode: str, steps: int, p: int, key: str = "entries") -> dict[str, int]:
+    """Schedule entries that gathers (or their transposes) of ``steps`` ring
+    steps in all run in ``mode`` over P = p ranks: one per step, on each of
+    P / M rounds for the broadcasts; keyed ``{key}_{kind}``."""
+    out = {f"{key}_{kind}": 0 for kind in K.entries}
     if mode != "xla":
         rounds = p // N_CHAINS if mode == "mcast_bcast" else 1
-        out[f"entries_{ENTRY_KIND[mode]}"] = steps * rounds
+        out[f"{key}_{ENTRY_KIND[mode]}"] = steps * rounds
     return out
 
 
 def _counts() -> dict[str, int]:
     return {"ring_allgather": K.allgather_launches,
             **{f"entries_{kind}": n for kind, n in K.entries.items()},
+            "ring_allgather_transpose": K.allgather_transpose_launches,
+            **{f"transpose_entries_{kind}": n for kind, n in K.transpose_entries.items()},
             "ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
             "matmul": M.launches, "matmul_wmma": M.launches_wmma,
             "matmul_f32": M.launches_f32, "pool": PL.launches, "bitmap_pack": BM.pack_launches,
@@ -402,8 +450,9 @@ def _counts() -> dict[str, int]:
 
 
 def _zero_counts() -> None:
-    K.allgather_launches = 0
+    K.allgather_launches = K.allgather_transpose_launches = 0
     K.entries.update(dict.fromkeys(K.entries, 0))
+    K.transpose_entries.update(dict.fromkeys(K.transpose_entries, 0))
     K.launches = K.transpose_launches = M.launches = PL.launches = CR.launches = 0
     M.launches_wmma = M.launches_f32 = 0
     BM.pack_launches = BM.or_launches = BM.popcount_launches = 0
@@ -480,6 +529,19 @@ def _steps(x: torch.Tensor, sched: tuple) -> torch.Tensor:
     return buf
 
 
+def _transposed_steps(g: torch.Tensor, sched: tuple) -> torch.Tensor:
+    """The gather's backward as the main path ran it before the one-launch
+    transpose: a copy of the cotangent, one transposed-step launch per
+    schedule entry in reverse order, and a copy of the diagonal."""
+    p = g.shape[-2]
+    buf = g.reshape(*g.shape[:-1], p, g.shape[-1] // p).clone(
+        memory_format=torch.contiguous_format)
+    for step, direction, split, rounds, active in reversed(sched):
+        K.ring_step_transpose(buf, step, direction=direction, split=split, rounds=rounds,
+                              active_round=active)
+    return buf.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
+
+
 def time_ring_steps(cfg) -> dict:
     """At the shapes of one smollm-135m layer at P=8 (the flat rank shard of
     each sharded leaf, bf16): the whole gather of each mode's schedule
@@ -491,11 +553,20 @@ def time_ring_steps(cfg) -> dict:
     launches), its plain version (the install and the plain steps) and the
     plain gather (``plain_allgather_local``, one tensor op: the library
     call), and the bound: (P * P + P) * n * 2 bytes, the shards read once
-    and the gathered buffer written once. Then one step per call of the ring
+    and the gathered buffer written once. The same for each schedule's
+    whole backward as the main path calls it, ``_transposed(g, schedule)``
+    on a cotangent (P, P * n): the result's allocation and one launch of
+    the transpose kernel; beside what it replaces (a copy of the cotangent,
+    7 or 28 transposed-step launches and a copy of the diagonal), which it
+    must equal bitwise (the main path's gradients are unchanged), its plain
+    version, the one PyTorch call of the same function, ``g.view(P, P,
+    n).sum(-3)`` (not bitwise: it sums in another order), and the bound:
+    (P * P + P) * n * 2 bytes, the cotangent read once and the result
+    written once. Then one step per call of the ring
     step and its transpose: kernel, plain version, and one library call of
     the same step (an advanced-index copy; an index_add_). Device ms from
     ``_device_ms``. Returns the means over the leaves (and, for the
-    gather, over the three schedules)."""
+    gather and its transpose, over the three schedules)."""
     p = 8
     rank = torch.arange(p, device="cuda")
     src, rcv = rank % p, (rank + 1) % p   # step 0: rank d sends its own slot
@@ -511,6 +582,11 @@ def time_ring_steps(cfg) -> dict:
                "gather_bound_ms": (p * p + p) * n * buf.element_size() / HBM_BYTES_PER_S * 1e3,
                "gather_library_ms": _time(lambda: C.plain_allgather_local(x)),
                "gather_library_device_ms": _device_ms(lambda: C.plain_allgather_local(x))}
+        g = torch.randn((p, p * n), device="cuda").to(torch.bfloat16)   # a layer's cotangent
+        g3 = g.view(p, p, n)
+        row.update({"transpose_bound_ms": row["gather_bound_ms"],
+                    "transpose_library_ms": _time(lambda: g3.sum(-3)),
+                    "transpose_library_device_ms": _device_ms(lambda: g3.sum(-3))})
         gather = {}
         for mode, sched in (("mcast", C._bidi_schedule(p, n)), ("mcast_ring", C._ring_schedule(p)),
                             ("mcast_bcast", C._bcast_schedule(p, N_CHAINS))):
@@ -523,8 +599,24 @@ def time_ring_steps(cfg) -> dict:
                             "replaced_device_ms": _device_ms(one["replaced_ms"]),
                             "host_ms": _host_ms(one["ms"])}
         row["gather"] = gather
+        transpose = {}
+        for mode, sched in (("mcast", C._bidi_schedule(p, n)), ("mcast_ring", C._ring_schedule(p)),
+                            ("mcast_bcast", C._bcast_schedule(p, N_CHAINS))):
+            one = {"ms": lambda: C._transposed(g, sched),
+                   "replaced_ms": lambda: _transposed_steps(g, sched),
+                   "plain_ms": lambda: K.ring_allgather_transpose_plain(g3, sched)}
+            if not torch.equal(one["ms"](), one["replaced_ms"]()):
+                raise AssertionError(f"{name} {mode}: the one-launch backward differs from the "
+                                     "transposed steps it replaces")
+            transpose[mode] = {"entries": len(sched),
+                               **{k: _time(fn) for k, fn in one.items()},
+                               "device_ms": _device_ms(one["ms"]),
+                               "replaced_device_ms": _device_ms(one["replaced_ms"]),
+                               "host_ms": _host_ms(one["ms"])}
+        row["transpose"] = transpose
         for k in ("ms", "plain_ms", "device_ms"):
-            row[f"gather_{k}"] = statistics.mean(g[k] for g in gather.values())
+            row[f"gather_{k}"] = statistics.mean(v[k] for v in gather.values())
+            row[f"transpose_{k}"] = statistics.mean(v[k] for v in transpose.values())
         fns = {"": lambda: K.ring_step(buf, 0),
                "bidi_": lambda: K.ring_step(buf, 0, split=n // 2),
                "plain_": lambda: K.ring_step_plain(buf, 0),
@@ -537,11 +629,11 @@ def time_ring_steps(cfg) -> dict:
                     if k in ("", "library_", "t_", "t_library_")})
         print(f"[ring] {name}: P={p} n={n} bf16 " + json.dumps(row), flush=True)
         for k, v in row.items():
-            if k == "gather":
-                for mode, g in v.items():
-                    for gk, gv in g.items():
-                        key = f"{mode}_{gk}"
-                        tot[key] = tot.get(key, 0.0) + gv / len(leaves)
+            if k in ("gather", "transpose"):
+                for mode, per in v.items():
+                    for pk, pv in per.items():
+                        key = f"{k}_{mode}_{pk}"
+                        tot[key] = tot.get(key, 0.0) + pv / len(leaves)
             else:
                 tot[k] = tot.get(k, 0.0) + v / len(leaves)
     return tot
@@ -765,8 +857,9 @@ def train() -> dict[str, int]:
             want = {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + OFF_PATH},
                     "ring_allgather": 2 * gathers if rounds[mode] else 0,   # remat: twice
                     **_want_entries(mode, 2 * gather_steps, mesh.n_ranks), "ring_step": 0,
-                    "ring_step_transpose": gather_steps * rounds[mode],
-                    "matmul": want_matmul}
+                    "ring_allgather_transpose": gathers if rounds[mode] else 0,   # once
+                    **_want_entries(mode, gather_steps, mesh.n_ranks, "transpose_entries"),
+                    "ring_step_transpose": 0, "matmul": want_matmul}
             if counts != want:
                 raise AssertionError(f"{mode}: launches per train step {counts}, expected {want}")
         holder = {"state": state}
@@ -792,6 +885,8 @@ def train() -> dict[str, int]:
                "matmul_device_ms": sum(t for k, t in dev.items() if "matmul_" in k),
                "ring_allgather_device_ms": sum(t for k, t in dev.items()
                                                if "ring_allgather_kernel" in k),
+               "ring_allgather_transpose_device_ms": sum(
+                   t for k, t in dev.items() if "ring_allgather_transpose_kernel" in k),
                "ring_step_transpose_device_ms": sum(t for k, t in dev.items()
                                                     if "ring_step_transpose_kernel" in k)}
         print("[train] " + json.dumps(row), flush=True)
@@ -1300,6 +1395,10 @@ def main() -> int:
     ag_cases, ag_err = check_allgather()
     print(f"[kernel] ring_allgather == plain steps on every prefix: {ag_cases} launches, max "
           f"abs err {ag_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    agt_cases, agt_err = check_allgather_transpose()
+    print(f"[kernel] ring_allgather_transpose == plain on every prefix: {agt_cases} launches, "
+          f"max abs err {agt_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
     train_cases = matmul_cases(cfg, 8, TRAIN_SHAPE.global_batch // 8 * TRAIN_SHAPE.seq_len,
                                torch.bfloat16, train=True)
     path_cases = {**train_cases,                                    # full-width serving:
@@ -1367,7 +1466,8 @@ def main() -> int:
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)
     layer_counts, layer = layer_path()   # zeroes the counts before driving the path
     launches.update({name: layer_counts[name] for name in LAYER_KERNELS})
-    launches["ring_step"] = bucket_collectives(cfg)["ring_step"]
+    bucket_counts = bucket_collectives(cfg)
+    launches.update({name: bucket_counts[name] for name in ("ring_step", "ring_step_transpose")})
     print(f"[layer] phase 6 checks passed ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     ring = time_ring_steps(cfg)
@@ -1419,6 +1519,13 @@ def main() -> int:
          "ms": ring["gather_ms"], "plain_ms": ring["gather_plain_ms"],
          "bound_ms": ring["gather_bound_ms"], "bound_by": "bytes",
          "library_ms": ring["gather_library_ms"]},
+        {"name": "ring_allgather_transpose", "route": "cuda",
+         "source": "src/repro_torch/csrc/ring_allgather_transpose.cu",
+         "replaces": "src/repro/kernels/ring_allgather.py:46",
+         "launches": launches["ring_allgather_transpose"], "max_abs_err": agt_err,
+         "ms": ring["transpose_ms"], "plain_ms": ring["transpose_plain_ms"],
+         "bound_ms": ring["transpose_bound_ms"], "bound_by": "bytes",
+         "library_ms": ring["transpose_library_ms"]},
         {"name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_step.cu",
          "replaces": "src/repro/kernels/ring_allgather.py:46",
          "launches": launches["ring_step"], "max_abs_err": ring_err, "ms": ring["ms"],

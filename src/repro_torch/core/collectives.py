@@ -11,8 +11,8 @@ reference's step for step, on the buffer ``(..., P_rank, P_slot, n)``; on the
 card one launch of the ring-allgather kernel runs all of its steps.
 
   ring_allgather_local   unidirectional ring, P - 1 steps
-  bidi_ring_allgather    half of each shard travels each direction; one
-                         launch per step moves both halves
+  bidi_ring_allgather    half of each shard travels each direction, both
+                         halves in the same launch
   bcast_allgather        Appendix A: P / M sequential rounds of M parallel
                          broadcast chains, P - 1 masked steps per round
   plain_allgather        the plain tensor gather: the counterpart of the
@@ -25,13 +25,15 @@ card one launch of the ring-allgather kernel runs all of its steps.
 
 The three ring gathers are ``torch.autograd.Function``s. The forward fills
 the ring buffer out of autograd's sight (``ring_allgather``: one launch per
-gather installs each rank's shard and runs the schedule); the backward replays the
-same steps in reverse order (rounds too) through the transposed ring step,
-which adds each receiver's cotangent into its sender's, and reads the
+gather installs each rank's shard and runs the schedule); the backward is one
+launch too (``ring_allgather_transpose``): the same steps in reverse order
+(rounds too), each adding a receiver's cotangent into its sender's, then the
 diagonal: rank d's gradient is the sum of every rank's cotangent of shard d,
 summed along the chain from its far end as JAX's transpose of the ring sums
-it. The ring reduce-scatters are the same transposed steps applied to each
-rank's own full contribution.
+it. The launch reads the cotangent once and writes the (..., P, n) result
+once, (P * P + P) * n * itemsize bytes, with no copy of the cotangent and
+no copy of the diagonal. The ring reduce-scatters are the same transpose
+applied to each rank's own full contribution.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ from typing import Callable
 import torch
 
 from repro_torch.device import overlapped
-from repro_torch.kernels.ring_allgather import ring_allgather, ring_step, ring_step_transpose
+from repro_torch.kernels.ring_allgather import (ring_allgather, ring_allgather_transpose,
+                                                ring_step, ring_step_transpose)
 from repro_torch.launch.mesh import StackedMesh
 
 # ((step, direction, split, rounds, active_round), ...) in launch order; split
@@ -67,13 +70,7 @@ def _transposed(g: torch.Tensor, schedule: Schedule) -> torch.Tensor:
     """(..., P, P * n) per-rank cotangents (or contributions) -> (..., P, n):
     the schedule's steps transposed, in reverse order, then the diagonal."""
     p = g.shape[-2]
-    # a copy: the transposed steps write in place
-    buf = g.reshape(*g.shape[:-1], p, g.shape[-1] // p).clone(
-        memory_format=torch.contiguous_format)
-    for step, direction, split, rounds, active_round in reversed(schedule):
-        ring_step_transpose(buf, step, direction=direction, split=split, rounds=rounds,
-                            active_round=active_round)
-    return buf.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
+    return ring_allgather_transpose(g.reshape(*g.shape[:-1], p, g.shape[-1] // p), schedule)
 
 
 class _RingGather(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """Ring kernels of the stacked collective backend: the allgather (a whole
-schedule in one launch, or one step), the step's exact transpose, and the
-double-buffered drain.
+schedule in one launch, or one step), its transpose (a whole schedule in one
+launch, or one step), and the double-buffered drain.
 
 ``ring_allgather`` replaces ``ring_allgather_tpu``
 (src/repro/kernels/ring_allgather.py:46), the Pallas kernel in which device
@@ -17,22 +17,30 @@ and the composition of broadcasts; any prefix of one is a schedule too.
 ``ring_step`` (``csrc/ring_step.cu``) is one entry in one launch, which
 concurrent AG/RS and the CPU's allgather-matmul schedule still take.
 
-``ring_step_transpose`` (``csrc/ring_step_transpose.cu``) is the adjoint of
-one such step over the same (sender, receiver, slot) triples:
-``g[..., snd, src] += g[..., rcv, src]``. The data flows against the ring:
-a rank receives its neighbour's partial sum, adds its own cotangent, and
-passes it on at the next step. Replayed in reverse step order it is the
-backward of the gathers (``core/collectives.py``) and the port's ring
-reduce-scatter; the TPU has no kernel for it (JAX transposes the
-``ppermute`` ring itself).
+``ring_allgather_transpose`` (``csrc/ring_allgather_transpose.cu``) is the
+adjoint of a whole gather: a cotangent ``g (G, P_rank, P_slot, n)`` ->
+``(G, P, n)``, the schedule's steps transposed, ``g[..., snd, src] +=
+g[..., rcv, src]`` over the same (sender, receiver, slot) triples, in
+reverse order, then the diagonal. The data flows against the ring: a rank
+takes its neighbour's partial sum, adds its own cotangent, and passes it
+on at the next step. It is the backward of the gathers and the port's ring
+reduce-scatter (``core/collectives.py``), one launch each; the TPU has no
+kernel for it (JAX transposes the ``ppermute`` ring itself). On the ring,
+bidi and broadcast schedules the launch only reads ``g`` and writes the
+result; other schedules, P > 32 and more than 128 entries work in place on
+a scratch copy (``_packed_transpose``). ``ring_step_transpose``
+(``csrc/ring_step_transpose.cu``) is one transposed step in one launch,
+which only concurrent AG/RS still takes: its steps interleave with the
+allgather's.
 
 Bound: HBM bytes. A whole gather reads every rank's shard once and writes
 every rank's gathered copy once, (P * P + P) * n * itemsize bytes per
-group. A step copies one slot per rank, 2 * P * n * itemsize bytes; the
-transposed step reads two slots and writes one, 3 * P * n * itemsize. At the
-shapes of a smollm-135m layer a step moves a few MB, about a microsecond at
-HBM speed, so a launch per step is set by the host; one launch per gather
-pays that once.
+group; its transpose reads every slot of ``g`` once and writes the result
+once, the same bytes. A step copies one slot per rank, 2 * P * n * itemsize
+bytes; the transposed step reads two slots and writes one, 3 * P * n *
+itemsize. At the shapes of a smollm-135m layer a step moves a few MB, about
+a microsecond at HBM speed, so a launch per step is set by the host; one
+launch per gather, and per gather backward, pays that once.
 
 ``local_double_buffer_drain`` replaces the Pallas kernel of the same name
 (src/repro/kernels/ring_allgather.py:94): the local-copy half of the ring
@@ -42,12 +50,14 @@ engine, staged chunks drained in order through a two-slot staging ring
 staged.nbytes.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version only for a CPU tensor. ``allgather_launches``, ``launches``,
-``transpose_launches`` and ``drain_launches`` count kernel launches;
-``entries`` counts the schedule entries that ``ring_allgather`` launches
-ran, by kind: "ring", "bidi" (a split inside the slot) and "bcast" (a round
-mask). The kernels are built with ``nvcc`` into ``build/`` at their first
-launch and bound once (``kernels/build.py``).
+version only for a CPU tensor. ``allgather_launches``,
+``allgather_transpose_launches``, ``launches``, ``transpose_launches`` and
+``drain_launches`` count kernel launches; ``entries`` and
+``transpose_entries`` count the schedule entries that the ``ring_allgather``
+and ``ring_allgather_transpose`` launches ran, by kind: "ring", "bidi" (a
+split inside the slot) and "bcast" (a round mask). The kernels are built
+with ``nvcc`` into ``build/`` at their first launch and bound once
+(``kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -60,6 +70,8 @@ from repro_torch.kernels import build
 
 allgather_launches = 0   # ring_allgather kernel launches
 entries = {"ring": 0, "bidi": 0, "bcast": 0}   # schedule entries those launches ran
+allgather_transpose_launches = 0   # ring_allgather_transpose kernel launches
+transpose_entries = {"ring": 0, "bidi": 0, "bcast": 0}   # schedule entries those launches ran
 launches = 0             # ring_step kernel launches
 transpose_launches = 0   # ring_step_transpose kernel launches
 drain_launches = 0       # double_buffer_drain kernel launches
@@ -67,13 +79,15 @@ drain_launches = 0       # double_buffer_drain kernel launches
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_ROWS = 65535  # gridDim.y
-_MAX_ENTRIES = 128  # kMaxEntries of csrc/ring_allgather.cu: entries per launch
+_MAX_ENTRIES = 128  # kMaxEntries of csrc/ring_allgather{,_transpose}.cu: entries per launch
+_MAX_LANES = 32     # kMaxLanes: the most ranks whose column one warp holds
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _ALLGATHER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
                        ctypes.c_int, ctypes.c_void_p]
+_TRANSPOSE_ARGTYPES = _ALLGATHER_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]   # + in_place
 
 
 def ring_schedule(n_devices: int) -> list[list[tuple[int, int, int]]]:
@@ -247,24 +261,36 @@ def ring_allgather_plain(x: torch.Tensor, schedule: tuple,
     return out
 
 
-@functools.lru_cache(maxsize=256)
-def _packed(schedule: tuple, p: int, n: int) -> tuple[tuple[tuple[ctypes.Array, int], ...],
-                                                      tuple[tuple[str, int], ...]]:
-    """A schedule checked against P and n, as the kernel takes it: one
-    (entries, count) per launch, at most 128 entries each and at least one
-    launch (it installs the shards), five int64 per entry (step, direction,
-    split, rounds, active_round); and its entries counted by kind. Cached:
-    a gather passes the same few schedules again and again."""
+def _checked(schedule: tuple, p: int, n: int) -> tuple[list[tuple], tuple[tuple[str, int], ...]]:
+    """A schedule's entries checked against P and n, ``split`` resolved (n
+    for None), and counted by kind."""
     flat, kinds = [], {}
     for step, direction, split, rounds, active_round in schedule:
         split = _check_entry(p, n, step, direction, split, rounds, active_round)
         flat.append((step, direction, split, rounds, active_round))
         kind = "bcast" if rounds > 1 else "bidi" if 0 < split < n else "ring"
         kinds[kind] = kinds.get(kind, 0) + 1
+    return flat, tuple(kinds.items())
+
+
+def _chunks(flat: list[tuple]) -> tuple[tuple[ctypes.Array, int], ...]:
+    """Entries as the kernels take them: one (entries, count) per launch, at
+    most 128 entries each and at least one launch, five int64 per entry
+    (step, direction, split, rounds, active_round)."""
     chunks = tuple(flat[i:i + _MAX_ENTRIES] for i in range(0, len(flat), _MAX_ENTRIES)) or ((),)
-    return (tuple(((ctypes.c_longlong * (5 * len(c)))(*[v for e in c for v in e]), len(c))
-                  for c in chunks),
-            tuple(kinds.items()))
+    return tuple(((ctypes.c_longlong * (5 * len(c)))(*[v for e in c for v in e]), len(c))
+                 for c in chunks)
+
+
+@functools.lru_cache(maxsize=256)
+def _packed(schedule: tuple, p: int, n: int) -> tuple[tuple[tuple[ctypes.Array, int], ...],
+                                                      tuple[tuple[str, int], ...]]:
+    """A schedule checked against P and n, as the kernel takes it (one
+    launch per 128 entries, at least one: it installs the shards), and its
+    entries counted by kind. Cached: a gather passes the same few
+    schedules again and again."""
+    flat, kinds = _checked(schedule, p, n)
+    return _chunks(flat), kinds
 
 
 def ring_allgather(x: torch.Tensor, schedule: tuple,
@@ -297,6 +323,99 @@ def ring_allgather(x: torch.Tensor, schedule: tuple,
         src = None
     for kind, count in kinds:
         entries[kind] += count
+    return out
+
+
+# ---------------------------------------- a whole schedule's transpose, one launch
+
+
+def ring_allgather_transpose_plain(g: torch.Tensor, schedule: tuple) -> torch.Tensor:
+    """The gather's transpose in plain torch: a copy of the cotangent g
+    (..., P, P, n), ``ring_step_transpose_plain`` over the schedule's
+    entries in reverse order, in place on the copy, then its diagonal
+    (..., P, n): rank d's slot d."""
+    buf = g.clone(memory_format=torch.contiguous_format)
+    _check_buf(buf)
+    for step, direction, split, rounds, active_round in reversed(schedule):
+        ring_step_transpose_plain(buf, step, direction=direction, split=split, rounds=rounds,
+                                  active_round=active_round)
+    return buf.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
+
+
+def _in_registers(flat: list[tuple], p: int, n: int) -> bool:
+    """Whether the entries, in the order the kernel runs them, can run on a
+    cotangent that is only read: every slot an entry reads still holds g's
+    own value, or is the neighbour's slot that the entry before summed when
+    the entry continues it (the same direction, split and round mask, one
+    step back), which the kernel takes from the neighbour's lane. Checked
+    on each span of elements between two splits, where every entry moves
+    along one direction."""
+    cuts = sorted({0, n, *(split for _, _, split, _, _ in flat)})
+    for lo in cuts[:-1]:
+        written, prev = set(), None
+        for entry in flat:
+            step, direction, split, rounds, active_round = entry
+            dr = direction if lo < split else -direction
+            chained = prev is not None and prev[0] == step + 1 and prev[1:] == entry[1:]
+            moved = []
+            for d in range(p):
+                src = (d - dr * step) % p
+                if src % rounds != active_round:
+                    continue
+                if (d, src) in written or (not chained and ((d + dr) % p, src) in written):
+                    return False
+                moved.append((d, src))
+            written.update(moved)
+            prev = entry
+    return True
+
+
+@functools.lru_cache(maxsize=256)
+def _packed_transpose(schedule: tuple, p: int, n: int) -> tuple[
+        tuple[tuple[ctypes.Array, int], ...], tuple[tuple[str, int], ...], bool]:
+    """A schedule checked against P and n, its entries in the order the
+    transpose kernel runs them (the schedule's reverse), one launch per 128
+    entries and at least one (it reads the diagonal); the entries counted by
+    kind; and whether the launches work in place on a scratch copy of the
+    cotangent: for P > 32 (no warp holds a column), for more than one
+    launch (the sums pass from launch to launch in memory), and for
+    entries that ``_in_registers`` refuses. Cached, as ``_packed``."""
+    flat, kinds = _checked(schedule, p, n)
+    flat.reverse()
+    in_place = p > _MAX_LANES or len(flat) > _MAX_ENTRIES or not _in_registers(flat, p, n)
+    return _chunks(flat), kinds, in_place
+
+
+def ring_allgather_transpose(g: torch.Tensor, schedule: tuple) -> torch.Tensor:
+    """The transpose of the gather by ``schedule`` on a cotangent g (..., P,
+    P, n) -> a new (..., P, n); see ``ring_allgather_transpose_plain``. For
+    a CUDA tensor one launch of the kernel runs every entry and writes the
+    result (one more launch per further 128 entries); g is read, never
+    written (copied first where it is not contiguous, or where the
+    launches work in place). A CPU tensor takes the plain version; any
+    other device raises."""
+    global allgather_transpose_launches
+    if g.is_cpu:
+        return ring_allgather_transpose_plain(g, schedule)
+    if not g.is_cuda:
+        raise ValueError(f"ring_allgather_transpose runs on cuda or cpu tensors, got {g.device}")
+    buf = g.contiguous()
+    p, n = _check_buf(buf)
+    chunks, kinds, in_place = _packed_transpose(tuple(schedule), p, n)
+    if in_place and g.is_contiguous():   # the launches write: never into autograd's g
+        buf = g.clone()
+    groups = buf.numel() // (p * p * n)
+    if groups > _MAX_ROWS:
+        raise ValueError(f"{groups} groups exceed {_MAX_ROWS} block rows")
+    out = buf.new_empty(*buf.shape[:-3], p, n)
+    fn = build.function("ring_allgather_transpose", "ring_allgather_transpose",
+                        _TRANSPOSE_ARGTYPES)
+    for i, (packed, count) in enumerate(chunks):   # only the last launch writes out
+        build.launch(fn, buf, buf.data_ptr(), out.data_ptr() if i == len(chunks) - 1 else None,
+                     _DTYPE_CODES[buf.dtype], groups, p, n, packed, count, int(in_place))
+        allgather_transpose_launches += 1
+    for kind, count in kinds:
+        transpose_entries[kind] += count
     return out
 
 

@@ -132,6 +132,40 @@ def test_ring_allgather_every_prefix_matches_plain_steps(mode, p, chains):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode,p,chains", PREFIX_SCHEDULES)
+def test_ring_allgather_transpose_every_prefix_matches_plain(mode, p, chains):
+    """For every prefix length k of a schedule, k = 0 included, the
+    transpose kernel on its first k entries equals the plain version (a
+    copy of the cotangent, the plain transposed steps in reverse order, the
+    diagonal) bitwise: bf16 and f32, and f16 at n = 24; n = 1, odd, 24 (a
+    16-byte vector that the bidi split cuts) and 41,472 (wq's shard at P =
+    8); one group, and two as a non-contiguous view. P = 33 and the mixed
+    schedule take the in-place launches, bcast at P = 16 (240 entries) one
+    launch per 128. Each call counts max(1, ceil(k / 128)) launches and k
+    entries, and leaves the cotangent as it was."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(p + 1)
+    for dtype, sizes in ((torch.bfloat16, (1, 7, 24, 41472)), (torch.float32, (1, 7, 24, 41472)),
+                         (torch.float16, (24,))):
+        for n in sizes:
+            sched = _prefix_schedule(mode, p, n, chains)
+            for groups in (1, 2):
+                g = torch.randn(groups, p, n, p, device="cuda", generator=gen).to(dtype)
+                g = g.transpose(-1, -2) if groups == 2 else g.transpose(-1, -2).contiguous()
+                kept = g.clone()
+                for k in range(len(sched) + 1):
+                    want = K.ring_allgather_transpose_plain(g, sched[:k])
+                    before = (K.allgather_transpose_launches, sum(K.transpose_entries.values()))
+                    got = K.ring_allgather_transpose(g, sched[:k])
+                    torch.cuda.synchronize()
+                    assert (K.allgather_transpose_launches - before[0],
+                            sum(K.transpose_entries.values()) - before[1]) == (
+                                max(1, -(-k // 128)), k)
+                    assert torch.equal(got, want), (mode, p, chains, dtype, n, groups, k)
+                assert torch.equal(g, kept)
+
+
+@pytest.mark.gpu
 def test_ring_allgather_refuses_shards_it_cannot_read():
     """On the card the shards must be contiguous, and ``out`` the shards'
     buffer (..., P, P, n) of their dtype."""
@@ -200,9 +234,10 @@ def test_matmul_kernel_matches_plain(dtype, rmkn):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode,chains", [("ring", None), ("bidi", None), ("bcast", 2)])
 def test_stacked_gather_gradient_on_cuda(mode, chains):
-    """The gather's backward on the transposed-step kernel: bitwise equal to
-    the same backward on the CPU (the same adds in the same order) and
-    within f32 rounding of the plain gather's gradient (a sum over ranks)."""
+    """The gather's backward is one launch of the transpose kernel and no
+    transposed step: bitwise equal to the same backward on the CPU (the
+    same adds in the same order) and within f32 rounding of the plain
+    gather's gradient (a sum over ranks)."""
     _need_cuda()
     mesh = StackedMesh(data=8, model=1)
     for n in (7, 4096):
@@ -212,10 +247,11 @@ def test_stacked_gather_gradient_on_cuda(mode, chains):
         for dev, m in (("cuda", mode), ("cpu", mode), ("cuda", "xla")):
             xd = x.to(dev).requires_grad_()
             y = C.make_allgather(mesh, "data", m, n_chains=chains)(xd)
-            before = K.transpose_launches
+            before = (K.allgather_transpose_launches, K.transpose_launches)
             (grads[dev, m],) = torch.autograd.grad(y, xd, g.to(dev))
             if dev == "cuda" and m != "xla":
-                assert K.transpose_launches > before
+                assert (K.allgather_transpose_launches - before[0],
+                        K.transpose_launches - before[1]) == (1, 0)
         assert torch.equal(grads["cuda", mode].cpu(), grads["cpu", mode])
         torch.testing.assert_close(grads["cuda", mode], grads["cuda", "xla"],
                                    rtol=1e-5, atol=1e-5)
@@ -460,7 +496,8 @@ def test_broadcast_and_concurrent_ag_rs_on_cuda():
 
 @pytest.mark.gpu
 def test_wrappers_launch_on_the_current_stream():
-    """The drain, the ring step, the one-launch gather and the matmul,
+    """The drain, the ring step, the one-launch gather, its transpose and
+    the matmul,
     called under a side stream while the default stream sleeps: each
     result, read on the side stream after synchronising that stream
     alone, equals the plain version. A launch on any other stream would
@@ -479,6 +516,8 @@ def test_wrappers_launch_on_the_current_stream():
                            K.ring_step_plain(buf.clone(), 3, split=100)),
              "ring_allgather": (lambda: K.ring_allgather(shards, sched),
                                 K.ring_allgather_plain(shards, sched)),
+             "ring_allgather_transpose": (lambda: K.ring_allgather_transpose(buf[0], sched),
+                                          K.ring_allgather_transpose_plain(buf[0], sched)),
              "matmul": (lambda: M.matmul(x, w), M.matmul_plain(x, w))}
     side = torch.cuda.Stream()
     for name, (call, want) in calls.items():
@@ -505,7 +544,8 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
         raise AssertionError("a CUDA tensor reached a plain version")
 
     for mod, name in ((K, "ring_step_plain"), (K, "ring_step_transpose_plain"),
-                      (K, "ring_allgather_plain"), (K, "local_double_buffer_drain_plain"),
+                      (K, "ring_allgather_plain"), (K, "ring_allgather_transpose_plain"),
+                      (K, "local_double_buffer_drain_plain"),
                       (M, "matmul_plain"), (PL, "pool_scan_rows_plain"),
                       (PL, "pool_completion_rows_plain"), (BM, "bitmap_pack_plain"),
                       (BM, "bitmap_or_rows_plain"), (BM, "bitmap_popcount_rows_plain"),
@@ -513,12 +553,13 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
         monkeypatch.setattr(mod, name, refuse)
     gen = torch.Generator(device="cuda").manual_seed(6)
     buf = torch.randn(8, 8, 64, device="cuda", generator=gen)
-    before = (K.launches, K.transpose_launches, K.allgather_launches, K.drain_launches,
-              _matmul_launches(), PL.launches, BM.pack_launches, BM.or_launches,
-              BM.popcount_launches, CR.launches)
+    before = (K.launches, K.transpose_launches, K.allgather_launches,
+              K.allgather_transpose_launches, K.drain_launches, _matmul_launches(), PL.launches,
+              BM.pack_launches, BM.or_launches, BM.popcount_launches, CR.launches)
     K.ring_step(buf, 0)
     K.ring_step_transpose(buf, 0)
     K.ring_allgather(buf[0], C._ring_schedule(8))
+    K.ring_allgather_transpose(buf, C._ring_schedule(8))
     K.local_double_buffer_drain(buf)
     M.matmul(buf, buf.transpose(1, 2))
     M.matmul(buf.bfloat16(), buf.bfloat16().transpose(1, 2))
@@ -531,7 +572,7 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
     BM.bitmap_popcount(words)
     CR.chunk_reassembly(buf[0], torch.arange(8, device="cuda"), torch.zeros_like(buf[0]))
     torch.cuda.synchronize()
-    after = (K.launches, K.transpose_launches, K.allgather_launches, K.drain_launches,
-             _matmul_launches(), PL.launches, BM.pack_launches, BM.or_launches,
-             BM.popcount_launches, CR.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 2, 2, 1, 1, 2, 2]
+    after = (K.launches, K.transpose_launches, K.allgather_launches,
+             K.allgather_transpose_launches, K.drain_launches, _matmul_launches(), PL.launches,
+             BM.pack_launches, BM.or_launches, BM.popcount_launches, CR.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 2, 2, 1, 1, 2, 2]

@@ -464,3 +464,166 @@ def test_hierarchical_gather_backward_sums_over_ranks(mode):
     (got,) = torch.autograd.grad(y, x, g)
     want = bridge._split(g.sum(0).numpy(), spec, mesh, ("pod", "data"))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# -------------------------------------- the gather's transpose in one call
+
+
+def _mixed_schedule(n: int) -> tuple:
+    """Entries of every kind in no schedule's order, at P = 8: whole slots,
+    splits at 0, inside and at n, both directions, round masks."""
+    return ((0, 1, None, 1, 0), (1, 1, n // 3, 1, 0), (2, -1, 0, 1, 0), (0, -1, n, 2, 1),
+            (3, 1, n // 2, 4, 3), (6, -1, min(1, n), 1, 0), (5, 1, n, 8, 5))
+
+
+TRANSPOSE_CASES = ([(mode, p, None) for mode in ("ring", "ring-", "bidi") for p in (2, 3, 5, 8)]
+                   + [("bcast", 8, m) for m in (1, 2, 4)] + [("mixed", 8, None)]
+                   + [("bcast", 16, 1)])   # 240 entries
+
+
+def _transpose_schedule(mode: str, p: int, n: int, chains: int | None) -> tuple:
+    return _mixed_schedule(n) if mode == "mixed" else _schedule(mode, p, n, chains)
+
+
+def _replayed(g: torch.Tensor, sched: tuple) -> torch.Tensor:
+    """``ring_step_transpose_plain`` over the entries in reverse order on a
+    copy of g, then the diagonal: rank d's slot d."""
+    buf = g.clone(memory_format=torch.contiguous_format)
+    for step, direction, split, rounds, active in reversed(sched):
+        K.ring_step_transpose_plain(buf, step, direction=direction, split=split, rounds=rounds,
+                                    active_round=active)
+    return buf.diagonal(dim1=-3, dim2=-2).transpose(-1, -2)
+
+
+def _cotangent(p: int, n: int, dtype, layout: str) -> torch.Tensor:
+    """A cotangent (..., P, P, n) from a seed: one group, contiguous; two
+    groups as a transposed view; or two groups expanded from one (the
+    stride-0 gradient autograd passes for a broadcast)."""
+    rng = np.random.default_rng(p * 100 + n)
+    base = torch.from_numpy(rng.standard_normal((2, p, n, p)).astype(np.float32)).to(dtype)
+    if layout == "one":
+        return base[0].transpose(-1, -2).contiguous()
+    if layout == "transposed":
+        return base.transpose(-1, -2)
+    return base[:1].transpose(-1, -2).expand(2, p, p, n)
+
+
+@pytest.mark.parametrize("dtype,layout", [(torch.float32, "one"),
+                                          (torch.bfloat16, "transposed"),
+                                          (torch.float16, "expanded")])
+@pytest.mark.parametrize("mode,p,chains", TRANSPOSE_CASES)
+def test_allgather_transpose_equals_reversed_steps(mode, p, chains, dtype, layout):
+    """On every prefix of the ring (both directions), bidi, broadcast (M =
+    1, 2, 4; 240 entries at P = 16) and mixed schedules, k = 0 included,
+    ``ring_allgather_transpose`` on a CPU tensor equals the reversed replay
+    of the plain transposed steps, bitwise: f32, bf16 and f16, one and two
+    groups, contiguous or not. The cotangent is left as it was."""
+    n = 7
+    sched = _transpose_schedule(mode, p, n, chains)
+    g = _cotangent(p, n, dtype, layout)
+    before = g.clone()
+    for k in range(len(sched) + 1):
+        got = K.ring_allgather_transpose(g, sched[:k])
+        assert got.shape == (*g.shape[:-3], p, n) and got.dtype == dtype
+        assert torch.equal(got, _replayed(g, sched[:k])), k
+    assert torch.equal(g, before)
+
+
+def _lanes(g: torch.Tensor, schedule: tuple) -> torch.Tensor:
+    """A model of the reads-only launch, rank by rank: each entry's sum
+    adds the rank's own slot, loaded from g, and its neighbour's slot,
+    loaded from g or, where the entry continues the one before, the sum the
+    neighbour made there; the diagonal's last sum, else g's diagonal."""
+    p, n = g.shape[-2:]
+    flat, _ = K._checked(schedule, p, n)
+    flat.reverse()
+    out = g.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).clone()
+    cuts = sorted({0, n, *(e[2] for e in flat)})
+    for lo, hi in zip(cuts, cuts[1:]):
+        held, prev = [None] * p, None
+        for entry in flat:
+            step, direction, split, rounds, active = entry
+            dr = direction if lo < split else -direction
+            chained = prev is not None and prev[0] == step + 1 and prev[1:] == entry[1:]
+            sums = [None] * p
+            for d in range(p):
+                src = (d - dr * step) % p
+                if src % rounds != active:
+                    continue
+                nb = held[(d + dr) % p] if chained else g[..., (d + dr) % p, src, lo:hi]
+                sums[d] = g[..., d, src, lo:hi] + nb
+                if src == d:
+                    out[..., d, lo:hi] = sums[d]
+            held, prev = sums, entry
+    return out
+
+
+@pytest.mark.parametrize("mode,p,chains", TRANSPOSE_CASES[:-1])
+def test_reads_only_launches_are_exact(mode, p, chains):
+    """Where ``_packed_transpose`` lets the kernel only read the cotangent
+    (every prefix of the ring, bidi and broadcast schedules; the mixed one
+    up to its first break), a model of that launch, lane by lane, equals
+    the plain version bitwise (bf16, two groups); elsewhere the launches
+    work in place on a copy, entry by entry, as the plain steps do."""
+    n = 7
+    sched = _transpose_schedule(mode, p, n, chains)
+    g = _cotangent(p, n, torch.bfloat16, "transposed")
+    for k in range(len(sched) + 1):
+        _, _, in_place = K._packed_transpose(sched[:k], p, n)
+        assert in_place == (mode == "mixed" and k > 1), k
+        if not in_place:
+            assert torch.equal(_lanes(g, sched[:k]), K.ring_allgather_transpose_plain(g, sched[:k]))
+
+
+@pytest.mark.parametrize("p,chains,counts,in_place", [
+    (1, 1, (0,), False), (8, 4, (14,), False), (8, 1, (56,), False),
+    (16, 1, (128, 112), True), (24, 2, (128, 128, 20), True), (33, 33, (32,), True)])
+def test_allgather_transpose_packs_the_schedule_reversed(p, chains, counts, in_place):
+    """The transpose's launches carry the schedule's entries in reverse
+    order, at most 128 each (one launch even for none: it reads the
+    diagonal); more than one launch, or P > 32, works in place."""
+    n = 5
+    sched = C._bcast_schedule(p, chains)
+    chunks, kinds, got_in_place = K._packed_transpose(sched, p, n)
+    assert tuple(count for _, count in chunks) == counts and got_in_place == in_place
+    flat = [v for packed, count in chunks for v in packed[:5 * count]]
+    assert flat == [v for e in reversed(sched) for v in (e[0], e[1], n, e[3], e[4])]
+    assert dict(kinds) == ({"bcast": len(sched)} if p // chains > 1 else
+                           {"ring": len(sched)} if sched else {})
+
+
+def test_allgather_transpose_on_cpu_counts_no_launch():
+    """On a CPU tensor the one-call transpose counts no launch and no
+    entry; every rank's gradient sums all four ranks' cotangents."""
+    before = (K.allgather_transpose_launches, dict(K.transpose_entries), K.transpose_launches)
+    got = K.ring_allgather_transpose(torch.ones(4, 4, 3), C._ring_schedule(4))
+    assert (K.allgather_transpose_launches, dict(K.transpose_entries),
+            K.transpose_launches) == before
+    assert torch.equal(got, torch.full((4, 3), 4.0))
+
+
+@pytest.mark.parametrize("bad", [
+    dict(buf=torch.zeros(4, 4, 3, dtype=torch.int32), step=0),
+    dict(buf=torch.zeros(4, 3, 3), step=0),
+    dict(buf=torch.zeros(4, 3), step=0),
+    dict(buf=torch.zeros(4, 4, 3), step=3),
+    dict(buf=torch.zeros(4, 4, 3), step=0, direction=2),
+    dict(buf=torch.zeros(4, 4, 3), step=0, rounds=3),
+    dict(buf=torch.zeros(4, 4, 3), step=0, rounds=2, active_round=2),
+    dict(buf=torch.zeros(4, 4, 3), step=0, split=4),
+    dict(buf=torch.zeros(4, 4, 3), step=0, split=-1),
+])
+def test_allgather_transpose_rejects_what_the_kernel_does_not_take(bad):
+    """The one-call transpose refuses what ``ring_allgather`` refuses: the
+    dtype, a cotangent that is not (..., P, P, n), and a step, direction,
+    round mask or split outside the ring; so do the checks of its kernel
+    path (the schedule's, cached per schedule)."""
+    bad = dict(bad)
+    buf = bad.pop("buf")
+    entry = (bad.pop("step"), bad.get("direction", 1), bad.get("split"),
+             bad.get("rounds", 1), bad.get("active_round", 0))
+    with pytest.raises((TypeError, ValueError)):
+        K.ring_allgather_transpose(buf, (entry,))
+    if buf.dim() == 3 and buf.shape[0] == buf.shape[1] and buf.dtype == torch.float32:
+        with pytest.raises(ValueError):
+            K._packed_transpose((entry,), 4, 3)

@@ -311,13 +311,14 @@ def test_grad_accum_equivalence(mesh):
 
 def test_train_launcher_runs_on_cpu(capsys):
     from repro_torch.launch import train
-    before = (K.launches, K.allgather_launches, K.transpose_launches, M.launches)
+    before = (K.launches, K.allgather_launches, K.transpose_launches,
+              K.allgather_transpose_launches, M.launches)
     train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "2",
                 "--fsdp-mode", "mcast_bcast"])
     out = capsys.readouterr().out
     assert "step     1 loss" in out and "[train] done" in out
     assert (K.launches, K.allgather_launches, K.transpose_launches,
-            M.launches) == before  # CPU: plain versions
+            K.allgather_transpose_launches, M.launches) == before  # CPU: plain versions
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"])
