@@ -32,9 +32,13 @@
    (torch.equal): the pool scan with its RNR mask (csrc/pool.cu, f64, rows
    1 to 511, rows up to 16389 long, 1 to 16 workers, +inf-padded ragged rows
    and tied arrivals), bitmap pack, OR across rows and popcount
-   (csrc/bitmap.cu, up to 512 rows and 2^20 flags), chunk reassembly
-   (csrc/chunk_reassembly.cu: duplicate PSNs, n_valid below n_staged and 0,
-   four dtypes, 4096-byte chunks and an odd width);
+   (csrc/bitmap.cu, up to 512 rows and 2^20 flags; popcount rows on both
+   sides of its one-strip limit, and empty, with no bit, one bit and
+   random bits set), chunk reassembly (csrc/chunk_reassembly.cu: int32 and
+   int64 PSNs, duplicate PSNs, n_valid below n_staged and 0, four dtypes,
+   4096-byte chunks and an odd width); then the reassembly and popcount
+   wrappers under ``torch.cuda.set_sync_debug_mode("error")``: none may
+   synchronise with the host;
 2. the stacked allgathers (ring, bidi, bcast) against the plain gather;
 3. serving smollm-135m at full width and depth (30 layers, bf16, seeded
    random weights) on a (data=8, model=1) stacked mesh: prefill of a
@@ -419,6 +423,9 @@ OFF_PATH = ("matmul_wmma", "matmul_f32")   # matmul paths no main-path product t
 PACKET_KERNELS = ("pool", "bitmap_pack", "bitmap_or_rows", "bitmap_popcount",
                   "chunk_reassembly")
 LAYER_KERNELS = ("allgather_matmul", "double_buffer_drain")
+# csrc/bitmap.cu's kStripWords: a popcount row of up to this many words is
+# one block, which stores its count; a longer one several, which add theirs
+POPCOUNT_STRIP_WORDS = 4096
 
 
 def _entries(counts: dict[str, int]) -> dict[str, int]:
@@ -984,6 +991,21 @@ def check_rx_kernels() -> dict[str, tuple[int, float]]:
             record("bitmap_popcount", (BM.bitmap_popcount_rows(words), BM.bitmap_popcount(words)),
                    (BM.bitmap_popcount_rows_plain(words), BM.bitmap_popcount_plain(words)),
                    (rows, n))
+    # popcount rows on both sides of the one-strip limit (and empty rows),
+    # with no bit, one bit and random bits set
+    one = POPCOUNT_STRIP_WORDS
+    for rows, n_words in ((1, one), (1, one + 1), (3, one), (2, one + 1), (1, 1), (2, 0)):
+        zero = torch.zeros((rows, n_words), dtype=torch.int32, device="cuda")
+        single = zero.clone()
+        if n_words:
+            single[:, n_words // 2] = -(1 << 31)   # bit 31 alone
+        rand = torch.randint(-(1 << 31), 1 << 31, (rows, n_words), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+        for case, w in (("none", zero), ("one", single), ("random", rand)):
+            words = w.view(torch.uint32)
+            record("bitmap_popcount", (BM.bitmap_popcount_rows(words), BM.bitmap_popcount(words)),
+                   (BM.bitmap_popcount_rows_plain(words), BM.bitmap_popcount_plain(words)),
+                   (rows, n_words, case))
     for dtype in (torch.uint8, torch.bfloat16, torch.float32, torch.int32):
         for chunk in (4096 // torch.empty((), dtype=dtype).element_size(), 1023):
             for n_staged, n_chunks, n_valid, dups in ((20, 32, 15, True), (300, 100, 250, True),
@@ -994,10 +1016,45 @@ def check_rx_kernels() -> dict[str, tuple[int, float]]:
                        if dups else torch.randperm(n_chunks, generator=gen, device="cuda"))
                 user = (torch.rand((n_chunks, chunk), generator=gen, device="cuda")
                         * 100).to(dtype)
-                record("chunk_reassembly", CR.chunk_reassembly(staging, psn, user.clone(), n_valid),
-                       CR.chunk_reassembly_plain(staging, psn, user.clone(), n_valid),
-                       (dtype, chunk, n_staged, n_chunks, n_valid))
+                for p in (psn, psn.to(torch.int32)):   # both PSN types, read in place
+                    record("chunk_reassembly",
+                           CR.chunk_reassembly(staging, p, user.clone(), n_valid),
+                           CR.chunk_reassembly_plain(staging, p, user.clone(), n_valid),
+                           (dtype, chunk, n_staged, n_chunks, n_valid, p.dtype))
     return {k: (c, e) for k, (c, e) in out.items()}
+
+
+def check_no_sync() -> int:
+    """The reassembly and popcount wrappers under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that synchronises
+    with the host raises. Both PSN types; popcount rows of one strip and of
+    several. Returns the calls made; each result equals its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    staging = torch.randint(0, 256, (300, 4096), generator=gen, device="cuda", dtype=torch.uint8)
+    psn = torch.randint(0, 100, (300,), generator=gen, device="cuda")
+    user = torch.zeros((100, 4096), device="cuda", dtype=torch.uint8)
+    words = [torch.randint(-(1 << 31), 1 << 31, (2, n), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32).view(torch.uint32)
+             for n in (512, POPCOUNT_STRIP_WORDS + 1)]
+    calls = [lambda p=p: CR.chunk_reassembly(staging, p, user.clone(), 250)
+             for p in (psn, psn.to(torch.int32))]
+    calls += [f for w in words for f in (lambda w=w: (BM.bitmap_popcount(w),),
+                                         lambda w=w: (BM.bitmap_popcount_rows(w),))]
+    for call in calls:   # warm-up: libraries loaded, allocator's blocks cached
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [call() for call in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = [CR.chunk_reassembly_plain(staging, p, user.clone(), 250)
+            for p in (psn, psn.to(torch.int32))]
+    want += [f for w in words for f in ((BM.bitmap_popcount_plain(w),),
+                                        (BM.bitmap_popcount_rows_plain(w),))]
+    for k, (g, w) in enumerate(zip(got, want)):
+        _exact("no-sync call", g, w, k)
+    return len(calls)
 
 
 def replay(res: PK.PacketBcastResult, n_bytes: int) -> int:
@@ -1039,7 +1096,9 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
           + json.dumps({"reassembly_winner_kernel": sum(t for k, t in dev.items()
                                                         if "winner_kernel" in k),
                         "reassembly_scatter_kernel": sum(t for k, t in dev.items()
-                                                         if "scatter_kernel" in k),
+                                                         if "scatter_" in k),
+                        "memset": sum(t for k, t in dev.items() if "emset" in k),
+                        "popcount": sum(t for k, t in dev.items() if "popcount" in k),
                         "busy_ms": sum(dev.values()), "profiled_wall_ms": prof_ms,
                         "leaves": leaves}), flush=True)
     for name in BCASTS:
@@ -1063,7 +1122,7 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
                "launches_per_call": {k: per_call[k] for k in PACKET_KERNELS},
                "kernel_device_ms": {k: sum(t for key, t in dev.items() if k in key)
                                     for k in ("pool_rows_kernel", "pack_kernel",
-                                              "or_rows_kernel", "popcount_rows_kernel")},
+                                              "or_rows_kernel", "popcount_row")},
                "cpu_wall_ms_median": statistics.median(cpu_wall[name]) * 1e3,
                "cpu_wall_ms_samples": [t * 1e3 for t in cpu_wall[name]]}
         print("[packet] " + json.dumps(row), flush=True)
@@ -1074,11 +1133,14 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
 
 
 def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
-    """Each receive-datapath kernel at the shape broadcast A gives it:
-    kernel, plain version and (for reassembly) one library call, ms per call
-    from CUDA events (a reassembly call is two launches), beside the bound: bytes (each input read once, each
-    output written once) over 3.35 TB/s. The kernels' device times come
-    from the profiled broadcast and replay calls of ``packet_path``."""
+    """Each receive-datapath kernel at the shape broadcast A gives it: ms
+    per call from Python (CUDA events around back-to-back calls, ``_time``)
+    of the kernel, its plain version and (for reassembly) one library call,
+    ``index_copy_``; the kernel's host issue per call (``_host_ms``) and
+    device ms per call (``_device_ms``; a reassembly call is a zero fill and
+    two launches); beside the bound: bytes (each input read once, each
+    output written once) over 3.35 TB/s, and for reassembly the device ms of
+    a plain copy of the same rows (``copy_``, one cudaMemcpyAsync)."""
     p, n_bytes, wk, _, _ = BCASTS["A"]
     fab, workers = E.FabricParams(), E.WorkerParams(**wk)
     n, chunk = n_bytes // fab.mtu, fab.mtu
@@ -1108,16 +1170,19 @@ def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
         "bitmap_popcount": ((w,), w * 4 + 8,
                             lambda: BM.bitmap_popcount(agg),
                             lambda: BM.bitmap_popcount_plain(agg), None),
-        "chunk_reassembly": ((n, chunk), 2 * n * chunk + n * (8 + 4),
+        "chunk_reassembly": ((n, chunk), 2 * n * chunk + n * (psn.element_size() + 4),
                              lambda: CR.chunk_reassembly(staging, psn, user),
                              lambda: CR.chunk_reassembly_plain(staging, psn, user),
                              lambda: user.index_copy_(0, psn, staging)),
     }
     out = {}
     for name, (shape, nbytes, kernel, plain, library) in cases.items():
-        row = {"shape": shape, "ms": _time(kernel), "plain_ms": _time(plain),
+        row = {"shape": shape, "ms": _time(kernel), "host_ms": _host_ms(kernel),
+               "device_ms": _device_ms(kernel), "plain_ms": _time(plain),
                "library_ms": _time(library) if library else None,
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        if name == "chunk_reassembly":   # the same bytes as one cudaMemcpyAsync
+            row["memcpy_device_ms"] = _device_ms(lambda: user.copy_(staging))
         print(f"[{name}] " + json.dumps(row), flush=True)
         out[name] = row
     return out
@@ -1424,6 +1489,8 @@ def main() -> int:
     print("[kernel] receive datapath == plain (exact): "
           + json.dumps({k: {"cases": c, "max_abs_err": e} for k, (c, e) in rx.items()})
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[kernel] chunk_reassembly and bitmap_popcount: {check_no_sync()} calls under "
+          "set_sync_debug_mode('error'), none synchronised", flush=True)
     print(f"[collectives] {check_collectives()} cases equal the "
           "plain gather", flush=True)
     err = check_small_reference()

@@ -15,12 +15,22 @@
 //   registers and ends with one atomicOr into the zeroed output. OR is
 //   associative and commutative, so the result does not depend on the
 //   order the atomics land in.
-// - popcount per row: __popc per word, a warp-shuffle and shared-memory
-//   reduction per block, one 64-bit atomicAdd per block into the zeroed
-//   row count. The total popcount is the one-row case.
+// - popcount per row (`bitmap_popcount` at bitmap.py:78 is the one-row
+//   case): strips of kStripWords (4,096) words, a block of 512 threads
+//   each: __popc per word, warp shuffles, shared memory. A row of up to
+//   kStripWords words is one strip, and its block stores the row's total
+//   directly: no atomic and no zero fill of the output. Broadcast A's NACK
+//   bitmap, 512 words, is such a row: a word a thread. A longer row takes
+//   up to one strip block per SM, each ending with one 64-bit atomicAdd
+//   into the row's count, which the same C call first zeroes with
+//   cudaMemsetAsync. Either way a call from Python is one ctypes call and
+//   one launch.
 //
 // Bound: HBM bytes, all three: the flag bytes for pack (plus 4 B per word
-// written), 4 B per word read for OR and popcount.
+// written), 4 B per word read for OR and popcount (plus 8 B per row count
+// written). At 512 words the popcount's bound is 6e-7 ms at the H100
+// SXM's data-sheet 3.35 TB/s, far under a launch: what a call costs is its
+// launch path, so the design spends one launch and nothing else on it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,6 +40,8 @@ constexpr int kThreads = 256;
 constexpr int kOrRows = 32;          // rows one thread ORs before its atomic
 constexpr long long kMaxBlocks = 65535;
 constexpr unsigned kStripBlocks = 132;  // blocks per row at most: one per SM
+constexpr int kPopThreads = 512;                      // a popcount block
+constexpr long long kStripWords = kPopThreads * 8LL;  // words it sums (8 a thread)
 
 template <typename T>
 __global__ void pack_kernel(const T* __restrict__ flags, uint32_t* __restrict__ words,
@@ -56,13 +68,14 @@ __global__ void or_rows_kernel(const uint32_t* __restrict__ words, uint32_t* out
   }
 }
 
-__global__ void popcount_rows_kernel(const uint32_t* __restrict__ words,
-                                     unsigned long long* out, long long rows,
-                                     long long n_words) {
-  __shared__ unsigned long long warp_sums[kThreads / 32];
+__global__ void __launch_bounds__(kPopThreads)
+popcount_rows_kernel(const uint32_t* __restrict__ words, unsigned long long* out, long long rows,
+                     long long n_words) {
+  __shared__ unsigned long long warp_sums[kPopThreads / 32];
   for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
     const uint32_t* wr = words + row * n_words;
     unsigned long long sum = 0;
+#pragma unroll 8
     for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
          i < n_words; i += static_cast<long long>(gridDim.x) * blockDim.x)
       sum += __popc(wr[i]);
@@ -71,8 +84,11 @@ __global__ void popcount_rows_kernel(const uint32_t* __restrict__ words,
     __syncthreads();
     if (threadIdx.x == 0) {
       unsigned long long total = 0;
-      for (int k = 0; k < kThreads / 32; ++k) total += warp_sums[k];
-      if (total) atomicAdd(out + row, total);
+      for (int k = 0; k < kPopThreads / 32; ++k) total += warp_sums[k];
+      if (gridDim.x == 1)
+        out[row] = total;  // the row's one strip: no prefill needed
+      else if (total)
+        atomicAdd(out + row, total);
     }
     __syncthreads();  // warp_sums is reused by the next row
   }
@@ -88,8 +104,8 @@ unsigned blocks_for(long long items, long long per_block) {
 }  // namespace
 
 // Each returns cudaGetLastError() after its launch (0 on success). The
-// caller checks arguments: contiguous tensors, n_words >= 1, rows >= 1, and
-// zeroed outputs for OR and popcount.
+// caller checks arguments: contiguous tensors, n_words >= 1 (popcount: >=
+// 0), rows >= 1, and a zeroed output for OR.
 
 // flags: n_words * 32 flags of flag_bytes (1 or 4) bytes each -> n_words u32.
 extern "C" int bitmap_pack(const void* flags, int flag_bytes, void* words, long long n_words,
@@ -116,13 +132,20 @@ extern "C" int bitmap_or_rows(const void* words, void* out, long long rows, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// words (rows, n_words) -> out (rows,) u64 += set bits of each row.
+// words (rows, n_words) -> out (rows,) u64 = set bits of each row, in
+// strips of kStripWords words; out is zeroed here only when a row has
+// more than one strip (their atomics add into it), else stored directly.
 extern "C" int bitmap_popcount_rows(const void* words, void* out, long long rows,
                                     long long n_words, void* stream) {
-  unsigned gx = blocks_for(n_words, kThreads * 8LL);  // about 8 words a thread
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned gx = blocks_for(n_words, kStripWords);
   if (gx > kStripBlocks) gx = kStripBlocks;
+  if (gx > 1) {
+    const cudaError_t err = cudaMemsetAsync(out, 0, rows * sizeof(unsigned long long), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(gx, blocks_for(rows, 1));
-  popcount_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  popcount_rows_kernel<<<grid, kPopThreads, 0, st>>>(
       static_cast<const uint32_t*>(words), static_cast<unsigned long long*>(out), rows, n_words);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,9 @@ Each of the first three launches ``csrc/bitmap.cu`` for a CUDA tensor and
 runs its plain version only for a CPU tensor. The plain versions compute
 in int64 (torch's uint32 has no shifts on the CPU) and return the same
 values. ``pack_launches``, ``or_launches`` and ``popcount_launches`` count
-kernel launches.
+kernel launches. A popcount call is one ctypes call and one launch into
+an output from ``torch.empty``: the C entry zeroes it itself where a row
+is long enough to be summed by several blocks (``csrc/bitmap.cu``).
 """
 from __future__ import annotations
 
@@ -142,26 +144,34 @@ def bitmap_or_rows(words: torch.Tensor) -> torch.Tensor:
     return out.view(torch.uint32)
 
 
+def _popcount(w: torch.Tensor, out: torch.Tensor, rows: int, n_words: int) -> torch.Tensor:
+    """One launch: the set bits of each of ``rows`` rows of ``n_words``
+    contiguous words of ``w`` into int64 ``out``."""
+    global popcount_launches
+    build.launch(build.function("bitmap", "bitmap_popcount_rows", _ARG_ROWS), w, w.data_ptr(),
+                 out.data_ptr(), rows, n_words)
+    popcount_launches += 1
+    return out
+
+
 def bitmap_popcount_rows(words: torch.Tensor) -> torch.Tensor:
     """(R, w) u32 words -> (R,) int64 set-bit counts. Launches the CUDA
     kernel for a CUDA tensor; plain on the CPU."""
-    global popcount_launches
     if words.is_cpu:
         return bitmap_popcount_rows_plain(words)
     _device(words, "bitmap_popcount")
     _check_words(words, (2,))
     w = words.contiguous()
-    out = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
-    if w.numel():
-        build.launch(build.function("bitmap", "bitmap_popcount_rows", _ARG_ROWS), w,
-                     w.data_ptr(), out.data_ptr(), w.shape[0], w.shape[1])
-        popcount_launches += 1
-    return out
+    out = torch.empty(w.shape[0], dtype=torch.int64, device=w.device)
+    return _popcount(w, out, w.shape[0], w.shape[1]) if w.shape[0] else out
 
 
 def bitmap_popcount(words: torch.Tensor) -> torch.Tensor:
-    """Total set bits of (..., w) u32 words, a 0-d int64 tensor."""
+    """Total set bits of (..., w) u32 words, a 0-d int64 tensor. Launches
+    the CUDA kernel for a CUDA tensor; plain on the CPU."""
     if words.is_cpu:
         return bitmap_popcount_plain(words)
+    _device(words, "bitmap_popcount")
     _check_words(words, tuple(range(1, 9)))
-    return bitmap_popcount_rows(words.reshape(1, -1))[0]
+    w = words.contiguous()
+    return _popcount(w, torch.empty((), dtype=torch.int64, device=w.device), 1, w.numel())

@@ -14,9 +14,14 @@ written. A later duplicate PSN wins, as in the reference's sequential grid.
 Any dtype: the copy is bitwise.
 
 ``chunk_reassembly`` launches ``csrc/chunk_reassembly.cu`` for CUDA tensors
-and runs ``chunk_reassembly_plain`` only for CPU tensors; ``launches``
-counts kernel launches, two per call with a valid entry (the winner pass,
-then the scatter).
+and runs ``chunk_reassembly_plain`` only for CPU tensors. On the card a
+call is one ctypes call and no host synchronisation: the bitmap and the
+winner scratch come from one ``torch.empty``, which the C entry zeroes on
+the stream, and int32 or int64 PSNs are read in place. The PSNs' range is
+checked on the device: a PSN outside ``[0, n_chunks)`` traps the kernel,
+and the caller's next synchronise raises a CUDA error (the plain version
+raises ``ValueError``). ``launches`` counts kernel launches, two per call
+with a valid entry (the winner pass, then the scatter).
 """
 from __future__ import annotations
 
@@ -28,8 +33,8 @@ from repro_torch.kernels import build
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 
 
 def _check(staging: torch.Tensor, psn: torch.Tensor, user: torch.Tensor,
@@ -53,10 +58,6 @@ def _check(staging: torch.Tensor, psn: torch.Tensor, user: torch.Tensor,
     n_valid = n_staged if n_valid is None else int(n_valid)
     if not 0 <= n_valid <= n_staged:
         raise ValueError(f"n_valid {n_valid} outside 0..{n_staged}")
-    if n_valid:
-        lo, hi = torch.aminmax(psn[:n_valid])
-        if int(lo) < 0 or int(hi) >= user.shape[0]:
-            raise ValueError(f"PSNs {int(lo)}..{int(hi)} outside 0..{user.shape[0] - 1}")
     return n_valid
 
 
@@ -66,6 +67,10 @@ def chunk_reassembly_plain(staging: torch.Tensor, psn: torch.Tensor, user: torch
     n_valid = _check(staging, psn, user, n_valid)
     bitmap = torch.zeros(user.shape[0], dtype=torch.int32, device=user.device)
     if n_valid:
+        # a read of the values on the host: the kernel checks on the device
+        lo, hi = torch.aminmax(psn[:n_valid])
+        if int(lo) < 0 or int(hi) >= user.shape[0]:
+            raise ValueError(f"PSNs {int(lo)}..{int(hi)} outside 0..{user.shape[0] - 1}")
         p = psn[:n_valid].long()
         i = torch.arange(n_valid, device=p.device)
         winner = torch.full((user.shape[0],), -1, dtype=torch.long, device=p.device)
@@ -79,8 +84,9 @@ def chunk_reassembly_plain(staging: torch.Tensor, psn: torch.Tensor, user: torch
 def chunk_reassembly(staging: torch.Tensor, psn: torch.Tensor, user: torch.Tensor,
                      n_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter staged chunks into ``user`` by PSN, in place; returns (user,
-    bitmap). Launches the CUDA kernel for CUDA tensors, runs the plain
-    version for CPU tensors, and raises for any other device."""
+    bitmap). Launches the CUDA kernel for CUDA tensors (one ctypes call, no
+    host synchronisation), runs the plain version for CPU tensors, and
+    raises for any other device."""
     global launches
     if staging.is_cpu:
         return chunk_reassembly_plain(staging, psn, user, n_valid)
@@ -91,14 +97,12 @@ def chunk_reassembly(staging: torch.Tensor, psn: torch.Tensor, user: torch.Tenso
         raise ValueError("user must be contiguous: it is updated in place")
     if user.shape[0] >= 1 << 31 or staging.shape[0] >= 1 << 31:
         raise ValueError("more than 2^31 - 1 chunks")
-    s = staging.contiguous()
-    p = psn.to(torch.int32).contiguous()
-    bitmap = torch.zeros(user.shape[0], dtype=torch.int32, device=user.device)
-    row_bytes = user.shape[1] * user.element_size()
+    s, p = staging.contiguous(), psn.contiguous()
+    n_chunks = user.shape[0]
+    scratch = torch.empty(2 * n_chunks, dtype=torch.uint32, device=user.device)  # bitmap, winner
+    build.launch(build.function("chunk_reassembly", "chunk_reassembly", _ARGTYPES), user,
+                 s.data_ptr(), p.data_ptr(), p.element_size(), scratch.data_ptr(),
+                 user.data_ptr(), n_valid, n_chunks, user.shape[1] * user.element_size())
     if n_valid:
-        winner = torch.full((user.shape[0],), -1, dtype=torch.int32, device=user.device)
-        build.launch(build.function("chunk_reassembly", "chunk_reassembly", _ARGTYPES), user,
-                     s.data_ptr(), p.data_ptr(), winner.data_ptr(), user.data_ptr(),
-                     bitmap.data_ptr(), n_valid, row_bytes)
-        launches += 2   # winner_kernel, scatter_kernel
-    return user, bitmap.view(torch.uint32)
+        launches += 2   # winner_kernel, then the scatter
+    return user, scratch[:n_chunks]

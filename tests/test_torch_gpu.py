@@ -3,6 +3,11 @@ This file imports no jax, so it also runs on a machine that has none:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -12,12 +17,17 @@ from repro_torch.core import engine as E
 from repro_torch.core import packet as PK
 from repro_torch.core import protocol
 from repro_torch.kernels import bitmap as BM
+from repro_torch.kernels import build
 from repro_torch.kernels import chunk_reassembly as CR
 from repro_torch.kernels import collective_matmul as M
 from repro_torch.kernels import pool as PL
 from repro_torch.kernels import ring_allgather as K
 from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models import layers
+
+# csrc/bitmap.cu's kStripWords: a popcount row of up to this many words is
+# one block, which stores its count; a longer one several, which add theirs
+POPCOUNT_STRIP_WORDS = 4096
 
 
 def _need_cuda():
@@ -318,18 +328,115 @@ def test_bitmap_kernels_match_plain():
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32, torch.int32])
 def test_reassembly_kernel_matches_plain(dtype):
     """Duplicates (the later staged copy wins), n_valid below n_staged and
-    0, a 4096-byte chunk (16-byte copies) and an odd width (byte copies)."""
+    0, a 4096-byte chunk (16-byte copies) and an odd width (byte copies),
+    int64 and int32 PSNs read in place."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
     for chunk in (4096 // torch.empty(0, dtype=dtype).element_size(), 1023):
-        for n_staged, n_chunks, n_valid in ((20, 32, 15), (300, 100, 250), (10, 16, 0)):
+        for n_staged, n_chunks, n_valid in ((20, 32, 15), (300, 100, 250), (10, 16, 0),
+                                            (64, 64, 64)):
             staging = (torch.rand(n_staged, chunk, device="cuda", generator=gen) * 100).to(dtype)
             psn = torch.randint(0, n_chunks, (n_staged,), device="cuda", generator=gen)
             user = (torch.rand(n_chunks, chunk, device="cuda", generator=gen) * 100).to(dtype)
-            want = CR.chunk_reassembly_plain(staging, psn, user.clone(), n_valid)
-            got = CR.chunk_reassembly(staging, psn, user.clone(), n_valid)
-            torch.cuda.synchronize()
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            for p in (psn, psn.to(torch.int32)):
+                want = CR.chunk_reassembly_plain(staging, p, user.clone(), n_valid)
+                got = CR.chunk_reassembly(staging, p, user.clone(), n_valid)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_reassembly_and_popcount_never_synchronise():
+    """Under set_sync_debug_mode("error") any synchronising call raises:
+    the reassembly (int64 and int32 PSNs) and the popcount (rows of one
+    strip and of several) make none, and still equal their plain versions."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    staging = torch.randint(0, 256, (64, 4096), device="cuda", generator=gen, dtype=torch.uint8)
+    psn = torch.randint(0, 32, (64,), device="cuda", generator=gen)
+    users = [torch.zeros(32, 4096, device="cuda", dtype=torch.uint8) for _ in range(2)]
+    words = [torch.randint(0, 1 << 30, (2, n), device="cuda", generator=gen,
+                           dtype=torch.int32).view(torch.uint32)
+             for n in (512, POPCOUNT_STRIP_WORDS + 1)]
+
+    def calls():
+        out = [CR.chunk_reassembly(staging, p, u, 60)
+               for p, u in zip((psn, psn.to(torch.int32)), users)]
+        return out + [(BM.bitmap_popcount(w), BM.bitmap_popcount_rows(w)) for w in words]
+
+    calls()   # warm-up: the libraries loaded, the allocator's blocks cached
+    for u in users:
+        u.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = CR.chunk_reassembly_plain(staging, psn, torch.zeros_like(users[0]), 60)
+    for g in got[:2]:
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+    for (total, rows), w in zip(got[2:], words):
+        assert torch.equal(rows, BM.bitmap_popcount_rows_plain(w))
+        assert torch.equal(total, BM.bitmap_popcount_plain(w))
+
+
+_OUT_OF_RANGE = """
+import torch
+from repro_torch.kernels import chunk_reassembly as CR
+staging = torch.ones(4, 64, device="cuda", dtype=torch.uint8)
+user = torch.zeros(6, 64, device="cuda", dtype=torch.uint8)
+psn = torch.tensor([0, 1, {psn}, 2], device="cuda", dtype=torch.{dtype})
+try:
+    CR.chunk_reassembly(staging, psn, user)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("CUDA error:", e)
+    raise SystemExit(3)
+print("no error")
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("psn,dtype", [(6, "int64"), (-1, "int32")])
+def test_reassembly_out_of_range_psn_is_a_cuda_error(psn, dtype):
+    """A PSN outside [0, n_chunks) traps the kernel: the call or the next
+    synchronise raises a CUDA error. In a subprocess: a trap poisons the
+    process's CUDA context."""
+    _need_cuda()
+    build.build(("chunk_reassembly",))   # the subprocess loads it, builds nothing
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(src), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    run = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE.format(psn=psn, dtype=dtype)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert run.returncode == 3 and "CUDA error" in run.stdout, (run.stdout, run.stderr)
+
+
+@pytest.mark.gpu
+def test_popcount_kernel_matches_plain_across_threshold():
+    """Rows on both sides of the one-strip limit (and empty rows), with no
+    bit, one bit and random bits set: the stored counts of one-strip rows
+    and the added counts of longer ones equal the plain counts, per row and
+    in total, one launch a call."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    one = POPCOUNT_STRIP_WORDS
+    for rows, n in ((1, one), (1, one + 1), (3, one), (2, one + 1), (4, 1), (2, 0)):
+        zero = torch.zeros(rows, n, dtype=torch.int32, device="cuda")
+        single = zero.clone()
+        if n:
+            single[:, -1] = -(1 << 31)   # bit 31 alone
+        rand = torch.randint(-(1 << 31), 1 << 31, (rows, n), device="cuda", generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+        for w in (zero, single, rand):
+            words = w.view(torch.uint32)
+            before = BM.popcount_launches
+            got = (BM.bitmap_popcount_rows(words), BM.bitmap_popcount(words))
+            assert BM.popcount_launches == before + 2
+            assert got[1].shape == () and got[0].dtype == got[1].dtype == torch.int64
+            assert torch.equal(got[0], BM.bitmap_popcount_rows_plain(words))
+            assert torch.equal(got[1], BM.bitmap_popcount_plain(words))
 
 
 @pytest.mark.gpu

@@ -210,3 +210,71 @@ def test_reassembly_checks_inputs():
     before = cr.launches
     cr.chunk_reassembly(s, torch.tensor([0, 1, 2, 3]), u)
     assert cr.launches == before
+
+
+@pytest.mark.parametrize("cfg", [
+    # (n_chunks, chunk, n_staged, n_valid, duplicates)
+    (32, 256, 20, 15, False),
+    (16, 512, 10, 0, False),
+    (16, 128, 40, 33, True),
+    (64, 128, 64, 64, True),
+])
+def test_reassembly_int64_psns_match_pallas(cfg):
+    """int64 PSNs (what ``randperm`` and the delivery replay's numpy orders
+    give, read in place on the card) give the JAX package's result on the
+    same values as int32, duplicates included: its oracle's always, its
+    Pallas kernel's wherever no entry past n_valid repeats a valid PSN (the
+    kernel in interpret mode lets such an entry write back the chunk's
+    content from before the call; the oracle and the port drop it)."""
+    n_chunks, chunk, n_staged, n_valid, dups = cfg
+    rng = np.random.default_rng(n_chunks * 7 + n_staged)
+    staging = rng.standard_normal((n_staged, chunk)).astype(np.float32)
+    user = rng.standard_normal((n_chunks, chunk)).astype(np.float32)
+    psn = (rng.integers(0, n_chunks, n_staged) if dups
+           else rng.permutation(n_chunks)[:n_staged]).astype(np.int64)
+    args = (jnp.asarray(staging), jnp.asarray(psn.astype(np.int32)), jnp.asarray(user), n_valid)
+    want = [ref_oracle.chunk_reassembly_ref(*args)]
+    if not np.isin(psn[n_valid:], psn[:n_valid]).any():
+        want.append(ref_ops.reassemble(*args))
+    assert len(want) == 2 or dups
+    for p in (torch.from_numpy(psn), torch.from_numpy(psn.astype(np.int32))):
+        ut, bt = cr.chunk_reassembly(torch.from_numpy(staging), p,
+                                     torch.from_numpy(user.copy()), n_valid)
+        for u1, b1 in want:
+            np.testing.assert_array_equal(ut.numpy(), np.asarray(u1))
+            np.testing.assert_array_equal(bt.numpy(), np.asarray(b1))
+
+
+def test_reassembly_host_checks_read_no_values():
+    """The checks both paths share read shapes, dtypes and devices only, so
+    the card's path runs them without a synchronisation: on meta tensors
+    (which hold no values) they pass, and still refuse bad shapes."""
+    s, u = torch.empty(4, 8, device="meta"), torch.empty(6, 8, device="meta")
+    for dtype in (torch.int32, torch.int64):
+        assert cr._check(s, torch.empty(4, dtype=dtype, device="meta"), u, 3) == 3
+    with pytest.raises(TypeError, match="int32 or int64"):
+        cr._check(s, torch.empty(4, dtype=torch.int16, device="meta"), u, None)
+    with pytest.raises(ValueError, match="do not match"):
+        cr._check(s, torch.empty(5, dtype=torch.int64, device="meta"), u, None)
+
+
+# csrc/bitmap.cu's kStripWords: a longer row is summed by several blocks
+STRIP_WORDS = 4096
+
+
+@pytest.mark.parametrize("rows,words", [(1, 1), (1, 512), (5, STRIP_WORDS - 1), (1, STRIP_WORDS),
+                                        (1, STRIP_WORDS + 1), (2, 4 * STRIP_WORDS + 3), (3, 0),
+                                        (0, 4)])
+def test_popcount_plain_across_threshold(rows, words):
+    """The plain counts on both sides of the kernel's one-strip rows and on
+    empty rows equal the JAX package's numpy twin, per row and in total
+    (0-d int64)."""
+    rng = np.random.default_rng(rows + words)
+    w = rng.integers(0, 1 << 32, (rows, words), dtype=np.uint64).astype(np.uint32)
+    t = torch.from_numpy(w.view(np.int32)).view(torch.uint32)
+    per_row = bitmap.bitmap_popcount_rows(t)
+    assert per_row.dtype == torch.int64 and per_row.shape == (rows,)
+    np.testing.assert_array_equal(per_row.numpy(), bitmap_popcount_rows_np(w))
+    total = bitmap.bitmap_popcount(t)
+    assert total.shape == () and total.dtype == torch.int64
+    assert int(total) == int(bitmap_popcount_rows_np(w).sum())
