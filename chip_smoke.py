@@ -423,6 +423,9 @@ OFF_PATH = ("matmul_wmma", "matmul_f32")   # matmul paths no main-path product t
 PACKET_KERNELS = ("pool", "bitmap_pack", "bitmap_or_rows", "bitmap_popcount",
                   "chunk_reassembly")
 LAYER_KERNELS = ("allgather_matmul", "double_buffer_drain")
+# the pool check's worker counts: one lane, A's 8, 16, odd counts, and the
+# kernel's largest (S = 1, two lanes a thread)
+POOL_WORKERS = (1, 7, 8, 16, 1000, 1024)
 # csrc/bitmap.cu's kStripWords: a popcount row of up to this many words is
 # one block, which stores its count; a longer one several, which add theirs
 POPCOUNT_STRIP_WORDS = 4096
@@ -956,6 +959,24 @@ def _exact(name: str, got, want, case) -> float:
     return err
 
 
+def _flag_forms(flags: torch.Tensor, gen: torch.Generator) -> list[torch.Tensor]:
+    """One flag pattern in every form the pack takes: bool; uint8 of 2 to
+    255 where set; int32 of -1 or 1 << 31 where set; uint8 and int32 views
+    whose base lies 1, 4 and 8 bytes (uint8) or 4 bytes (int32) off 16,
+    which the C entry sends to its warp-per-word kernel."""
+    big = torch.randint(2, 256, flags.shape, generator=gen, device="cuda", dtype=torch.uint8)
+    sign = torch.randint(0, 2, flags.shape, generator=gen, device="cuda", dtype=torch.int32)
+    forms = [flags, torch.where(flags, big, 0),
+             torch.where(flags, torch.where(sign == 1, -1, -(1 << 31)), 0).to(torch.int32)]
+    for f, offsets in ((forms[1], (1, 4, 8)), (forms[2], (1,))):
+        for off in offsets:
+            base = torch.empty(f.numel() + off, dtype=f.dtype, device="cuda")
+            view = base[off:].view(f.shape)
+            view.copy_(f)
+            forms.append(view)
+    return forms
+
+
 def check_rx_kernels() -> dict[str, tuple[int, float]]:
     """Phase 1: the receive datapath's kernels vs their plain versions,
     exactly. Returns {kernel: (cases, max abs err)}."""
@@ -967,30 +988,35 @@ def check_rx_kernels() -> dict[str, tuple[int, float]]:
         out[name][1] = max(out[name][1], _exact(name, got, want, case))
         out[name][0] += 1
 
-    for rows in (1, 7, 511):
-        for n in (1, 31, 4096, 16389):
-            a = torch.rand((rows, n), generator=gen, device="cuda", dtype=torch.float64)
-            a = torch.sort(torch.round(a * 40) / 4, dim=1).values   # tied arrivals
-            if rows > 1:
-                a[rows // 2, n // 3:] = float("inf")                # a ragged row
-            for w in (1, 8, 16):
-                for staging in (3, 8192):
+    for w in POOL_WORKERS:
+        edge = PL.tile_plan(w)[2]   # a tile of the kernel's plan
+        for rows in (1, 7, 63, 511):
+            for n in sorted({1, 31, w - 1, w + 1, 4096, 16384, 16389, edge - 1, edge + 1} - {0}):
+                a = torch.rand((rows, n), generator=gen, device="cuda", dtype=torch.float64)
+                a = torch.sort(torch.round(a * 40) / 4, dim=1).values   # tied arrivals
+                if rows > 1:
+                    a[rows // 2, n // 3:] = float("inf")                # a ragged row
+                for staging in (0, 3, 8192, n + 5):
                     record("pool", PL.pool_completion_rows(a, w, 0.3, staging),
                            PL.pool_completion_rows_plain(a, w, 0.3, staging),
                            (rows, n, w, staging))
-    for rows, n in ((1, 32), (1, 1 << 20), (7, 4096), (16, 1 << 20), (512, 16384),
-                    (512, 16416)):
+                record("pool", (PL.pool_scan_rows(a, w, 0.3),),
+                       (PL.pool_scan_rows_plain(a, w, 0.3),), (rows, n, w, None))
+    for shape in ((32,), (16384,), (1, 16416), (7, 4096), (1, 1 << 20), (16, 1 << 20),
+                  (511, 16384), (512, 16416)):
         for density in (0.3, 1e-3):
-            flags = torch.rand((rows, n), generator=gen, device="cuda") < density
-            for f in (flags, flags.to(torch.uint8), flags.to(torch.int32)):
+            flags = torch.rand(shape, generator=gen, device="cuda") < density
+            for f in _flag_forms(flags, gen):
                 record("bitmap_pack", (BM.bitmap_pack(f),), (BM.bitmap_pack_plain(f),),
-                       (rows, n, f.dtype))
+                       (shape, density, f.dtype, f.storage_offset()))
+            if len(shape) == 1:
+                continue
             words = BM.bitmap_pack(flags)
             record("bitmap_or_rows", (BM.bitmap_or_rows(words),),
-                   (BM.bitmap_or_rows_plain(words),), (rows, n))
+                   (BM.bitmap_or_rows_plain(words),), shape)
             record("bitmap_popcount", (BM.bitmap_popcount_rows(words), BM.bitmap_popcount(words)),
                    (BM.bitmap_popcount_rows_plain(words), BM.bitmap_popcount_plain(words)),
-                   (rows, n))
+                   shape)
     # popcount rows on both sides of the one-strip limit (and empty rows),
     # with no bit, one bit and random bits set
     one = POPCOUNT_STRIP_WORDS
@@ -1087,6 +1113,11 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
     for name in PACKET_KERNELS:
         if counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the packet path: {counts}")
+    calls = rx_shapes(card)
+    for name in ("pool", "bitmap_pack"):   # the shapes timed later are every call's
+        if counts[name] != len(calls[name]):
+            raise AssertionError(f"{name}: {counts[name]} launches on the packet path, "
+                                 f"{len(calls[name])} calls in its round traces")
     for name in BCASTS:
         _assert_same(card[name], cpu[name], f"broadcast {name}, card vs CPU")
     print(f"[packet] A and B on the card equal their CPU runs field for field; all {leaves} "
@@ -1132,7 +1163,71 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
     return counts, card
 
 
-def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
+def rx_shapes(card: dict[str, PK.PacketBcastResult]) -> dict[str, list]:
+    """Every call the packet path makes of the pool scan and the pack, from
+    the broadcasts' round traces: the fast path's pool call over all leaves
+    and, each round, a pool call over its NACKing leaves' retransmitted
+    chunks and a pack of their flags; then one single-row pack per leaf in
+    A's replay. {"pool": [((rows, n), W, staging), ...], "bitmap_pack":
+    [shape, ...]}, a call an entry, in the run's order."""
+    fab = E.FabricParams()
+    out: dict[str, list] = {"pool": [], "bitmap_pack": []}
+    for name, res in card.items():
+        p, n_bytes, wk, _, _ = BCASTS[name]
+        workers, n = E.WorkerParams(**wk), n_bytes // fab.mtu
+        ring = (workers.n_recv_workers, workers.staging_chunks)
+        out["pool"].append(((p - 1, n), *ring))
+        for r in res.rounds:
+            out["pool"].append(((r.nack_leaves, r.union_chunks), *ring))
+            out["bitmap_pack"].append((r.nack_leaves, n))
+    out["bitmap_pack"] += [(BCASTS["A"][1] // fab.mtu,)] * len(card["A"].delivery_order)
+    return out
+
+
+def time_rx_shapes(calls: dict[str, list], service: float) -> dict[str, list[dict]]:
+    """The pool scan and the pack at each distinct shape of ``calls``
+    (``rx_shapes``), in order of first call: ms a call from Python (``_time``),
+    host issue (``_host_ms``), device ms (``_device_ms``), the plain
+    version's ms, the bound (bytes over 3.35 TB/s: 8 B in and 17 B in all
+    an element for the pool; each flag byte in and 4 B a word out for the
+    pack), the calls at that shape, and a yardstick the port never calls:
+    for the pool the device ms of ``torch.cummax`` over the +inf-padded
+    (R, ceil(n / W), W) view, the scan alone and not the function; for the
+    pack the device ms of one ``copy_`` of its flag bytes. Arrivals are
+    sorted uniform rows, flags set at 1e-3, both from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out: dict[str, list[dict]] = {"pool": [], "bitmap_pack": []}
+    for (rows, n), w, staging in dict.fromkeys(calls["pool"]):
+        a = torch.sort(torch.rand((rows, n), generator=gen, device="cuda", dtype=torch.float64)
+                       * (n * service), dim=1).values
+        pad = (-n) % w
+        view = F.pad(a, (0, pad), value=float("inf")).view(rows, (n + pad) // w, w)
+        row = {"shape": [rows, n], "workers": w, "staging": staging,
+               "calls": calls["pool"].count(((rows, n), w, staging)),
+               **_kernel_times(lambda: PL.pool_completion_rows(a, w, service, staging),
+                               lambda: PL.pool_completion_rows_plain(a, w, service, staging),
+                               rows * n * 17),
+               "cummax_scan_alone_device_ms": _device_ms(lambda: torch.cummax(view, 1))}
+        print("[pool] " + json.dumps(row), flush=True)
+        out["pool"].append(row)
+    for shape in dict.fromkeys(calls["bitmap_pack"]):
+        flags = torch.rand(shape, generator=gen, device="cuda") < 1e-3
+        copy = torch.empty_like(flags)
+        row = {"shape": list(shape), "dtype": "bool", "calls": calls["bitmap_pack"].count(shape),
+               **_kernel_times(lambda: BM.bitmap_pack(flags), lambda: BM.bitmap_pack_plain(flags),
+                               flags.numel() + flags.numel() // 32 * 4),
+               "copy_device_ms": _device_ms(lambda: copy.copy_(flags))}
+        print("[bitmap_pack] " + json.dumps(row), flush=True)
+        out["bitmap_pack"].append(row)
+    return out
+
+
+def _kernel_times(kernel, plain, nbytes: int) -> dict[str, float]:
+    return {"ms": _time(kernel), "host_ms": _host_ms(kernel), "device_ms": _device_ms(kernel),
+            "plain_ms": _time(plain), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def time_rx_kernels(card: dict[str, PK.PacketBcastResult]) -> dict[str, dict]:
     """Each receive-datapath kernel at the shape broadcast A gives it: ms
     per call from Python (CUDA events around back-to-back calls, ``_time``)
     of the kernel, its plain version and (for reassembly) one library call,
@@ -1140,15 +1235,17 @@ def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
     device ms per call (``_device_ms``; a reassembly call is a zero fill and
     two launches); beside the bound: bytes (each input read once, each
     output written once) over 3.35 TB/s, and for reassembly the device ms of
-    a plain copy of the same rows (``copy_``, one cudaMemcpyAsync)."""
+    a plain copy of the same rows (``copy_``, one cudaMemcpyAsync). The pool
+    scan and the pack are timed at every shape the run gives them
+    (``time_rx_shapes``); their rows here are A's first call of each."""
+    res_a = card["A"]
     p, n_bytes, wk, _, _ = BCASTS["A"]
     fab, workers = E.FabricParams(), E.WorkerParams(**wk)
     n, chunk = n_bytes // fab.mtu, fab.mtu
     service = chunk / workers.thread_tput
-    rows, nackers = p - 1, res_a.rounds[0].nack_leaves
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    a = torch.sort(torch.rand((rows, n), generator=gen, device="cuda", dtype=torch.float64)
-                   * (n * service), dim=1).values
+    nackers = res_a.rounds[0].nack_leaves
+    shaped = time_rx_shapes(rx_shapes(card), service)
+    gen = torch.Generator(device="cuda").manual_seed(7)
     flags = torch.rand((nackers, n), generator=gen, device="cuda") < 1e-3
     words = BM.bitmap_pack(flags)
     agg = BM.bitmap_or_rows(words)
@@ -1157,13 +1254,6 @@ def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
     staging, user = src[psn], torch.zeros_like(src)
     w = n // 32
     cases = {
-        "pool": ((rows, n), rows * n * 17,    # 8 B in, 8 B done + 1 B mask out
-                 lambda: PL.pool_completion_rows(a, workers.n_recv_workers, service,
-                                                 workers.staging_chunks),
-                 lambda: PL.pool_completion_rows_plain(a, workers.n_recv_workers, service,
-                                                       workers.staging_chunks), None),
-        "bitmap_pack": ((nackers, n), nackers * n + nackers * w * 4,
-                        lambda: BM.bitmap_pack(flags), lambda: BM.bitmap_pack_plain(flags), None),
         "bitmap_or_rows": ((nackers, w), nackers * w * 4 + w * 4,
                            lambda: BM.bitmap_or_rows(words),
                            lambda: BM.bitmap_or_rows_plain(words), None),
@@ -1175,12 +1265,11 @@ def time_rx_kernels(res_a: PK.PacketBcastResult) -> dict[str, dict]:
                              lambda: CR.chunk_reassembly_plain(staging, psn, user),
                              lambda: user.index_copy_(0, psn, staging)),
     }
-    out = {}
+    out = {"pool": {**shaped["pool"][0], "library_ms": None},
+           "bitmap_pack": {**shaped["bitmap_pack"][0], "library_ms": None}}
     for name, (shape, nbytes, kernel, plain, library) in cases.items():
-        row = {"shape": shape, "ms": _time(kernel), "host_ms": _host_ms(kernel),
-               "device_ms": _device_ms(kernel), "plain_ms": _time(plain),
-               "library_ms": _time(library) if library else None,
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        row = {"shape": shape, **_kernel_times(kernel, plain, nbytes),
+               "library_ms": _time(library) if library else None}
         if name == "chunk_reassembly":   # the same bytes as one cudaMemcpyAsync
             row["memcpy_device_ms"] = _device_ms(lambda: user.copy_(staging))
         print(f"[{name}] " + json.dumps(row), flush=True)
@@ -1542,7 +1631,7 @@ def main() -> int:
     mm = time_matmul(train_cases)
     print(f"[matmul] one train step's {mm['launches']} launches (mcast counted "
           f"{per_step['matmul']}): {json.dumps(mm)}", flush=True)
-    rx_t = time_rx_kernels(card["A"])
+    rx_t = time_rx_kernels(card)
     t0 = time.perf_counter()
     layer_t = time_layer(layer)
     print(f"[layer] timed ({time.perf_counter() - t0:.1f} s)", flush=True)

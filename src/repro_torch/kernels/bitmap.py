@@ -7,8 +7,9 @@ forms the packet engine uses (``bitmap_pack_rows_np``,
 that builds the aggregated NACK. The word format is the reference's: bit i
 of word w is ``flag[32 * w + i]``; words are ``torch.uint32``.
 
-- ``bitmap_pack(flags)``: (..., n) 0/1 flags, n % 32 == 0 -> (..., n / 32)
-  words. 1-D is one NACK bitmap, 2-D one per row.
+- ``bitmap_pack(flags)``: (..., n) flags, n % 32 == 0 -> (..., n / 32)
+  words; a flag is set when it is not 0 (a uint8 of 2 to 255, an int32 of
+  -1 or ``1 << 31`` too). 1-D is one NACK bitmap, 2-D one per row.
 - ``bitmap_or_rows(words)``: (R, w) -> (w,), the OR of every row.
 - ``bitmap_popcount(words)``: total set bits of (..., w) words (0-d int64);
   ``bitmap_popcount_rows``: per row of (R, w) (int64).
@@ -22,6 +23,14 @@ values. ``pack_launches``, ``or_launches`` and ``popcount_launches`` count
 kernel launches. A popcount call is one ctypes call and one launch into
 an output from ``torch.empty``: the C entry zeroes it itself where a row
 is long enough to be summed by several blocks (``csrc/bitmap.cu``).
+
+The pack is one ctypes call and one launch too. Its kernel reads 16-byte
+vectors (bound by the flag bytes); a flag base off 16 bytes takes a
+warp-per-word kernel, chosen by the C entry. The replay packs 511 single
+rows of 16,384 flags, where a call costs its host path, so the wrapper
+keeps that path short: one device test, ``contiguous()`` only when the
+flags are not, the words allocated as ``torch.uint32``, and the C entry
+bound once.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ or_launches = 0
 popcount_launches = 0
 
 _FLAG_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int32: 4, torch.uint32: 4}
+_pack = None   # the bound C entry of the pack, at its first launch
 _SHIFTS = torch.arange(32, dtype=torch.int64)
 _ARG_PACK = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p]
@@ -48,12 +58,15 @@ def _as_int64(words: torch.Tensor) -> torch.Tensor:
     return words.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
-def _check_flags(flags: torch.Tensor) -> None:
-    if flags.dtype not in _FLAG_BYTES:
+def _check_flags(flags: torch.Tensor) -> int:
+    """The flags' width in bytes; raises on a dtype or shape the pack refuses."""
+    width = _FLAG_BYTES.get(flags.dtype)
+    if width is None:
         raise TypeError(f"flags must be one of {list(_FLAG_BYTES)}, got {flags.dtype}")
     if flags.dim() < 1 or flags.shape[-1] % 32:
         raise ValueError(f"flags need a last dim that is a multiple of 32, got "
                          f"{tuple(flags.shape)}")
+    return width
 
 
 def _check_words(words: torch.Tensor, dims: tuple[int, ...]) -> None:
@@ -109,22 +122,25 @@ def bitmap_unpack(words: torch.Tensor, n_chunks: int | None = None) -> torch.Ten
 
 
 def bitmap_pack(flags: torch.Tensor) -> torch.Tensor:
-    """(..., n) 0/1 flags -> (..., n / 32) u32 words. Launches the CUDA
-    kernel for a CUDA tensor, runs the plain version for a CPU tensor."""
-    global pack_launches
+    """(..., n) flags -> (..., n / 32) u32 words. Launches the CUDA kernel
+    for a CUDA tensor, runs the plain version for a CPU tensor."""
+    global pack_launches, _pack
     if flags.is_cpu:
         return bitmap_pack_plain(flags)
-    _device(flags, "bitmap_pack")
-    _check_flags(flags)
-    f = flags.contiguous()
-    n_words = f.numel() // 32
-    words = torch.empty((*f.shape[:-1], f.shape[-1] // 32), dtype=torch.int32,
-                        device=f.device)
+    if not flags.is_cuda:
+        raise ValueError(f"bitmap_pack runs on cuda or cpu tensors, got {flags.device}")
+    width = _check_flags(flags)
+    if not flags.is_contiguous():
+        flags = flags.contiguous()
+    shape = flags.shape
+    words = torch.empty((*shape[:-1], shape[-1] >> 5), dtype=torch.uint32, device=flags.device)
+    n_words = flags.numel() >> 5
     if n_words:
-        build.launch(build.function("bitmap", "bitmap_pack", _ARG_PACK), f, f.data_ptr(),
-                     _FLAG_BYTES[f.dtype], words.data_ptr(), n_words)
+        if _pack is None:
+            _pack = build.function("bitmap", "bitmap_pack", _ARG_PACK)
+        build.launch(_pack, flags, flags.data_ptr(), width, words.data_ptr(), n_words)
         pack_launches += 1
-    return words.view(torch.uint32)
+    return words
 
 
 def bitmap_or_rows(words: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,13 @@ Both are bitwise equal, in f64, to the JAX package's numpy twin
 
 ``pool_scan_rows`` and ``pool_completion_rows`` launch ``csrc/pool.cu`` for
 a CUDA tensor (f64, W <= 1024) and run the plain versions only for a CPU
-tensor; ``launches`` counts kernel launches.
+tensor; ``launches`` counts kernel launches, one a call. The kernel is
+bound by HBM bytes (17 a element): a persistent grid of 512-thread blocks
+walks each row in double-buffered tiles of up to 4,096 elements, each
+tile a serial max per (lane, segment), a shuffle scan of the segment
+totals seeded with the lane's carry, a second serial pass, and done and
+the mask stored coalesced (``csrc/pool.cu`` says why, and what keeps it
+exact).
 """
 from __future__ import annotations
 
@@ -29,10 +35,25 @@ from repro_torch.kernels import build
 
 launches = 0
 
-_MAX_WORKERS = 1024   # one tile of the kernel holds every lane
+_MAX_WORKERS = 1024   # a tile of the kernel holds at least four rows of every lane
+_THREADS, _TILE = 512, 4096   # csrc/pool.cu's kThreads and kTile
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
              ctypes.c_void_p]
+
+
+def tile_plan(n_workers: int) -> tuple[int, int, int]:
+    """How ``csrc/pool.cu`` (its ``plan_for``) cuts a row for W workers:
+    (segments a lane S, tile rows a segment L, tile elements C = L * S * W).
+    S is the largest power of two with S * W <= 512 (1 when W > 256) and
+    L = 4096 // (S * W). Nothing on the launch path calls it: it names the
+    tile edges that the checks and the tests' model of the kernel use."""
+    w = max(int(n_workers), 1)
+    s = 1
+    while 2 * w <= _THREADS and 2 * s * w <= _THREADS:
+        s *= 2
+    seg_rows = _TILE // (s * w)
+    return s, seg_rows, seg_rows * s * w
 
 
 def _check(arrivals: torch.Tensor) -> None:
@@ -97,8 +118,6 @@ def _launch(arrivals: torch.Tensor, n_workers: int, service: float,
             else torch.empty(a.shape, dtype=torch.bool, device=a.device))
     if rows == 0 or n == 0:
         return done, mask
-    if rows >= 1 << 31:
-        raise ValueError(f"{rows} rows exceed the kernel's grid")
     build.launch(build.function("pool", "pool_completion_rows", _ARGTYPES), a, a.data_ptr(),
                  done.data_ptr(), None if mask is None else mask.data_ptr(), rows, n, w,
                  float(service), 0 if staging is None else staging)

@@ -288,18 +288,21 @@ def test_rank_matmul_backward_on_cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [1, 8, 16, 1024])
+@pytest.mark.parametrize("w", [1, 7, 8, 16, 1000, 1024])
 def test_pool_kernel_matches_plain(w):
-    """Bitwise in f64, ragged +inf-padded rows and tied arrivals included;
-    one launch per call."""
+    """Bitwise in f64, ragged +inf-padded rows and tied arrivals included,
+    at the kernel's tile edges (``tile_plan``) and around W; the mask's
+    reference in the same tile, an earlier one and none; one launch per
+    call."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(w)
-    for rows in (1, 7, 300):
-        for n in (1, 31, 4096, 16389):
+    edge = PL.tile_plan(w)[2]
+    for rows in (1, 7, 63, 511):
+        for n in sorted({1, 31, w - 1, w + 1, 4096, 16384, 16389, edge - 1, edge + 1} - {0}):
             a = torch.rand(rows, n, device="cuda", dtype=torch.float64, generator=gen)
             a = torch.sort(torch.round(a * 40) / 4, dim=1).values
             a[rows // 2, n // 3:] = float("inf")
-            for staging in (3, 8192):
+            for staging in (0, 3, 8192, n + 5):
                 want = PL.pool_completion_rows_plain(a, w, 0.3, staging)
                 before = PL.launches
                 got = PL.pool_completion_rows(a, w, 0.3, staging)
@@ -310,14 +313,36 @@ def test_pool_kernel_matches_plain(w):
             assert torch.equal(PL.pool_scan_rows(a, w, 0.3), want[0])
 
 
+def _flag_forms(flags: torch.Tensor, gen: torch.Generator) -> list[torch.Tensor]:
+    """bool; uint8 of 2 to 255 where set; int32 of -1 or 1 << 31 where set;
+    uint8 views 1, 4 and 8 bytes off 16 and an int32 view 4 bytes off."""
+    big = torch.randint(2, 256, flags.shape, device="cuda", generator=gen, dtype=torch.uint8)
+    sign = torch.randint(0, 2, flags.shape, device="cuda", generator=gen, dtype=torch.int32)
+    forms = [flags, torch.where(flags, big, 0),
+             torch.where(flags, torch.where(sign == 1, -1, -(1 << 31)), 0).to(torch.int32)]
+    for f, offsets in ((forms[1], (1, 4, 8)), (forms[2], (1,))):
+        for off in offsets:
+            view = torch.empty(f.numel() + off, dtype=f.dtype, device="cuda")[off:].view(f.shape)
+            view.copy_(f)
+            forms.append(view)
+    return forms
+
+
 @pytest.mark.gpu
 def test_bitmap_kernels_match_plain():
+    """The pack on every flag form (any non-zero value sets its bit; bases
+    off 16 bytes), rows of 32, 16,384 and 16,416 flags and the replay's
+    single row; OR and popcount of the packed rows."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, n in ((1, 32), (1, 1 << 20), (5, 4096), (512, 16384)):
-        flags = torch.rand(rows, n, device="cuda", generator=gen) < 0.2
-        for f in (flags, flags.to(torch.uint8), flags.to(torch.int32)):
-            assert torch.equal(BM.bitmap_pack(f), BM.bitmap_pack_plain(f))
+    for shape in ((32,), (16384,), (1, 32), (1, 16416), (1, 1 << 20), (5, 4096), (511, 16384),
+                  (512, 16416)):
+        flags = torch.rand(shape, device="cuda", generator=gen) < 0.2
+        for f in _flag_forms(flags, gen):
+            assert torch.equal(BM.bitmap_pack(f).view(torch.int32),
+                               BM.bitmap_pack_plain(f).view(torch.int32)), (shape, f.dtype)
+        if len(shape) == 1:
+            continue
         words = BM.bitmap_pack(flags)
         assert torch.equal(BM.bitmap_or_rows(words), BM.bitmap_or_rows_plain(words))
         assert torch.equal(BM.bitmap_popcount_rows(words), BM.bitmap_popcount_rows_plain(words))

@@ -5,6 +5,8 @@ twin or pure-jnp oracle, on the same numpy inputs, exactly (f64 for the
 pool). The CUDA kernels are held against these plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,6 +93,152 @@ def test_pool_wrapper_dispatch():
         pool.pool_scan_rows(torch.zeros(8, dtype=torch.float64), 2, 1.0)
 
 
+# csrc/pool.cu's kThreads and kTile; pool.tile_plan mirrors its plan_for
+POOL_THREADS, POOL_TILE = pool._THREADS, pool._TILE
+
+
+def _keep_first(earlier: torch.Tensor, later: torch.Tensor) -> torch.Tensor:
+    """pool.cu's max_keep_first: the earlier value on ties, NaN propagated."""
+    return torch.where((earlier >= later) | torch.isnan(earlier), earlier, later)
+
+
+def _pool_kernel_order(a: torch.Tensor, w: int, s: float, staging: int):
+    """csrc/pool.cu's order of work, thread by thread as tensors over the
+    threads (and rows): each tile copied into its shared-memory slots, the
+    (lane, segment) serial maxima, the segment totals scanned in warp
+    groups of ``span`` lanes (and over the warps' totals when S > 32)
+    seeded with each lane's carry, the second serial pass into the done
+    slots, then done and the mask read back element by element (the
+    mask's reference from this tile's slots or from done of an earlier
+    tile). Unwritten slots hold NaN, so a read of one shows."""
+    rows, n = a.shape
+    segs, seg_rows, c = pool.tile_plan(w)
+    g_rows = seg_rows * segs
+    rs = w if segs == 1 else segs * w + (w * (1 - segs)) % 16
+    cap, t = POOL_TILE + 256, torch.arange(POOL_THREADS)
+    e = torch.arange(c)
+    r = e // w
+    slot = (r % seg_rows) * rs + (r // seg_rows) * w + e % w
+    done = torch.full_like(a, math.nan)
+    mask = torch.zeros(a.shape, dtype=torch.bool)
+    nan = torch.full((rows, cap), math.nan, dtype=a.dtype)
+    carry = torch.full((rows, max(POOL_THREADS, w)), -math.inf, dtype=a.dtype)
+
+    def shifted(x, i):   # a - i * s, i a tensor of row indices (rounded per op)
+        return x - i.to(a.dtype) * s
+
+    def finished(m, i):
+        return m + (i.to(a.dtype) + 1.0) * s
+
+    for t0 in range(0, n, c):
+        i0, nv = t0 // w, min(c, n - t0)
+        buf, dbuf = nan.clone(), nan.clone()
+        buf[:, slot[:nv]] = a[:, t0:t0 + nv]
+        if segs == 1:                       # a thread scans whole lanes
+            lanes = torch.arange(w)
+            for rr in range(g_rows):
+                ok = t0 + rr * w + lanes < n
+                sl = rr * rs + lanes
+                m = _keep_first(carry[:, :w], shifted(buf[:, sl], torch.tensor(i0 + rr)))
+                carry[:, :w] = torch.where(ok, m, carry[:, :w])
+                dbuf[:, sl] = torch.where(ok, finished(m, torch.tensor(i0 + rr)), dbuf[:, sl])
+        else:
+            sw = segs * w
+            tt = t[:sw]
+            seg, lane_of = tt // w, tt % w
+            m = torch.full((rows, sw), -math.inf, dtype=a.dtype)
+            for k in range(seg_rows):
+                rr = seg * seg_rows + k
+                ok = t0 + rr * w + lane_of < n
+                m = torch.where(ok, _keep_first(m, shifted(buf[:, k * rs + tt], i0 + rr)), m)
+            tot = torch.full((rows, w * (segs + 1)), math.nan, dtype=a.dtype)
+            tot[:, lane_of * (segs + 1) + seg] = m
+            live = t < sw
+            log_s = segs.bit_length() - 1
+            ti = ((t >> log_s) * (segs + 1) + (t & (segs - 1))).clamp(max=tot.shape[1] - 1)
+            v = torch.where(live, tot[:, ti], -math.inf)
+            span, lane, warp = min(segs, 32), t & 31, t >> 5
+            gl = lane & (span - 1)
+            off = 1
+            while off < span:
+                o = v[:, (t - off).clamp(min=0)]
+                v = torch.where(gl >= off, _keep_first(o, v), v)
+                off *= 2
+            before = torch.where(gl == 0, -math.inf, v[:, (t - 1).clamp(min=0)])
+            if segs > 32:
+                wt = v[:, 31::32]
+                w0 = warp - ((t & (segs - 1)) >> 5)
+                earlier = torch.full_like(v, -math.inf)
+                lane_total = torch.full_like(v, -math.inf)
+                for h in range(segs >> 5):
+                    x = wt[:, (w0 + h).clamp(max=wt.shape[1] - 1)]
+                    earlier = torch.where(w0 + h < warp, _keep_first(earlier, x), earlier)
+                    lane_total = _keep_first(lane_total, x)
+                before = _keep_first(earlier, before)
+            else:
+                lane_total = v[:, (t & ~(span - 1)) + span - 1]
+            cur = carry[:, :POOL_THREADS]
+            tot[:, ti[:sw]] = _keep_first(cur, before)[:, :sw]
+            carry[:, :POOL_THREADS] = torch.where(live, _keep_first(cur, lane_total), cur)
+            m = tot[:, lane_of * (segs + 1) + seg]
+            for k in range(seg_rows):
+                rr = seg * seg_rows + k
+                ok = t0 + rr * w + lane_of < n
+                m = torch.where(ok, _keep_first(m, shifted(buf[:, k * rs + tt], i0 + rr)), m)
+                dbuf[:, k * rs + tt] = torch.where(ok, finished(m, i0 + rr), dbuf[:, k * rs + tt])
+        done[:, t0:t0 + nv] = dbuf[:, slot[:nv]]
+        for j in range(nv):
+            k = t0 + j - staging
+            if k >= 0:
+                ref = dbuf[:, slot[k - t0]] if k >= t0 else done[:, k]
+                mask[:, t0 + j] = ref > buf[:, slot[j]]
+    return done, mask
+
+
+def _tied_rows(rows: int, n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    a = np.sort(np.round(rng.uniform(0.0, 10.0, (rows, n)) * 4) / 4, axis=1)   # ties
+    if rows > 1:
+        a[rows // 2, n // 3:] = np.inf                                        # a ragged row
+    return a
+
+
+@pytest.mark.parametrize("w", [1, 7, 8, 1000, 1024])
+def test_pool_kernel_order_matches_plain(w):
+    """The kernel's tile order (tiles, (lane, segment) serial maxima, the
+    segment scan, the carry across tiles, the shared-memory slots) gives
+    the plain scan and mask bitwise, with ties and +inf padding, at the
+    tile edges of the kernel's plan and with the mask's reference in this
+    tile, an earlier one and none."""
+    c = pool.tile_plan(w)[2]
+    for n in (1, w + 1, c - 1, c, c + 1, 2 * c + 1):
+        a = torch.from_numpy(_tied_rows(3, n, n + w))
+        for staging in (0, 3, c + 5, n):
+            want = pool.pool_completion_rows_plain(a, w, 0.3, staging)
+            got = _pool_kernel_order(a, w, 0.3, staging)
+            assert torch.equal(got[0], want[0]), (w, n, staging)
+            assert torch.equal(got[1], want[1]), (w, n, staging)
+
+
+@pytest.mark.parametrize("w", [1, 3, 7, 8, 16, 100, 256, 257, 300, 512, 513, 1000, 1024])
+def test_pool_tile_plan_fits_the_kernel(w):
+    """pool.tile_plan (the kernel's plan_for): S the largest power of two
+    with S * W <= 512, or 1 when W > 256 (a thread then owns one or two
+    lanes), whole segments of 4 to 15 rows, tiles of at most 4,096 elements
+    whose padded slots fit a 4,352-slot buffer, and every thread's share of
+    a tile at most 8 elements."""
+    segs, seg_rows, c = pool.tile_plan(w)
+    assert segs & (segs - 1) == 0
+    if 2 * w > POOL_THREADS:
+        assert segs == 1 and w <= 2 * POOL_THREADS
+    else:
+        assert segs * w <= POOL_THREADS < 2 * segs * w
+    assert 4 <= seg_rows <= 15 and c == seg_rows * segs * w <= POOL_TILE
+    rs = w if segs == 1 else segs * w + (w * (1 - segs)) % 16
+    assert rs % 16 == w % 16 and seg_rows * rs <= POOL_TILE + 256
+    assert -(-c // POOL_THREADS) <= POOL_TILE // POOL_THREADS
+
+
 # ------------------------------------------------------------------ bitmaps
 
 
@@ -128,6 +276,46 @@ def test_bitmap_rows_and_or_match_numpy_twins(rows, words):
                                   bitmap_popcount_rows_np(want))
     agg = np.bitwise_or.reduce(want, axis=0)
     np.testing.assert_array_equal(bitmap.bitmap_or_rows(packed).numpy(), agg)
+
+
+def _nonzero_flags(rows: int, n: int, seed: int) -> dict[str, np.ndarray]:
+    """The same flag pattern as 0/1 bool, as uint8 of 2 to 255 where set,
+    and as int32 of -1 or 1 << 31 (the sign bit alone) where set."""
+    rng = np.random.default_rng(seed)
+    on = rng.random((rows, n)) < 0.3
+    return {"bool": on,
+            "uint8": np.where(on, rng.integers(2, 256, (rows, n)), 0).astype(np.uint8),
+            "int32": np.where(on, rng.choice(np.array([-1, -(1 << 31)]), (rows, n)),
+                              0).astype(np.int32)}
+
+
+@pytest.mark.parametrize("rows,n", [(1, 32), (3, 16384), (2, 16416)])
+def test_bitmap_pack_plain_sets_a_bit_for_any_nonzero_flag(rows, n):
+    """The pack's contract is flag != 0: uint8 flags of 2 to 255 and int32
+    flags of -1 and 1 << 31 set their bits, as 0/1 flags do, in the words
+    of the JAX package's numpy twin for the same pattern."""
+    flags = _nonzero_flags(rows, n, rows * n)
+    want = bitmap_pack_rows_np(flags["bool"])
+    for name, f in flags.items():
+        got = bitmap.bitmap_pack(torch.from_numpy(f))
+        assert got.dtype == torch.uint32 and got.shape == (rows, n // 32)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_bitmap_pack_plain_on_offset_views(offset):
+    """A flag view whose storage starts ``offset`` bytes (or elements) into
+    its buffer, off the 16-byte boundary the kernel's vector loads need
+    (its C entry takes the warp-per-word kernel there), packs the same
+    words as a fresh tensor of the same flags."""
+    flags = _nonzero_flags(4, 4096, offset)
+    for name, f in flags.items():
+        base = torch.zeros(f.size + offset, dtype=torch.from_numpy(f).dtype)
+        view = base[offset:].view(f.shape)
+        view.copy_(torch.from_numpy(f))
+        assert view.storage_offset() == offset and view.is_contiguous()
+        np.testing.assert_array_equal(bitmap.bitmap_pack(view).numpy(),
+                                      bitmap_pack_rows_np(flags["bool"]), err_msg=name)
 
 
 def test_bitmap_wrappers_check_inputs():
