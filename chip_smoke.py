@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-0. builds the nine kernel sources (csrc/*.cu), one nvcc each, in parallel;
-1. the ring-step kernel (csrc/ring_step.cu) and its transpose
+0. builds the eight kernel sources (csrc/*.cu), one nvcc each, in parallel;
+1. the ring step (one entry of the ring-allgather kernel,
+   csrc/ring_allgather.cu, on the buffer in place) and the transposed step
    (csrc/ring_step_transpose.cu) against their plain torch versions,
    bitwise, over ranks, lengths, dtypes, directions and round masks; the
    order check of the ring-allgather kernel (csrc/ring_allgather.cu): for
@@ -32,9 +33,12 @@
    (torch.equal): the pool scan with its RNR mask (csrc/pool.cu, f64, rows
    1 to 511, rows up to 16389 long, 1 to 16 workers, +inf-padded ragged rows
    and tied arrivals), bitmap pack, OR across rows and popcount
-   (csrc/bitmap.cu, up to 512 rows and 2^20 flags; popcount rows on both
-   sides of its one-strip limit, and empty, with no bit, one bit and
-   random bits set), chunk reassembly (csrc/chunk_reassembly.cu: int32 and
+   (csrc/bitmap.cu, up to 512 rows and 2^20 flags; the OR also on every
+   pair of 0, 1, 2, 31, 32, 33, 511, 512 and 4,096 rows by 1, 3, 4, 5, 512,
+   513 and 32,768 words, all zero, all ones, one bit in the last row and
+   word, sparse random words, and those as a view whose base is off 16
+   bytes; popcount rows on both sides of its one-strip limit, and empty,
+   with no bit, one bit and random bits set), chunk reassembly (csrc/chunk_reassembly.cu: int32 and
    int64 PSNs, duplicate PSNs, n_valid below n_staged and 0, four dtypes,
    4096-byte chunks and an odd width); then the reassembly and popcount
    wrappers under ``torch.cuda.set_sync_debug_mode("error")``: none may
@@ -80,17 +84,22 @@
    block's projections 576 -> 576, 576 -> 192, 576 -> 1536 and 1536 -> 576,
    each call one launch of the wgmma kernel that reads every rank's shard
    in place (no ring step): bitwise equal to the plain gather followed by
-   the same kernel, within the matmul's limits of the plain product; its
-   times beside the ring schedule's on one stream (the ring-step kernel and
+   the same kernel, within the matmul's limits of the plain product; the
+   same calls with ``use_pallas=False``, the reference's ``jnp.dot``
+   branch: the ring schedule, seven ring steps and plain products a call,
+   within the same limits; its
+   times beside the ring schedule's on one stream (the ring steps and
    2P - 1 products), the plain and library times and the bound, and the
    device's busy time and idle share; (c)
    ``make_broadcast`` of ``flatten_bucket`` over layer 0 (about 3.5 M f32)
    from roots 0 and 7 in 8 and 64 chunks, every rank bitwise equal to
    root's row; (d) ``concurrent_ag_rs_local`` on that bucket's shards, both
-   halves bitwise equal to the separate calls, on two streams and on one;
-   its launches (counts zeroed before, read after) are the ring step's and
-   the transposed step's in the kernels line: the main path launches
-   neither.
+   halves bitwise equal to the separate calls, on two streams and on one:
+   one ring-allgather launch of the whole ring schedule on the side stream
+   and seven transposed steps on the current one, no ring step (counts
+   zeroed before, read after); its transposed steps are the kernels line's
+   launches of that kernel, and the ring steps of (b)'s ``use_pallas=False``
+   calls the ring step's: the serving and training paths launch neither.
 
 Prints the card's name and power limit, per-mode and per-broadcast timings
 (medians of host-clock samples after a warm-up call; device busy time and
@@ -150,7 +159,8 @@ REPEATS = 5   # host-clock samples per timed phase; the median is reported
 
 
 def check_kernel(kernel=K.ring_step, plain=K.ring_step_plain) -> tuple[int, float]:
-    """Phase 1: a ring-step kernel vs its plain step, bitwise. Returns
+    """Phase 1: the ring step (a one-entry launch of the gather's kernel) or
+    the transposed step vs its plain step, bitwise. Returns
     (cases, max abs err)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, max_err = 0, 0.0
@@ -429,6 +439,11 @@ POOL_WORKERS = (1, 7, 8, 16, 1000, 1024)
 # csrc/bitmap.cu's kStripWords: a popcount row of up to this many words is
 # one block, which stores its count; a longer one several, which add theirs
 POPCOUNT_STRIP_WORDS = 4096
+# the OR check's grid: rows within, at and past a block's lanes and its
+# pass (128 and 512 rows); word counts off the vector path (1, 3, 5, 513),
+# on it (4, A's 512) and of many tiles (32,768)
+OR_ROWS = (0, 1, 2, 31, 32, 33, 511, 512, 4096)
+OR_WORDS = (1, 3, 4, 5, 512, 513, 32768)
 
 
 def _entries(counts: dict[str, int]) -> dict[str, int]:
@@ -531,7 +546,8 @@ def _layer_leaves(cfg) -> dict[str, tuple[int, int]]:
 def _steps(x: torch.Tensor, sched: tuple) -> torch.Tensor:
     """The gather as the main path ran it before the one-launch kernel: the
     zeroed ring buffer with the shards copied in, then one ring-step launch
-    per schedule entry."""
+    per schedule entry (each now a one-entry launch of the gather's own
+    kernel, csrc/ring_allgather.cu, which serves ``ring_step``)."""
     buf = C._ring_buffer(x)
     for step, direction, split, rounds, active in sched:
         K.ring_step(buf, step, direction=direction, split=split, rounds=rounds,
@@ -560,7 +576,7 @@ def time_ring_steps(cfg) -> dict:
     allocation and one launch that installs the shards and runs the
     schedule; ms per call from Python and device ms, beside what it
     replaces (the zeroed buffer, the shards' copy and 7 or 28 ring-step
-    launches), its plain version (the install and the plain steps) and the
+    launches, ``_steps``), its plain version (the install and the plain steps) and the
     plain gather (``plain_allgather_local``, one tensor op: the library
     call), and the bound: (P * P + P) * n * 2 bytes, the shards read once
     and the gathered buffer written once. The same for each schedule's
@@ -573,7 +589,8 @@ def time_ring_steps(cfg) -> dict:
     n).sum(-3)`` (not bitwise: it sums in another order), and the bound:
     (P * P + P) * n * 2 bytes, the cotangent read once and the result
     written once. Then one step per call of the ring
-    step and its transpose: kernel, plain version, and one library call of
+    step (a one-entry launch of the gather's kernel) and its transpose:
+    kernel, plain version, and one library call of
     the same step (an advanced-index copy; an index_add_). Device ms from
     ``_device_ms``. Returns the means over the leaves (and, for the
     gather and its transpose, over the three schedules)."""
@@ -977,6 +994,25 @@ def _flag_forms(flags: torch.Tensor, gen: torch.Generator) -> list[torch.Tensor]
     return forms
 
 
+def _or_rows_inputs(rows: int, n_words: int, gen: torch.Generator):
+    """(pattern, int32 words (rows, n_words)) for the OR check: all zero,
+    all ones, bit 31 of the last row's last word alone, sparse random words
+    (a row's word kept with chance 2 / rows), and those random words as a
+    view whose base lies 4 bytes off 16 (the C entry's single-word path)."""
+    zero = torch.zeros((rows, n_words), dtype=torch.int32, device="cuda")
+    last = zero.clone()
+    if rows:
+        last[-1, -1] = -(1 << 31)
+    rand = torch.randint(-(1 << 31), 1 << 31, (rows, n_words), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    rand *= torch.rand((rows, n_words), generator=gen, device="cuda") < 2 / max(rows, 1)
+    base = torch.empty(rows * n_words + 1, dtype=torch.int32, device="cuda")
+    off = base[1:].view(rows, n_words)
+    off.copy_(rand)
+    return (("zero", zero), ("ones", torch.full_like(zero, -1)), ("last bit", last),
+            ("random", rand), ("off 16 bytes", off))
+
+
 def check_rx_kernels() -> dict[str, tuple[int, float]]:
     """Phase 1: the receive datapath's kernels vs their plain versions,
     exactly. Returns {kernel: (cases, max abs err)}."""
@@ -1017,6 +1053,12 @@ def check_rx_kernels() -> dict[str, tuple[int, float]]:
             record("bitmap_popcount", (BM.bitmap_popcount_rows(words), BM.bitmap_popcount(words)),
                    (BM.bitmap_popcount_rows_plain(words), BM.bitmap_popcount_plain(words)),
                    shape)
+    for rows in OR_ROWS:
+        for n_words in OR_WORDS:
+            for case, w in _or_rows_inputs(rows, n_words, gen):
+                words = w.view(torch.uint32)
+                record("bitmap_or_rows", (BM.bitmap_or_rows(words),),
+                       (BM.bitmap_or_rows_plain(words),), (rows, n_words, case))
     # popcount rows on both sides of the one-strip limit (and empty rows),
     # with no bit, one bit and random bits set
     one = POPCOUNT_STRIP_WORDS
@@ -1114,7 +1156,7 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
         if counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the packet path: {counts}")
     calls = rx_shapes(card)
-    for name in ("pool", "bitmap_pack"):   # the shapes timed later are every call's
+    for name in calls:   # the shapes timed later are every call's
         if counts[name] != len(calls[name]):
             raise AssertionError(f"{name}: {counts[name]} launches on the packet path, "
                                  f"{len(calls[name])} calls in its round traces")
@@ -1164,14 +1206,15 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
 
 
 def rx_shapes(card: dict[str, PK.PacketBcastResult]) -> dict[str, list]:
-    """Every call the packet path makes of the pool scan and the pack, from
-    the broadcasts' round traces: the fast path's pool call over all leaves
-    and, each round, a pool call over its NACKing leaves' retransmitted
-    chunks and a pack of their flags; then one single-row pack per leaf in
-    A's replay. {"pool": [((rows, n), W, staging), ...], "bitmap_pack":
-    [shape, ...]}, a call an entry, in the run's order."""
+    """Every call the packet path makes of the pool scan, the pack and the
+    OR, from the broadcasts' round traces: the fast path's pool call over
+    all leaves and, each round, a pool call over its NACKing leaves'
+    retransmitted chunks, a pack of their flags and the OR of the packed
+    rows; then one single-row pack per leaf in A's replay. {"pool": [((rows,
+    n), W, staging), ...], "bitmap_pack": [shape, ...], "bitmap_or_rows":
+    [(rows, words), ...]}, a call an entry, in the run's order."""
     fab = E.FabricParams()
-    out: dict[str, list] = {"pool": [], "bitmap_pack": []}
+    out: dict[str, list] = {"pool": [], "bitmap_pack": [], "bitmap_or_rows": []}
     for name, res in card.items():
         p, n_bytes, wk, _, _ = BCASTS[name]
         workers, n = E.WorkerParams(**wk), n_bytes // fab.mtu
@@ -1180,24 +1223,28 @@ def rx_shapes(card: dict[str, PK.PacketBcastResult]) -> dict[str, list]:
         for r in res.rounds:
             out["pool"].append(((r.nack_leaves, r.union_chunks), *ring))
             out["bitmap_pack"].append((r.nack_leaves, n))
+            out["bitmap_or_rows"].append((r.nack_leaves, -(-n // 32)))
     out["bitmap_pack"] += [(BCASTS["A"][1] // fab.mtu,)] * len(card["A"].delivery_order)
     return out
 
 
 def time_rx_shapes(calls: dict[str, list], service: float) -> dict[str, list[dict]]:
-    """The pool scan and the pack at each distinct shape of ``calls``
-    (``rx_shapes``), in order of first call: ms a call from Python (``_time``),
-    host issue (``_host_ms``), device ms (``_device_ms``), the plain
-    version's ms, the bound (bytes over 3.35 TB/s: 8 B in and 17 B in all
-    an element for the pool; each flag byte in and 4 B a word out for the
-    pack), the calls at that shape, and a yardstick the port never calls:
-    for the pool the device ms of ``torch.cummax`` over the +inf-padded
-    (R, ceil(n / W), W) view, the scan alone and not the function; for the
-    pack the device ms of one ``copy_`` of its flag bytes. Arrivals are
-    sorted uniform rows, flags set at 1e-3, both from a seed."""
+    """The pool scan, the pack and the OR at each distinct shape of
+    ``calls`` (``rx_shapes``; a kernel missing from ``calls`` is skipped),
+    in order of first call: ms a call from Python (``_time``), host issue
+    (``_host_ms``), device ms (``_device_ms``), the plain version's ms, the
+    bound (bytes over 3.35 TB/s: 8 B in and 17 B in all an element for the
+    pool; each flag byte in and 4 B a word out for the pack; 4 B a word in
+    and 4 B an output word out for the OR), the calls at that shape, and a
+    yardstick the port never calls: for the pool the device ms of
+    ``torch.cummax`` over the +inf-padded (R, ceil(n / W), W) view, the
+    scan alone and not the function; for the pack and the OR the device ms
+    of one ``copy_`` of their input bytes. Arrivals are sorted uniform rows,
+    flags set at 1e-3 (the OR's words are such flags packed), all from a
+    seed."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    out: dict[str, list[dict]] = {"pool": [], "bitmap_pack": []}
-    for (rows, n), w, staging in dict.fromkeys(calls["pool"]):
+    out: dict[str, list[dict]] = {name: [] for name in calls}
+    for (rows, n), w, staging in dict.fromkeys(calls.get("pool", ())):
         a = torch.sort(torch.rand((rows, n), generator=gen, device="cuda", dtype=torch.float64)
                        * (n * service), dim=1).values
         pad = (-n) % w
@@ -1210,7 +1257,7 @@ def time_rx_shapes(calls: dict[str, list], service: float) -> dict[str, list[dic
                "cummax_scan_alone_device_ms": _device_ms(lambda: torch.cummax(view, 1))}
         print("[pool] " + json.dumps(row), flush=True)
         out["pool"].append(row)
-    for shape in dict.fromkeys(calls["bitmap_pack"]):
+    for shape in dict.fromkeys(calls.get("bitmap_pack", ())):
         flags = torch.rand(shape, generator=gen, device="cuda") < 1e-3
         copy = torch.empty_like(flags)
         row = {"shape": list(shape), "dtype": "bool", "calls": calls["bitmap_pack"].count(shape),
@@ -1219,6 +1266,16 @@ def time_rx_shapes(calls: dict[str, list], service: float) -> dict[str, list[dic
                "copy_device_ms": _device_ms(lambda: copy.copy_(flags))}
         print("[bitmap_pack] " + json.dumps(row), flush=True)
         out["bitmap_pack"].append(row)
+    for rows, n_words in dict.fromkeys(calls.get("bitmap_or_rows", ())):
+        words = BM.bitmap_pack(torch.rand((rows, 32 * n_words), generator=gen,
+                                          device="cuda") < 1e-3)
+        copy = torch.empty_like(words)
+        row = {"shape": [rows, n_words], "calls": calls["bitmap_or_rows"].count((rows, n_words)),
+               **_kernel_times(lambda: BM.bitmap_or_rows(words),
+                               lambda: BM.bitmap_or_rows_plain(words), (rows + 1) * n_words * 4),
+               "copy_device_ms": _device_ms(lambda: copy.copy_(words))}
+        print("[bitmap_or_rows] " + json.dumps(row), flush=True)
+        out["bitmap_or_rows"].append(row)
     return out
 
 
@@ -1236,7 +1293,7 @@ def time_rx_kernels(card: dict[str, PK.PacketBcastResult]) -> dict[str, dict]:
     two launches); beside the bound: bytes (each input read once, each
     output written once) over 3.35 TB/s, and for reassembly the device ms of
     a plain copy of the same rows (``copy_``, one cudaMemcpyAsync). The pool
-    scan and the pack are timed at every shape the run gives them
+    scan, the pack and the OR are timed at every shape the run gives them
     (``time_rx_shapes``); their rows here are A's first call of each."""
     res_a = card["A"]
     p, n_bytes, wk, _, _ = BCASTS["A"]
@@ -1247,16 +1304,12 @@ def time_rx_kernels(card: dict[str, PK.PacketBcastResult]) -> dict[str, dict]:
     shaped = time_rx_shapes(rx_shapes(card), service)
     gen = torch.Generator(device="cuda").manual_seed(7)
     flags = torch.rand((nackers, n), generator=gen, device="cuda") < 1e-3
-    words = BM.bitmap_pack(flags)
-    agg = BM.bitmap_or_rows(words)
+    agg = BM.bitmap_or_rows(BM.bitmap_pack(flags))
     src = torch.randint(0, 256, (n, chunk), generator=gen, device="cuda", dtype=torch.uint8)
     psn = torch.randperm(n, generator=gen, device="cuda")
     staging, user = src[psn], torch.zeros_like(src)
     w = n // 32
     cases = {
-        "bitmap_or_rows": ((nackers, w), nackers * w * 4 + w * 4,
-                           lambda: BM.bitmap_or_rows(words),
-                           lambda: BM.bitmap_or_rows_plain(words), None),
         "bitmap_popcount": ((w,), w * 4 + 8,
                             lambda: BM.bitmap_popcount(agg),
                             lambda: BM.bitmap_popcount_plain(agg), None),
@@ -1265,8 +1318,7 @@ def time_rx_kernels(card: dict[str, PK.PacketBcastResult]) -> dict[str, dict]:
                              lambda: CR.chunk_reassembly_plain(staging, psn, user),
                              lambda: user.index_copy_(0, psn, staging)),
     }
-    out = {"pool": {**shaped["pool"][0], "library_ms": None},
-           "bitmap_pack": {**shaped["bitmap_pack"][0], "library_ms": None}}
+    out = {name: {**rows[0], "library_ms": None} for name, rows in shaped.items()}
     for name, (shape, nbytes, kernel, plain, library) in cases.items():
         row = {"shape": shape, **_kernel_times(kernel, plain, nbytes),
                "library_ms": _time(library) if library else None}
@@ -1366,21 +1418,25 @@ def layer_path() -> tuple[dict[str, int], dict]:
     path's launches and the inputs with their max abs error vs plain."""
     mesh = StackedMesh(data=8, model=1)
     agmm = M.make_allgather_matmul(mesh, "data", **AGMM_TILES)
+    agmm_steps = M.make_allgather_matmul(mesh, "data", use_pallas=False, **AGMM_TILES)
     inputs = _agmm_inputs()
     x_rows = {rows: x for (rows, _, _), (x, _) in inputs.items()}
     torch.cuda.synchronize()
     _zero_counts()   # counts from here to the read are the collective layer's path
     got = {key: agmm(x, w) for key, (x, w) in inputs.items()}
+    got_steps = {key: agmm_steps(x, w) for key, (x, w) in inputs.items()}
     drained = {rows: K.local_double_buffer_drain(x) for rows, x in x_rows.items()}
     torch.cuda.synchronize()
     counts = _counts()
-    for name in ("allgather_matmul", "matmul", "double_buffer_drain"):
+    for name in ("allgather_matmul", "matmul", "double_buffer_drain", "ring_step"):
         if counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the collective layer's path: "
                                  f"{counts}")
-    # one group per call: one wgmma launch that reads the shards in place
+    # one group per call: one wgmma launch that reads the shards in place;
+    # use_pallas=False: the ring schedule's P - 1 steps and plain products
     want = {**{name: 0 for name in counts}, "allgather_matmul": len(inputs),
-            "matmul": len(inputs), "double_buffer_drain": len(x_rows)}
+            "matmul": len(inputs), "double_buffer_drain": len(x_rows),
+            "ring_step": 7 * len(inputs)}
     if counts != want:
         raise AssertionError(f"launches {counts} for {len(inputs)} allgather-matmul calls, "
                              f"expected {want}")
@@ -1395,17 +1451,22 @@ def layer_path() -> tuple[dict[str, int], dict]:
         if not err <= 1e-2 * plain.float().abs().max().item():
             raise AssertionError(f"allgather_matmul {key} vs plain: max err {err}")
         errs[key] = err
+        err = (got_steps[key].float() - plain.float()).abs().max().item()
+        if not err <= 1e-2 * plain.float().abs().max().item():
+            raise AssertionError(f"allgather_matmul {key}, use_pallas=False, vs plain: max "
+                                 f"err {err}")
     for rows, x in x_rows.items():
         if not torch.equal(drained[rows], x):
             raise AssertionError(f"the drain of the {rows}-row shards differs")
-    print(f"[layer] {len(inputs)} allgather-matmul calls equal gather-then-matmul bitwise; "
-          f"launches {json.dumps(counts)}", flush=True)
+    print(f"[layer] {len(inputs)} allgather-matmul calls equal gather-then-matmul bitwise, "
+          f"and as many with use_pallas=False within limits of plain; launches "
+          f"{json.dumps(counts)}", flush=True)
     return counts, {"inputs": inputs, "errs": errs}
 
 
 def time_layer(path: dict) -> dict[str, dict]:
     """Phase 6b's times: per case the call (one launch) and the reference's
-    ring schedule on one stream (the ring-step kernel and 2P - 1 products
+    ring schedule on one stream (P - 1 ring steps and 2P - 1 products
     on the matmul kernel): ms per call back to back from CUDA events; the
     median of REPEATS synchronised calls; the host's issue time; the device
     time, and the idle share it leaves of the synchronised call; then the
@@ -1477,7 +1538,8 @@ def bucket_collectives(cfg) -> dict[str, int]:
     """Phases 6c and 6d: the pipelined broadcast and concurrent AG/RS on
     the flat f32 bucket of layer 0 of the seeded smollm-135m weights.
     Returns the launches of one concurrent AG/RS call (counts zeroed
-    before, read after): the ring step's and its transpose's."""
+    before, read after): one ring-allgather launch of the ring schedule
+    and seven transposed steps."""
     def layer0(tree):
         if isinstance(tree, dict):
             return {k: layer0(v) for k, v in tree.items()}
@@ -1504,7 +1566,8 @@ def bucket_collectives(cfg) -> dict[str, int]:
     got = C.concurrent_ag_rs_local(ag, rs)
     torch.cuda.synchronize()
     counts = _counts()
-    want = {**dict.fromkeys(counts, 0), "ring_step": 7, "ring_step_transpose": 7}
+    want = {**dict.fromkeys(counts, 0), "ring_allgather": 1, "entries_ring": 7,
+            "ring_step_transpose": 7}
     if counts != want:
         raise AssertionError(f"concurrent AG/RS launched {counts}, expected {want}")
     if not (torch.equal(got[0], C.ring_allgather_local(ag))
@@ -1623,7 +1686,9 @@ def main() -> int:
     layer_counts, layer = layer_path()   # zeroes the counts before driving the path
     launches.update({name: layer_counts[name] for name in LAYER_KERNELS})
     bucket_counts = bucket_collectives(cfg)
-    launches.update({name: bucket_counts[name] for name in ("ring_step", "ring_step_transpose")})
+    launches["ring_step"] = layer_counts["ring_step"]
+    launches["ring_step_transpose"] = bucket_counts["ring_step_transpose"]
+    launches["ring_allgather"] += bucket_counts["ring_allgather"]
     print(f"[layer] phase 6 checks passed ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     ring = time_ring_steps(cfg)
@@ -1682,7 +1747,7 @@ def main() -> int:
          "ms": ring["transpose_ms"], "plain_ms": ring["transpose_plain_ms"],
          "bound_ms": ring["transpose_bound_ms"], "bound_by": "bytes",
          "library_ms": ring["transpose_library_ms"]},
-        {"name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_step.cu",
+        {"name": "ring_step", "route": "cuda", "source": "src/repro_torch/csrc/ring_allgather.cu",
          "replaces": "src/repro/kernels/ring_allgather.py:46",
          "launches": launches["ring_step"], "max_abs_err": ring_err, "ms": ring["ms"],
          "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"], "bound_by": "bytes",

@@ -5,7 +5,9 @@ CUDA card:
     python3 scripts/launch_path_breakdown.py
 
 For the double-buffered drain at (8, 128, 576) bf16 and one ring step
-(step 0) on wq's ring buffer at P = 8 (smollm-135m), it times each part of
+(step 0) on wq's ring buffer at P = 8 (smollm-135m; a one-entry launch of
+the gather's kernel, ``csrc/ring_allgather.cu``, that installs nothing),
+it times each part of
 a wrapper's call alone: the argument checks, the output's allocation (the
 drain), the binding of the C entry point, the device guard, the stream
 lookup and the ctypes call (which launches the kernel). Each of the last
@@ -113,6 +115,7 @@ def breakdown() -> dict:
     out_x = torch.empty_like(x)
     n = 576 * 576 // 8
     buf = C._ring_buffer(torch.randn((8, n), generator=gen, device="cuda").bfloat16())
+    ((packed, _),), _ = K._packed(((0, 1, None, 1, 0),), 8, n)   # step 0, the whole slot
     dev = x.get_device()
     cases = {
         "double_buffer_drain": dict(
@@ -123,9 +126,10 @@ def breakdown() -> dict:
             allocation=lambda: torch.empty_like(x),
             call=lambda: K.local_double_buffer_drain(x)),
         "ring_step": dict(
-            lib=("ring_step", "ring_step", K._ARGTYPES), t=buf,
-            args=(buf.data_ptr(), 1, 1, 8, n, 0, 1, n, 1, 0),
-            checks=lambda: (buf.is_cpu, buf.is_cuda, K._check(buf, 0, 1, None, 1, 0)),
+            lib=("ring_allgather", "ring_allgather", K._ALLGATHER_ARGTYPES), t=buf,
+            args=(None, buf.data_ptr(), 1, 1, 8, n, packed, 1),
+            checks=lambda: (buf.is_cpu, buf.is_cuda, K._check_buf(buf),
+                            K._packed(((0, 1, None, 1, 0),), 8, n)),
             allocation=None,
             call=lambda: K.ring_step(buf, 0))}
     result = {}
@@ -175,7 +179,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    build.build(("double_buffer_drain", "ring_step"))
+    build.build(("double_buffer_drain", "ring_allgather"))
     breakdown()
     print(smi)
     return 0

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""The pool scan (csrc/pool.cu) and the bitmap pack (csrc/bitmap.cu) at
-every shape the packet Broadcasts A and B of ``chip_smoke.py`` give them,
-for one or more source trees in turn, on one CUDA card:
+"""The pool scan (csrc/pool.cu), the bitmap pack and the OR of packed rows
+(csrc/bitmap.cu) at every shape the packet Broadcasts A and B of
+``chip_smoke.py`` give them, for one or more source trees in turn, on one
+CUDA card:
 
     python3 scripts/rx_kernel_shapes.py                    # this tree
     python3 scripts/rx_kernel_shapes.py OLD . . OLD        # OLD: another checkout
 
 The shapes come from the broadcasts' round traces on the CPU
-(``chip_smoke.rx_shapes``): seven pool calls and 516 packs (five in the
-broadcasts, 511 single rows in A's replay). Each tree is timed in a
+(``chip_smoke.rx_shapes``): seven pool calls, 516 packs (five in the
+broadcasts, 511 single rows in A's replay) and five ORs (one a recovery
+round, of 512 words). Each tree is timed in a
 process of its own, in the order given, by ``chip_smoke.time_rx_shapes``
 of this tree run on that tree's ``src/repro_torch`` (imported first, so
 that ``chip_smoke``'s imports find it): ms a call from Python, host issue,
 device ms, the plain version, the bound and a yardstick per shape. Each
-tree builds its two kernels into its own ``build/``. Prints the card's
+tree builds its kernels into its own ``build/``. Prints the card's
 name and power limit, one JSON line per shape and tree, and a last JSON
 line of ms, host and device ms per shape, a list in the trees' order,
 with the median over the runs of each tree.
@@ -46,7 +48,8 @@ def _worker(tree: str, calls: dict, service: float) -> None:
     sys.path.insert(0, ROOT)
     import chip_smoke
     calls = {"pool": [(tuple(shape), w, staging) for shape, w, staging in calls["pool"]],
-             "bitmap_pack": [tuple(shape) for shape in calls["bitmap_pack"]]}
+             **{name: [tuple(shape) for shape in calls[name]]
+                for name in ("bitmap_pack", "bitmap_or_rows")}}
     rows = chip_smoke.time_rx_shapes(calls, service)
     print("RESULT " + json.dumps({"tree": tree, **rows}), flush=True)
 
@@ -110,16 +113,17 @@ def main() -> int:
             sys.stderr.write(proc.stderr)
             return proc.returncode
         results.append(json.loads(proc.stdout.rsplit("RESULT ", 1)[1]))
+    kernels = ("pool", "bitmap_pack", "bitmap_or_rows")
     summary = {kernel: [{"shape": row["shape"], **{key: [r[kernel][k][key] for r in results]
                                                     for key in ("ms", "host_ms", "device_ms")}}
                         for k, row in enumerate(results[0][kernel])]
-               for kernel in ("pool", "bitmap_pack")}
+               for kernel in kernels}
     medians = {tree: {kernel: [{"shape": row["shape"],
                                 **{key: statistics.median(r[kernel][k][key] for r in results
                                                           if r["tree"] == tree)
                                    for key in ("ms", "host_ms", "device_ms")}}
                                for k, row in enumerate(results[0][kernel])]
-                      for kernel in ("pool", "bitmap_pack")}
+                      for kernel in kernels}
                for tree in dict.fromkeys(trees)}
     print(json.dumps({"trees": trees, **summary, "median": medians}))
     return 0

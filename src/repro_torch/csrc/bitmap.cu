@@ -24,10 +24,27 @@
 //   takes that warp-per-word kernel: the C entry checks the address, so no
 //   vector load is ever misaligned; once the base is aligned every word's
 //   flags are, each word starting 32 flags further on.
-// - OR across rows: a thread ORs a strip of rows of one word column in
-//   registers and ends with one atomicOr into the zeroed output. OR is
-//   associative and commutative, so the result does not depend on the
-//   order the atomics land in.
+// - OR across rows (the aggregated NACK, a few hundred rows of 512 words
+//   on the packet path): one launch, a block per column tile of kOrCols
+//   vectors (16-byte vectors of 4 words where the words' and the output's
+//   bases are 16-byte aligned and a row is a whole number of vectors, else
+//   single words; the C entry checks). A block's kOrThreads threads are
+//   kOrLanes row lanes of the tile's columns; lane l loads rows l + k
+//   kOrLanes (k < kOrInFlight, all in flight) a pass, a pass kOrLanes x
+//   kOrInFlight rows (broadcast A's 511 in one), looping until the rows
+//   end, so rows have no limit. The lanes of a warp OR their registers by
+//   shuffles, the warps' partials meet in shared memory after one
+//   barrier, and warp 0 ORs them and stores the tile with plain stores. So
+//   a call is one launch into an output from torch.empty: no zero fill, no
+//   atomics, and 0 rows stores zeros. The first design (a thread a word
+//   column ORing 32 rows, then an atomicOr into a zeroed output) was 32
+//   blocks, a fill and an atomic pass: 0.0069 ms on the device and 0.0230
+//   from Python at (511, 512), against a 0.0003 bound (NVIDIA H100 80GB
+//   HBM3 at 700 W; PERF.md section 6). Thread-block clusters (a cluster a
+//   tile, its blocks' partials ORed by the leader through distributed
+//   shared memory) were tried at 4 to 16 blocks a cluster and 8 to 32
+//   vectors a tile: every one was slower than this at each of the run's
+//   shapes, where the call is a launch and a cluster's launch costs more.
 // - popcount per row (`bitmap_popcount` at bitmap.py:78 is the one-row
 //   case): strips of kStripWords (4,096) words, a block of 512 threads
 //   each: __popc per word, warp shuffles, shared memory. A row of up to
@@ -40,11 +57,12 @@
 //   one launch.
 //
 // Bound: HBM bytes, all three: the flag bytes for pack (plus 4 B per word
-// written), 4 B per word read for OR and popcount (plus 8 B per row count
-// written). At 512 words the popcount's bound is 6e-7 ms at the H100
-// SXM's data-sheet 3.35 TB/s, far under a launch: what a call costs is its
-// launch path, so the design spends one launch and nothing else on it. The
-// same holds for the replay's single-row pack (16,384 flags): its C entry
+// written), 4 B per word read for OR (plus 4 B per word written) and
+// popcount (plus 8 B per row count written). At 512 words the popcount's
+// bound is 6e-7 ms at the H100 SXM's data-sheet 3.35 TB/s, and the OR's
+// 3e-4 at (511, 512), far under a launch: what a call costs is its launch
+// path, so the design spends one launch and nothing else on it. The same
+// holds for the replay's single-row pack (16,384 flags): its C entry
 // reads the SM count once and caches it.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,7 +70,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kOrRows = 32;          // rows one thread ORs before its atomic
+constexpr int kOrThreads = 512;                  // an OR block
+constexpr int kOrCols = 4;                       // vectors (or words) of its column tile
+constexpr int kOrLanes = kOrThreads / kOrCols;   // its row lanes
+constexpr int kOrInFlight = 4;                   // rows a lane loads before it ORs them
 constexpr long long kMaxBlocks = 65535;
 constexpr unsigned kStripBlocks = 132;  // blocks per row at most: one per SM
 constexpr int kPopThreads = 512;                      // a popcount block
@@ -122,16 +143,54 @@ __global__ void pack_kernel_unaligned(const T* __restrict__ flags,
   }
 }
 
-__global__ void or_rows_kernel(const uint32_t* __restrict__ words, uint32_t* out,
-                               long long rows, long long n_words) {
-  const long long c = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= n_words) return;
-  for (long long r0 = static_cast<long long>(blockIdx.y) * kOrRows; r0 < rows;
-       r0 += static_cast<long long>(gridDim.y) * kOrRows) {
-    const long long r1 = r0 + kOrRows < rows ? r0 + kOrRows : rows;
-    uint32_t acc = 0;
-    for (long long r = r0; r < r1; ++r) acc |= words[r * n_words + c];
-    if (acc) atomicOr(out + c, acc);
+__device__ __forceinline__ uint4 bit_or(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ __forceinline__ uint32_t bit_or(uint32_t a, uint32_t b) { return a | b; }
+__device__ __forceinline__ uint4 shfl_xor(uint4 v, int m) {
+  return make_uint4(__shfl_xor_sync(0xffffffffu, v.x, m), __shfl_xor_sync(0xffffffffu, v.y, m),
+                    __shfl_xor_sync(0xffffffffu, v.z, m), __shfl_xor_sync(0xffffffffu, v.w, m));
+}
+__device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+
+// V: uint4 (4 words) or uint32_t; n_vec: V's a row. Block b ORs column tile
+// b, vectors [b kOrCols, (b + 1) kOrCols), over every row.
+template <typename V>
+__global__ void __launch_bounds__(kOrThreads)
+or_rows_kernel(const V* __restrict__ words, V* __restrict__ out, long long rows, long long n_vec) {
+  constexpr int kWarps = kOrThreads / 32;
+  __shared__ V part[kWarps][kOrCols];
+  const int col = threadIdx.x % kOrCols;
+  const int lane = threadIdx.x / kOrCols;
+  const int warp = threadIdx.x / 32;
+  const long long v = static_cast<long long>(blockIdx.x) * kOrCols + col;
+  V acc{};
+  if (v < n_vec) {
+    for (long long r0 = lane; r0 < rows; r0 += static_cast<long long>(kOrLanes) * kOrInFlight) {
+      V x[kOrInFlight];
+#pragma unroll
+      for (int k = 0; k < kOrInFlight; ++k) {
+        const long long r = r0 + static_cast<long long>(k) * kOrLanes;
+        x[k] = r < rows ? words[r * n_vec + v] : V{};
+      }
+#pragma unroll
+      for (int k = 0; k < kOrInFlight; ++k) acc = bit_or(acc, x[k]);
+    }
+  }
+#pragma unroll
+  for (int m = kOrCols; m < 32; m *= 2) acc = bit_or(acc, shfl_xor(acc, m));  // the warp's lanes
+  if ((threadIdx.x & 31) < kOrCols) part[warp][col] = acc;
+  __syncthreads();
+  if (warp == 0) {  // thread t: column t % kOrCols of warps t / kOrCols, + 32 / kOrCols, ...
+    V all{};
+#pragma unroll
+    for (int w = threadIdx.x / kOrCols; w < kWarps; w += 32 / kOrCols)
+      all = bit_or(all, part[w][col]);
+#pragma unroll
+    for (int m = kOrCols; m < 32; m *= 2) all = bit_or(all, shfl_xor(all, m));
+    if (threadIdx.x < kOrCols && v < n_vec) out[v] = all;
   }
 }
 
@@ -172,7 +231,7 @@ unsigned blocks_for(long long items, long long per_block) {
 
 // Each returns cudaGetLastError() after its launch (0 on success). The
 // caller checks arguments: contiguous tensors, n_words >= 1 (popcount: >=
-// 0), rows >= 1, and a zeroed output for OR.
+// 0), rows >= 1 (OR: >= 0).
 
 // flags: n_words * 32 flags of flag_bytes (1 or 4) bytes each -> n_words u32.
 extern "C" int bitmap_pack(const void* flags, int flag_bytes, void* words, long long n_words,
@@ -209,12 +268,23 @@ extern "C" int bitmap_pack(const void* flags, int flag_bytes, void* words, long 
   return static_cast<int>(cudaGetLastError());
 }
 
-// words (rows, n_words) -> out (n_words,) |= every row.
+// words (rows, n_words) -> out (n_words,) = the OR of every row (0 for no
+// rows), one launch; out needs no fill. 16-byte vectors where both bases
+// are 16-byte aligned and n_words % 4 == 0, else single words.
 extern "C" int bitmap_or_rows(const void* words, void* out, long long rows, long long n_words,
                               void* stream) {
-  const dim3 grid(blocks_for(n_words, kThreads), blocks_for(rows, kOrRows));
-  or_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), rows, n_words);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = ((reinterpret_cast<uintptr_t>(words) | reinterpret_cast<uintptr_t>(out)) &
+                    15) == 0 && n_words % 4 == 0;
+  const long long n_vec = vec ? n_words / 4 : n_words;
+  const long long tiles = (n_vec + kOrCols - 1) / kOrCols;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec)
+    or_rows_kernel<uint4><<<static_cast<unsigned>(tiles), kOrThreads, 0, st>>>(
+        static_cast<const uint4*>(words), static_cast<uint4*>(out), rows, n_vec);
+  else
+    or_rows_kernel<uint32_t><<<static_cast<unsigned>(tiles), kOrThreads, 0, st>>>(
+        static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), rows, n_vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,7 @@
 // and one launch first installs each rank's own shard in its own slot,
 // buf[g, d, d] <- x[g, d] (the TPU kernel's `out_ref[my_id] = x_ref[...]`),
 // then runs every entry of a schedule, in order. Entry k is one ring step
-// (`ring_step.cu`) for every rank at once:
+// for every rank at once:
 //
 //     buf[g, (d + dir) % P, src] <- buf[g, d, src],  src = (d - dir * step) % P
 //
@@ -23,7 +23,8 @@
 // (P / M rounds of P - 1 masked entries), or any prefix of one. A slot that
 // no entry reaches keeps what buf held. A schedule longer than the
 // kMaxEntries that a launch's parameters carry runs as several launches in
-// order on one stream; only the first installs (x null in the others).
+// order on one stream; only the first installs (x null in the others). One
+// entry with x null is one ring step in place (the wrapper's `ring_step`).
 //
 // Design. The TPU's sequential grid over steps becomes a loop over the
 // entries inside the kernel. A step moves element j of a slot to element j
@@ -43,7 +44,7 @@
 // memory, no wait on another block, and no block needs to be resident with
 // any other. Within one entry no slot is both read and written (rank d + dir
 // reads slot src + dir, never src). The bidi split and the round mask are
-// taken per element and per slot as in `ring_step_kernel`; a vector that
+// taken per element and per slot; a vector that
 // straddles the split moves element by element, from memory. P > 32 takes a
 // plain loop: one thread per column runs every rank's moves, loading each
 // entry's slots back from memory.

@@ -1,8 +1,9 @@
 // The transpose of one ring-allgather step for every rank of a stacked buffer.
 //
-// Adjoint of `ring_step` (ring_step.cu), the Hopper counterpart of
-// `ring_allgather_tpu` (src/repro/kernels/ring_allgather.py:46). The forward
-// step copies, for every rank d,
+// Adjoint of one ring step (`ring_step`: one entry of ring_allgather.cu),
+// the Hopper counterpart of `ring_allgather_tpu`
+// (src/repro/kernels/ring_allgather.py:46). The forward step copies, for
+// every rank d,
 //
 //     buf[g, (d + dir) % P, src] <- buf[g, d, src],  src = (d - dir * step) % P
 //
@@ -23,8 +24,8 @@
 // rounded once to the element type, as torch adds bf16 and f16 tensors.
 //
 // Bound: HBM bytes, 3 * P * n * itemsize per step (two slots read, one
-// written per rank). As in ring_step.cu, 16-byte vectors in a grid-stride
-// loop over one rank's slot per block row, with a scalar head and tail for
+// written per rank). 16-byte vectors in a grid-stride loop over one rank's
+// slot per block row, with a scalar head and tail for
 // spans off a 16-byte boundary.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

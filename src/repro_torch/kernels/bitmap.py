@@ -18,11 +18,16 @@ of word w is ``flag[32 * w + i]``; words are ``torch.uint32``.
 
 Each of the first three launches ``csrc/bitmap.cu`` for a CUDA tensor and
 runs its plain version only for a CPU tensor. The plain versions compute
-in int64 (torch's uint32 has no shifts on the CPU) and return the same
-values. ``pack_launches``, ``or_launches`` and ``popcount_launches`` count
-kernel launches. A popcount call is one ctypes call and one launch into
+in int64 (torch's uint32 has no shifts on the CPU), the OR by folding the
+rows in halves on their int32 view, and return the same values.
+``pack_launches``, ``or_launches`` and ``popcount_launches`` count kernel
+launches. A popcount call is one ctypes call and one launch into
 an output from ``torch.empty``: the C entry zeroes it itself where a row
-is long enough to be summed by several blocks (``csrc/bitmap.cu``).
+is long enough to be summed by several blocks (``csrc/bitmap.cu``). An OR
+call is one ctypes call and one launch into an output from
+``torch.empty`` too, written with plain stores: a block per column tile
+ORs every row and stores the tile (no fill, no atomics; 0 rows stores
+zeros).
 
 The pack is one ctypes call and one launch too. Its kernel reads 16-byte
 vectors (bound by the flag bytes); a flag base off 16 bytes takes a
@@ -45,7 +50,8 @@ or_launches = 0
 popcount_launches = 0
 
 _FLAG_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int32: 4, torch.uint32: 4}
-_pack = None   # the bound C entry of the pack, at its first launch
+_pack = None   # the bound C entries of the pack and the OR, at their first launch
+_or = None
 _SHIFTS = torch.arange(32, dtype=torch.int64)
 _ARG_PACK = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p]
@@ -95,7 +101,15 @@ def bitmap_pack_plain(flags: torch.Tensor) -> torch.Tensor:
 
 def bitmap_or_rows_plain(words: torch.Tensor) -> torch.Tensor:
     _check_words(words, (2,))
-    return bitmap_pack_plain(bitmap_unpack(words).any(0))
+    acc = words.view(torch.int32)
+    if acc.shape[0] == 0:
+        return torch.zeros(acc.shape[1], dtype=torch.int32, device=words.device).view(torch.uint32)
+    while acc.shape[0] > 1:   # fold the bottom half of the rows onto the top half
+        half = (acc.shape[0] + 1) // 2
+        top = acc[:half].clone()
+        top[:acc.shape[0] - half] |= acc[half:]
+        acc = top
+    return acc[0].clone().view(torch.uint32)
 
 
 def bitmap_popcount_rows_plain(words: torch.Tensor) -> torch.Tensor:
@@ -145,19 +159,23 @@ def bitmap_pack(flags: torch.Tensor) -> torch.Tensor:
 
 def bitmap_or_rows(words: torch.Tensor) -> torch.Tensor:
     """(R, w) u32 words -> (w,) u32, the OR of every row (the aggregated
-    NACK). Launches the CUDA kernel for a CUDA tensor; plain on the CPU."""
-    global or_launches
+    NACK; zeros for R = 0). For a CUDA tensor one launch writes every word
+    of an output from ``torch.empty``; plain on the CPU."""
+    global or_launches, _or
     if words.is_cpu:
         return bitmap_or_rows_plain(words)
     _device(words, "bitmap_or_rows")
     _check_words(words, (2,))
-    w = words.contiguous()
-    out = torch.zeros(w.shape[1], dtype=torch.int32, device=w.device)
-    if w.numel():
-        build.launch(build.function("bitmap", "bitmap_or_rows", _ARG_ROWS), w, w.data_ptr(),
-                     out.data_ptr(), w.shape[0], w.shape[1])
+    if not words.is_contiguous():
+        words = words.contiguous()
+    out = torch.empty(words.shape[1], dtype=torch.uint32, device=words.device)
+    if words.shape[1]:
+        if _or is None:
+            _or = build.function("bitmap", "bitmap_or_rows", _ARG_ROWS)
+        build.launch(_or, words, words.data_ptr(), out.data_ptr(), words.shape[0],
+                     words.shape[1])
         or_launches += 1
-    return out.view(torch.uint32)
+    return out
 
 
 def _popcount(w: torch.Tensor, out: torch.Tensor, rows: int, n_words: int) -> torch.Tensor:

@@ -14,8 +14,9 @@ entry one ring step for every rank at once (a schedule longer than the
 split, rounds, active_round)`` (``split`` None: the whole slot), as
 ``core/collectives.py`` builds them for the ring, the bidirectional ring
 and the composition of broadcasts; any prefix of one is a schedule too.
-``ring_step`` (``csrc/ring_step.cu``) is one entry in one launch, which
-concurrent AG/RS and the CPU's allgather-matmul schedule still take.
+``ring_step`` is one entry, in place, in one launch of the same kernel with
+no install (the shards pointer null); only the allgather-matmul's ring
+schedule (``use_pallas=False``, and the CPU's) still takes it.
 
 ``ring_allgather_transpose`` (``csrc/ring_allgather_transpose.cu``) is the
 adjoint of a whole gather: a cotangent ``g (G, P_rank, P_slot, n)`` ->
@@ -30,8 +31,7 @@ bidi and broadcast schedules the launch only reads ``g`` and writes the
 result; other schedules, P > 32 and more than 128 entries work in place on
 a scratch copy (``_packed_transpose``). ``ring_step_transpose``
 (``csrc/ring_step_transpose.cu``) is one transposed step in one launch,
-which only concurrent AG/RS still takes: its steps interleave with the
-allgather's.
+which only concurrent AG/RS's reduce-scatter half still takes.
 
 Bound: HBM bytes. A whole gather reads every rank's shard once and writes
 every rank's gathered copy once, (P * P + P) * n * itemsize bytes per
@@ -51,8 +51,9 @@ staged.nbytes.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version only for a CPU tensor. ``allgather_launches``,
-``allgather_transpose_launches``, ``launches``, ``transpose_launches`` and
-``drain_launches`` count kernel launches; ``entries`` and
+``allgather_transpose_launches``, ``launches`` (the one-step launches of
+the gather's kernel), ``transpose_launches`` and ``drain_launches`` count
+kernel launches; ``entries`` and
 ``transpose_entries`` count the schedule entries that the ``ring_allgather``
 and ``ring_allgather_transpose`` launches ran, by kind: "ring", "bidi" (a
 split inside the slot) and "bcast" (a round mask). The kernels are built
@@ -72,7 +73,7 @@ allgather_launches = 0   # ring_allgather kernel launches
 entries = {"ring": 0, "bidi": 0, "bcast": 0}   # schedule entries those launches ran
 allgather_transpose_launches = 0   # ring_allgather_transpose kernel launches
 transpose_entries = {"ring": 0, "bidi": 0, "bcast": 0}   # schedule entries those launches ran
-launches = 0             # ring_step kernel launches
+launches = 0             # ring_step launches (one entry of the ring_allgather kernel)
 transpose_launches = 0   # ring_step_transpose kernel launches
 drain_launches = 0       # double_buffer_drain kernel launches
 
@@ -183,34 +184,22 @@ def ring_step_transpose_plain(buf: torch.Tensor, step: int, *, direction: int = 
     return buf
 
 
-def _launch(name: str, buf: torch.Tensor, step: int, direction: int, split: int | None,
-            rounds: int, active_round: int) -> None:
-    if not buf.is_cuda:
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {buf.device}")
-    split = _check(buf, step, direction, split, rounds, active_round)
-    p, n = buf.shape[-2], buf.shape[-1]
-    if split == 0:  # everything moves along -direction
-        direction, split = -direction, n
-    groups = buf.numel() // (p * p * n)
-    if groups * p > _MAX_ROWS:
-        raise ValueError(f"{groups} groups x {p} ranks exceed {_MAX_ROWS} block rows")
-    build.launch(build.function(name, name, _ARGTYPES), buf, buf.data_ptr(),
-                 _DTYPE_CODES[buf.dtype], groups, p, n, step, direction, split, rounds,
-                 active_round)
-
-
 def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
               split: int | None = None, rounds: int = 1,
               active_round: int = 0) -> torch.Tensor:
     """One ring step, in place on ``buf`` (..., P, P, n); see ``ring_step_plain``.
-    Launches the CUDA kernel for a CUDA tensor, runs the plain version for a
-    CPU tensor, and raises for any other device."""
+    For a CUDA tensor one launch of the gather's kernel
+    (``csrc/ring_allgather.cu``) runs this one entry on ``buf`` and installs
+    nothing; a CPU tensor takes the plain version; any other device raises."""
     global launches
     if buf.is_cpu:
         return ring_step_plain(buf, step, direction=direction, split=split,
                                rounds=rounds, active_round=active_round)
-    _launch("ring_step", buf, step, direction, split, rounds, active_round)
-    launches += 1
+    if not buf.is_cuda:
+        raise ValueError(f"ring_step runs on cuda or cpu tensors, got {buf.device}")
+    p, n = _check_buf(buf)
+    chunks, _ = _packed(((step, direction, split, rounds, active_round),), p, n)
+    launches += _gather_launches(None, buf, p, n, chunks)
     return buf
 
 
@@ -224,7 +213,18 @@ def ring_step_transpose(buf: torch.Tensor, step: int, *, direction: int = 1,
     if buf.is_cpu:
         return ring_step_transpose_plain(buf, step, direction=direction, split=split,
                                          rounds=rounds, active_round=active_round)
-    _launch("ring_step_transpose", buf, step, direction, split, rounds, active_round)
+    if not buf.is_cuda:
+        raise ValueError(f"ring_step_transpose runs on cuda or cpu tensors, got {buf.device}")
+    split = _check(buf, step, direction, split, rounds, active_round)
+    p, n = buf.shape[-2], buf.shape[-1]
+    if split == 0:  # everything moves along -direction
+        direction, split = -direction, n
+    groups = buf.numel() // (p * p * n)
+    if groups * p > _MAX_ROWS:
+        raise ValueError(f"{groups} groups x {p} ranks exceed {_MAX_ROWS} block rows")
+    build.launch(build.function("ring_step_transpose", "ring_step_transpose", _ARGTYPES), buf,
+                 buf.data_ptr(), _DTYPE_CODES[buf.dtype], groups, p, n, step, direction, split,
+                 rounds, active_round)
     transpose_launches += 1
     return buf
 
@@ -246,15 +246,22 @@ def _gather_out(x: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out
 
 
-def ring_allgather_plain(x: torch.Tensor, schedule: tuple,
+def ring_allgather_plain(x: torch.Tensor | None, schedule: tuple,
                          out: torch.Tensor | None = None) -> torch.Tensor:
     """The gather in plain torch: rank d's shard ``x[..., d, :]`` into slot
     d of its own row of ``out`` (..., P, P, n) (a new buffer if None), then
     ``ring_step_plain`` over the schedule's entries ``(step, direction,
     split, rounds, active_round)``, in order, in place. A slot that no entry
-    reaches keeps what ``out`` held."""
-    out = _gather_out(x, out)
-    out.diagonal(dim1=-3, dim2=-2).copy_(x.transpose(-1, -2))
+    reaches keeps what ``out`` held. x None installs nothing (``out`` must
+    be given), as the kernel's launch with no shards, which ``ring_step``
+    makes with one entry."""
+    if x is None:
+        if out is None:
+            raise ValueError("a gather that installs no shards needs out")
+        _check_buf(out)
+    else:
+        out = _gather_out(x, out)
+        out.diagonal(dim1=-3, dim2=-2).copy_(x.transpose(-1, -2))
     for step, direction, split, rounds, active_round in schedule:
         ring_step_plain(out, step, direction=direction, split=split, rounds=rounds,
                         active_round=active_round)
@@ -311,19 +318,27 @@ def ring_allgather(x: torch.Tensor, schedule: tuple,
     if not x.is_contiguous():
         raise ValueError("shards must be contiguous")
     chunks, kinds = _packed(tuple(schedule), p, n)
+    allgather_launches += _gather_launches(x.data_ptr(), out, p, n, chunks)
+    for kind, count in kinds:
+        entries[kind] += count
+    return out
+
+
+def _gather_launches(src: int | None, out: torch.Tensor, p: int, n: int,
+                     chunks: tuple[tuple[ctypes.Array, int], ...]) -> int:
+    """The launches of ``csrc/ring_allgather.cu`` that run ``chunks`` (from
+    ``_packed``) in order on ``out`` (..., P, P, n), the first installing
+    the shards at data pointer ``src`` (None: no install). Returns how many
+    it made."""
     groups = out.numel() // (p * p * n)
     if groups > _MAX_ROWS:
         raise ValueError(f"{groups} groups exceed {_MAX_ROWS} block rows")
     fn = build.function("ring_allgather", "ring_allgather", _ALLGATHER_ARGTYPES)
-    src = x.data_ptr()
     for packed, count in chunks:   # only the first launch installs the shards
         build.launch(fn, out, src, out.data_ptr(), _DTYPE_CODES[out.dtype], groups, p, n,
                      packed, count)
-        allgather_launches += 1
         src = None
-    for kind, count in kinds:
-        entries[kind] += count
-    return out
+    return len(chunks)
 
 
 # ---------------------------------------- a whole schedule's transpose, one launch

@@ -259,6 +259,36 @@ def test_concurrent_ag_rs_matches_jax(ref):
     assert torch.equal(got_rs, C.ring_reduce_scatter_local(rs, direction=-1))
 
 
+@pytest.mark.parametrize("overlap", [False, True])
+def test_concurrent_ag_rs_both_stream_paths_match_jax(ref, overlap, monkeypatch):
+    """Both of ``_concurrent_ag_rs``'s paths on the CPU: the gather as one
+    ``ring_allgather`` of the whole ring schedule into a new buffer, then
+    (one stream) or beside (two streams) the reduce-scatter's P - 1
+    transposed steps, bitwise equal to the reference. The two-stream path
+    runs with its side stream stood in by the current one (the CPU has
+    none); either gathers once, with the ring schedule."""
+    import contextlib
+    inputs, out = ref
+    ag = torch.from_numpy(inputs["ag"]).reshape(P8, AG_N)
+    rs = torch.from_numpy(inputs["rs"])
+    gathers = []
+    real = C.ring_allgather
+
+    def gather(x, schedule, out=None):
+        gathers.append(schedule)
+        return real(x, schedule, out)
+
+    monkeypatch.setattr(C, "ring_allgather", gather)
+    if overlap:
+        monkeypatch.setattr(C, "overlapped", lambda *a: contextlib.nullcontext(None))
+        monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    got_ag, got_rs = C._concurrent_ag_rs(ag, rs, overlap=overlap)
+    assert gathers == [C._ring_schedule(P8)]
+    for r in range(P8):
+        np.testing.assert_array_equal(got_ag[r].numpy(), out["ag"])
+    np.testing.assert_array_equal(got_rs.reshape(-1).numpy(), out["rs"])
+
+
 def test_concurrent_ag_rs_checks_its_inputs():
     with pytest.raises(ValueError):
         C.concurrent_ag_rs_local(torch.zeros(4, 3), torch.zeros(4, 10))

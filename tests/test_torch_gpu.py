@@ -43,7 +43,8 @@ def _matmul_launches() -> int:
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", [2, 4, 8])
 def test_ring_step_kernel_matches_plain(p):
-    """The CUDA kernel equals the plain step bitwise and counts its launches."""
+    """The ring step, one entry of the gather's kernel launched in place,
+    equals the plain step bitwise and counts its launches as ring steps."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(p)
     for n in (1, 7, 13824, 110595):
@@ -53,10 +54,10 @@ def test_ring_step_kernel_matches_plain(p):
                 for s in range(p - 1):
                     buf = torch.randn(2, p, p, n, device="cuda", generator=gen).to(dtype)
                     want = K.ring_step_plain(buf.clone(), s, **kw)
-                    before = K.launches
+                    before = (K.launches, K.allgather_launches)
                     got = K.ring_step(buf, s, **kw)
                     torch.cuda.synchronize()
-                    assert K.launches == before + 1
+                    assert (K.launches, K.allgather_launches) == (before[0] + 1, before[1])
                     assert torch.equal(got, want), (n, dtype, kw, s)
 
 
@@ -350,6 +351,37 @@ def test_bitmap_kernels_match_plain():
 
 
 @pytest.mark.gpu
+def test_bitmap_or_rows_is_one_launch_without_a_sync():
+    """The OR of packed rows: one launch a call (0 rows included, which
+    stores zeros), no host synchronisation, bitwise equal to the plain
+    version on a base off 16 bytes and on word counts off the vector path."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    for rows in (0, 1, 33, 511, 4096):
+        for n_words in (3, 512, 513):
+            w = torch.randint(-(1 << 31), 1 << 31, (rows, n_words), generator=gen, device="cuda",
+                              dtype=torch.int64).to(torch.int32)
+            w *= torch.rand((rows, n_words), generator=gen, device="cuda") < 2 / max(rows, 1)
+            base = torch.empty(rows * n_words + 1, dtype=torch.int32, device="cuda")
+            off = base[1:].view(rows, n_words)
+            off.copy_(w)
+            cases += [w.view(torch.uint32), off.view(torch.uint32)]
+    BM.bitmap_or_rows(cases[0])   # warm-up: the library loaded and bound
+    torch.cuda.synchronize()
+    before = BM.or_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [BM.bitmap_or_rows(w) for w in cases]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert BM.or_launches - before == len(cases)
+    for g, w in zip(got, cases):
+        assert torch.equal(g.view(torch.int32), BM.bitmap_or_rows_plain(w).view(torch.int32)), \
+            (tuple(w.shape), w.storage_offset())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32, torch.int32])
 def test_reassembly_kernel_matches_plain(dtype):
     """Duplicates (the later staged copy wins), n_valid below n_staged and
@@ -606,8 +638,9 @@ def test_matmul_out_into_diagonal_views(dtype):
 @pytest.mark.gpu
 def test_broadcast_and_concurrent_ag_rs_on_cuda():
     """The broadcast equals root's row everywhere; concurrent AG/RS on two
-    streams equals the separate calls bitwise and launches both ring
-    kernels P - 1 times."""
+    streams equals the separate calls bitwise: its gather is one
+    ring-allgather launch and no ring step, its reduce-scatter P - 1
+    transposed steps."""
     _need_cuda()
     mesh = StackedMesh(data=8, model=1)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -617,10 +650,11 @@ def test_broadcast_and_concurrent_ag_rs_on_cuda():
         assert torch.equal(y, x[root].expand(8, -1))
     ag = torch.randn(8, 1000, device="cuda", generator=gen)
     rs = torch.randn(8, 8 * 1000, device="cuda", generator=gen)
-    before = (K.launches, K.transpose_launches)
+    before = (K.allgather_launches, K.launches, K.transpose_launches)
     got_ag, got_rs = C.concurrent_ag_rs_local(ag, rs)
     torch.cuda.synchronize()
-    assert (K.launches - before[0], K.transpose_launches - before[1]) == (7, 7)
+    after = (K.allgather_launches, K.launches, K.transpose_launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 7]
     assert torch.equal(got_ag, C.ring_allgather_local(ag))
     assert torch.equal(got_rs, C.ring_reduce_scatter_local(rs, direction=-1))
     assert torch.equal(got_rs.cpu(), C.ring_reduce_scatter_local(rs.cpu(), direction=-1))
@@ -703,8 +737,10 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
     BM.bitmap_popcount_rows(words)
     BM.bitmap_popcount(words)
     CR.chunk_reassembly(buf[0], torch.arange(8, device="cuda"), torch.zeros_like(buf[0]))
+    C.concurrent_ag_rs_local(buf[0], buf[0].repeat(1, 8))   # one gather, 7 transposed steps
+    BM.bitmap_or_rows(words[:0])                            # no rows: one launch stores zeros
     torch.cuda.synchronize()
     after = (K.launches, K.transpose_launches, K.allgather_launches,
              K.allgather_transpose_launches, K.drain_launches, _matmul_launches(), PL.launches,
              BM.pack_launches, BM.or_launches, BM.popcount_launches, CR.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 2, 2, 1, 1, 2, 2]
+    assert [a - b for a, b in zip(after, before)] == [1, 8, 2, 1, 1, 2, 2, 1, 2, 2, 2]

@@ -168,6 +168,48 @@ def test_ring_step_rejects_what_the_kernel_does_not_take(bad, one_launch):
         K._packed((entry,), p, n)
 
 
+def _every_entry(p: int, n: int):
+    """Every entry a ring step takes at P = p over slots of n: each step,
+    direction, split (None, 0, inside, n) and round mask."""
+    for step in range(p - 1):
+        for direction in (1, -1):
+            for split in (None, 0, 1, n // 2, n):
+                for rounds in (r for r in range(1, p + 1) if p % r == 0):
+                    for active in range(rounds):
+                        yield step, direction, split, rounds, active
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 5, 8])
+def test_one_entry_gather_without_install_is_the_ring_step(p):
+    """``ring_step`` on the card is one launch of the gather's kernel with
+    its entry as ``_packed`` passes it and no shards. That launch's plain
+    version, ``ring_allgather_plain(None, (entry,), out=buf)``, equals
+    ``ring_step_plain`` on a random buffer (one and two groups) on every
+    (step, direction, split, rounds, active_round) case, in place; the
+    packed entry carries the split resolved (n for None), and replaying it
+    gives the same step."""
+    n = 6
+    rng = np.random.default_rng(p)
+    for groups in (1, 2):
+        buf = torch.from_numpy(rng.standard_normal((groups, p, p, n)).astype(np.float32))
+        for entry in _every_entry(p, n):
+            step, direction, split, rounds, active = entry
+            want = K.ring_step_plain(buf.clone(), step, direction=direction, split=split,
+                                     rounds=rounds, active_round=active)
+            out = buf.clone()
+            assert K.ring_allgather_plain(None, (entry,), out=out) is out
+            assert torch.equal(out, want), entry
+            ((packed, count),), kinds = K._packed((entry,), p, n)
+            resolved = (step, direction, n if split is None else split, rounds, active)
+            assert count == 1 and tuple(packed) == resolved and sum(dict(kinds).values()) == 1
+            again = K.ring_step_plain(buf.clone(), resolved[0], direction=resolved[1],
+                                      split=resolved[2], rounds=resolved[3],
+                                      active_round=resolved[4])
+            assert torch.equal(again, want), entry
+    with pytest.raises(ValueError, match="needs out"):
+        K.ring_allgather_plain(None, ((0, 1, None, 1, 0),))
+
+
 @pytest.mark.parametrize("p,chains,counts", [(1, 1, (0,)), (8, 4, (14,)), (8, 1, (56,)),
                                              (16, 1, (128, 112)), (24, 2, (128, 128, 20))])
 def test_ring_allgather_splits_a_long_schedule_into_launches(p, chains, counts):

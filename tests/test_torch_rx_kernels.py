@@ -6,6 +6,8 @@ pool). The CUDA kernels are held against these plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -332,6 +334,120 @@ def test_bitmap_wrappers_check_inputs():
         bitmap.bitmap_popcount(torch.ones(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="cuda or cpu"):
         bitmap.bitmap_pack(torch.ones(64, dtype=torch.bool, device="meta"))
+
+
+def _or_constants() -> tuple[int, int, int]:
+    """csrc/bitmap.cu's OR tiling, read from the source the card builds:
+    (kOrCols, kOrThreads, kOrInFlight)."""
+    src = (Path(bitmap.__file__).parents[1] / "csrc" / "bitmap.cu").read_text()
+
+    def get(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    return get("kOrCols"), get("kOrThreads"), get("kOrInFlight")
+
+
+def _or_kernel_order(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """csrc/bitmap.cu's OR kernel as tensors over a block's row lanes and
+    every tile's columns: the path (16-byte vectors of 4 words where the
+    base is 16-byte aligned and the row a whole number of vectors, else
+    single words), a block a tile of kOrCols vectors, thread t its column t
+    % kOrCols and row lane l = t // kOrCols, lane l loading rows l + i
+    kOrLanes kOrInFlight + k kOrLanes (k < kOrInFlight in flight) until the
+    rows end, the warps' lanes ORed by shuffles (a warp holds 32 / kOrCols
+    lanes of each column), the warps' partials ORed by warp 0, and its
+    stores of the tile's live columns (a last tile's columns past the row's
+    end are neither loaded nor stored). Returns (out u32 words as int64, -1
+    where nothing was stored; loads per (row, vector))."""
+    rows, n_words = words.shape
+    cols, threads, in_flight = _or_constants()
+    lanes = threads // cols
+    vec = 4 if words.data_ptr() % 16 == 0 and n_words % 4 == 0 else 1
+    n_vec = n_words // vec
+    width = -(-n_vec // cols) * cols            # the tiles' columns, the tail's included
+    w = torch.zeros((rows, width, vec), dtype=torch.int32)
+    w[:, :n_vec] = words.view(torch.int32).reshape(rows, n_vec, vec)
+    live = torch.arange(width) < n_vec
+    loads = torch.zeros((rows, width), dtype=torch.int64)
+    acc = torch.zeros((lanes, width, vec), dtype=torch.int32)   # each thread's registers
+    r0 = torch.arange(lanes)
+    while bool((r0 < rows).any()):
+        for k in range(in_flight):
+            r = r0 + k * lanes
+            take = r < rows
+            acc[take] |= w[r[take]] * live[:, None]
+            loads[r[take]] += live
+        r0 = r0 + lanes * in_flight
+    warps = acc.reshape(threads // 32, 32 // cols, width, vec)   # lane l in warp l // (32 / cols)
+    part = warps[:, 0].clone()
+    for j in range(1, warps.shape[1]):                          # the shuffles
+        part |= warps[:, j]
+    tile = part[0].clone()
+    for other in part[1:]:                                      # warp 0 over the warps
+        tile |= other
+    out = torch.full((width, vec), -1, dtype=torch.int64)
+    out[live] = tile[live].to(torch.int64) & 0xFFFFFFFF
+    return out[:n_vec].reshape(n_words), loads[:, :n_vec]
+
+
+OR_GRID_ROWS = (0, 1, 2, 31, 32, 33, 511, 512, 4096)
+OR_GRID_WORDS = (1, 3, 4, 5, 512, 513, 32768)
+
+
+@pytest.mark.parametrize("rows", OR_GRID_ROWS)
+def test_or_kernel_order_matches_plain_and_numpy_twin(rows):
+    """The OR kernel's order of work on every word count of the grid (the
+    card's grid; here up to 4,096 x 513 words, the larger pairs only on the
+    card), on sparse random flags and on a base off 16 bytes (single
+    words): every (row, vector) loaded exactly once, every word stored, and
+    the words equal to the plain version and to the JAX package's
+    ``np.bitwise_or.reduce(bitmap_pack_rows_np(flags))``; the plain version
+    also on all-zero and all-one rows and a single bit in the last row and
+    word."""
+    rng = np.random.default_rng(rows)
+    for n_words in OR_GRID_WORDS:
+        if rows * n_words > 4096 * 513:
+            continue
+        flags = rng.random((rows, 32 * n_words)) < 1 / (16 * max(rows, 1))
+        packed = (bitmap_pack_rows_np(flags) if rows else     # the twin takes no empty rows
+                  np.zeros((0, n_words), dtype=np.uint32))
+        want = (np.bitwise_or.reduce(packed, axis=0) if rows else
+                np.zeros(n_words, dtype=np.uint32))
+        t = torch.from_numpy(packed.view(np.int32)).view(torch.uint32)
+        base = torch.zeros(rows * n_words + 1, dtype=torch.int32)
+        off = base[1:].view(rows, n_words)
+        off.copy_(t.view(torch.int32))
+        for words in (t, off.view(torch.uint32)):
+            got, loads = _or_kernel_order(words)
+            assert bool((loads == 1).all()), (rows, n_words, words.storage_offset())
+            np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+            np.testing.assert_array_equal(bitmap.bitmap_or_rows_plain(words).numpy(), want)
+        for fill in (0, -1):
+            w = torch.full((rows, n_words), fill, dtype=torch.int32)
+            want = np.full(n_words, fill if rows else 0, dtype=np.int32)
+            np.testing.assert_array_equal(
+                bitmap.bitmap_or_rows_plain(w.view(torch.uint32)).view(torch.int32).numpy(), want)
+        if rows:
+            w = torch.zeros((rows, n_words), dtype=torch.int32)
+            w[-1, -1] = -(1 << 31)
+            assert bitmap.bitmap_or_rows_plain(w.view(torch.uint32)).view(
+                torch.int32).tolist() == [0] * (n_words - 1) + [-(1 << 31)]
+
+
+def test_or_kernel_tiling_covers_the_run():
+    """At the packet path's shapes (A's 511 and 4 NACKing leaves, B's 63 and
+    9, each 512 words) the vector path takes 4-word vectors and one pass of
+    in-flight loads covers every row, a lane loading each of its rows once."""
+    cols, threads, in_flight = _or_constants()
+    assert threads % 32 == 0 and 32 % cols == 0
+    assert threads // cols * in_flight >= 511
+    for rows in (511, 4, 63, 9):
+        t = torch.from_numpy(np.random.default_rng(rows).integers(
+            0, 1 << 32, (rows, 512), dtype=np.uint64).astype(np.uint32).view(np.int32))
+        got, loads = _or_kernel_order(t.view(torch.uint32))
+        assert bool((loads == 1).all())
+        assert torch.equal(got, bitmap.bitmap_or_rows_plain(t.view(torch.uint32)).view(
+            torch.int32).to(torch.int64) & 0xFFFFFFFF)
 
 
 # ----------------------------------------------------------- reassembly
