@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-0. builds the eight kernel sources (csrc/*.cu), one nvcc each, in parallel;
+0. builds the seven kernel sources (csrc/*.cu), one nvcc each, in parallel;
 1. the ring step (one entry of the ring-allgather kernel,
-   csrc/ring_allgather.cu, on the buffer in place) and the transposed step
-   (csrc/ring_step_transpose.cu) against their plain torch versions,
-   bitwise, over ranks, lengths, dtypes, directions and round masks; the
+   csrc/ring_allgather.cu, on the buffer in place) against its plain torch
+   version, bitwise, over ranks, lengths, dtypes, directions and round
+   masks; the
    order check of the ring-allgather kernel (csrc/ring_allgather.cu): for
    every prefix length k (0 included) of the ring (both directions) and
    bidi schedules at P = 2, 3, 5, 8 and 33, of the broadcasts' (M = 1, 2,
@@ -64,6 +64,22 @@
    A reduced f32 train step sharded
    over 8 ranks is held against a single-rank run over 3 steps (loss within
    1e-5, grad_norm within 1e-4, relative);
+4b. the training path's options at the same width, batch and mesh:
+   ``CollectiveConfig(prefetch=True)`` with remat="full", remat="dots", both
+   together (mcast), and prefetch in mcast_bcast, beside phase 4's mcast
+   step; each a warm-up, then 3 rounds of one timed step of every variant
+   (the order reversed each round), then a profiled step. A step launches
+   a gather per leaf and layer in the forward and again in each
+   checkpointed body (29 bodies under prefetch: layer 0's gather and the
+   last block lie outside them), 210 transposes, and the matmuls less the
+   forward products that no "full" body runs again (dots keeps them all):
+   420 / 413 / 420 / 413 / 413 gathers and 844 / 837 / 634 / 634 / 837
+   matmuls; the first-step loss bitwise phase 4's, the grad norms within
+   1e-4 relative of phase 4's; under prefetch the profiler must show the
+   gathers on a stream that no matmul runs on. Prints the step ms, the
+   device idle share, the device ms of the matmuls, gathers and
+   transposes, the device ms of gathers and transposes that ran while
+   another stream worked, and the peak memory;
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
    receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
    Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
@@ -96,10 +112,10 @@
    root's row; (d) ``concurrent_ag_rs_local`` on that bucket's shards, both
    halves bitwise equal to the separate calls, on two streams and on one:
    one ring-allgather launch of the whole ring schedule on the side stream
-   and seven transposed steps on the current one, no ring step (counts
-   zeroed before, read after); its transposed steps are the kernels line's
-   launches of that kernel, and the ring steps of (b)'s ``use_pallas=False``
-   calls the ring step's: the serving and training paths launch neither.
+   and one launch of its transpose on the current one, no ring step (counts
+   zeroed before, read after); the ring steps of (b)'s ``use_pallas=False``
+   calls are the kernels line's launches of the ring step: the serving and
+   training paths launch none.
 
 Prints the card's name and power limit, per-mode and per-broadcast timings
 (medians of host-clock samples after a warm-up call; device busy time and
@@ -111,6 +127,7 @@ fails or there is no CUDA device.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import os
@@ -158,10 +175,9 @@ TRAIN_TIMED = 3
 REPEATS = 5   # host-clock samples per timed phase; the median is reported
 
 
-def check_kernel(kernel=K.ring_step, plain=K.ring_step_plain) -> tuple[int, float]:
-    """Phase 1: the ring step (a one-entry launch of the gather's kernel) or
-    the transposed step vs its plain step, bitwise. Returns
-    (cases, max abs err)."""
+def check_kernel() -> tuple[int, float]:
+    """Phase 1: the ring step (a one-entry launch of the gather's kernel) vs
+    its plain step, bitwise. Returns (cases, max abs err)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, max_err = 0, 0.0
     for p in (2, 4, 8):
@@ -178,14 +194,14 @@ def check_kernel(kernel=K.ring_step, plain=K.ring_step_plain) -> tuple[int, floa
                         for s in range(p - 1):
                             buf = torch.randn((groups, p, p, n), generator=gen,
                                               device="cuda").to(dtype)
-                            want = plain(buf.clone(), s, **kw)
-                            got = kernel(buf, s, **kw)
+                            want = K.ring_step_plain(buf.clone(), s, **kw)
+                            got = K.ring_step(buf, s, **kw)
                             torch.cuda.synchronize()
                             err = (got.float() - want.float()).abs().max().item()
                             max_err = max(max_err, err)
                             if not torch.equal(got, want):
                                 raise AssertionError(
-                                    f"{kernel.__name__} != plain: P={p} n={n} {dtype} G={groups} "
+                                    f"ring_step != plain: P={p} n={n} {dtype} G={groups} "
                                     f"{kw} step {s}: max err {err}")
                             cases += 1
     return cases, max_err
@@ -355,7 +371,7 @@ def serve() -> None:
         out, _, gen_counts = _run(do_generate)
         launches, gen_launches = counts["ring_allgather"], gen_counts["ring_allgather"]
         if counts["matmul"] == 0 or any(counts[k] or gen_counts[k] for k in OFF_PATH + (
-                "ring_step", "ring_step_transpose", "ring_allgather_transpose")):
+                "ring_step", "ring_allgather_transpose")):
             raise AssertionError(f"{mode}: prefill launched {counts}, generation {gen_counts}")
         prefill_s = _wall(do_prefill)
         dev_prefill, prefill_prof_ms = _device_times(do_prefill)
@@ -466,7 +482,7 @@ def _counts() -> dict[str, int]:
             **{f"entries_{kind}": n for kind, n in K.entries.items()},
             "ring_allgather_transpose": K.allgather_transpose_launches,
             **{f"transpose_entries_{kind}": n for kind, n in K.transpose_entries.items()},
-            "ring_step": K.launches, "ring_step_transpose": K.transpose_launches,
+            "ring_step": K.launches,
             "matmul": M.launches, "matmul_wmma": M.launches_wmma,
             "matmul_f32": M.launches_f32, "pool": PL.launches, "bitmap_pack": BM.pack_launches,
             "bitmap_or_rows": BM.or_launches, "bitmap_popcount": BM.popcount_launches,
@@ -478,7 +494,7 @@ def _zero_counts() -> None:
     K.allgather_launches = K.allgather_transpose_launches = 0
     K.entries.update(dict.fromkeys(K.entries, 0))
     K.transpose_entries.update(dict.fromkeys(K.transpose_entries, 0))
-    K.launches = K.transpose_launches = M.launches = PL.launches = CR.launches = 0
+    K.launches = M.launches = PL.launches = CR.launches = 0
     M.launches_wmma = M.launches_f32 = 0
     BM.pack_launches = BM.or_launches = BM.popcount_launches = 0
     M.allgather_launches = K.drain_launches = 0
@@ -499,10 +515,11 @@ def _wall(fn, repeats: int = REPEATS) -> list[float]:
     return [_run(fn)[1] for _ in range(repeats)]
 
 
-def _device_times(fn, iters: int = 1) -> tuple[dict[str, float], float]:
+def _profiled(fn, iters: int = 1) -> tuple[dict[str, float], float, list[tuple]]:
     """Device ms per call of each kernel (and memcpy / memset) that ``fn``
-    runs, by name, from the profiler's CUDA records; and the wall ms per call
-    of those same profiled calls."""
+    runs, by name, from the profiler's CUDA records; the wall ms per call
+    of those same profiled calls; and every device record as (name, stream,
+    start ms, end ms)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -510,8 +527,53 @@ def _device_times(fn, iters: int = 1) -> tuple[dict[str, float], float]:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    records = [(e.name(), e.device_resource_id(), e.start_ns() / 1e6,
+                (e.start_ns() + e.duration_ns()) / 1e6)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0]
     return ({e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
-             if e.self_device_time_total}, wall_ms)
+             if e.self_device_time_total}, wall_ms, records)
+
+
+def _device_times(fn, iters: int = 1) -> tuple[dict[str, float], float]:
+    """``_profiled`` without the records."""
+    dev, wall_ms, _ = _profiled(fn, iters)
+    return dev, wall_ms
+
+
+def _union(spans: list[tuple[float, float]]) -> list[tuple[float, float]]:
+    out: list[list[float]] = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [tuple(span) for span in out]
+
+
+def _overlap(records: list[tuple], names: tuple[str, ...]) -> dict:
+    """Of the device records whose name holds one of ``names``: their
+    streams, their device ms, and the ms of them that run while a record of
+    another stream runs (the overlap of the prefetched gathers with the
+    blocks). Also the busy ms of the device: the union of every record."""
+    picked = [r for r in records if any(n in r[0] for n in names)]
+    streams = {r[1] for r in picked}
+    overlap = 0.0
+    for stream in streams:
+        others = _union([(lo, hi) for _, st, lo, hi in records if st != stream])
+        starts = [lo for lo, _ in others]
+        for _, st, lo, hi in picked:
+            if st != stream:
+                continue
+            i = max(bisect.bisect_right(starts, lo) - 1, 0)
+            while i < len(others) and others[i][0] < hi:
+                overlap += max(0.0, min(hi, others[i][1]) - max(lo, others[i][0]))
+                i += 1
+    return {"streams": sorted(streams),
+            "all_streams": sorted({r[1] for r in records}),
+            "device_ms": sum(hi - lo for _, _, lo, hi in picked),
+            "overlap_ms": overlap,
+            "busy_ms": sum(hi - lo for lo, hi in _union([(lo, hi) for *_, lo, hi in records]))}
 
 
 def _time(fn, target_s: float = 0.05) -> float:
@@ -555,19 +617,6 @@ def _steps(x: torch.Tensor, sched: tuple) -> torch.Tensor:
     return buf
 
 
-def _transposed_steps(g: torch.Tensor, sched: tuple) -> torch.Tensor:
-    """The gather's backward as the main path ran it before the one-launch
-    transpose: a copy of the cotangent, one transposed-step launch per
-    schedule entry in reverse order, and a copy of the diagonal."""
-    p = g.shape[-2]
-    buf = g.reshape(*g.shape[:-1], p, g.shape[-1] // p).clone(
-        memory_format=torch.contiguous_format)
-    for step, direction, split, rounds, active in reversed(sched):
-        K.ring_step_transpose(buf, step, direction=direction, split=split, rounds=rounds,
-                              active_round=active)
-    return buf.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
-
-
 def time_ring_steps(cfg) -> dict:
     """At the shapes of one smollm-135m layer at P=8 (the flat rank shard of
     each sharded leaf, bf16): the whole gather of each mode's schedule
@@ -582,17 +631,15 @@ def time_ring_steps(cfg) -> dict:
     and the gathered buffer written once. The same for each schedule's
     whole backward as the main path calls it, ``_transposed(g, schedule)``
     on a cotangent (P, P * n): the result's allocation and one launch of
-    the transpose kernel; beside what it replaces (a copy of the cotangent,
-    7 or 28 transposed-step launches and a copy of the diagonal), which it
-    must equal bitwise (the main path's gradients are unchanged), its plain
-    version, the one PyTorch call of the same function, ``g.view(P, P,
-    n).sum(-3)`` (not bitwise: it sums in another order), and the bound:
-    (P * P + P) * n * 2 bytes, the cotangent read once and the result
-    written once. Then one step per call of the ring
-    step (a one-entry launch of the gather's kernel) and its transpose:
-    kernel, plain version, and one library call of
-    the same step (an advanced-index copy; an index_add_). Device ms from
-    ``_device_ms``. Returns the means over the leaves (and, for the
+    the transpose kernel; beside its plain version (a copy of the
+    cotangent, the plain transposed steps in reverse order, the diagonal),
+    which it must equal bitwise, the one PyTorch call of the same function,
+    ``g.view(P, P, n).sum(-3)`` (not bitwise: it sums in another order),
+    and the bound: (P * P + P) * n * 2 bytes, the cotangent read once and
+    the result written once. Then one step per call of the ring step (a
+    one-entry launch of the gather's kernel): kernel, plain version, and
+    one library call of the same step (an advanced-index copy). Device ms
+    from ``_device_ms``. Returns the means over the leaves (and, for the
     gather and its transpose, over the three schedules)."""
     p = 8
     rank = torch.arange(p, device="cuda")
@@ -602,10 +649,8 @@ def time_ring_steps(cfg) -> dict:
     for name, (fan_in, fan_out) in leaves.items():
         n = fan_in * fan_out // p
         x = torch.randn((p, n), device="cuda").to(torch.bfloat16)
-        buf = C._ring_buffer(x)   # the ring step's and its transpose's buffer
-        rows = buf.view(p * p, n)
+        buf = C._ring_buffer(x)   # the ring step's buffer
         row = {"bound_ms": 2 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3,
-               "t_bound_ms": 3 * p * n * buf.element_size() / HBM_BYTES_PER_S * 1e3,
                "gather_bound_ms": (p * p + p) * n * buf.element_size() / HBM_BYTES_PER_S * 1e3,
                "gather_library_ms": _time(lambda: C.plain_allgather_local(x)),
                "gather_library_device_ms": _device_ms(lambda: C.plain_allgather_local(x))}
@@ -630,15 +675,13 @@ def time_ring_steps(cfg) -> dict:
         for mode, sched in (("mcast", C._bidi_schedule(p, n)), ("mcast_ring", C._ring_schedule(p)),
                             ("mcast_bcast", C._bcast_schedule(p, N_CHAINS))):
             one = {"ms": lambda: C._transposed(g, sched),
-                   "replaced_ms": lambda: _transposed_steps(g, sched),
                    "plain_ms": lambda: K.ring_allgather_transpose_plain(g3, sched)}
-            if not torch.equal(one["ms"](), one["replaced_ms"]()):
-                raise AssertionError(f"{name} {mode}: the one-launch backward differs from the "
-                                     "transposed steps it replaces")
+            if not torch.equal(one["ms"](), one["plain_ms"]()):
+                raise AssertionError(f"{name} {mode}: the one-launch backward differs from its "
+                                     "plain version")
             transpose[mode] = {"entries": len(sched),
                                **{k: _time(fn) for k, fn in one.items()},
                                "device_ms": _device_ms(one["ms"]),
-                               "replaced_device_ms": _device_ms(one["replaced_ms"]),
                                "host_ms": _host_ms(one["ms"])}
         row["transpose"] = transpose
         for k in ("ms", "plain_ms", "device_ms"):
@@ -647,13 +690,10 @@ def time_ring_steps(cfg) -> dict:
         fns = {"": lambda: K.ring_step(buf, 0),
                "bidi_": lambda: K.ring_step(buf, 0, split=n // 2),
                "plain_": lambda: K.ring_step_plain(buf, 0),
-               "library_": lambda: buf.index_put_((rcv, src), buf[rank, src]),
-               "t_": lambda: K.ring_step_transpose(buf, 0),
-               "t_plain_": lambda: K.ring_step_transpose_plain(buf, 0),
-               "t_library_": lambda: rows.index_add_(0, rank * p + src, rows[rcv * p + src])}
+               "library_": lambda: buf.index_put_((rcv, src), buf[rank, src])}
         row.update({f"{k}ms": _time(fn) for k, fn in fns.items()})
         row.update({f"{k}device_ms": _device_ms(fn) for k, fn in fns.items()
-                    if k in ("", "library_", "t_", "t_library_")})
+                    if k in ("", "library_")})
         print(f"[ring] {name}: P={p} n={n} bf16 " + json.dumps(row), flush=True)
         for k, v in row.items():
             if k in ("gather", "transpose"):
@@ -814,9 +854,38 @@ def time_matmul(cases: dict) -> dict:
 # ---------------------------------------------------------------- training
 
 
-def _train_run(cfg, shape, mode: str) -> RunConfig:
-    return RunConfig(model=cfg, shape=shape, train=TrainConfig(remat="full"),
-                     collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+def _train_run(cfg, shape, mode: str, *, prefetch: bool = False,
+               remat: str = "full") -> RunConfig:
+    return RunConfig(model=cfg, shape=shape, train=TrainConfig(remat=remat),
+                     collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS,
+                                                 prefetch=prefetch))
+
+
+def _train_launches(cfg, mesh: StackedMesh, mode: str, *, prefetch: bool = False,
+                    remat: str = "full") -> dict[str, int]:
+    """Kernel launches and schedule entries a train step makes at full
+    width: a gather per sharded leaf and layer in the forward, again in each
+    checkpointed body's recompute (L bodies; with prefetch L - 1, each
+    gathering the next layer: layer 0's gather and the last block are
+    outside them); a transpose per forward gather; the matmuls of
+    ``matmul_cases`` (remat="full": every projection's forward twice), less
+    the forwards of the layers that no "full" body recomputes ("dots" keeps
+    every product, "none" and the last block under prefetch recompute
+    none)."""
+    leaves, layers = len(_layer_leaves(cfg)), cfg.num_layers
+    bodies = 0 if remat == "none" else layers - 1 if prefetch else layers
+    gathers = 0 if mode == "xla" else leaves * (layers + bodies)
+    transposes = 0 if mode == "xla" else leaves * layers
+    matmul = sum(matmul_cases(cfg, mesh.n_ranks, TRAIN_SHAPE.global_batch // mesh.n_ranks
+                              * TRAIN_SHAPE.seq_len, torch.bfloat16, train=True).values())
+    matmul -= leaves * (layers - (bodies if remat == "full" else 0))
+    p = mesh.n_ranks
+    return {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + OFF_PATH},
+            "ring_allgather": gathers,
+            **_want_entries(mode, gathers * (p - 1), p),
+            "ring_step": 0, "ring_allgather_transpose": transposes,
+            **_want_entries(mode, transposes * (p - 1), p, "transpose_entries"),
+            "matmul": matmul}
 
 
 def check_train_reference() -> float:
@@ -850,84 +919,182 @@ def check_train_reference() -> float:
     return worst
 
 
-def train() -> dict[str, int]:
+def train() -> tuple[dict[str, int], dict[str, tuple[list, list]]]:
     """Phase 4: the training path at full width in every mode. Returns the
-    launches per step of each kernel in the mcast mode."""
+    launches per step of each kernel in the mcast mode, and each mode's
+    losses and grad norms (the warm-up step's, then the timed steps')."""
     cfg = get_model_config("smollm-135m")
     mesh = StackedMesh(data=8, model=1)
     tree = bridge.random_params(cfg, seed=0)
     pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
     batches = [pipe.next_batch(i) for i in range(TRAIN_TIMED + 2)]
-    gathers = cfg.num_layers * len(_layer_leaves(cfg))
-    gather_steps = gathers * (mesh.n_ranks - 1)
-    want_matmul = sum(matmul_cases(cfg, mesh.n_ranks, TRAIN_SHAPE.global_batch
-                                   // mesh.n_ranks * TRAIN_SHAPE.seq_len,
-                                   torch.bfloat16, train=True).values())
-    rounds = {"xla": 0, "mcast": 1, "mcast_ring": 1, "mcast_bcast": mesh.n_ranks // N_CHAINS}
-    first_loss, per_step = {}, {}
+    first_loss, per_step, metrics = {}, {}, {}
     for mode in MODES:
-        run = _train_run(cfg, TRAIN_SHAPE, mode)
-        _, _, step = make_train_step(run, mesh)
-        state = init_state(run, mesh, tree)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batches[0])   # warm-up
-        losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
-        warm_s = time.perf_counter() - t0
-        first_loss[mode] = losses[0]
-        samples = []
-        for b in batches[1:TRAIN_TIMED + 1]:
-            (state, m), dt, counts = _run(lambda b=b: step(state, b))
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-            samples.append(dt)
-            want = {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + OFF_PATH},
-                    "ring_allgather": 2 * gathers if rounds[mode] else 0,   # remat: twice
-                    **_want_entries(mode, 2 * gather_steps, mesh.n_ranks), "ring_step": 0,
-                    "ring_allgather_transpose": gathers if rounds[mode] else 0,   # once
-                    **_want_entries(mode, gather_steps, mesh.n_ranks, "transpose_entries"),
-                    "ring_step_transpose": 0, "matmul": want_matmul}
-            if counts != want:
-                raise AssertionError(f"{mode}: launches per train step {counts}, expected {want}")
-        holder = {"state": state}
-
-        def profiled():
-            holder["state"], _ = step(holder["state"], batches[TRAIN_TIMED + 1])
-
-        dev, prof_ms = _device_times(profiled)
-        busy = sum(dev.values())
-        if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
-            raise AssertionError(f"{mode}: non-finite loss or grad norm {losses} {norms}")
-        if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
-            raise AssertionError(f"{mode}: first loss {losses[0]} far from ln V at random init")
-        row = {"mode": mode, "losses": losses, "grad_norms": norms,
-               "warmup_step_ms": warm_s * 1e3,
-               "step_ms_median": statistics.median(samples) * 1e3,
-               "step_ms_samples": [t * 1e3 for t in samples],
-               "tokens_per_s": TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
-               / statistics.median(samples),
-               "launches_per_step": counts,
-               "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
-               "device_idle_share": 1 - busy / prof_ms,
-               "matmul_device_ms": sum(t for k, t in dev.items() if "matmul_" in k),
-               "ring_allgather_device_ms": sum(t for k, t in dev.items()
-                                               if "ring_allgather_kernel" in k),
-               "ring_allgather_transpose_device_ms": sum(
-                   t for k, t in dev.items() if "ring_allgather_transpose_kernel" in k),
-               "ring_step_transpose_device_ms": sum(t for k, t in dev.items()
-                                                    if "ring_step_transpose_kernel" in k)}
+        want = _train_launches(cfg, mesh, mode)
+        row, counts = _train_steps(cfg, mesh, tree, batches, mode, TRAIN_TIMED, want)
         print("[train] " + json.dumps(row), flush=True)
-        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[train] {mode} step, top device time (ms): "
-              + json.dumps({k[:60]: t for k, t in top}), flush=True)
+        first_loss[mode] = row["losses"][0]
         per_step[mode] = counts
-        del state, holder, m
-        torch.cuda.empty_cache()
+        metrics[mode] = (row["losses"], row["grad_norms"])
     if len({first_loss[mode] for mode in MODES}) != 1:
         raise AssertionError(f"first-step losses differ between modes: {first_loss}")
     print(f"[train] first-step loss bitwise equal in every mode: {first_loss['xla']!r}",
           flush=True)
-    return per_step["mcast"]
+    return per_step["mcast"], metrics
+
+
+def _train_steps(cfg, mesh: StackedMesh, tree, batches: list, mode: str, timed: int,
+                 want: dict[str, int]) -> tuple[dict, dict[str, int]]:
+    """A warm-up step on ``batches[0]``, ``timed`` steps on the next batches,
+    each launching exactly ``want``, and a profiled step on
+    ``batches[timed + 1]``, of ``mode``. Returns the row of figures and the
+    last step's launches."""
+    run = _train_run(cfg, TRAIN_SHAPE, mode)
+    _, _, step = make_train_step(run, mesh)
+    state = init_state(run, mesh, tree)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])   # warm-up
+    losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+    warm_s = time.perf_counter() - t0
+    samples = []
+    for b in batches[1:timed + 1]:
+        (state, m), dt, counts = _run(lambda b=b: step(state, b))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        samples.append(dt)
+        if counts != want:
+            raise AssertionError(f"{mode}: launches per train step {counts}, expected {want}")
+    row = {"mode": mode, "losses": losses, "grad_norms": norms, "warmup_step_ms": warm_s * 1e3,
+           **_step_times(samples), "launches_per_step": counts,
+           **_profiled_step(step, state, batches[timed + 1], f"{mode} step")}
+    _check_losses(cfg, mode, losses, norms)
+    del state, m
+    torch.cuda.empty_cache()
+    return row, counts
+
+
+def _step_times(samples: list[float]) -> dict:
+    return {"step_ms_median": statistics.median(samples) * 1e3,
+            "step_ms_samples": [t * 1e3 for t in samples],
+            "tokens_per_s": TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+            / statistics.median(samples)}
+
+
+def _check_losses(cfg, what: str, losses: list[float], norms: list[float]) -> None:
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"{what}: non-finite loss or grad norm {losses} {norms}")
+    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"{what}: first loss {losses[0]} far from ln V at random init")
+
+
+def _profiled_step(step, state, batch, what: str) -> dict:
+    """One train step under the profiler: the device's busy ms (the sum of
+    its records, and their union, which counts two streams' overlapping
+    work once), its idle share, the device ms of the matmuls, gathers and
+    transposes, the streams the gathers, transposes and matmuls ran on, and
+    the device ms of gathers and of transposes that ran while a record of
+    another stream ran."""
+    holder = {"state": state}
+
+    def profiled():
+        holder["state"], _ = step(holder["state"], batch)
+
+    dev, prof_ms, records = _profiled(profiled)
+    busy = sum(dev.values())
+    gathers = _overlap(records, ("ring_allgather_kernel",))
+    transposes = _overlap(records, ("ring_allgather_transpose_kernel",))
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[train] {what}, top device time (ms): "
+          + json.dumps({k[:60]: t for k, t in top}), flush=True)
+    return {"device_busy_ms": busy, "profiled_wall_ms": prof_ms,
+            "device_idle_share": 1 - busy / prof_ms,
+            "device_busy_union_ms": gathers["busy_ms"],
+            "device_idle_share_union": 1 - gathers["busy_ms"] / prof_ms,
+            "matmul_device_ms": sum(t for k, t in dev.items() if "matmul_" in k),
+            "ring_allgather_device_ms": sum(t for k, t in dev.items()
+                                            if "ring_allgather_kernel" in k),
+            "ring_allgather_transpose_device_ms": sum(
+                t for k, t in dev.items() if "ring_allgather_transpose_kernel" in k),
+            "streams": gathers["all_streams"], "gather_streams": gathers["streams"],
+            "transpose_streams": transposes["streams"],
+            "matmul_streams": _overlap(records, ("matmul_",))["streams"],
+            "gather_overlap_ms": gathers["overlap_ms"],
+            "transpose_overlap_ms": transposes["overlap_ms"]}
+
+
+# phase 4b: the training path's options, (mode, prefetch, remat); the first
+# is phase 4's mcast step, the yardstick whose steps alternate with theirs
+TRAIN_OPTIONS = (("mcast", False, "full"), ("mcast", True, "full"), ("mcast", False, "dots"),
+                 ("mcast", True, "dots"), ("mcast_bcast", True, "full"))
+OPTIONS_ROUNDS = 3
+
+
+def train_options(base: dict[str, tuple[list, list]]) -> None:
+    """Phase 4b: training at full width with ``CollectiveConfig.prefetch``
+    and ``remat="dots"``, alone and together (``TRAIN_OPTIONS``), beside
+    phase 4's mcast step. Each variant: a warm-up step, its peak memory
+    above what was resident before its state was made; then
+    ``OPTIONS_ROUNDS`` rounds of one timed step of every variant, the order
+    reversed each round, each step launching what ``_train_launches``
+    counts; then a profiled step (``_profiled_step``). The first-step loss
+    must be phase 4's bitwise (``base``: its losses and grad norms by
+    mode), the grad norms within 1e-4 relative of phase 4's over the same
+    steps; under prefetch the profiler must show the gathers on a stream
+    that no matmul runs on."""
+    cfg = get_model_config("smollm-135m")
+    mesh = StackedMesh(data=8, model=1)
+    tree = bridge.random_params(cfg, seed=0)
+    pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
+    batches = [pipe.next_batch(i) for i in range(OPTIONS_ROUNDS + 2)]
+    runs = {}
+    for mode, prefetch, remat in TRAIN_OPTIONS:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = _train_run(cfg, TRAIN_SHAPE, mode, prefetch=prefetch, remat=remat)
+        _, _, step = make_train_step(run, mesh)
+        state = init_state(run, mesh, tree)
+        t0 = time.perf_counter()
+        state, m = step(state, batches[0])   # warm-up
+        losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+        torch.cuda.synchronize()
+        runs[mode, prefetch, remat] = {
+            "step": step, "state": state, "losses": losses, "norms": norms, "samples": [],
+            "want": _train_launches(cfg, mesh, mode, prefetch=prefetch, remat=remat),
+            "row": {"mode": mode, "prefetch": prefetch, "remat": remat,
+                    "warmup_step_ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_memory_gib": (torch.cuda.max_memory_allocated() - resident) / 2**30}}
+    for r in range(OPTIONS_ROUNDS):
+        for key in (TRAIN_OPTIONS if r % 2 == 0 else TRAIN_OPTIONS[::-1]):
+            v = runs[key]
+            (v["state"], m), dt, counts = _run(lambda: v["step"](v["state"], batches[r + 1]))
+            v["losses"].append(float(m["loss"]))
+            v["norms"].append(float(m["grad_norm"]))
+            v["samples"].append(dt)
+            if counts != v["want"]:
+                raise AssertionError(f"{key}: launches per train step {counts}, expected "
+                                     f"{v['want']}")
+    for key, v in runs.items():
+        mode, prefetch, remat = key
+        row = {**v["row"], "losses": v["losses"], "grad_norms": v["norms"],
+               **_step_times(v["samples"]), "launches_per_step": v["want"],
+               **_profiled_step(v["step"], v["state"], batches[OPTIONS_ROUNDS + 1],
+                                f"{mode} prefetch={prefetch} remat={remat} step")}
+        _check_losses(cfg, str(key), v["losses"], v["norms"])
+        losses, norms = base[mode]
+        if v["losses"][0] != losses[0]:
+            raise AssertionError(f"{key}: first-step loss {v['losses'][0]!r} is not phase 4's "
+                                 f"{losses[0]!r}")
+        for got, ref in zip(v["norms"], norms):
+            if abs(got - ref) > 1e-4 * abs(ref):
+                raise AssertionError(f"{key}: grad norms {v['norms']} vs phase 4's {norms}")
+        if prefetch and (not row["gather_streams"]
+                         or set(row["gather_streams"]) & set(row["matmul_streams"])):
+            raise AssertionError(f"{key}: the profiler shows the gathers on streams "
+                                 f"{row['gather_streams']}, the matmuls on "
+                                 f"{row['matmul_streams']}")
+        print("[train-options] " + json.dumps(row), flush=True)
 
 
 # ------------------------------------------------------- packet broadcast
@@ -1539,7 +1706,7 @@ def bucket_collectives(cfg) -> dict[str, int]:
     the flat f32 bucket of layer 0 of the seeded smollm-135m weights.
     Returns the launches of one concurrent AG/RS call (counts zeroed
     before, read after): one ring-allgather launch of the ring schedule
-    and seven transposed steps."""
+    and one launch of its transpose, each running seven entries."""
     def layer0(tree):
         if isinstance(tree, dict):
             return {k: layer0(v) for k, v in tree.items()}
@@ -1567,7 +1734,7 @@ def bucket_collectives(cfg) -> dict[str, int]:
     torch.cuda.synchronize()
     counts = _counts()
     want = {**dict.fromkeys(counts, 0), "ring_allgather": 1, "entries_ring": 7,
-            "ring_step_transpose": 7}
+            "ring_allgather_transpose": 1, "transpose_entries_ring": 7}
     if counts != want:
         raise AssertionError(f"concurrent AG/RS launched {counts}, expected {want}")
     if not (torch.equal(got[0], C.ring_allgather_local(ag))
@@ -1604,9 +1771,7 @@ def main() -> int:
     small = reduced(cfg)
     t0 = time.perf_counter()
     cases, ring_err = check_kernel()
-    t_cases, t_err = check_kernel(K.ring_step_transpose, K.ring_step_transpose_plain)
-    print(f"[kernel] ring_step == plain on {cases} cases, max abs err {ring_err}; "
-          f"ring_step_transpose == plain on {t_cases} cases, max abs err {t_err} "
+    print(f"[kernel] ring_step == plain on {cases} cases, max abs err {ring_err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     ag_cases, ag_err = check_allgather()
@@ -1661,19 +1826,25 @@ def main() -> int:
           f"launches {json.dumps(serve_counts)}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()   # counts from here to the read are the training path's
-    per_step = train()
+    per_step, train_metrics = train()
     train_counts = _counts()
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
           f"launches {json.dumps(train_counts)}", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()   # counts from here to the read are the training options'
+    train_options(train_metrics)
+    option_counts = _counts()
+    print(f"[train-options] launches {json.dumps(option_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in MODEL_KERNELS:
-        launches[name] = serve_counts[name] + train_counts[name]
-        if train_counts[name] == 0:
+        launches[name] = serve_counts[name] + train_counts[name] + option_counts[name]
+        if train_counts[name] == 0 or option_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
     if serve_counts["ring_allgather"] == 0 or serve_counts["matmul"] == 0:
         raise AssertionError(f"a kernel was not launched on the serving path: {serve_counts}")
-    if any(serve_counts[k] or train_counts[k] for k in OFF_PATH):
+    if any(serve_counts[k] or train_counts[k] or option_counts[k] for k in OFF_PATH):
         raise AssertionError(f"a serving or training product left the wgmma path: serving "
-                             f"{serve_counts}, training {train_counts}")
+                             f"{serve_counts}, training {train_counts}, {option_counts}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     packet_counts, card = packet_path()   # zeroes the counts before driving the path
@@ -1687,8 +1858,8 @@ def main() -> int:
     launches.update({name: layer_counts[name] for name in LAYER_KERNELS})
     bucket_counts = bucket_collectives(cfg)
     launches["ring_step"] = layer_counts["ring_step"]
-    launches["ring_step_transpose"] = bucket_counts["ring_step_transpose"]
     launches["ring_allgather"] += bucket_counts["ring_allgather"]
+    launches["ring_allgather_transpose"] += bucket_counts["ring_allgather_transpose"]
     print(f"[layer] phase 6 checks passed ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     ring = time_ring_steps(cfg)
@@ -1752,12 +1923,6 @@ def main() -> int:
          "launches": launches["ring_step"], "max_abs_err": ring_err, "ms": ring["ms"],
          "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"], "bound_by": "bytes",
          "library_ms": ring["library_ms"]},
-        {"name": "ring_step_transpose", "route": "cuda",
-         "source": "src/repro_torch/csrc/ring_step_transpose.cu",
-         "replaces": "src/repro/kernels/ring_allgather.py:46",
-         "launches": launches["ring_step_transpose"], "max_abs_err": t_err,
-         "ms": ring["t_ms"], "plain_ms": ring["t_plain_ms"], "bound_ms": ring["t_bound_ms"],
-         "bound_by": "bytes", "library_ms": ring["t_library_ms"]},
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/csrc/matmul.cu",
          "replaces": "src/repro/kernels/collective_matmul.py:43",
          "launches": launches["matmul"], "max_abs_err": mm_err,

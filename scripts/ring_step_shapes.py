@@ -16,7 +16,14 @@ the moving slots read and written once over 3.35 TB/s (2 P n itemsize
 bytes, a quarter of it for the masked entry). Then
 ``concurrent_ag_rs_local`` on the bucket's shards: the median wall of
 ``chip_smoke.REPEATS`` synchronised calls, the host issue and the device
-ms, on two streams and on one (``_concurrent_ag_rs(overlap=False)``).
+ms, on two streams and on one (``_concurrent_ag_rs(overlap=False)``); and
+its reduce-scatter half alone, ms a call, host issue and device ms, both
+ways a tree offers it: one launch of the gather's transpose
+(``ring_reduce_scatter_local(rs, direction=-1)``) and, where the tree still
+has the one-step transpose kernel (``ring_step_transpose``), the seven
+reversed one-step launches on a copy of ``rs`` and the copy of their
+diagonal, held bitwise to the one launch; with the bound of the one
+launch, ``rs`` read once and the result written once over 3.35 TB/s.
 
 Each tree runs in a process of its own, in the order given, with this
 tree's ``chip_smoke`` on that tree's ``src/repro_torch`` (imported first),
@@ -84,8 +91,28 @@ def _worker(tree: str, bucket: int) -> None:
         ag_rs[f"{name}_wall_ms"] = statistics.median(S._wall(fn)) * 1e3
         ag_rs[f"{name}_host_ms"] = S._host_ms(fn)
         ag_rs[f"{name}_device_ms"] = S._device_ms(fn)
-    print("RESULT " + json.dumps({"tree": tree, "steps": rows, "concurrent_ag_rs": ag_rs}),
-          flush=True)
+    halves = {"one_launch": lambda: C.ring_reduce_scatter_local(rs, direction=-1)}
+    if hasattr(K, "ring_step_transpose"):
+        halves["seven_steps"] = lambda: _seven_steps(K, rs)
+        if not torch.equal(halves["seven_steps"](), halves["one_launch"]()):
+            raise AssertionError("the seven transposed steps differ from the one launch")
+    rs_half = {"bound_ms": (P * P + P) * bucket * 4 / S.HBM_BYTES_PER_S * 1e3}
+    for name, fn in halves.items():
+        rs_half[f"{name}_ms"] = S._time(fn)
+        rs_half[f"{name}_host_ms"] = S._host_ms(fn)
+        rs_half[f"{name}_device_ms"] = S._device_ms(fn)
+    print("RESULT " + json.dumps({"tree": tree, "steps": rows, "concurrent_ag_rs": ag_rs,
+                                  "reduce_scatter_half": rs_half}), flush=True)
+
+
+def _seven_steps(K, rs):
+    """Concurrent AG/RS's reduce-scatter half as it ran before it took one
+    launch: a copy of the contributions, the P - 1 transposed ring steps in
+    reverse order, one launch each, and a copy of the diagonal."""
+    acc = rs.reshape(P, P, -1).clone()
+    for t in reversed(range(P - 1)):
+        K.ring_step_transpose(acc, t)
+    return acc.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
 
 
 def _host_ab(old_tree: str, bucket: int) -> None:
@@ -184,8 +211,9 @@ def main() -> int:
                        **{key: statistics.median(r["steps"][i][key] for r in mine)
                           for key in ("ms", "host_ms", "device_ms")}}
                       for i, row in enumerate(mine[0]["steps"])],
-            "concurrent_ag_rs": {key: statistics.median(r["concurrent_ag_rs"][key] for r in mine)
-                                 for key in mine[0]["concurrent_ag_rs"]}}
+            **{part: {key: statistics.median(r[part][key] for r in mine)
+                      for key in mine[0][part]}
+               for part in ("concurrent_ag_rs", "reduce_scatter_half")}}
     print(json.dumps({"trees": trees, "bucket_slot": bucket, "runs": results,
                       "median": medians}))
     return 0

@@ -21,8 +21,8 @@ card one launch of the ring-allgather kernel runs all of its steps.
                          C chunks down the chain, C + P - 2 steps
   concurrent_ag_rs       Insight 2: a ring allgather along +1 and a ring
                          reduce-scatter along -1 at once: the gather one
-                         launch on a side CUDA stream, the reduce-scatter's
-                         transposed steps on the current one
+                         launch on a side CUDA stream, the reduce-scatter
+                         one launch of the transpose on the current one
 
 The three ring gathers are ``torch.autograd.Function``s. The forward fills
 the ring buffer out of autograd's sight (``ring_allgather``: one launch per
@@ -43,9 +43,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.device import overlapped
-from repro_torch.kernels.ring_allgather import (ring_allgather, ring_allgather_transpose,
-                                                ring_step_transpose)
+from repro_torch.device import SideStream
+from repro_torch.kernels.ring_allgather import ring_allgather, ring_allgather_transpose
 from repro_torch.launch.mesh import StackedMesh
 
 # ((step, direction, split, rounds, active_round), ...) in launch order; split
@@ -183,8 +182,9 @@ def concurrent_ag_rs_local(ag: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Te
     ``concurrent_ag_rs_local``, core/collectives.py:190: the partial sums
     start at rank d + 1 and travel -1). On the card the allgather is one
     ``ring_allgather`` launch of the whole ring schedule on the side stream,
-    and the reduce-scatter's P - 1 transposed steps run on the current
-    stream: the port's form of "the two streams use opposite directions"."""
+    and the reduce-scatter one ``ring_allgather_transpose`` launch of the
+    same schedule on the current stream: the port's form of "the two
+    streams use opposite directions"."""
     if ag.requires_grad or rs.requires_grad:
         raise NotImplementedError("concurrent_ag_rs_local has no backward in the port; "
                                   "use ring_allgather_local and ring_reduce_scatter_local")
@@ -195,28 +195,20 @@ def _concurrent_ag_rs(ag: torch.Tensor, rs: torch.Tensor,
                       overlap: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The work of ``concurrent_ag_rs_local``: with ``overlap`` the
     allgather on the side stream; without, the allgather and then the
-    reduce-scatter's steps on the current stream."""
+    reduce-scatter on the current stream."""
     p = ag.shape[-2]
     if rs.shape[-2] != p or rs.shape[-1] % p:
         raise ValueError(f"rs {tuple(rs.shape)} is not (..., {p}, {p} m)")
     if ag.device != rs.device:
         raise ValueError(f"ag on {ag.device}, rs on {rs.device}")
-    ag = ag.contiguous()
-    buf = ag.new_empty(*ag.shape[:-2], p, p, ag.shape[-1])   # every slot written
-    # the reduce-scatter along -1 is the transpose of the ring along +1
-    acc = rs.reshape(*rs.shape[:-1], p, rs.shape[-1] // p).clone(
-        memory_format=torch.contiguous_format)
-    if overlap:
-        with overlapped(ag.device, buf) as side:
-            with torch.cuda.stream(side):
-                ring_allgather(ag, _ring_schedule(p), out=buf)
-            for t in reversed(range(p - 1)):
-                ring_step_transpose(acc, t)
-    else:
-        ring_allgather(ag, _ring_schedule(p), out=buf)
-        for t in reversed(range(p - 1)):
-            ring_step_transpose(acc, t)
-    return _flat(buf), acc.diagonal(dim1=-3, dim2=-2).transpose(-1, -2).contiguous()
+    ag, schedule = ag.contiguous(), _ring_schedule(p)
+    if not overlap:
+        return _flat(ring_allgather(ag, schedule)), ring_reduce_scatter_local(rs, direction=-1)
+    side = SideStream(ag.device)
+    gathered, done = side.issue(ring_allgather, ag, schedule)
+    reduced = ring_reduce_scatter_local(rs, direction=-1)
+    side.join(done)
+    return _flat(gathered), reduced
 
 
 def over_axis(x: torch.Tensor, mesh: StackedMesh, axis: str,

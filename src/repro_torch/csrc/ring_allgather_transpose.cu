@@ -7,7 +7,7 @@
 // a schedule is one ring step (step, dir, split, rounds, active_round) for
 // every rank, and its adjoint on a cotangent g (G, P_rank, P_slot, n) adds
 // the receiver's slot into the sender's over the same triples and masks
-// (`ring_step_transpose.cu`):
+// (`ring_step_transpose_plain`, kernels/ring_allgather.py):
 //
 //     g[g, d, src] += g[g, (d + dir) % P, src],  src = (d - dir * step) % P
 //
@@ -51,7 +51,7 @@
 //   written: rank d writes slot src of its own row, reads rank d + dir's).
 //
 // Exactness: every add is done in f32 and rounded once to the element type
-// (the F32 / BF16 / F16 structs of ring_step_transpose.cu), in the nesting of
+// (the F32 / BF16 / F16 structs below), in the nesting of
 // the step-by-step replay, so the result equals the plain replay bitwise.
 //
 // Bound: HBM bytes. In reads-only mode, on those schedules, each slot of g is

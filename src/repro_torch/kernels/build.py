@@ -33,8 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("ring_step_transpose", "ring_allgather", "ring_allgather_transpose", "matmul", "pool",
-           "bitmap", "chunk_reassembly", "double_buffer_drain")
+SOURCES = ("ring_allgather", "ring_allgather_transpose", "matmul", "pool", "bitmap",
+           "chunk_reassembly", "double_buffer_drain")
 _FLAGS = {"pool": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.PyDLL] = {}

@@ -16,8 +16,8 @@ only for CPU tensors. ``path`` picks the kernel from dtype, alignment and
 strides alone: bf16 operands that TMA can describe (``tma_layout``) go to
 the wgmma kernel, other bf16 operands to the wmma kernel, f32 to the FMA
 kernel. ``launches``, ``launches_wmma`` and ``launches_f32`` count each
-path's launches. ``RankMatmul`` is the autograd Function whose forward and
-both backward products go through ``matmul``.
+path's launches. ``rank_matmul`` is the op (``repro_torch::rank_matmul``)
+whose forward and both backward products go through ``matmul``.
 
 ``allgather_matmul_local(x, w)`` is ``allgather(x) @ w`` for activation
 rows sharded over the ranks of a stacked ``x (..., P, m, K)`` and a
@@ -180,23 +180,28 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     return out
 
 
-class RankMatmul(torch.autograd.Function):
-    """y = x @ w rank by rank; dx = dy @ w^T and dw = x^T @ dy, all three on
-    ``matmul`` (the transposes are views)."""
+@torch.library.custom_op("repro_torch::rank_matmul", mutates_args=())
+def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y = x @ w rank by rank on ``matmul``, as one dispatcher op, so that a
+    selective-checkpoint policy can name it (``remat="dots"`` keeps its
+    output); its backward, dx = dy @ w^T and dw = x^T @ dy, runs on
+    ``matmul`` too (the transposes are views)."""
+    return matmul(x, w)
 
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(x, w)
-        return matmul(x, w)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy: torch.Tensor):
-        x, w = ctx.saved_tensors
-        dy = dy.to(x.dtype)
-        dx = matmul(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
-        dw = matmul(x.transpose(1, 2), dy) if ctx.needs_input_grad[1] else None
-        return dx, dw
+def _rank_matmul_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _rank_matmul_backward(ctx, dy: torch.Tensor):
+    x, w = ctx.saved_tensors
+    dy = dy.to(x.dtype)
+    dx = matmul(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+    dw = matmul(x.transpose(1, 2), dy) if ctx.needs_input_grad[1] else None
+    return dx, dw
+
+
+rank_matmul.register_autograd(_rank_matmul_backward, setup_context=_rank_matmul_setup)
 
 
 # ------------------------------------------------------ allgather-matmul
@@ -278,7 +283,7 @@ def allgather_matmul_local(x: torch.Tensor, w: torch.Tensor, *, use_pallas: bool
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.requires_grad or w.requires_grad:
         raise NotImplementedError("allgather_matmul_local has no backward in the port; the "
-                                  "FSDP path's gathers and RankMatmul have theirs")
+                                  "FSDP path's gathers and rank_matmul have theirs")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"allgather_matmul runs on cuda or cpu tensors, got {x.device}")
     m, k = x.shape[-2:]

@@ -1,6 +1,6 @@
 """Ring kernels of the stacked collective backend: the allgather (a whole
 schedule in one launch, or one step), its transpose (a whole schedule in one
-launch, or one step), and the double-buffered drain.
+launch), and the double-buffered drain.
 
 ``ring_allgather`` replaces ``ring_allgather_tpu``
 (src/repro/kernels/ring_allgather.py:46), the Pallas kernel in which device
@@ -29,16 +29,15 @@ reduce-scatter (``core/collectives.py``), one launch each; the TPU has no
 kernel for it (JAX transposes the ``ppermute`` ring itself). On the ring,
 bidi and broadcast schedules the launch only reads ``g`` and writes the
 result; other schedules, P > 32 and more than 128 entries work in place on
-a scratch copy (``_packed_transpose``). ``ring_step_transpose``
-(``csrc/ring_step_transpose.cu``) is one transposed step in one launch,
-which only concurrent AG/RS's reduce-scatter half still takes.
+a scratch copy (``_packed_transpose``). ``ring_step_transpose_plain``, one
+transposed step in plain torch, is the transpose's plain version replayed
+entry by entry; no kernel runs one step alone.
 
 Bound: HBM bytes. A whole gather reads every rank's shard once and writes
 every rank's gathered copy once, (P * P + P) * n * itemsize bytes per
 group; its transpose reads every slot of ``g`` once and writes the result
 once, the same bytes. A step copies one slot per rank, 2 * P * n * itemsize
-bytes; the transposed step reads two slots and writes one, 3 * P * n *
-itemsize. At the shapes of a smollm-135m layer a step moves a few MB, about
+bytes. At the shapes of a smollm-135m layer a step moves a few MB, about
 a microsecond at HBM speed, so a launch per step is set by the host; one
 launch per gather, and per gather backward, pays that once.
 
@@ -52,8 +51,7 @@ staged.nbytes.
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version only for a CPU tensor. ``allgather_launches``,
 ``allgather_transpose_launches``, ``launches`` (the one-step launches of
-the gather's kernel), ``transpose_launches`` and ``drain_launches`` count
-kernel launches; ``entries`` and
+the gather's kernel) and ``drain_launches`` count kernel launches; ``entries`` and
 ``transpose_entries`` count the schedule entries that the ``ring_allgather``
 and ``ring_allgather_transpose`` launches ran, by kind: "ring", "bidi" (a
 split inside the slot) and "bcast" (a round mask). The kernels are built
@@ -74,7 +72,6 @@ entries = {"ring": 0, "bidi": 0, "bcast": 0}   # schedule entries those launches
 allgather_transpose_launches = 0   # ring_allgather_transpose kernel launches
 transpose_entries = {"ring": 0, "bidi": 0, "bcast": 0}   # schedule entries those launches ran
 launches = 0             # ring_step launches (one entry of the ring_allgather kernel)
-transpose_launches = 0   # ring_step_transpose kernel launches
 drain_launches = 0       # double_buffer_drain kernel launches
 
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
@@ -82,9 +79,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_ROWS = 65535  # gridDim.y
 _MAX_ENTRIES = 128  # kMaxEntries of csrc/ring_allgather{,_transpose}.cu: entries per launch
 _MAX_LANES = 32     # kMaxLanes: the most ranks whose column one warp holds
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _ALLGATHER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
                        ctypes.c_int, ctypes.c_void_p]
@@ -200,32 +194,6 @@ def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
     p, n = _check_buf(buf)
     chunks, _ = _packed(((step, direction, split, rounds, active_round),), p, n)
     launches += _gather_launches(None, buf, p, n, chunks)
-    return buf
-
-
-def ring_step_transpose(buf: torch.Tensor, step: int, *, direction: int = 1,
-                        split: int | None = None, rounds: int = 1,
-                        active_round: int = 0) -> torch.Tensor:
-    """The transposed ring step, in place on a cotangent buffer (..., P, P, n);
-    see ``ring_step_transpose_plain``. Launches the CUDA kernel for a CUDA
-    tensor, runs the plain version for a CPU tensor, raises otherwise."""
-    global transpose_launches
-    if buf.is_cpu:
-        return ring_step_transpose_plain(buf, step, direction=direction, split=split,
-                                         rounds=rounds, active_round=active_round)
-    if not buf.is_cuda:
-        raise ValueError(f"ring_step_transpose runs on cuda or cpu tensors, got {buf.device}")
-    split = _check(buf, step, direction, split, rounds, active_round)
-    p, n = buf.shape[-2], buf.shape[-1]
-    if split == 0:  # everything moves along -direction
-        direction, split = -direction, n
-    groups = buf.numel() // (p * p * n)
-    if groups * p > _MAX_ROWS:
-        raise ValueError(f"{groups} groups x {p} ranks exceed {_MAX_ROWS} block rows")
-    build.launch(build.function("ring_step_transpose", "ring_step_transpose", _ARGTYPES), buf,
-                 buf.data_ptr(), _DTYPE_CODES[buf.dtype], groups, p, n, step, direction, split,
-                 rounds, active_round)
-    transpose_launches += 1
     return buf
 
 

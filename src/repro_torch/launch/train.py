@@ -3,6 +3,13 @@ allgathers and their transposes, on one GPU.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 10
     python -m repro_torch.launch.train --arch smollm-135m --smoke --device cpu
+    python -m repro_torch.launch.train --arch smollm-135m --fsdp-mode mcast --prefetch \
+        --remat dots
+
+--prefetch gathers layer i + 1 during layer i (``CollectiveConfig.prefetch``;
+on the card on a side stream; the mcast modes only, as in the reference),
+and --remat picks what the backward recomputes: "full" (each layer's gather
+and block), "dots" (all of it but the products' outputs) or "none".
 
 --smoke runs the reduced config of the arch (f32, two layers). Weights are
 drawn from ``TrainConfig.seed`` in the reference's init scales (no
@@ -27,7 +34,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--fsdp-mode", default="xla",
                     choices=["xla", "mcast", "mcast_ring", "mcast_bcast"])
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--remat", default="full")
+    ap.add_argument("--remat", default="full", choices=["none", "full", "dots"])
+    ap.add_argument("--prefetch", action="store_true",
+                    help="gather layer i + 1 during layer i (mcast modes)")
     ap.add_argument("--batch", type=int, default=0, help="override global batch")
     ap.add_argument("--seq", type=int, default=0, help="override seq len")
     ap.add_argument("--log-every", type=int, default=10)
@@ -55,11 +64,13 @@ def main(argv: list[str] | None = None) -> None:
     run = RunConfig(model=model, shape=shape,
                     train=TrainConfig(steps=args.steps, grad_accum=args.grad_accum,
                                       remat=args.remat),
-                    collective=CollectiveConfig(fsdp_mode=args.fsdp_mode))
+                    collective=CollectiveConfig(fsdp_mode=args.fsdp_mode,
+                                                prefetch=args.prefetch))
     mesh = StackedMesh(data=DP, model=1)
 
     print(f"[train] {model.name} shape={shape.name} B={shape.global_batch} "
-          f"S={shape.seq_len} device={device} dp={DP} fsdp={args.fsdp_mode}", flush=True)
+          f"S={shape.seq_len} device={device} dp={DP} fsdp={args.fsdp_mode} "
+          f"remat={args.remat} prefetch={args.prefetch}", flush=True)
     _, _, step_fn = make_train_step(run, mesh, device=device)
     state = init_state(run, mesh, bridge.random_params(model, run.train.seed), device=device)
     pipe = SyntheticPipeline(model, shape, device=device)

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.collective_matmul import RankMatmul
+from repro_torch.kernels import collective_matmul
 
 Params = Any  # nested dict of tensors
 
@@ -26,9 +26,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (R, ..., k) @ w (R, k, n) -> (R, ..., n), rank by rank, on the matmul
-    kernel (``kernels/collective_matmul.py``) forward and backward."""
+    kernel (``kernels/collective_matmul.py``) forward and backward, as the
+    op ``repro_torch::rank_matmul``."""
     r = x.shape[0]
-    y = RankMatmul.apply(x.reshape(r, -1, x.shape[-1]), w.to(x.dtype))
+    y = collective_matmul.rank_matmul(x.reshape(r, -1, x.shape[-1]), w.to(x.dtype))
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

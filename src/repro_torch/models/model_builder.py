@@ -69,8 +69,9 @@ class ModelApi:
 
 def build_model(cfg: ModelConfig, remat: str = "none", *,
                 device: str | torch.device = "cuda") -> ModelApi:
-    """remat: "none" or "full" (checkpoint each layer's gather and block);
-    "dots" raises NotImplementedError."""
+    """remat: "none", "full" (checkpoint each layer's gather and block) or
+    "dots" (the same, keeping every product's output); any other raises
+    ValueError."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported; only dense")
     transformer.check_remat(remat)

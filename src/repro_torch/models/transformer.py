@@ -10,12 +10,15 @@ batch-over-dp layout.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import SideStream
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.sharding.ctx import get_ctx, maybe_gather_params, shard, use_ctx
@@ -138,36 +141,106 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------- dense forward
 
 
+REMAT = ("none", "full", "dots")
+# the products that remat="dots" keeps: the rank matmul (every projection
+# of a gathered weight; ``layers`` registers the op) and the attention
+# einsums, which reach bmm / mm
+_PRODUCTS = (torch.ops.repro_torch.rank_matmul.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.mm.default)
+
+
 def check_remat(remat: str) -> None:
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat policy {remat!r}; one of {REMAT}")
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, remat: str):
+    """``body`` under the remat policy: "none" as it is; "full" checkpointed
+    (its backward runs it again, as ``jax.checkpoint`` does); "dots"
+    checkpointed keeping every product's output, so that the backward runs
+    again everything else (``checkpoint_dots``: it saves every dot_general).
+
+    "dots" is PyTorch's selective checkpoint: the policy sees dispatcher
+    ops, which is why the rank matmul, a ctypes launch, is the op
+    ``repro_torch::rank_matmul``. It is kept over a hand-rolled stash of
+    the products (the body's forward keeping each output, its recompute
+    returning them) because it needs no change to any autograd node and
+    saves exactly what ``checkpoint_dots`` saves; its cost is on the host:
+    every op of the body, forward and recompute, passes its Python
+    dispatch mode."""
+    check_remat(remat)
+    if remat == "none":
+        return body
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
     if remat == "dots":
-        raise NotImplementedError("remat='dots' (checkpoint_dots) is not ported; "
-                                  "use 'full' or 'none'")
-    if remat not in ("none", "full"):
-        raise ValueError(f"unknown remat policy {remat!r}")
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_products)
+    return lambda *args: checkpoint(body, *args, **kw)
 
 
 def _scan_blocks(params, cfg, x, positions, *, want_kv, remat: str = "none"):
     """Layer loop: gather layer i's weights, then apply the block. With
-    remat="full" the gather and the block are one checkpointed body, so the
-    backward gathers the layer again, as the reference's jax.checkpoint of
-    its scan body does."""
-    check_remat(remat)
+    remat="full" or "dots" the gather and the block are one checkpointed
+    body, so the backward gathers the layer again, as the reference's
+    jax.checkpoint of its scan body does. With the context's
+    ``prefetch_params`` the training path takes ``_scan_blocks_prefetch``,
+    as the reference decides it (transformer.py:190)."""
     ctx = get_ctx()   # the backward's recompute runs under the same context
+    if ctx.prefetch_params and not want_kv and cfg.num_layers > 1:
+        return _scan_blocks_prefetch(params, cfg, x, positions, remat=remat)
 
     def body(x, layer):
         with use_ctx(ctx):
             bp = maybe_gather_params(layer)
             return dense_block_apply(bp, x, cfg, positions=positions, want_kv=want_kv)
 
+    fn = _remat(body, remat)
     kvs = []
     for i in range(cfg.num_layers):
-        layer = layer_slice(params["blocks"], i)
-        if remat == "full":
-            x, kv = checkpoint(body, x, layer, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, kv = body(x, layer)
+        x, kv = fn(x, layer_slice(params["blocks"], i))
         kvs.append(kv)
     return x, kvs
+
+
+def _scan_blocks_prefetch(params, cfg, x, positions, *, remat: str = "none"):
+    """The reference's explicit compute/gather overlap (the paper's
+    interleaved collectives, transformer.py:221): layer 0 is gathered
+    before the loop; each body step issues the gather of layer i + 1, then
+    runs block i on layer i's gathered weights; the last block runs after
+    the loop, outside any checkpoint. Under remat the body (gather i + 1 and
+    block i) is what is checkpointed, so its backward gathers layer i + 1
+    again. Train path only (no kv cache).
+
+    On the card every gather runs on the device's side stream
+    (``device.SideStream``); the current stream waits for layer i's gathers
+    (an event) only when block i starts, so the gather of layer i + 1 can
+    run beside block i. On the CPU the same calls run in order."""
+    ctx = get_ctx()
+    blocks = params["blocks"]
+    side = SideStream(x.device)
+
+    def gather(layer):
+        with use_ctx(ctx):
+            return maybe_gather_params(layer)
+
+    def body(x, gathered, ready, layer_next):
+        g_next, ready_next = side.issue(gather, layer_next)   # prefetch layer i + 1
+        side.join(ready)
+        with use_ctx(ctx):
+            x, _ = dense_block_apply(gathered, x, cfg, positions=positions, want_kv=False)
+        return x, g_next, ready_next
+
+    fn = _remat(body, remat)
+    gathered, ready = side.issue(gather, layer_slice(blocks, 0))
+    for i in range(1, cfg.num_layers):
+        x, gathered, ready = fn(x, gathered, ready, layer_slice(blocks, i))
+    side.join(ready)
+    x, _ = dense_block_apply(gathered, x, cfg, positions=positions, want_kv=False)
+    return x, None
 
 
 def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):

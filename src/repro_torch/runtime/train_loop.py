@@ -41,7 +41,10 @@ def _dp_size(run: RunConfig, mesh: StackedMesh) -> int:
 def make_ctx(run: RunConfig, mesh: StackedMesh | None, *,
              for_decode: bool = False) -> ShardCtx:
     """Prefill and training gather per layer with ``run.collective.fsdp_mode``;
-    decode uses the plain gather, as the reference leaves decode to GSPMD."""
+    decode uses the plain gather, as the reference leaves decode to GSPMD.
+    ``run.collective.prefetch`` takes effect where the reference's does: in
+    the mcast modes (the reference installs no gather of its own for
+    ``xla``, nor for decode), and only on the training path."""
     if mesh is None:
         return ShardCtx(mesh=None)
     if tuple(dp_axes(run.mesh)) != mesh.rank_axes:
@@ -56,6 +59,7 @@ def make_ctx(run: RunConfig, mesh: StackedMesh | None, *,
         shard_batch=run.shape.global_batch % _dp_size(run, mesh) == 0,
         seq_parallel=not for_decode,
         gather_params=make_param_gather(mesh, run.mesh, coll),
+        prefetch_params=coll.prefetch and coll.fsdp_mode != "xla",
     )
 
 
@@ -63,9 +67,6 @@ def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
                     device: str | torch.device = "cuda"):
     """Returns (api, ctx, train_step). train_step: (state, batch) ->
     (state, metrics); the state is updated in place and returned."""
-    if run.collective.prefetch:
-        raise NotImplementedError("CollectiveConfig.prefetch (the gather of layer i+1 "
-                                  "during layer i) is not ported")
     cfg, tc = run.model, run.train
     api = build_model(cfg, remat=tc.remat, device=device)
     ctx = make_ctx(run, mesh)

@@ -35,6 +35,10 @@ class ShardCtx:
     # per-layer parameter gather (sharding/fsdp.make_param_gather): the
     # paper's allgathers in the mcast modes, the plain gather otherwise
     gather_params: object = None
+    # explicit compute/gather overlap: gather layer i+1's params during layer
+    # i (models/transformer._scan_blocks_prefetch); set only where the
+    # reference installs a gather of its own (the mcast modes)
+    prefetch_params: bool = False
 
 
 _CTX: list[ShardCtx] = [ShardCtx(mesh=None)]

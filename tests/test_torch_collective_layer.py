@@ -262,28 +262,24 @@ def test_concurrent_ag_rs_matches_jax(ref):
 @pytest.mark.parametrize("overlap", [False, True])
 def test_concurrent_ag_rs_both_stream_paths_match_jax(ref, overlap, monkeypatch):
     """Both of ``_concurrent_ag_rs``'s paths on the CPU: the gather as one
-    ``ring_allgather`` of the whole ring schedule into a new buffer, then
-    (one stream) or beside (two streams) the reduce-scatter's P - 1
-    transposed steps, bitwise equal to the reference. The two-stream path
-    runs with its side stream stood in by the current one (the CPU has
-    none); either gathers once, with the ring schedule."""
-    import contextlib
+    ``ring_allgather`` of the whole ring schedule into a new buffer, and the
+    reduce-scatter as one ``ring_allgather_transpose`` of the same schedule,
+    bitwise equal to the reference. A CPU tensor has no side stream
+    (``device.SideStream`` runs the gather in place), so the two-stream path
+    runs the same calls in the same order."""
     inputs, out = ref
     ag = torch.from_numpy(inputs["ag"]).reshape(P8, AG_N)
     rs = torch.from_numpy(inputs["rs"])
-    gathers = []
-    real = C.ring_allgather
-
-    def gather(x, schedule, out=None):
-        gathers.append(schedule)
-        return real(x, schedule, out)
-
-    monkeypatch.setattr(C, "ring_allgather", gather)
-    if overlap:
-        monkeypatch.setattr(C, "overlapped", lambda *a: contextlib.nullcontext(None))
-        monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    calls = []
+    gather, transpose = C.ring_allgather, C.ring_allgather_transpose
+    monkeypatch.setattr(C, "ring_allgather",
+                        lambda x, schedule, out=None: calls.append(("gather", schedule))
+                        or gather(x, schedule, out))
+    monkeypatch.setattr(C, "ring_allgather_transpose",
+                        lambda g, schedule: calls.append(("transpose", schedule))
+                        or transpose(g, schedule))
     got_ag, got_rs = C._concurrent_ag_rs(ag, rs, overlap=overlap)
-    assert gathers == [C._ring_schedule(P8)]
+    assert calls == [("gather", C._ring_schedule(P8)), ("transpose", C._ring_schedule(P8))]
     for r in range(P8):
         np.testing.assert_array_equal(got_ag[r].numpy(), out["ag"])
     np.testing.assert_array_equal(got_rs.reshape(-1).numpy(), out["rs"])

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import bridge
+from repro_torch.configs import (CollectiveConfig, RunConfig, ShapeConfig, TrainConfig,
+                                 get_model_config, reduced)
 from repro_torch.core import collectives as C
 from repro_torch.core import engine as E
 from repro_torch.core import packet as PK
@@ -22,8 +25,13 @@ from repro_torch.kernels import chunk_reassembly as CR
 from repro_torch.kernels import collective_matmul as M
 from repro_torch.kernels import pool as PL
 from repro_torch.kernels import ring_allgather as K
+from repro_torch.data.pipeline import SyntheticPipeline
 from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models import layers
+from repro_torch.runtime.train_loop import init_state, make_train_step
+from repro_torch.sharding.ctx import use_ctx
+from repro_torch.sharding.fsdp import at_use
+from repro_torch.sharding.specs import tree_leaves
 
 # csrc/bitmap.cu's kStripWords: a popcount row of up to this many words is
 # one block, which stores its count; a longer one several, which add theirs
@@ -192,27 +200,6 @@ def test_ring_allgather_refuses_shards_it_cannot_read():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", [2, 4, 8])
-def test_ring_step_transpose_kernel_matches_plain(p):
-    """The transposed step's kernel equals its plain version bitwise (f32,
-    bf16 and f16 adds rounded once, in the same order) and counts launches."""
-    _need_cuda()
-    gen = torch.Generator(device="cuda").manual_seed(p)
-    for n in (1, 7, 13824, 110595):
-        for dtype in (torch.bfloat16, torch.float16, torch.float32):
-            for kw in (dict(), dict(direction=-1), dict(split=n // 2),
-                       dict(rounds=2, active_round=1)):
-                for s in range(p - 1):
-                    buf = torch.randn(2, p, p, n, device="cuda", generator=gen).to(dtype)
-                    want = K.ring_step_transpose_plain(buf.clone(), s, **kw)
-                    before = K.transpose_launches
-                    got = K.ring_step_transpose(buf, s, **kw)
-                    torch.cuda.synchronize()
-                    assert K.transpose_launches == before + 1
-                    assert torch.equal(got, want), (n, dtype, kw, s)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rmkn", [(1, 1, 576, 7), (8, 1, 576, 1536), (8, 33, 576, 192),
                                   (2, 300, 1536, 576), (2, 129, 576, 49152),
@@ -258,11 +245,10 @@ def test_stacked_gather_gradient_on_cuda(mode, chains):
         for dev, m in (("cuda", mode), ("cpu", mode), ("cuda", "xla")):
             xd = x.to(dev).requires_grad_()
             y = C.make_allgather(mesh, "data", m, n_chains=chains)(xd)
-            before = (K.allgather_transpose_launches, K.transpose_launches)
+            before = K.allgather_transpose_launches
             (grads[dev, m],) = torch.autograd.grad(y, xd, g.to(dev))
             if dev == "cuda" and m != "xla":
-                assert (K.allgather_transpose_launches - before[0],
-                        K.transpose_launches - before[1]) == (1, 0)
+                assert K.allgather_transpose_launches - before == 1
         assert torch.equal(grads["cuda", mode].cpu(), grads["cpu", mode])
         torch.testing.assert_close(grads["cuda", mode], grads["cuda", "xla"],
                                    rtol=1e-5, atol=1e-5)
@@ -638,9 +624,9 @@ def test_matmul_out_into_diagonal_views(dtype):
 @pytest.mark.gpu
 def test_broadcast_and_concurrent_ag_rs_on_cuda():
     """The broadcast equals root's row everywhere; concurrent AG/RS on two
-    streams equals the separate calls bitwise: its gather is one
-    ring-allgather launch and no ring step, its reduce-scatter P - 1
-    transposed steps."""
+    streams and on one equals the separate calls bitwise: its gather is one
+    ring-allgather launch and no ring step, its reduce-scatter one launch of
+    the gather's transpose."""
     _need_cuda()
     mesh = StackedMesh(data=8, model=1)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -650,13 +636,14 @@ def test_broadcast_and_concurrent_ag_rs_on_cuda():
         assert torch.equal(y, x[root].expand(8, -1))
     ag = torch.randn(8, 1000, device="cuda", generator=gen)
     rs = torch.randn(8, 8 * 1000, device="cuda", generator=gen)
-    before = (K.allgather_launches, K.launches, K.transpose_launches)
-    got_ag, got_rs = C.concurrent_ag_rs_local(ag, rs)
-    torch.cuda.synchronize()
-    after = (K.allgather_launches, K.launches, K.transpose_launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 0, 7]
-    assert torch.equal(got_ag, C.ring_allgather_local(ag))
-    assert torch.equal(got_rs, C.ring_reduce_scatter_local(rs, direction=-1))
+    for overlap in (True, False):
+        before = (K.allgather_launches, K.launches, K.allgather_transpose_launches)
+        got_ag, got_rs = C._concurrent_ag_rs(ag, rs, overlap=overlap)
+        torch.cuda.synchronize()
+        after = (K.allgather_launches, K.launches, K.allgather_transpose_launches)
+        assert [a - b for a, b in zip(after, before)] == [1, 0, 1]
+        assert torch.equal(got_ag, C.ring_allgather_local(ag))
+        assert torch.equal(got_rs, C.ring_reduce_scatter_local(rs, direction=-1))
     assert torch.equal(got_rs.cpu(), C.ring_reduce_scatter_local(rs.cpu(), direction=-1))
 
 
@@ -719,11 +706,10 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
         monkeypatch.setattr(mod, name, refuse)
     gen = torch.Generator(device="cuda").manual_seed(6)
     buf = torch.randn(8, 8, 64, device="cuda", generator=gen)
-    before = (K.launches, K.transpose_launches, K.allgather_launches,
-              K.allgather_transpose_launches, K.drain_launches, _matmul_launches(), PL.launches,
-              BM.pack_launches, BM.or_launches, BM.popcount_launches, CR.launches)
+    before = (K.launches, K.allgather_launches, K.allgather_transpose_launches,
+              K.drain_launches, _matmul_launches(), PL.launches, BM.pack_launches,
+              BM.or_launches, BM.popcount_launches, CR.launches)
     K.ring_step(buf, 0)
-    K.ring_step_transpose(buf, 0)
     K.ring_allgather(buf[0], C._ring_schedule(8))
     K.ring_allgather_transpose(buf, C._ring_schedule(8))
     K.local_double_buffer_drain(buf)
@@ -737,10 +723,64 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
     BM.bitmap_popcount_rows(words)
     BM.bitmap_popcount(words)
     CR.chunk_reassembly(buf[0], torch.arange(8, device="cuda"), torch.zeros_like(buf[0]))
-    C.concurrent_ag_rs_local(buf[0], buf[0].repeat(1, 8))   # one gather, 7 transposed steps
+    C.concurrent_ag_rs_local(buf[0], buf[0].repeat(1, 8))   # one gather, one transpose
     BM.bitmap_or_rows(words[:0])                            # no rows: one launch stores zeros
     torch.cuda.synchronize()
-    after = (K.launches, K.transpose_launches, K.allgather_launches,
-             K.allgather_transpose_launches, K.drain_launches, _matmul_launches(), PL.launches,
-             BM.pack_launches, BM.or_launches, BM.popcount_launches, CR.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 8, 2, 1, 1, 2, 2, 1, 2, 2, 2]
+    after = (K.launches, K.allgather_launches, K.allgather_transpose_launches,
+             K.drain_launches, _matmul_launches(), PL.launches, BM.pack_launches,
+             BM.or_launches, BM.popcount_launches, CR.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 2, 1, 2, 2, 1, 2, 2, 2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_prefetch_gathers_on_one_side_stream(monkeypatch, remat):
+    """With prefetch every gather of a train step, the forward's and a
+    checkpoint's recompute, launches on one side stream, never the current
+    one, and so does every gather backward: autograd runs a backward op on
+    its forward's stream and joins it to the streams around it itself.
+    Without prefetch all of them launch on the current stream. The loss and
+    every gradient are the same, bitwise, either way."""
+    _need_cuda()
+    cfg = reduced(get_model_config("smollm-135m"), layers=3)
+    shape = ShapeConfig("t", "train", 64, 8)
+    mesh = StackedMesh(data=8, model=1)
+    tree = bridge.random_params(cfg, 7)
+    batch = SyntheticPipeline(cfg, shape, device="cuda").next_batch(0)
+    streams = {"gather": [], "transpose": []}
+
+    def on_stream(name, fn):
+        def call(*args, **kwargs):
+            streams[name].append(torch.cuda.current_stream().cuda_stream)
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(C, "ring_allgather", on_stream("gather", C.ring_allgather))
+    monkeypatch.setattr(C, "ring_allgather_transpose",
+                        on_stream("transpose", C.ring_allgather_transpose))
+    out = {}
+    for prefetch in (False, True):
+        run = RunConfig(model=cfg, shape=shape, train=TrainConfig(remat=remat),
+                        collective=CollectiveConfig(fsdp_mode="mcast", prefetch=prefetch))
+        api, ctx, _ = make_train_step(run, mesh, device="cuda")
+        state = init_state(run, mesh, tree, device="cuda")
+        for seen in streams.values():
+            seen.clear()
+        main = torch.cuda.current_stream().cuda_stream
+        with use_ctx(ctx):
+            loss, _ = api.loss_fn(at_use(state.params, mesh.n_ranks, ("data",)), batch)
+            grads = torch.autograd.grad(loss, [s.local for s in tree_leaves(state.params)])
+        torch.cuda.synchronize()
+        out[prefetch] = (loss, grads)
+        gathers = 7 * (cfg.num_layers + (0 if remat == "none" else
+                                         cfg.num_layers - 1 if prefetch else cfg.num_layers))
+        assert (len(streams["gather"]), len(streams["transpose"])) == (gathers,
+                                                                       7 * cfg.num_layers)
+        used = set(streams["gather"]) | set(streams["transpose"])
+        if prefetch:
+            assert len(used) == 1 and main not in used
+        else:
+            assert used == {main}
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)

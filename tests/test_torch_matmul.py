@@ -65,7 +65,7 @@ def test_matmul_rounds_once_from_f32():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rank_matmul_grads_match_autograd(dtype):
-    """RankMatmul's backward (dY W^T and X^T dY on the matmul wrapper, with
+    """rank_matmul's backward (dY W^T and X^T dY on the matmul wrapper, with
     transposed views) against autograd through torch.bmm, at the ranks and
     tails of the training path (K = 576, N = 192 per rank)."""
     gen = torch.Generator().manual_seed(2)

@@ -470,13 +470,17 @@ def test_transposed_step_is_the_adjoint(p, kw):
 
 
 def test_transposed_step_on_cpu_counts_no_launch():
-    before = K.transpose_launches
+    """The plain transposed steps in reverse order sum all four ranks' ones
+    on every diagonal slot; the one-launch transpose on the same CPU tensor
+    gives that diagonal and counts no launch."""
+    before = K.allgather_transpose_launches
     buf = torch.ones(4, 4, 3)
     for s in reversed(range(3)):
-        K.ring_step_transpose(buf, s)
-    assert K.transpose_launches == before
-    # every diagonal slot summed all four ranks' ones
+        K.ring_step_transpose_plain(buf, s)
     assert torch.equal(buf.diagonal(dim1=0, dim2=1), torch.full((3, 4), 4.0))
+    got = K.ring_allgather_transpose(torch.ones(4, 4, 3), C._ring_schedule(4))
+    assert K.allgather_transpose_launches == before
+    assert torch.equal(got, buf.diagonal(dim1=0, dim2=1).T)
 
 
 @pytest.mark.parametrize("bad", [
@@ -486,8 +490,14 @@ def test_transposed_step_on_cpu_counts_no_launch():
     dict(buf=torch.zeros(4, 4, 3), step=0, rounds=3),
 ])
 def test_transposed_step_rejects_what_the_kernel_does_not_take(bad):
+    """The plain transposed step refuses the dtype, the shape, the step and
+    the round mask that the one-launch transpose refuses for the same
+    entry."""
     with pytest.raises((TypeError, ValueError)):
-        K.ring_step_transpose(**bad)
+        K.ring_step_transpose_plain(**bad)
+    entry = (bad["step"], 1, None, bad.get("rounds", 1), 0)
+    with pytest.raises((TypeError, ValueError)):
+        K.ring_allgather_transpose(bad["buf"], (entry,))
 
 
 @pytest.mark.parametrize("mode", ["xla", "bidi", "ring", "bcast"])
@@ -637,10 +647,9 @@ def test_allgather_transpose_packs_the_schedule_reversed(p, chains, counts, in_p
 def test_allgather_transpose_on_cpu_counts_no_launch():
     """On a CPU tensor the one-call transpose counts no launch and no
     entry; every rank's gradient sums all four ranks' cotangents."""
-    before = (K.allgather_transpose_launches, dict(K.transpose_entries), K.transpose_launches)
+    before = (K.allgather_transpose_launches, dict(K.transpose_entries))
     got = K.ring_allgather_transpose(torch.ones(4, 4, 3), C._ring_schedule(4))
-    assert (K.allgather_transpose_launches, dict(K.transpose_entries),
-            K.transpose_launches) == before
+    assert (K.allgather_transpose_launches, dict(K.transpose_entries)) == before
     assert torch.equal(got, torch.full((4, 3), 4.0))
 
 

@@ -40,7 +40,13 @@ MODES = ["xla", "mcast", "mcast_ring", "mcast_bcast"]
 SHAPE = ShapeConfig("t", "train", 64, 4)
 STEPS = 3
 
-_BODY = f'''
+
+def reference_body(variants=(("", False, "full"),)) -> str:
+    """The reference's ``jit_train_step`` for ``STEPS`` steps in every mode
+    from the parameters in ``IN``, once per variant ``(key, prefetch,
+    remat)``: losses, grad norms, then parameters and both moments, under
+    ``{key}{mode}/``; and the batches' tokens."""
+    return f'''
 import jax.numpy as jnp
 from repro.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
                            TrainConfig, get_model_config, reduced)
@@ -64,29 +70,33 @@ shape = ShapeConfig("t", "train", {SHAPE.seq_len}, {SHAPE.global_batch})
 pipe = SyntheticPipeline(cfg, shape)
 for i in range({STEPS}):
     OUT[f"tokens{{i}}"] = np.asarray(pipe.next_batch(i)["tokens"])
-for mode in {MODES}:
-    run = RunConfig(model=cfg, shape=shape, mesh=SmallMesh(), train=TrainConfig(steps=5),
-                    collective=CollectiveConfig(fsdp_mode=mode, n_chains=2))
-    _, jstep = jit_train_step(run, mesh)
-    params = jax.tree.map(jnp.asarray, unflatten(IN, "params/"))
-    state = TrainState(params, adamw.init(params))
-    for i in range({STEPS}):
-        state, m = jstep(state, pipe.next_batch(i))
-        OUT[f"{{mode}}/loss{{i}}"] = np.asarray(m["loss"])
-        OUT[f"{{mode}}/grad_norm{{i}}"] = np.asarray(m["grad_norm"])
-    put(mode + "/params/", state.params)
-    put(mode + "/m/", state.opt.m)
-    put(mode + "/v/", state.opt.v)
+for key, prefetch, remat in {list(variants)}:
+    for mode in {MODES}:
+        run = RunConfig(model=cfg, shape=shape, mesh=SmallMesh(),
+                        train=TrainConfig(steps=5, remat=remat),
+                        collective=CollectiveConfig(fsdp_mode=mode, n_chains=2,
+                                                    prefetch=prefetch))
+        _, jstep = jit_train_step(run, mesh)
+        params = jax.tree.map(jnp.asarray, unflatten(IN, "params/"))
+        state = TrainState(params, adamw.init(params))
+        at = key + mode
+        for i in range({STEPS}):
+            state, m = jstep(state, pipe.next_batch(i))
+            OUT[f"{{at}}/loss{{i}}"] = np.asarray(m["loss"])
+            OUT[f"{{at}}/grad_norm{{i}}"] = np.asarray(m["grad_norm"])
+        put(at + "/params/", state.params)
+        put(at + "/m/", state.opt.m)
+        put(at + "/v/", state.opt.v)
 '''
 
 
-def _run(mode: str, **train) -> RunConfig:
+def _run(mode: str, prefetch: bool = False, **train) -> RunConfig:
     return RunConfig(model=SMALL, shape=SHAPE, train=TrainConfig(steps=5, **train),
-                     collective=CollectiveConfig(fsdp_mode=mode, n_chains=2))
+                     collective=CollectiveConfig(fsdp_mode=mode, n_chains=2, prefetch=prefetch))
 
 
-def _train(tree, mode: str, mesh, steps: int = STEPS, **train):
-    run = _run(mode, **train)
+def _train(tree, mode: str, mesh, steps: int = STEPS, **options):
+    run = _run(mode, **options)
     _, _, step = make_train_step(run, mesh, device="cpu")
     state = init_state(run, mesh, tree, device="cpu")
     pipe = SyntheticPipeline(SMALL, run.shape, device="cpu")
@@ -100,7 +110,7 @@ def _train(tree, mode: str, mesh, steps: int = STEPS, **train):
 @pytest.fixture(scope="module")
 def case():
     tree = random_tree(SMALL, 4)
-    ref = run_reference(_BODY, {"params/" + k: v for k, v in flatten(tree).items()})
+    ref = run_reference(reference_body(), {"params/" + k: v for k, v in flatten(tree).items()})
     mesh = StackedMesh(data=2, model=4)
     port = {mode: _train(tree, mode, mesh) for mode in MODES}
     return tree, mesh, ref, port
@@ -122,23 +132,30 @@ def test_batches_match_reference(case):
         assert batch["tokens"].dtype == torch.long
 
 
+def assert_matches_reference(ref, at: str, state, metrics, mesh) -> None:
+    """Loss and grad_norm of every step within 1e-5 and 1e-4 relative of the
+    reference's under ``at``; then parameters within 1e-5 and each moment
+    leaf within 1e-5 of its largest value."""
+    for i, (loss, gn) in enumerate(metrics):
+        assert loss == pytest.approx(float(ref[f"{at}/loss{i}"]), rel=1e-5), i
+        assert gn == pytest.approx(float(ref[f"{at}/grad_norm{i}"]), rel=1e-4), i
+    got = _state_numpy(state, mesh, mesh.n_ranks)
+    for key, a in got["params"].items():
+        np.testing.assert_allclose(a, ref[f"{at}/params/{key}"], atol=1e-5, rtol=0,
+                                   err_msg=key)
+    for name in ("m", "v"):
+        for key, a in got[name].items():
+            want = ref[f"{at}/{name}/{key}"]
+            np.testing.assert_allclose(a, want, atol=1e-5 * np.abs(want).max(), rtol=0,
+                                       err_msg=f"{name}/{key}")
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_train_step_matches_jax(case, mode):
     """Loss and grad_norm of 3 steps, then parameters and both moments."""
     _, mesh, ref, port = case
     state, metrics = port[mode]
-    for i, (loss, gn) in enumerate(metrics):
-        assert loss == pytest.approx(float(ref[f"{mode}/loss{i}"]), rel=1e-5), i
-        assert gn == pytest.approx(float(ref[f"{mode}/grad_norm{i}"]), rel=1e-4), i
-    got = _state_numpy(state, mesh, mesh.n_ranks)
-    for key, a in got["params"].items():
-        np.testing.assert_allclose(a, ref[f"{mode}/params/{key}"], atol=1e-5, rtol=0,
-                                   err_msg=key)
-    for name in ("m", "v"):
-        for key, a in got[name].items():
-            want = ref[f"{mode}/{name}/{key}"]
-            np.testing.assert_allclose(a, want, atol=1e-5 * np.abs(want).max(), rtol=0,
-                                       err_msg=f"{name}/{key}")
+    assert_matches_reference(ref, mode, state, metrics, mesh)
 
 
 def test_modes_agree(case):
@@ -213,12 +230,9 @@ def test_remat_full_equals_none():
         assert torch.equal(a, b)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="dots"):
-        build_model(SMALL, remat="dots", device="cpu")
-    run = _run("mcast").replace(collective=CollectiveConfig(fsdp_mode="mcast", prefetch=True))
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        make_train_step(run, StackedMesh(data=2, model=1), device="cpu")
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="remat"):
+        build_model(SMALL, remat="offload", device="cpu")
 
 
 def test_chunked_xent_global_token_mean():
@@ -311,14 +325,13 @@ def test_grad_accum_equivalence(mesh):
 
 def test_train_launcher_runs_on_cpu(capsys):
     from repro_torch.launch import train
-    before = (K.launches, K.allgather_launches, K.transpose_launches,
-              K.allgather_transpose_launches, M.launches)
+    before = (K.launches, K.allgather_launches, K.allgather_transpose_launches, M.launches)
     train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "2",
                 "--fsdp-mode", "mcast_bcast"])
     out = capsys.readouterr().out
     assert "step     1 loss" in out and "[train] done" in out
-    assert (K.launches, K.allgather_launches, K.transpose_launches,
-            K.allgather_transpose_launches, M.launches) == before  # CPU: plain versions
+    assert (K.launches, K.allgather_launches, K.allgather_transpose_launches,
+            M.launches) == before  # CPU: plain versions
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"])
