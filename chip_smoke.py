@@ -10,9 +10,10 @@
    masks; the
    order check of the ring-allgather kernel (csrc/ring_allgather.cu): for
    every prefix length k (0 included) of the ring (both directions) and
-   bidi schedules at P = 2, 3, 5, 8 and 33, of the broadcasts' (M = 1, 2,
-   4) and a mixed schedule at P = 8, and of the broadcasts' with one chain
-   at P = 16 (240 entries: a launch per 128), the call on the first k
+   bidi schedules at P = 2, 3, 4, 5, 8, 16, 32 and 33, of the broadcasts'
+   (M = 1, 2, 4) and a mixed schedule at P = 8, and of the broadcasts' with
+   one chain (240 entries: a launch per 128) and two chains at P = 16, the
+   call on the first k
    entries equals the shards installed on the diagonal and then k plain
    ring steps, on the same buffer of random values, bitwise (bf16 and f32;
    n = 1, 7, 24, 41,472 and 41,473; one and two groups); the same order
@@ -80,6 +81,30 @@
    device idle share, the device ms of the matmuls, gathers and
    transposes, the device ms of gathers and transposes that ran while
    another stream worked, and the peak memory;
+4c. checkpoints, the restart supervisor and a replicated batch, at the same
+   width on the same mesh, the checkpoints under one ``tempfile.mkdtemp()``
+   removed before the phase ends: (a) ``TrainSupervisor`` runs 6 mcast steps
+   at batch 16 x 512, remat="full", an async checkpoint every 2 and
+   ``FailureInjector(fail_at_steps=(5,))``: steps 0 to 4, a restore of step
+   4's checkpoint, steps 4 and 5; each loss, and every parameter, moment
+   and the step after the last, bitwise those of an uninterrupted run from a
+   fresh ``init_state``; (b) the checkpoint's bytes (1,345,220,356), the
+   host-copy and write ms of an async save, the restore ms, the step ms
+   with an async save behind it beside one without, and a step's host issue
+   ms (what the supervisor's ``dt`` reads); (c) step 4's checkpoint restored
+   into ``(data=4, model=1)`` and ``(pod=2, data=4, model=1)``, every array
+   bitwise the saved one, then one step on ``(data=4)`` (loss within 1e-5
+   relative of step 4's on 8 ranks); (d) ``repro_torch.launch.train.main``
+   in this process, 4 steps at batch 4 x 512 with ``--ckpt-every 2``: its
+   latest checkpoint is step 4; (e) global batch 4 replicated on the 8
+   ranks: training at 4 x 512 in every mode (each step launching 420 / 210
+   / 844 gathers / transposes / matmuls in the mcast modes, the first-step
+   loss bitwise equal in every mode; step ms and peak memory), serving 4
+   prompts of 128 tokens and 32 new tokens in every mode (logits and tokens
+   equal, 210 gathers a prefill); and, with phase 4's reduced reference
+   (before the counts are zeroed: its products are f32), the reduced f32
+   replicated step against a single-rank run (loss 1e-5, grad_norm 1e-4,
+   relative);
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
    receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
    Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
@@ -131,9 +156,11 @@ import bisect
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -145,6 +172,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import bridge  # noqa: E402
+from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
+from repro_torch.checkpoint.ckpt import host_arrays  # noqa: E402
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig,  # noqa: E402
                                  ShapeConfig, TrainConfig, get_model_config, reduced)
 from repro_torch.core import collectives as C  # noqa: E402
@@ -158,7 +187,9 @@ from repro_torch.kernels import chunk_reassembly as CR  # noqa: E402
 from repro_torch.kernels import collective_matmul as M  # noqa: E402
 from repro_torch.kernels import pool as PL  # noqa: E402
 from repro_torch.kernels import ring_allgather as K  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
+from repro_torch.runtime.fault import FailureInjector, TrainSupervisor  # noqa: E402
 from repro_torch.runtime.serve_loop import (ServeState, greedy_generate,  # noqa: E402
                                             make_decode_step, make_prefill_step)
 from repro_torch.runtime.train_loop import init_state, make_train_step  # noqa: E402
@@ -215,14 +246,19 @@ def _mixed_schedule(n: int) -> tuple:
 
 
 def _order_schedules(p: int, n: int) -> dict[str, tuple]:
-    if p == 16:   # more entries than a launch carries
-        return {"bcast1": C._bcast_schedule(p, 1)}
     out = {"ring": C._ring_schedule(p), "ring-": C._ring_schedule(p, -1),
            "bidi": C._bidi_schedule(p, n)}
     if p == 8:
         out.update({f"bcast{m}": C._bcast_schedule(p, m) for m in (1, 2, 4)})
         out["mixed"] = _mixed_schedule(n)
+    if p == 16:   # the production mesh's data axis; one chain: more entries than a launch carries
+        out.update({f"bcast{m}": C._bcast_schedule(p, m) for m in (1, N_CHAINS)})
     return out
+
+
+# 4: the elastic mesh's ranks; 16: the production mesh's data axis; 32: the
+# widest P on the narrow kernel; 33: more ranks than a warp's lanes, the wide one
+P_ORDER = (2, 3, 4, 5, 8, 16, 32, 33)
 
 
 def check_allgather() -> tuple[int, float]:
@@ -233,7 +269,7 @@ def check_allgather() -> tuple[int, float]:
     bitwise: every slot, reached or not. Returns (launches, max abs err)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     launches, max_err = 0, 0.0
-    for p in (2, 3, 5, 8, 16, 33):   # 33: more ranks than a warp's lanes, the wide kernel
+    for p in P_ORDER:
         for dtype in (torch.bfloat16, torch.float32):
             for n in (1, 7, 24, 41472, 41473):
                 for name, sched in _order_schedules(p, n).items():
@@ -272,7 +308,7 @@ def check_allgather_transpose() -> tuple[int, float]:
     launches, max_err = 0, 0.0
     sizes = [(dtype, n) for dtype in (torch.bfloat16, torch.float32)
              for n in (1, 7, 24, 41472, 41473)] + [(torch.float16, 24)]
-    for p in (2, 3, 5, 8, 16, 33):
+    for p in P_ORDER:
         for dtype, n in sizes:
             for name, sched in _order_schedules(p, n).items():
                 for groups in (1, 2):
@@ -888,12 +924,13 @@ def _train_launches(cfg, mesh: StackedMesh, mode: str, *, prefetch: bool = False
             "matmul": matmul}
 
 
-def check_train_reference() -> float:
-    """Reduced smollm-135m in f32: the train step sharded over 8 ranks
-    (mcast, then mcast_bcast) against a single-rank run of the same step, 3
-    steps. Returns the largest relative loss difference."""
+def check_train_reference(batch: int = 8) -> float:
+    """Reduced smollm-135m in f32: the train step over 8 ranks (mcast, then
+    mcast_bcast) against a single-rank run of the same step, 3 steps; at
+    global batch 8 sharded, at 4 replicated on every rank. Returns the
+    largest relative loss difference."""
     cfg = reduced(get_model_config("smollm-135m"))
-    shape = ShapeConfig("t", "train", 64, 8)
+    shape = ShapeConfig("t", "train", 64, batch)
     tree = bridge.random_params(cfg, seed=1)
     batches = [SyntheticPipeline(cfg, shape).next_batch(i) for i in range(3)]
     out = {}
@@ -914,8 +951,8 @@ def check_train_reference() -> float:
             if not (abs(loss - l1) <= 1e-5 * abs(l1) and abs(gn - g1) <= 1e-4 * abs(g1)):
                 raise AssertionError(f"{key[0]} sharded vs single-rank train step: loss "
                                      f"{loss} vs {l1}, grad_norm {gn} vs {g1}")
-    print(f"[reference] reduced f32 train step, 8 ranks vs 1: {json.dumps(out[('mcast', False)])}"
-          f" vs {json.dumps(out[('mcast', True)])}", flush=True)
+    print(f"[reference] reduced f32 train step at batch {batch}, 8 ranks vs 1: "
+          f"{json.dumps(out[('mcast', False)])} vs {json.dumps(out[('mcast', True)])}", flush=True)
     return worst
 
 
@@ -944,12 +981,13 @@ def train() -> tuple[dict[str, int], dict[str, tuple[list, list]]]:
 
 
 def _train_steps(cfg, mesh: StackedMesh, tree, batches: list, mode: str, timed: int,
-                 want: dict[str, int]) -> tuple[dict, dict[str, int]]:
+                 want: dict[str, int], shape: ShapeConfig = TRAIN_SHAPE
+                 ) -> tuple[dict, dict[str, int]]:
     """A warm-up step on ``batches[0]``, ``timed`` steps on the next batches,
     each launching exactly ``want``, and a profiled step on
-    ``batches[timed + 1]``, of ``mode``. Returns the row of figures and the
-    last step's launches."""
-    run = _train_run(cfg, TRAIN_SHAPE, mode)
+    ``batches[timed + 1]``, of ``mode`` at ``shape``. Returns the row of
+    figures and the last step's launches."""
+    run = _train_run(cfg, shape, mode)
     _, _, step = make_train_step(run, mesh)
     state = init_state(run, mesh, tree)
     torch.cuda.synchronize()
@@ -966,7 +1004,7 @@ def _train_steps(cfg, mesh: StackedMesh, tree, batches: list, mode: str, timed: 
         if counts != want:
             raise AssertionError(f"{mode}: launches per train step {counts}, expected {want}")
     row = {"mode": mode, "losses": losses, "grad_norms": norms, "warmup_step_ms": warm_s * 1e3,
-           **_step_times(samples), "launches_per_step": counts,
+           **_step_times(samples, shape), "launches_per_step": counts,
            **_profiled_step(step, state, batches[timed + 1], f"{mode} step")}
     _check_losses(cfg, mode, losses, norms)
     del state, m
@@ -974,11 +1012,12 @@ def _train_steps(cfg, mesh: StackedMesh, tree, batches: list, mode: str, timed: 
     return row, counts
 
 
-def _step_times(samples: list[float]) -> dict:
+def _step_times(samples: list[float], shape: ShapeConfig = TRAIN_SHAPE) -> dict:
+    """Step ms; tokens/s counts the global batch's tokens (a replicated
+    batch's ranks each compute all of them)."""
     return {"step_ms_median": statistics.median(samples) * 1e3,
             "step_ms_samples": [t * 1e3 for t in samples],
-            "tokens_per_s": TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
-            / statistics.median(samples)}
+            "tokens_per_s": shape.global_batch * shape.seq_len / statistics.median(samples)}
 
 
 def _check_losses(cfg, what: str, losses: list[float], norms: list[float]) -> None:
@@ -1095,6 +1134,264 @@ def train_options(base: dict[str, tuple[list, list]]) -> None:
                                  f"{row['gather_streams']}, the matmuls on "
                                  f"{row['matmul_streams']}")
         print("[train-options] " + json.dumps(row), flush=True)
+
+
+# ------------------------------------ phase 4c: checkpoints, restart, a replicated batch
+
+# the train state of smollm-135m in bytes: 134,515,008 parameters (35,136 of
+# them f32 norm scales, the rest bf16), two f32 moments, a 4-byte step
+CKPT_BYTES = 1_345_220_352 + 4
+REPL_SHAPE = ShapeConfig("train", "train", 512, 4)   # 4 rows on 8 ranks: replicated
+REPL_TIMED = 2
+CKPT_TIMED = 3
+
+
+def _stored(state) -> dict[str, np.ndarray]:
+    """Every leaf's global array as a checkpoint stores it, by key."""
+    return {k: a for k, (a, _) in host_arrays(state).items()}
+
+
+def _same_arrays(got: dict, want: dict, what: str) -> None:
+    """Two dicts of arrays equal key for key, bit for bit."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys differ")
+    for key, b in want.items():
+        a = got[key]
+        if (a.dtype != b.dtype or a.shape != b.shape
+                or not np.array_equal(a.view(f"u{a.itemsize}"), b.view(f"u{b.itemsize}"))):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def restart(cfg, mesh: StackedMesh, tree, tmp: str) -> dict:
+    """Phase 4c (a): a supervisor run of 6 mcast steps at ``TRAIN_SHAPE``, an
+    async checkpoint every 2, an injected failure at step 5: steps 0 to 4,
+    the restore of step 4's checkpoint, steps 4 and 5. Against 6 steps from
+    a fresh ``init_state`` with no checkpoint: every loss of a step both
+    ran, and every parameter, moment and the step after the last, bitwise."""
+    run = _train_run(cfg, TRAIN_SHAPE, "mcast")
+    _, _, step = make_train_step(run, mesh)
+    pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
+    ckpt_dir = os.path.join(tmp, "restart")
+    sup = TrainSupervisor(step_fn=step, pipeline=pipe, ckpt_dir=ckpt_dir, ckpt_every=2,
+                          injector=FailureInjector(fail_at_steps=(5,)), async_ckpt=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = sup.run(init_state(run, mesh, tree), 6)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    executed = [h["step"] for h in hist]
+    if executed != [0, 1, 2, 3, 4, 4, 5] or latest_step(ckpt_dir) != 6:
+        raise AssertionError(f"restart: executed {executed}, latest checkpoint "
+                             f"{latest_step(ckpt_dir)}")
+    fresh = init_state(run, mesh, tree)
+    losses = []
+    for i in range(6):
+        fresh, m = step(fresh, pipe.next_batch(i))
+        losses.append(float(m["loss"]))
+    for h in hist:
+        if h["loss"] != losses[h["step"]]:
+            raise AssertionError(f"restart: step {h['step']} loss {h['loss']!r}, uninterrupted "
+                                 f"{losses[h['step']]!r}")
+    if state.opt.step != fresh.opt.step or state.opt.step != 6:
+        raise AssertionError(f"restart: opt step {state.opt.step} vs {fresh.opt.step}")
+    _same_arrays(_stored(state), _stored(fresh), "restarted vs uninterrupted state")
+    del fresh
+    row = {"executed": executed, "losses": [h["loss"] for h in hist],
+           "uninterrupted_losses": losses, "supervisor_dt_ms": [h["dt"] * 1e3 for h in hist],
+           "wall_s": wall_s}
+    print("[ckpt] (a) restart equals the uninterrupted run bitwise: " + json.dumps(row),
+          flush=True)
+    return {"state": state, "step": step, "pipe": pipe, "dir": ckpt_dir, "row": row}
+
+
+def checkpoint_times(a: dict, tmp: str) -> dict:
+    """Phase 4c (b): the checkpoint's bytes; ``CKPT_TIMED`` async saves of
+    the state (host copy: until ``save`` returns; write: until its future
+    ends) and restores (until the state is on the card); then steps in
+    turns, one with nothing behind it and one right after an async save's
+    host copy while its files are written, each synchronised; and a step's
+    host issue time (until ``step_fn`` returns, unsynchronised), which is
+    what the supervisor's ``dt`` reads."""
+    state, step, pipe = a["state"], a["step"], a["pipe"]
+    d = os.path.join(tmp, "timed")
+    nbytes = sum(arr.nbytes for arr, _ in host_arrays(state).values())
+    if nbytes != CKPT_BYTES:
+        raise AssertionError(f"checkpoint holds {nbytes} bytes, expected {CKPT_BYTES}")
+    copy_ms, write_ms, restore_ms = [], [], []
+    for i in range(CKPT_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fut = save(state, d, 100 + i, blocking=False)
+        t1 = time.perf_counter()
+        fut.result()
+        t2 = time.perf_counter()
+        back, _ = restore(d, 100 + i, state)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if not back.params["embed"].local.is_cuda:
+            raise AssertionError("restore left the state off the card")
+        copy_ms.append((t1 - t0) * 1e3)
+        write_ms.append((t2 - t1) * 1e3)
+        restore_ms.append((t3 - t2) * 1e3)
+        del back
+        shutil.rmtree(os.path.join(d, f"step_{100 + i:08d}"))
+    plain, behind, issue = [], [], []
+    batch = pipe.next_batch(6)
+    for i in range(CKPT_TIMED):
+        (state, _), dt, _ = _run(lambda s=state: step(s, batch))
+        plain.append(dt * 1e3)
+        fut = save(state, d, 200 + i, blocking=False)
+        (state, _), dt, _ = _run(lambda s=state: step(s, batch))
+        behind.append(dt * 1e3)
+        fut.result()
+        shutil.rmtree(os.path.join(d, f"step_{200 + i:08d}"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        issue.append((time.perf_counter() - t0) * 1e3)
+        float(m["loss"])
+    a["state"] = state
+    row = {"bytes": nbytes, "host_copy_ms": statistics.median(copy_ms),
+           "host_copy_ms_samples": copy_ms, "write_ms": statistics.median(write_ms),
+           "write_ms_samples": write_ms, "restore_ms": statistics.median(restore_ms),
+           "restore_ms_samples": restore_ms,
+           "step_ms": statistics.median(plain), "step_ms_samples": plain,
+           "step_ms_async_save_behind": statistics.median(behind),
+           "step_ms_async_save_behind_samples": behind,
+           "step_issue_ms": statistics.median(issue), "step_issue_ms_samples": issue}
+    print("[ckpt] (b) " + json.dumps(row), flush=True)
+    return row
+
+
+def elastic(cfg, a: dict) -> dict:
+    """Phase 4c (c): step 4's checkpoint restored into ``(data=4, model=1)``
+    and ``(pod=2, data=4, model=1)``: every array bitwise the saved one;
+    then one mcast step on ``(data=4, model=1)`` from it, whose loss is
+    within 1e-5 relative of step 4's on 8 ranks (the same forward per row;
+    the loss summed in another order)."""
+    with np.load(os.path.join(a["dir"], "step_00000004", "arrays.npz")) as npz:
+        saved = {k.replace("%", "/"): npz[k] for k in npz.files}
+    row = {}
+    for axes, mesh_cfg in (({"data": 4, "model": 1}, MeshConfig()),
+                           ({"pod": 2, "data": 4, "model": 1}, MeshConfig(multi_pod=True))):
+        mesh = StackedMesh(**axes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back, manifest = restore(a["dir"], 4, a["state"], mesh=mesh, mesh_cfg=mesh_cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        wq = back.params["blocks"]["attn"]["wq"].local
+        if wq.shape[0] != mesh.n_ranks or not wq.is_cuda or back.opt.step != 4:
+            raise AssertionError(f"elastic restore into {mesh}: wq {tuple(wq.shape)} on "
+                                 f"{wq.device}, step {back.opt.step}")
+        _same_arrays(_stored(back), saved, f"elastic restore into {mesh}")
+        row[repr(mesh)] = {"restore_ms": ms, "ranks": mesh.n_ranks}
+        if "pod" in axes:
+            continue
+        run = _train_run(cfg, TRAIN_SHAPE, "mcast")
+        _, _, step = make_train_step(run, mesh)
+        _, m = step(back, a["pipe"].next_batch(4))
+        loss, want = float(m["loss"]), a["row"]["uninterrupted_losses"][4]
+        if not abs(loss - want) <= 1e-5 * abs(want) or not np.isfinite(float(m["grad_norm"])):
+            raise AssertionError(f"step on {mesh} after the elastic restore: loss {loss} vs "
+                                 f"{want} on 8 ranks")
+        row[repr(mesh)].update(loss=loss, loss_8_ranks=want, grad_norm=float(m["grad_norm"]))
+        del back, m
+    print("[ckpt] (c) elastic restore bitwise: " + json.dumps(row), flush=True)
+    return row
+
+
+def launcher(tmp: str) -> None:
+    """Phase 4c (d): the train launcher in this process, 4 replicated mcast
+    steps at batch 4 x 512 with a checkpoint every 2."""
+    d = os.path.join(tmp, "launcher")
+    train_launcher.main(["--arch", "smollm-135m", "--steps", "4", "--ckpt-every", "2",
+                         "--batch", "4", "--seq", "512", "--fsdp-mode", "mcast",
+                         "--ckpt-dir", d, "--log-every", "1"])
+    if latest_step(d) != 4:
+        raise AssertionError(f"the launcher's latest checkpoint is {latest_step(d)}, not 4")
+
+
+def replicated_train(cfg, mesh: StackedMesh, tree) -> dict:
+    """Phase 4c (e): training at global batch 4 x 512 on the 8 ranks, every
+    rank the whole batch, in every mode: each step launching what phase 4's
+    does; the first-step loss bitwise equal in every mode."""
+    pipe = SyntheticPipeline(cfg, REPL_SHAPE)
+    batches = [pipe.next_batch(i) for i in range(REPL_TIMED + 2)]
+    first = {}
+    for mode in MODES:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        row, _ = _train_steps(cfg, mesh, tree, batches, mode, REPL_TIMED,
+                              _train_launches(cfg, mesh, mode), shape=REPL_SHAPE)
+        row["peak_memory_gib"] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        print("[replicated] " + json.dumps(row), flush=True)
+        first[mode] = row["losses"][0]
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"replicated first-step losses differ between modes: {first}")
+    return first
+
+
+def replicated_serving(cfg, mesh: StackedMesh) -> dict:
+    """Phase 4c (e): serving 4 prompts of ``PROMPT`` tokens and ``NEW`` new
+    tokens on the 8 ranks in every mode: (4, V) logits, a (L, 4, ...) cache,
+    (4, PROMPT + NEW) tokens, all equal to xla's; 210 gathers a prefill in
+    the mcast modes, no transpose."""
+    params = bridge.to_torch(bridge.random_params(cfg, seed=0), mesh, MeshConfig(),
+                             dtype=torch.bfloat16)
+    b = REPL_SHAPE.global_batch
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(0, cfg.vocab_size, (b, PROMPT))).cuda()
+    n_sharded = sum(1 for leaf in tree_leaves(params["blocks"])
+                    if is_sharded(leaf.spec, ("data",)))
+    ref, rows = None, {}
+    for mode in MODES:
+        run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", PROMPT, b),
+                        collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+        _, ctx, prefill = make_prefill_step(run, mesh)
+        _, _, decode = make_decode_step(run, mesh)
+        (logits, pre), prefill_s, counts = _run(lambda: prefill(params, {"tokens": tokens}))
+        out, gen_s, _ = _run(lambda: greedy_generate(prefill, decode, params, tokens, NEW,
+                                                     PROMPT + NEW))
+        want = 0 if mode == "xla" else cfg.num_layers * n_sharded
+        if (ctx.shard_batch or logits.shape != (b, cfg.vocab_size)
+                or pre["k"].shape[:2] != (cfg.num_layers, b)
+                or out.shape != (b, PROMPT + NEW) or not torch.isfinite(logits).all()):
+            raise AssertionError(f"replicated serving {mode}: logits {tuple(logits.shape)}, "
+                                 f"cache {tuple(pre['k'].shape)}, tokens {tuple(out.shape)}")
+        if counts["ring_allgather"] != want or any(
+                counts[k] for k in OFF_PATH + ("ring_step", "ring_allgather_transpose")):
+            raise AssertionError(f"replicated serving {mode}: prefill launched {counts}")
+        if ref is None:
+            ref = (logits, out)
+        if not torch.equal(logits, ref[0]) or not torch.equal(out, ref[1]):
+            raise AssertionError(f"replicated serving {mode} differs from xla")
+        rows[mode] = {"prefill_ms": prefill_s * 1e3, "generate_ms": gen_s * 1e3,
+                      "gathers_per_prefill": counts["ring_allgather"],
+                      "sample_tokens": out[0, PROMPT:PROMPT + 8].tolist()}
+    print("[replicated] serving, logits and tokens equal in every mode: " + json.dumps(rows),
+          flush=True)
+    return rows
+
+
+def checkpoint_phase(cfg) -> None:
+    """Phase 4c: (a) to (e), the checkpoints under one ``mkdtemp`` removed
+    before the phase ends."""
+    mesh = StackedMesh(data=8, model=1)
+    tree = bridge.random_params(cfg, seed=0)
+    tmp = tempfile.mkdtemp()
+    try:
+        a = restart(cfg, mesh, tree, tmp)
+        checkpoint_times(a, tmp)
+        elastic(cfg, a)
+        del a
+        torch.cuda.empty_cache()
+        launcher(tmp)
+    finally:
+        shutil.rmtree(tmp)
+    replicated_train(cfg, mesh, tree)
+    replicated_serving(cfg, mesh)
 
 
 # ------------------------------------------------------- packet broadcast
@@ -1792,7 +2089,19 @@ def main() -> int:
                   **matmul_cases(small, 8, 1, torch.float32, train=False),
                   **matmul_cases(small, 1, 8, torch.float32, train=False),
                   **matmul_cases(small, 8, 64, torch.float32, train=True),
-                  **matmul_cases(small, 1, 512, torch.float32, train=True)}
+                  **matmul_cases(small, 1, 512, torch.float32, train=True),
+                  # phase 4c: the step on (data=4) after the elastic restore; the
+                  # replicated batch of 4 on 8 ranks: training (the launcher's
+                  # too), prefill, decode, and the reduced f32 step, 8 ranks and 1
+                  **matmul_cases(cfg, 4, TRAIN_SHAPE.global_batch // 4 * TRAIN_SHAPE.seq_len,
+                                 torch.bfloat16, train=True),
+                  **matmul_cases(cfg, 8, REPL_SHAPE.global_batch * REPL_SHAPE.seq_len,
+                                 torch.bfloat16, train=True),
+                  **matmul_cases(cfg, 8, REPL_SHAPE.global_batch * PROMPT, torch.bfloat16,
+                                 train=False, head_m=REPL_SHAPE.global_batch),
+                  **matmul_cases(cfg, 8, REPL_SHAPE.global_batch, torch.bfloat16, train=False),
+                  **matmul_cases(small, 8, 4 * 64, torch.float32, train=True),
+                  **matmul_cases(small, 1, 4 * 64, torch.float32, train=True)}
     t0 = time.perf_counter()
     mm_err = check_matmul(path_cases)
     print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, every "
@@ -1816,6 +2125,9 @@ def main() -> int:
     worst = check_train_reference()
     print(f"[reference] reduced f32 train step within limits; largest relative loss "
           f"difference {worst}", flush=True)
+    worst = check_train_reference(batch=REPL_SHAPE.global_batch)   # phase 4c (e)'s
+    print(f"[reference] reduced f32 replicated train step within limits; largest relative "
+          f"loss difference {worst}", flush=True)
 
     launches = {}
     torch.cuda.reset_peak_memory_stats()
@@ -1836,15 +2148,26 @@ def main() -> int:
     option_counts = _counts()
     print(f"[train-options] launches {json.dumps(option_counts)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()   # counts from here to the read are phase 4c's
+    checkpoint_phase(cfg)
+    ckpt_counts = _counts()
+    print(f"[ckpt] phase 4c: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{json.dumps(ckpt_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in MODEL_KERNELS:
-        launches[name] = serve_counts[name] + train_counts[name] + option_counts[name]
-        if train_counts[name] == 0 or option_counts[name] == 0:
+        launches[name] = (serve_counts[name] + train_counts[name] + option_counts[name]
+                          + ckpt_counts[name])
+        if train_counts[name] == 0 or option_counts[name] == 0 or ckpt_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
     if serve_counts["ring_allgather"] == 0 or serve_counts["matmul"] == 0:
         raise AssertionError(f"a kernel was not launched on the serving path: {serve_counts}")
-    if any(serve_counts[k] or train_counts[k] or option_counts[k] for k in OFF_PATH):
+    if any(serve_counts[k] or train_counts[k] or option_counts[k] or ckpt_counts[k]
+           for k in OFF_PATH):
         raise AssertionError(f"a serving or training product left the wgmma path: serving "
-                             f"{serve_counts}, training {train_counts}, {option_counts}")
+                             f"{serve_counts}, training {train_counts}, {option_counts}, "
+                             f"phase 4c {ckpt_counts}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     packet_counts, card = packet_path()   # zeroes the counts before driving the path

@@ -15,61 +15,19 @@ checkpoint.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from repro_torch.configs.base import MeshConfig, ModelConfig
 from repro_torch.device import device_of
 from repro_torch.launch.mesh import StackedMesh
+from repro_torch.sharding.fsdp import global_tensor, split_global
 from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, is_sharded, tree_map,
                                        tree_map_with_path)
 
 # norm scales stay float32 whatever the weights' dtype, as the reference
 # initialises them
 _F32_LEAVES = ("ln1", "ln2", "final_ln")
-
-
-def _dp_entry(entry, dp: tuple[str, ...]) -> list[str]:
-    axes = (entry,) if isinstance(entry, str) else (entry or ())
-    return [ax for ax in axes if ax in dp]
-
-
-def _rank_index(r: int, shape: tuple, spec, mesh: StackedMesh,
-                dp: tuple[str, ...]) -> tuple:
-    """The index of rank r's shard in a global array of ``shape``, ranks
-    row-major over ``dp``."""
-    sizes = [mesh.shape[ax] for ax in dp]
-    coord = dict(zip(dp, np.unravel_index(r, sizes)))
-    index = []
-    for dim, entry in enumerate(spec):
-        axes = _dp_entry(entry, dp)
-        if not axes:
-            index.append(slice(None))
-            continue
-        chunk = int(np.ravel_multi_index([coord[ax] for ax in axes],
-                                         [mesh.shape[ax] for ax in axes]))
-        size = shape[dim] // math.prod(mesh.shape[ax] for ax in axes)
-        index.append(slice(chunk * size, (chunk + 1) * size))
-    return tuple(index)
-
-
-def _split(a: np.ndarray, spec, mesh: StackedMesh, dp: tuple[str, ...]) -> np.ndarray:
-    """(*global) -> (R, *local): rank r's shard at index r."""
-    return np.stack([a[_rank_index(r, a.shape, spec, mesh, dp)]
-                     for r in range(mesh.n_ranks)])
-
-
-def _unsplit(a: np.ndarray, spec, mesh: StackedMesh, dp: tuple[str, ...]) -> np.ndarray:
-    """(R, *local) -> (*global), the inverse of ``_split``."""
-    shape = list(a.shape[1:])
-    for dim, entry in enumerate(spec):
-        shape[dim] *= math.prod(mesh.shape[ax] for ax in _dp_entry(entry, dp))
-    out = np.empty(shape, a.dtype)
-    for r in range(mesh.n_ranks):
-        out[_rank_index(r, tuple(shape), spec, mesh, dp)] = a[r]
-    return out
 
 
 def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
@@ -86,10 +44,9 @@ def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
         a = np.asarray(a)
         spec = () if mesh is None else _leaf_spec(path, a, mesh, dp)
         dt = torch.float32 if path[-1] in _F32_LEAVES else dtype
-        if is_sharded(spec, dp):
-            local = torch.from_numpy(_split(a, spec, mesh, dp))
-            return Stacked(local.to(device=dev, dtype=dt), spec)
         full = torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt)
+        if is_sharded(spec, dp):
+            return Stacked(split_global(full, spec, n), spec)
         return Stacked(full.expand(n, *full.shape), spec)
 
     return tree_map_with_path(leaf, tree)
@@ -102,11 +59,11 @@ def to_numpy(params, mesh: StackedMesh | None, mesh_cfg: MeshConfig) -> dict:
     dp = dp_axes(mesh_cfg)
 
     def leaf(s: Stacked) -> np.ndarray:
-        t = s.local.detach()
-        a = (t.float() if t.is_floating_point() else t).cpu().numpy()
         if mesh is None or not is_sharded(s.spec, dp):
-            return np.ascontiguousarray(a[0])
-        return _unsplit(a, s.spec, mesh, dp)
+            t = s.local.detach()[0]
+        else:
+            t = global_tensor(s)
+        return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
     return tree_map(leaf, params)
 

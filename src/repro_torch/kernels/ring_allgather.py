@@ -134,6 +134,18 @@ def _check(buf: torch.Tensor, step: int, direction: int, split: int | None,
     return _check_entry(p, n, step, direction, split, rounds, active_round)
 
 
+@functools.lru_cache(maxsize=None)
+def _moves(p: int, step: int, dr: int, rounds: int, active_round: int,
+           device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sender, slot, receiver) index tensors on ``device`` of the slots that
+    one ring step along ``dr`` moves: ``src = (d - dr * step) % P`` for every
+    rank d with ``src % rounds == active_round``; made once, so that a plain
+    step neither synchronises nor builds them again."""
+    snd = [d for d in range(p) if (d - dr * step) % p % rounds == active_round]
+    idx = (snd, [(d - dr * step) % p for d in snd], [(d + dr) % p for d in snd])
+    return tuple(torch.tensor(v, dtype=torch.long, device=device) for v in idx)
+
+
 def ring_step_plain(buf: torch.Tensor, step: int, *, direction: int = 1,
                     split: int | None = None, rounds: int = 1,
                     active_round: int = 0) -> torch.Tensor:
@@ -144,14 +156,10 @@ def ring_step_plain(buf: torch.Tensor, step: int, *, direction: int = 1,
     ``src % rounds == active_round`` move."""
     split = _check(buf, step, direction, split, rounds, active_round)
     p, n = buf.shape[-2], buf.shape[-1]
-    d = torch.arange(p, device=buf.device)
     for lo, hi, dr in ((0, split, direction), (split, n, -direction)):
         if hi == lo:
             continue
-        src = (d - dr * step) % p
-        keep = src % rounds == active_round
-        snd, src = d[keep], src[keep]
-        rcv = (snd + dr) % p
+        snd, src, rcv = _moves(p, step, dr, rounds, active_round, buf.device)
         buf[..., rcv, src, lo:hi] = buf[..., snd, src, lo:hi]
     return buf
 
@@ -166,14 +174,10 @@ def ring_step_transpose_plain(buf: torch.Tensor, step: int, *, direction: int = 
     order, and only the diagonal is read at the end."""
     split = _check(buf, step, direction, split, rounds, active_round)
     p, n = buf.shape[-2], buf.shape[-1]
-    d = torch.arange(p, device=buf.device)
     for lo, hi, dr in ((0, split, direction), (split, n, -direction)):
         if hi == lo:
             continue
-        src = (d - dr * step) % p
-        keep = src % rounds == active_round
-        snd, src = d[keep], src[keep]
-        rcv = (snd + dr) % p
+        snd, src, rcv = _moves(p, step, dr, rounds, active_round, buf.device)
         buf[..., snd, src, lo:hi] += buf[..., rcv, src, lo:hi]
     return buf
 

@@ -35,3 +35,20 @@ class StackedMesh:
     def __repr__(self) -> str:
         inner = ", ".join(f"{a}={s}" for a, s in self.shape.items())
         return f"StackedMesh({inner})"
+
+
+def make_local_mesh(*, multi_pod: bool = False) -> StackedMesh:
+    """Eight stacked dp ranks: ``(data=8)``, or ``(pod=2, data=4)`` for a
+    multi-pod run; ``model`` is 1."""
+    if multi_pod:
+        return StackedMesh(pod=2, data=4, model=1)
+    return StackedMesh(data=8, model=1)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> StackedMesh:
+    """The reference's production mesh, ``(data=16, model=16)`` or ``(pod=2,
+    data=16, model=16)``, stacked: 16 or 32 ranks on the one device;
+    ``model`` stays layout only."""
+    if multi_pod:
+        return StackedMesh(pod=2, data=16, model=16)
+    return StackedMesh(data=16, model=16)

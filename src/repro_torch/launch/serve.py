@@ -5,21 +5,22 @@ allgathers, then greedy decoding, on one GPU.
     python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
 
 Weights are drawn from ``TrainConfig.seed`` in the reference's init scales (no
-checkpoint is read). The ``DP`` data-parallel ranks are stacked on the one
-device.
+checkpoint is read). The local mesh's eight data-parallel ranks
+(``launch.mesh.make_local_mesh``) are stacked on the one device; a batch
+that does not split over them (the default, 4, as in the reference) is
+replicated on every rank.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-DP = 8   # stacked data-parallel ranks
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced width and depth, f32")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--fsdp-mode", default="mcast",
@@ -35,7 +36,7 @@ def main(argv: list[str] | None = None) -> None:
                                      get_model_config, reduced)
     from repro_torch.device import device_of
     from repro_torch.kernels import ring_allgather
-    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.layers import dtype_of
     from repro_torch.runtime.serve_loop import (greedy_generate, make_decode_step,
                                                 make_prefill_step)
@@ -44,7 +45,7 @@ def main(argv: list[str] | None = None) -> None:
     model = get_model_config(args.arch)
     if args.smoke:
         model = reduced(model)
-    mesh = StackedMesh(data=DP, model=1)
+    mesh = make_local_mesh()
     run = RunConfig(model=model,
                     shape=ShapeConfig("serve", "prefill", args.prompt_len, args.batch),
                     collective=CollectiveConfig(fsdp_mode=args.fsdp_mode))
@@ -66,7 +67,7 @@ def main(argv: list[str] | None = None) -> None:
     sync()
     dt = time.perf_counter() - t0
     total_new = args.batch * args.new_tokens
-    print(f"[serve] {model.name} on {device} ({args.fsdp_mode}, dp={DP}): "
+    print(f"[serve] {model.name} on {device} ({args.fsdp_mode}, dp={mesh.n_ranks}): "
           f"{args.batch} seqs, {args.prompt_len} prompt + {args.new_tokens} new tokens "
           f"in {dt:.2f}s ({total_new / dt:.1f} tok/s, prefill included); "
           f"{ring_allgather.allgather_launches - before} ring-allgather kernel launches",

@@ -1,28 +1,37 @@
 """Training launcher of the port: the FSDP train step through the paper's
-allgathers and their transposes, on one GPU.
+allgathers and their transposes, on one GPU, under the checkpoint/restart
+supervisor.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 10
     python -m repro_torch.launch.train --arch smollm-135m --smoke --device cpu
     python -m repro_torch.launch.train --arch smollm-135m --fsdp-mode mcast --prefetch \
         --remat dots
+    python -m repro_torch.launch.train --arch smollm-135m --mesh production --multi-pod \
+        --ckpt-dir ckpt --ckpt-every 50
 
 --prefetch gathers layer i + 1 during layer i (``CollectiveConfig.prefetch``;
 on the card on a side stream; the mcast modes only, as in the reference),
 and --remat picks what the backward recomputes: "full" (each layer's gather
 and block), "dots" (all of it but the products' outputs) or "none".
 
+--mesh picks the stacked dp ranks: "local" is ``(data=8, model=1)`` (with
+--multi-pod ``(pod=2, data=4, model=1)``), "production" the reference's
+``(data=16, model=16)`` (with --multi-pod ``(pod=2, data=16, model=16)``);
+``model`` is layout only. A global batch that does not split over the dp
+ranks is replicated on each.
+
 --smoke runs the reduced config of the arch (f32, two layers). Weights are
 drawn from ``TrainConfig.seed`` in the reference's init scales (no
-checkpoint is read); the data is the synthetic pipeline's. The ``DP``
-data-parallel ranks are stacked on the one device. Checkpointing and the
-restart supervisor of the reference's launcher are not ported yet.
+checkpoint is read at the start); the data is the synthetic pipeline's. The
+steps run under ``runtime.fault.TrainSupervisor``: an async checkpoint into
+--ckpt-dir every --ckpt-every steps, and a restart from the latest one on a
+failure.
 """
 from __future__ import annotations
 
 import argparse
-import time
-
-DP = 8   # stacked data-parallel ranks
+import os
+import tempfile
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -31,6 +40,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true", help="reduced config (f32)")
+    ap.add_argument("--mesh", default="local", choices=["local", "production"])
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--fsdp-mode", default="xla",
                     choices=["xla", "mcast", "mcast_ring", "mcast_bcast"])
     ap.add_argument("--grad-accum", type=int, default=1)
@@ -39,17 +50,20 @@ def main(argv: list[str] | None = None) -> None:
                     help="gather layer i + 1 during layer i (mcast modes)")
     ap.add_argument("--batch", type=int, default=0, help="override global batch")
     ap.add_argument("--seq", type=int, default=0, help="override seq len")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     from repro_torch import bridge
-    from repro_torch.configs import (CollectiveConfig, RunConfig, ShapeConfig, TrainConfig,
-                                     get_model_config, reduced)
+    from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
+                                     TrainConfig, get_model_config, reduced)
     from repro_torch.configs.base import SHAPES
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.device import device_of
-    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.runtime.fault import TrainSupervisor
     from repro_torch.runtime.train_loop import init_state, make_train_step
 
     device = device_of(args.device)
@@ -61,28 +75,30 @@ def main(argv: list[str] | None = None) -> None:
     elif args.batch or args.seq:
         shape = ShapeConfig(shape.name, shape.kind, args.seq or shape.seq_len,
                             args.batch or shape.global_batch)
-    run = RunConfig(model=model, shape=shape,
+    run = RunConfig(model=model, shape=shape, mesh=MeshConfig(multi_pod=args.multi_pod),
                     train=TrainConfig(steps=args.steps, grad_accum=args.grad_accum,
-                                      remat=args.remat),
+                                      remat=args.remat, checkpoint_dir=args.ckpt_dir,
+                                      checkpoint_every=args.ckpt_every),
                     collective=CollectiveConfig(fsdp_mode=args.fsdp_mode,
                                                 prefetch=args.prefetch))
-    mesh = StackedMesh(data=DP, model=1)
+    make_mesh = make_production_mesh if args.mesh == "production" else make_local_mesh
+    mesh = make_mesh(multi_pod=args.multi_pod)
 
     print(f"[train] {model.name} shape={shape.name} B={shape.global_batch} "
-          f"S={shape.seq_len} device={device} dp={DP} fsdp={args.fsdp_mode} "
+          f"S={shape.seq_len} device={device} mesh={mesh} fsdp={args.fsdp_mode} "
           f"remat={args.remat} prefetch={args.prefetch}", flush=True)
     _, _, step_fn = make_train_step(run, mesh, device=device)
     state = init_state(run, mesh, bridge.random_params(model, run.train.seed), device=device)
     pipe = SyntheticPipeline(model, shape, device=device)
-    for i in range(args.steps):
-        t0 = time.perf_counter()
-        state, m = step_fn(state, pipe.next_batch(i))
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])   # waits for the step
-        dt = time.perf_counter() - t0
-        if i % args.log_every == 0 or i == args.steps - 1:
-            print(f"step {i:5d} loss {loss:.4f} gnorm {gnorm:.3f} dt {dt * 1e3:.0f}ms",
+    sup = TrainSupervisor(step_fn=step_fn, pipeline=pipe, ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every)
+    state, history = sup.run(state, args.steps)
+    for h in history:
+        if h["step"] % args.log_every == 0 or h["step"] == args.steps - 1:
+            print(f"step {h['step']:5d} loss {h['loss']:.4f} "
+                  f"gnorm {h.get('grad_norm', 0):.3f} dt {h['dt'] * 1e3:.0f}ms",
                   flush=True)
-    print("[train] done", flush=True)
+    print(f"[train] done; stragglers flagged: {len(sup.monitor.events)}", flush=True)
 
 
 if __name__ == "__main__":

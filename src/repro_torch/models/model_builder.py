@@ -45,7 +45,10 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor, targets: torch.Tensor
     """Token-mean cross-entropy over the global batch without materialising
     full-sequence f32 logits. hidden (R, B/R, S, D); head (R, D, V), every
     rank's copy; targets (R, B/R, S), -1 = masked out. Every rank's NLL is
-    summed and divided by the global count of unmasked tokens."""
+    summed and divided by the count of unmasked tokens over every rank. With
+    a replicated batch (R, B, S) that is the mean over the R copies: each
+    copy's gradient is 1/R of the batch's, and the gathers' transposes sum
+    the R of them into the shards."""
     s = hidden.shape[2]
     tot = hidden.new_zeros((), dtype=torch.float32)
     cnt = hidden.new_zeros((), dtype=torch.float32)
@@ -80,7 +83,7 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
 
     def forward_fn(params, batch):
         x, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
-        return transformer.final_hidden(params, cfg, x).flatten(0, 1)
+        return transformer.from_ranks(transformer.final_hidden(params, cfg, x))
 
     def loss_fn(params, batch):
         x, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
@@ -93,7 +96,7 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
         x, cache = transformer.dense_forward(params, cfg, batch, want_cache=True,
                                              remat=remat)
         logits = transformer.lm_logits(params, cfg, x[:, :, -1:])[:, :, 0]
-        return logits.flatten(0, 1), cache
+        return transformer.from_ranks(logits), cache
 
     def decode_fn(params, cache, token, pos):
         return transformer.dense_decode_step(params, cfg, cache, token, pos)

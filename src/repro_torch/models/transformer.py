@@ -7,6 +7,12 @@ weights are gathered per layer into every rank's own copy, (R, *global), so
 rank r computes with its copy only. Attention and the KV caches fold the
 rank dim back into the global batch, rank-major, which is the reference's
 batch-over-dp layout.
+
+A global batch that does not split over the R ranks is replicated, as the
+reference's GSPMD replicates it (``ShardCtx.shard_batch`` False): every rank
+holds the whole batch (B rows) and computes it with its own copy of the
+weights. The outputs and the KV cache are then rank 0's, B rows once; in
+decode the R ranks share that cache.
 """
 from __future__ import annotations
 
@@ -36,12 +42,22 @@ def plain_gather(leaf: Stacked) -> torch.Tensor:
 
 
 def to_ranks(t: torch.Tensor, r: int) -> torch.Tensor:
-    """Global batch (B, ...) -> (R, B/R, ...): rank r's rows."""
+    """Global batch (B, ...) -> (R, B/R, ...): rank r's rows; where the
+    context replicates the batch, (R, B, ...): every rank the whole batch (a
+    view)."""
+    if not get_ctx().shard_batch:
+        return t.expand(r, *t.shape)
     if t.shape[0] % r:
         raise ValueError(
-            f"global batch {t.shape[0]} does not split over {r} dp ranks; the "
-            "stacked backend shards the batch over dp")
+            f"global batch {t.shape[0]} does not split over {r} dp ranks, yet the "
+            "context shards the batch over dp")
     return t.reshape(r, t.shape[0] // r, *t.shape[1:])
+
+
+def from_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``to_ranks``: (R, B/R, ...) -> (B, ...), rank-major; a
+    replicated batch's rank 0 copy, (B, ...) (every rank computes the same)."""
+    return t.flatten(0, 1) if get_ctx().shard_batch else t[0]
 
 
 def n_ranks(params: Params) -> int:
@@ -90,22 +106,30 @@ def apply_positions(x: torch.Tensor, positions, cfg: ModelConfig) -> torch.Tenso
     return layers.apply_rope(x, positions, cfg.rope_theta)
 
 
+def _decode_attention(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torch.Tensor:
+    """q (R, B, H, hd), pos (R, B) against the caches of the global batch
+    (``from_ranks`` rows). Returns (R, B, H, hd). With a replicated batch
+    every rank holds the same queries over one shared cache: rank 0's are
+    attended once and the result expanded over the ranks."""
+    kw = dict(window=cfg.attn_window, softcap=cfg.attn_logit_softcap)
+    if get_ctx().shard_batch:
+        o = attn.plain_decode_attention(q.flatten(0, 1), kc, vc, pos.flatten(), **kw)
+        return o.unflatten(0, q.shape[:2])
+    o = attn.plain_decode_attention(q[0], kc, vc, pos[0], **kw)
+    return o.expand(q.shape[0], *o.shape)
+
+
 def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kc, vc, pos):
-    """Decode path. x (R, B, D); kc/vc (R*B, KV, S, hd), updated in place;
-    pos (R, B). Returns x."""
-    r, b = x.shape[:2]
+    """Decode path. x (R, B, D); kc/vc (global batch, KV, S, hd), updated in
+    place; pos (R, B). Returns x."""
     h = layers.rms_norm(x[:, :, None], p["ln1"], cfg.norm_eps)   # (R,B,1,D)
     q, k, v = layers.qkv_split(p["attn"], h, cfg)
     q = apply_positions(q, pos[..., None], cfg)
     k = apply_positions(k, pos[..., None], cfg)
-    flat_pos = pos.flatten()
-    attn.cache_scatter_update(kc, k[:, :, 0].flatten(0, 1), flat_pos)
-    attn.cache_scatter_update(vc, v[:, :, 0].flatten(0, 1), flat_pos)
-    o = attn.plain_decode_attention(
-        q[:, :, 0].flatten(0, 1), kc, vc, flat_pos,
-        window=cfg.attn_window, softcap=cfg.attn_logit_softcap,
-    )
-    x = x + layers.out_proj(p["attn"], o.unflatten(0, (r, b))[:, :, None])[:, :, 0]
+    attn.cache_scatter_update(kc, from_ranks(k[:, :, 0]), from_ranks(pos))
+    attn.cache_scatter_update(vc, from_ranks(v[:, :, 0]), from_ranks(pos))
+    o = _decode_attention(q[:, :, 0], kc, vc, pos, cfg)
+    x = x + layers.out_proj(p["attn"], o[:, :, None])[:, :, 0]
     h2 = layers.rms_norm(x[:, :, None], p["ln2"], cfg.norm_eps)
     return x + layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))[:, :, 0]
 
@@ -244,16 +268,16 @@ def _scan_blocks_prefetch(params, cfg, x, positions, *, remat: str = "none"):
 
 
 def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
-    """batch: tokens (B, S). Returns (hidden (R, B/R, S, D), cache | None);
-    the cache is {"k", "v"} of (L, B, KV, S, hd)."""
+    """batch: tokens (B, S). Returns (hidden (R, B/R, S, D) or, replicated,
+    (R, B, S, D); cache | None); the cache is {"k", "v"} of (L, B, KV, S, hd)."""
     tokens = to_ranks(batch["tokens"], n_ranks(params))
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[2], device=x.device)[None, :]
     x, kvs = _scan_blocks(params, cfg, x, positions, want_kv=want_cache, remat=remat)
     cache = None
     if want_cache:
-        cache = {"k": torch.stack([k for k, _ in kvs]),
-                 "v": torch.stack([v for _, v in kvs])}
+        cache = {name: torch.stack([from_ranks(kv[j].unflatten(0, x.shape[:2])) for kv in kvs])
+                 for j, name in enumerate(("k", "v"))}
     return x, cache
 
 
@@ -266,7 +290,7 @@ def dense_decode_step(params, cfg: ModelConfig, cache, token, pos):
         bp = maybe_gather_params(layer_slice(params["blocks"], i))
         x = dense_block_decode(bp, x, cfg, cache["k"][i], cache["v"][i], pos_r)
     logits = lm_logits(params, cfg, x[:, :, None])[:, :, 0]
-    return logits.flatten(0, 1), cache
+    return from_ranks(logits), cache
 
 
 def dense_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):

@@ -78,6 +78,7 @@ def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
         leaves = tree_leaves(state.params)
         grads = torch.autograd.grad(loss, [s.local for s in leaves])
         it = iter(grads)
+        metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_map(lambda s: Stacked(next(it), s.spec),
                                                 state.params)
 

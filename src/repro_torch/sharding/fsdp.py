@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import CollectiveConfig, MeshConfig
 from repro_torch.core import collectives as C
-from repro_torch.launch.mesh import StackedMesh
+from repro_torch.launch.mesh import TP_AXIS, StackedMesh
 from repro_torch.sharding.specs import Spec, Stacked, dp_axes, is_sharded, tree_map
 
 
@@ -94,6 +94,49 @@ def at_use(params, n_ranks: int, dp: tuple[str, ...]):
         return Stacked(leaf.local.expand(n_ranks, *leaf.local.shape), leaf.spec)
 
     return tree_map(one, params)
+
+
+def _rank_dim(spec: Spec) -> int | None:
+    """The dim that a leaf of the trainable layout splits over the ranks (the
+    rules split one dim over every dp axis, or none), or None."""
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        if any(a != TP_AXIS for a in axes):
+            return dim
+    return None
+
+
+def global_shape(leaf: Stacked) -> tuple[int, ...]:
+    """The global shape of a leaf of the trainable layout (``trainable``)."""
+    d = _rank_dim(leaf.spec)
+    if d is None:
+        return tuple(leaf.local.shape)
+    shape = list(leaf.local.shape[1:])
+    shape[d] *= leaf.local.shape[0]
+    return tuple(shape)
+
+
+def global_tensor(leaf: Stacked) -> torch.Tensor:
+    """The global tensor of a leaf of the trainable layout: a split leaf's
+    shards (R, *local) joined along its split dim in rank order (a new
+    tensor); a replicated leaf its one tensor."""
+    t = leaf.local.detach()
+    d = _rank_dim(leaf.spec)
+    if d is None:
+        return t
+    moved = t.movedim(0, d)   # (*local[:d], R, local[d], ...)
+    return moved.reshape(*moved.shape[:d], -1, *moved.shape[d + 2:])
+
+
+def split_global(t: torch.Tensor, spec: Spec, n_ranks: int) -> torch.Tensor:
+    """The inverse of ``global_tensor``: a global tensor -> its leaf of the
+    trainable layout for ``spec`` over ``n_ranks`` ranks, rank r's chunk of
+    the split dim at index r (a new tensor where split)."""
+    d = _rank_dim(spec)
+    if d is None:
+        return t
+    chunked = t.reshape(*t.shape[:d], n_ranks, t.shape[d] // n_ranks, *t.shape[d + 1:])
+    return chunked.movedim(d, 0).clone(memory_format=torch.contiguous_format)
 
 
 def make_param_gather(mesh: StackedMesh, mesh_cfg: MeshConfig,

@@ -784,3 +784,62 @@ def test_prefetch_gathers_on_one_side_stream(monkeypatch, remat):
     assert torch.equal(out[True][0], out[False][0])
     for a, b in zip(out[True][1], out[False][1]):
         assert torch.equal(a, b)
+
+
+def _host_state(state) -> dict:
+    from repro_torch.checkpoint.ckpt import host_arrays
+    return {k: a.copy() for k, (a, _) in host_arrays(state).items()}
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_of_a_cuda_state_is_bitwise(tmp_path):
+    """A bf16 train state on the card (after a step, so that the moments are
+    not zero) saves and restores bitwise, onto the card, in its dtypes and
+    layout, and restores bitwise into another mesh."""
+    _need_cuda()
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import MeshConfig, replace
+    cfg = replace(reduced(get_model_config("smollm-135m")), param_dtype="bfloat16")
+    shape = ShapeConfig("t", "train", 32, 8)
+    mesh = StackedMesh(data=8, model=1)
+    run = RunConfig(model=cfg, shape=shape, collective=CollectiveConfig(fsdp_mode="mcast"))
+    _, _, step = make_train_step(run, mesh, device="cuda")
+    state = init_state(run, mesh, bridge.random_params(cfg, 3), device="cuda")
+    state, _ = step(state, SyntheticPipeline(cfg, shape, device="cuda").next_batch(0))
+    want = _host_state(state)
+    save(state, str(tmp_path), 1)
+    back, _ = restore(str(tmp_path), 1, state)
+    other, _ = restore(str(tmp_path), 1, state, mesh=StackedMesh(data=4, model=1),
+                       mesh_cfg=MeshConfig())
+    for got in (back, other):
+        assert got.params["blocks"]["attn"]["wq"].local.is_cuda
+        assert got.params["blocks"]["attn"]["wq"].local.dtype == torch.bfloat16
+        assert got.params["final_ln"].local.dtype == torch.float32
+        for key, a in _host_state(got).items():
+            np.testing.assert_array_equal(a, want[key], err_msg=key)
+    assert back.params["embed"].local.shape == state.params["embed"].local.shape
+
+
+@pytest.mark.gpu
+def test_async_save_does_not_race_the_next_step(tmp_path):
+    """An async save of a card state, then at once a train step that updates
+    the state in place: the checkpoint holds the values from before it."""
+    _need_cuda()
+    from repro_torch.checkpoint import restore, save
+    cfg = reduced(get_model_config("smollm-135m"))
+    shape = ShapeConfig("t", "train", 64, 8)
+    mesh = StackedMesh(data=8, model=1)
+    run = RunConfig(model=cfg, shape=shape, collective=CollectiveConfig(fsdp_mode="mcast"))
+    _, _, step = make_train_step(run, mesh, device="cuda")
+    pipe = SyntheticPipeline(cfg, shape, device="cuda")
+    state = init_state(run, mesh, bridge.random_params(cfg, 4), device="cuda")
+    state, _ = step(state, pipe.next_batch(0))
+    want = _host_state(state)
+    fut = save(state, str(tmp_path), 1, blocking=False)
+    for i in range(1, 4):
+        state, _ = step(state, pipe.next_batch(i))
+    fut.result()
+    assert not np.array_equal(_host_state(state)["params/embed"], want["params/embed"])
+    back, _ = restore(str(tmp_path), 1, state)
+    for key, a in _host_state(back).items():
+        np.testing.assert_array_equal(a, want[key], err_msg=key)

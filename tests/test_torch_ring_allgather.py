@@ -18,7 +18,7 @@ from repro_torch.models import build_model
 from repro_torch.models.transformer import layer_slice
 from repro_torch.runtime.serve_loop import make_prefill_step
 from repro_torch.sharding.ctx import use_ctx
-from repro_torch.sharding.fsdp import gather_leaf, make_param_gather
+from repro_torch.sharding.fsdp import gather_leaf, make_param_gather, split_global
 from test_torch_support import SMALL, flatten, random_tree, run_reference, serve_run
 
 P8 = 8
@@ -507,15 +507,14 @@ def test_hierarchical_gather_backward_sums_over_ranks(mode):
     mesh = StackedMesh(pod=2, data=4, model=1)
     spec = ((("pod", "data")), None)
     a = torch.randn(16, 6)
-    local = bridge._split(a.numpy(), spec, mesh, ("pod", "data"))
-    x = torch.from_numpy(local).requires_grad_()
+    x = split_global(a, spec, mesh.n_ranks).requires_grad_()
     g = torch.randn(8, 16, 6)
     y = gather_leaf(x, spec, mesh, ("pod", "data"), mode, 2)
     for r in range(8):
         assert torch.equal(y[r].detach(), a)
     (got,) = torch.autograd.grad(y, x, g)
-    want = bridge._split(g.sum(0).numpy(), spec, mesh, ("pod", "data"))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    want = split_global(g.sum(0), spec, mesh.n_ranks)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # -------------------------------------- the gather's transpose in one call

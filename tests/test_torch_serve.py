@@ -18,7 +18,10 @@ from repro_torch.launch.mesh import StackedMesh
 from repro_torch.runtime.serve_loop import (ServeState, greedy_generate, make_decode_step,
                                             make_prefill_step)
 from repro_torch.sharding.ctx import use_ctx
-from test_torch_support import SMALL, flatten, random_tree, run_reference, serve_run
+from test_torch_support import (SMALL, flatten, one_torch_thread,  # noqa: F401
+                                random_tree, run_reference, serve_run)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MODES = ["xla", "mcast", "mcast_ring", "mcast_bcast"]
 B, S, NEW = 8, 32, 9   # NEW - 1 = 8 decode steps after the prefill

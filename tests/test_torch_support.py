@@ -69,11 +69,15 @@ OUT = {}
 
 
 def run_reference(body: str, inputs: dict, n_devices: int = 8,
-                  timeout: int = 300) -> dict:
+                  timeout: int = 900) -> dict:
     """Run ``body`` in a subprocess with ``n_devices`` fake CPU devices; it
-    reads numpy arrays from ``IN`` and stores results in ``OUT``."""
+    reads numpy arrays from ``IN`` and stores results in ``OUT``. XLA runs
+    single-threaded there: the references are small and compile-bound, and
+    with several test workers each running one, thread pools per process
+    would oversubscribe the cores."""
     env = dict(os.environ)
-    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n_devices}"
+    env["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count={n_devices} "
+                        "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     with tempfile.TemporaryDirectory() as tmp:
@@ -117,6 +121,17 @@ def serve_run(cfg, mode: str, batch: int, seq: int, kind: str = "prefill",
 
 
 SMALL = reduced(get_model_config("smollm-135m"))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests: their tensors are small,
+    and several test workers, each with a thread per core, oversubscribe
+    the cores (``pytest.mark.usefixtures`` at a module's top)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 # ------------------------------------------------------------------- bridge
@@ -205,10 +220,11 @@ def test_specs_match_reference(axes, multi_pod):
 
 def test_port_imports_neither_jax_nor_repro():
     """Importing repro_torch and running a CPU prefill, decode and train
-    step, a lossy packet broadcast, and the collective layer's entry points
+    step, a lossy packet broadcast, the collective layer's entry points
     (the allgather-matmul through ``kernels.ops``, the drain, a bucket
-    broadcast and concurrent AG/RS) loads no jax and no module of the JAX
-    package."""
+    broadcast and concurrent AG/RS), and a supervised run at a replicated
+    batch with a failure, its checkpoints and an elastic restore, loads no
+    jax and no module of the JAX package."""
     code = (
         "import sys, numpy as np, torch\n"
         "from repro_torch import bridge\n"
@@ -253,7 +269,29 @@ def test_port_imports_neither_jax_nor_repro():
         "assert torch.equal(C.make_broadcast(mesh, 'data', root=3)(rows)[0], rows[3])\n"
         "ag, rs = C.concurrent_ag_rs_local(x.reshape(8, -1), torch.randn(8, 16))\n"
         "assert ag.shape == (8, 512) and rs.shape == (8, 2)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "import tempfile\n"
+        "from repro_torch.checkpoint import latest_step, restore, save\n"
+        "from repro_torch.runtime.elastic import reshard_state, scale_plan\n"
+        "from repro_torch.runtime.fault import FailureInjector, TrainSupervisor\n"
+        "from repro_torch.launch.mesh import make_local_mesh, make_production_mesh\n"
+        "d = tempfile.mkdtemp()\n"
+        "run = RunConfig(model=cfg, shape=ShapeConfig('t', 'train', 16, 4),\n"
+        "                collective=CollectiveConfig(fsdp_mode='mcast'))\n"
+        "_, ctx, step = make_train_step(run, mesh, device='cpu')\n"
+        "assert not ctx.shard_batch\n"
+        "sup = TrainSupervisor(step_fn=step, ckpt_dir=d, ckpt_every=1,\n"
+        "    pipeline=SyntheticPipeline(cfg, run.shape, device='cpu'),\n"
+        "    injector=FailureInjector(fail_at_steps=(1,)))\n"
+        "state, hist = sup.run(init_state(run, mesh, bridge.random_params(cfg, 0),\n"
+        "                                 device='cpu'), 2)\n"
+        "assert [h['step'] for h in hist] == [0, 1] and latest_step(d) == 2\n"
+        "back, _ = restore(d, 2, state, mesh=StackedMesh(data=4, model=2),\n"
+        "                  mesh_cfg=MeshConfig())\n"
+        "moved = reshard_state(state, run, StackedMesh(data=2, model=4))\n"
+        "assert scale_plan(2, 4, 8)['new_per_replica'] == 2\n"
+        "assert make_production_mesh(multi_pod=True).n_ranks == 32\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ)

@@ -34,7 +34,10 @@ from repro_torch.runtime.train_loop import init_state, make_train_step
 from repro_torch.sharding.ctx import use_ctx
 from repro_torch.sharding.fsdp import at_use, trainable
 from repro_torch.sharding.specs import Stacked, tree_leaves
-from test_torch_support import SMALL, flatten, random_tree, run_reference
+from test_torch_support import (SMALL, flatten, one_torch_thread,  # noqa: F401
+                                random_tree, run_reference)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MODES = ["xla", "mcast", "mcast_ring", "mcast_bcast"]
 SHAPE = ShapeConfig("t", "train", 64, 4)

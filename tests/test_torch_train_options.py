@@ -27,9 +27,12 @@ from repro_torch.runtime.train_loop import init_state, make_train_step
 from repro_torch.sharding.ctx import use_ctx
 from repro_torch.sharding.fsdp import at_use
 from repro_torch.sharding.specs import tree_leaves
-from test_torch_support import SMALL, flatten, random_tree, run_reference
+from test_torch_support import (SMALL, flatten, one_torch_thread,  # noqa: F401
+                                random_tree, run_reference)
 from test_torch_train import (MODES, _run, _train, assert_matches_reference,
                               reference_body)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (key in the reference's output, prefetch, remat)
 VARIANTS = [("prefetch_full/", True, "full"), ("dots/", False, "dots"),
