@@ -115,6 +115,18 @@
    (``protocol.reassemble``, on chunk reassembly) into a zeroed buffer,
    which must equal the root's, its bitmap packed and counted to 16384
    chunks;
+5b. the packet-level M-chain Allgather (core/sched_ir._packet_allgather)
+   with the leaves' merged multi-chain receive path on the card: AG-A, 128
+   hosts x 16 MiB x 4 chains, lossless, no jitter, 8 workers (the
+   reference's ag_dense point); AG-B, 188 hosts (the paper's testbed) x 4
+   MiB x 4 chains, 1e-3 Bernoulli loss per leaf, 1 us jitter, 8 workers,
+   aggregated NACKs; seed 0. Each must equal the same call's CPU run field
+   for field, and the pool scan, pack, OR and popcount launches (counts
+   zeroed before) must equal what the runs' generations and round traces
+   imply: a pool pass per generation and per recovery round, one pack, OR
+   and popcount per round. Wall ms on the card and the CPU, device busy
+   ms, idle share and device ms per kernel; the kernels at the largest
+   shapes of their calls;
 6. the collective layer's remaining entry points, each driven once with the
    launch counts zeroed before and read after: (a) the double-buffered
    drain (csrc/double_buffer_drain.cu) equal to its plain version on every
@@ -128,7 +140,10 @@
    the same kernel, within the matmul's limits of the plain product; the
    same calls with ``use_pallas=False``, the reference's ``jnp.dot``
    branch: the ring schedule, seven ring steps and plain products a call,
-   within the same limits; its
+   within the same limits; its backward at 128 rows a rank and the four
+   projections (forward and backward: an allgather-matmul launch, three
+   matmul launches and one transpose launch a call, within the matmul's
+   limits of the plain backward); its
    times beside the ring schedule's on one stream (the ring steps and
    2P - 1 products), the plain and library times and the bound, and the
    device's busy time and idle share; (c)
@@ -138,7 +153,8 @@
    halves bitwise equal to the separate calls, on two streams and on one:
    one ring-allgather launch of the whole ring schedule on the side stream
    and one launch of its transpose on the current one, no ring step (counts
-   zeroed before, read after); the ring steps of (b)'s ``use_pallas=False``
+   zeroed before, read after), and the same pair for its backward, both
+   gradients bitwise the separate calls' backwards; the ring steps of (b)'s ``use_pallas=False``
    calls are the kernels line's launches of the ring step: the serving and
    training paths launch none.
 
@@ -1793,6 +1809,157 @@ def time_rx_kernels(card: dict[str, PK.PacketBcastResult]) -> dict[str, dict]:
     return out
 
 
+# ------------------------------------------------------- packet allgather
+
+# name: (hosts, bytes, WorkerParams, loss per leaf, jitter, seed); 4 chains,
+# aggregated NACKs. AG-A is the reference's ag_dense point
+# (benchmarks/paper_figs.py:381); AG-B the paper's 188-host testbed
+AGS = {"AG-A": (128, 16 << 20, dict(n_recv_workers=8), None, 0.0, 0),
+       "AG-B": (188, 4 << 20, dict(n_recv_workers=8), 1e-3, 1e-6, 0)}
+AG_CHAINS = 4
+AG_SAMPLES = 3
+AG_KERNELS = ("pool", "bitmap_pack", "bitmap_or_rows", "bitmap_popcount")
+
+
+def _ag(name: str, device: str) -> PK.PacketAllgatherResult:
+    p, n_bytes, wk, loss, jitter, seed = AGS[name]
+    return PK.simulate_packet_allgather(p, n_bytes, E.FabricParams(jitter=jitter),
+                                        E.WorkerParams(**wk), np.random.default_rng(seed),
+                                        AG_CHAINS, loss=loss, device=device)
+
+
+def _assert_same_ag(a: PK.PacketAllgatherResult, b: PK.PacketAllgatherResult,
+                    what: str) -> None:
+    """Every field of two Allgather results, exactly."""
+    for f in dataclasses.fields(a):
+        if getattr(a, f.name) != getattr(b, f.name):
+            raise AssertionError(f"{what}: {f.name} {getattr(a, f.name)} != "
+                                 f"{getattr(b, f.name)}")
+
+
+def _ag_rounds(res: PK.PacketAllgatherResult) -> int:
+    """The recovery rounds of a run: a round adds one RoundTrace for each of
+    its live chains, all with the round's shared end time, and a later
+    round (or generation) ends later, so a round is a run of traces with
+    one ``t_end``."""
+    ends = [r.t_end for r in res.rounds]
+    return sum(1 for i, t in enumerate(ends) if i == 0 or t != ends[i - 1])
+
+
+def ag_launches_implied(name: str, res: PK.PacketAllgatherResult) -> dict[str, int]:
+    """The launches a run makes by its generations and round traces: one
+    pool pass for each generation's fast path, and for each recovery round
+    a pool pass and one pack, OR and popcount of every live chain's NACK
+    union (one block of pool rows each at these sizes, which is checked)."""
+    p, n_bytes = AGS[name][:2]
+    n = n_bytes // E.FabricParams().mtu
+    if p * AG_CHAINS * n > PK._BLOCK_ELEMS:
+        raise AssertionError(f"{name}: the fast path's pool rows take more than one block")
+    gens, rounds = -(-p // AG_CHAINS), _ag_rounds(res)
+    return {"pool": gens + rounds, "bitmap_pack": rounds, "bitmap_or_rows": rounds,
+            "bitmap_popcount": rounds}
+
+
+def allgather_path() -> tuple[dict[str, int], dict]:
+    """Phase 5b: the packet Allgather, AG-A and AG-B, on the card against
+    the same call's CPU run, field for field; the launches of the card
+    runs (counts zeroed before, read after) equal to what their
+    generations and round traces imply, and nothing else launched. Then
+    both on the card and on the CPU: wall ms (AG_SAMPLES synchronised
+    calls after the first), the card's device busy ms, idle share and
+    device ms per kernel from one profiled call, and the launches per
+    call. Returns the path's launches and the shapes the pool, pack and
+    OR were called at (``time_rx_shapes``' format)."""
+    cpu, cpu_wall = {}, {}
+    for name in AGS:
+        cpu[name] = _ag(name, "cpu")
+        cpu_wall[name] = _wall(lambda name=name: _ag(name, "cpu"), AG_SAMPLES)
+    shapes: dict[str, list] = {"pool": [], "bitmap_pack": [], "bitmap_or_rows": []}
+    pool_rows, pack, or_rows = PL.pool_completion_rows, BM.bitmap_pack, BM.bitmap_or_rows
+
+    def record_pool(a, w, service, staging):
+        shapes["pool"].append((tuple(a.shape), w, staging))
+        return pool_rows(a, w, service, staging)
+
+    def record_pack(flags):
+        shapes["bitmap_pack"].append(tuple(flags.shape))
+        return pack(flags)
+
+    def record_or(words):
+        shapes["bitmap_or_rows"].append(tuple(words.shape))
+        return or_rows(words)
+
+    PL.pool_completion_rows, BM.bitmap_pack, BM.bitmap_or_rows = (record_pool, record_pack,
+                                                                  record_or)
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()   # counts from here to the read are the Allgather's path
+        card = {name: _ag(name, "cuda") for name in AGS}
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        PL.pool_completion_rows, BM.bitmap_pack, BM.bitmap_or_rows = pool_rows, pack, or_rows
+    want = dict.fromkeys(counts, 0)
+    for name, res in card.items():
+        for k, v in ag_launches_implied(name, res).items():
+            want[k] += v
+    if counts != want:
+        raise AssertionError(f"the Allgather launched {counts}; its generations and round "
+                             f"traces imply {want}")
+    if card["AG-B"].rounds == [] or card["AG-A"].rounds:
+        raise AssertionError("AG-B must recover chunks and the lossless AG-A none")
+    for name in AGS:
+        _assert_same_ag(card[name], cpu[name], f"allgather {name}, card vs CPU")
+    print(f"[allgather] AG-A and AG-B on the card equal their CPU runs field for field; "
+          f"launches {json.dumps({k: counts[k] for k in AG_KERNELS})} as their traces imply",
+          flush=True)
+    for name in AGS:
+        def call(name=name):
+            return _ag(name, "cuda")
+
+        _, _, per_call = _run(call)
+        wall = _wall(call, AG_SAMPLES)
+        dev, prof_ms = _device_times(call)
+        busy = sum(dev.values())
+        res = card[name]
+        p, n_bytes, wk, loss, jitter, seed = AGS[name]
+        row = {"allgather": name, "hosts": p, "bytes": n_bytes, "chains": AG_CHAINS,
+               "workers": wk, "loss": loss, "jitter": jitter, "seed": seed,
+               "generations": -(-p // AG_CHAINS), "recovery_rounds": _ag_rounds(res),
+               "round_traces": len(res.rounds), "time_s": res.time,
+               "phases": dataclasses.asdict(res.phases), "recovered": res.recovered,
+               "rnr_drops": res.rnr_drops, "completed": res.completed,
+               "per_rank_recv_tput": res.per_rank_recv_tput,
+               "wall_ms_median": statistics.median(wall) * 1e3,
+               "wall_ms_samples": [t * 1e3 for t in wall],
+               "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
+               "device_idle_share": 1 - busy / prof_ms,
+               "launches_per_call": {k: per_call[k] for k in AG_KERNELS},
+               "kernel_device_ms": {k: sum(t for key, t in dev.items() if k in key)
+                                    for k in ("pool_rows_kernel", "pack_kernel",
+                                              "or_rows_kernel", "popcount_row")},
+               "cpu_wall_ms_median": statistics.median(cpu_wall[name]) * 1e3,
+               "cpu_wall_ms_samples": [t * 1e3 for t in cpu_wall[name]]}
+        print("[allgather] " + json.dumps(row), flush=True)
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[allgather] {name}, top device time (ms): "
+              + json.dumps({k[:60]: t for k, t in top}), flush=True)
+    return {k: counts[k] for k in AG_KERNELS}, shapes
+
+
+def _largest(calls: dict[str, list], keep: dict[str, int]) -> dict[str, list]:
+    """The calls of each kernel at its ``keep[name]`` distinct shapes of the
+    most elements, every such call kept (``time_rx_shapes`` counts them)."""
+    out = {}
+    for name, k in keep.items():
+        def size(c):
+            shape = c[0] if name == "pool" else c
+            return int(np.prod(shape))
+        top = sorted(set(calls[name]), key=size, reverse=True)[:k]
+        out[name] = [c for c in calls[name] if c in top]
+    return out
+
+
 # ------------------------------------------------------- the collective layer
 
 AGMM_ROWS = (BATCH * PROMPT // 8, TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len // 8)
@@ -1998,12 +2165,68 @@ def time_layer(path: dict) -> dict[str, dict]:
     return {"allgather_matmul": tot, "double_buffer_drain": drain}
 
 
+def agmm_backward() -> tuple[dict[str, int], float]:
+    """Phase 6b': the backward of ``make_allgather_matmul`` at smollm-135m's
+    four projections, bf16, 128 rows a rank, on the (data=8, model=1) mesh,
+    launch counts zeroed before the forward and backward and read after:
+    each call one allgather-matmul launch forward, and backward one matmul
+    for dx's products g_d w^T, one launch of the gather's transpose of
+    them, and one matmul for dw's products X^T g_d, every product on the
+    wgmma path. dx and dw within the matmul's limits (1e-2 x max|plain|)
+    of the plain backward (the same formula on ``matmul_plain`` and the
+    transpose's plain version). Returns the launches and the max abs
+    error."""
+    mesh = StackedMesh(data=8, model=1)
+    agmm = M.make_allgather_matmul(mesh, "data", **AGMM_TILES)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m, p = AGMM_ROWS[0], 8
+    cases = {(k, n): (torch.randn((p, m, k), generator=gen, device="cuda").bfloat16(),
+                      (torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5).bfloat16(),
+                      torch.randn((p, p * m, n), generator=gen, device="cuda").bfloat16())
+             for k, n in AGMM_WIDTHS}
+
+    def grads(x, w, g):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        return torch.autograd.grad(agmm(xr, wr), (xr, wr), g)
+
+    torch.cuda.synchronize()
+    _zero_counts()   # counts from here to the read are the backward's path
+    got = {key: grads(*case) for key, case in cases.items()}
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**dict.fromkeys(counts, 0), "allgather_matmul": len(cases),
+            "matmul": 3 * len(cases), "ring_allgather_transpose": len(cases),
+            "transpose_entries_ring": (p - 1) * len(cases)}
+    if counts != want:
+        raise AssertionError(f"the allgather-matmul backward launched {counts}, expected {want}")
+    worst, row = 0.0, {}
+    for (k, n), (x, w, g) in cases.items():
+        contrib = M.matmul_plain(g, w.t().expand(p, n, k))
+        dx = K.ring_allgather_transpose_plain(contrib.view(p, p, m * k),
+                                              C._ring_schedule(p)).view(p, m, k)
+        rows = x.reshape(1, p * m, k).transpose(1, 2).expand(p, k, p * m)
+        dw = M.matmul_plain(rows, g).sum(0)
+        for name, a, b in (("dx", got[k, n][0], dx), ("dw", got[k, n][1], dw)):
+            err = (a.float() - b.float()).abs().max().item()
+            if not err <= 1e-2 * b.float().abs().max().item():
+                raise AssertionError(f"allgather_matmul backward {name} at {(k, n)}: max err "
+                                     f"{err}")
+            worst = max(worst, err)
+        row[f"{k}x{n}_fwd_bwd_ms"] = _time(lambda: grads(x, w, g))
+        row[f"{k}x{n}_fwd_bwd_device_ms"] = _device_ms(lambda: grads(x, w, g))
+    print(f"[layer] allgather-matmul backward at {len(cases)} projections within limits of "
+          f"plain (max abs err {worst}); launches {json.dumps(counts)}; " + json.dumps(row),
+          flush=True)
+    return counts, worst
+
+
 def bucket_collectives(cfg) -> dict[str, int]:
     """Phases 6c and 6d: the pipelined broadcast and concurrent AG/RS on
     the flat f32 bucket of layer 0 of the seeded smollm-135m weights.
-    Returns the launches of one concurrent AG/RS call (counts zeroed
-    before, read after): one ring-allgather launch of the ring schedule
-    and one launch of its transpose, each running seven entries."""
+    Returns the launches of one concurrent AG/RS call and of its backward
+    (counts zeroed before each, read after): one ring-allgather launch of
+    the ring schedule and one launch of its transpose, each running seven
+    entries, each time."""
     def layer0(tree):
         if isinstance(tree, dict):
             return {k: layer0(v) for k, v in tree.items()}
@@ -2037,6 +2260,8 @@ def bucket_collectives(cfg) -> dict[str, int]:
     if not (torch.equal(got[0], C.ring_allgather_local(ag))
             and torch.equal(got[1], C.ring_reduce_scatter_local(rs, direction=-1))):
         raise AssertionError("concurrent AG/RS differs from the separate calls")
+    bwd = concurrent_backward(ag, rs)
+    counts = {k: counts[k] + bwd[k] for k in counts}
     row["concurrent_ag_rs_two_streams_wall_ms_median"] = statistics.median(
         _wall(lambda: C.concurrent_ag_rs_local(ag, rs))) * 1e3
     row["concurrent_ag_rs_one_stream_wall_ms_median"] = statistics.median(
@@ -2047,6 +2272,58 @@ def bucket_collectives(cfg) -> dict[str, int]:
         lambda: C._concurrent_ag_rs(ag, rs, overlap=False))
     print("[bucket] broadcast and concurrent AG/RS bitwise as required: " + json.dumps(row),
           flush=True)
+    return counts
+
+
+def concurrent_backward(ag: torch.Tensor, rs: torch.Tensor) -> dict[str, int]:
+    """Phase 6d': the backward of ``concurrent_ag_rs_local`` on the bucket's
+    shards (counts zeroed before it, read after): one ring-allgather launch
+    (the reduce-scatter's cotangent) on the side stream and one transpose
+    launch (the gather's) on the current one, seven entries each; both
+    gradients bitwise the backwards of the separate ``ring_allgather_local``
+    and ``ring_reduce_scatter_local(direction=-1)``. The profiler's records
+    of the backward's body name the two kernels' streams, which must
+    differ. Returns the backward's launches."""
+    agr, rsr = ag.clone().requires_grad_(), rs.clone().requires_grad_()
+    outs = C.concurrent_ag_rs_local(agr, rsr)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    cot = tuple(torch.randn(o.shape, generator=gen, device="cuda") for o in outs)
+
+    def backward():
+        return torch.autograd.grad(outs, (agr, rsr), cot, retain_graph=True)
+
+    torch.cuda.synchronize()
+    _zero_counts()   # counts from here to the read are the backward's
+    got = backward()
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**dict.fromkeys(counts, 0), "ring_allgather": 1, "entries_ring": 7,
+            "ring_allgather_transpose": 1, "transpose_entries_ring": 7}
+    if counts != want:
+        raise AssertionError(f"the concurrent AG/RS backward launched {counts}, expected {want}")
+    a1, r1 = ag.clone().requires_grad_(), rs.clone().requires_grad_()
+    d_ag = torch.autograd.grad(C.ring_allgather_local(a1), a1, cot[0])[0]
+    d_rs = torch.autograd.grad(C.ring_reduce_scatter_local(r1, direction=-1), r1, cot[1])[0]
+    if not (torch.equal(got[0], d_ag) and torch.equal(got[1], d_rs)):
+        raise AssertionError("the concurrent AG/RS backward differs from the separate ones")
+    # the Function's backward body (the forward's pair on the swapped
+    # cotangents), called on this thread: the autograd engine runs a CUDA
+    # backward on a thread of its own, which the profiler did not record
+    _, _, records = _profiled(lambda: C._concurrent_ag_rs(cot[1], cot[0], overlap=True))
+    streams = {name: sorted({st for key, st, _, _ in records if name in key})
+               for name in ("ring_allgather_kernel", "ring_allgather_transpose_kernel")}
+    if all(streams.values()):
+        if set(streams["ring_allgather_kernel"]) & set(streams["ring_allgather_transpose_kernel"]):
+            raise AssertionError(f"the concurrent AG/RS backward ran on one stream: {streams}")
+        where = f"on streams {json.dumps(streams)}"
+    else:
+        where = "streams not measured (the profiler returned no records of the two kernels)"
+    row = {"two_streams_device_ms": _device_ms(backward),
+           "one_stream_device_ms": _device_ms(
+               lambda: C._concurrent_ag_rs(cot[1], cot[0], overlap=False)),
+           "two_streams_wall_ms_median": statistics.median(_wall(backward)) * 1e3}
+    print(f"[bucket] concurrent AG/RS backward bitwise the separate backwards, {where}; "
+          + json.dumps(row), flush=True)
     return counts
 
 
@@ -2175,10 +2452,19 @@ def main() -> int:
           f"launches {json.dumps(packet_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches.update({name: packet_counts[name] for name in PACKET_KERNELS})
     t0 = time.perf_counter()
+    ag_counts, ag_shapes = allgather_path()   # zeroes the counts before driving the path
+    print(f"[allgather] launches {json.dumps(ag_counts)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    for name in AG_KERNELS:
+        launches[name] += ag_counts[name]
+    t0 = time.perf_counter()
     drain_cases, drain_err = check_drain()
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)
     layer_counts, layer = layer_path()   # zeroes the counts before driving the path
     launches.update({name: layer_counts[name] for name in LAYER_KERNELS})
+    bwd_counts, bwd_err = agmm_backward()   # zeroes the counts before driving the path
+    for name in ("allgather_matmul", "matmul", "ring_allgather_transpose"):
+        launches[name] += bwd_counts[name]
     bucket_counts = bucket_collectives(cfg)
     launches["ring_step"] = layer_counts["ring_step"]
     launches["ring_allgather"] += bucket_counts["ring_allgather"]
@@ -2191,6 +2477,11 @@ def main() -> int:
     print(f"[matmul] one train step's {mm['launches']} launches (mcast counted "
           f"{per_step['matmul']}): {json.dumps(mm)}", flush=True)
     rx_t = time_rx_kernels(card)
+    t0 = time.perf_counter()
+    time_rx_shapes(_largest(ag_shapes, {"pool": 3, "bitmap_pack": 1, "bitmap_or_rows": 1}),
+                   E.FabricParams().mtu / E.WorkerParams().thread_tput)
+    print(f"[allgather] kernels timed at the largest shapes of its calls "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     layer_t = time_layer(layer)
     print(f"[layer] timed ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2212,6 +2503,7 @@ def main() -> int:
                 "bound_by": "bytes", "library_ms": rx_t[name]["library_ms"]}
                for name in PACKET_KERNELS]
     agmm_t, drain_t = layer_t["allgather_matmul"], layer_t["double_buffer_drain"]
+    agmm_t["max_abs_err"] = max(agmm_t["max_abs_err"], bwd_err)   # forward and backward
     layer_rows = [
         {"name": "allgather_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul.cu",

@@ -85,6 +85,21 @@ class _RingGather(torch.autograd.Function):
         return _transposed(g, ctx.schedule), None
 
 
+class _RingReduceScatter(torch.autograd.Function):
+    """The transpose of a gather as a function of its input: its backward
+    is the gather itself, one ``ring_allgather`` launch of the schedule."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, schedule: Schedule) -> torch.Tensor:
+        ctx.schedule = schedule
+        return _transposed(x, schedule)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        return _flat(ring_allgather(g.contiguous(), ctx.schedule)), None
+
+
 def _ring_schedule(p: int, direction: int = +1) -> Schedule:
     return tuple((s, direction, None, 1, 0) for s in range(p - 1))
 
@@ -123,15 +138,16 @@ def ring_reduce_scatter_local(x: torch.Tensor, *, direction: int = +1) -> torch.
     returns (..., P, n), rank d holding the sum over ranks of shard d. The
     partial sums travel along ``direction``, so this is the transpose of the
     ring allgather along ``-direction``; the sum of shard d starts at rank
-    d + direction and ends at d, as in the reference."""
-    return _transposed(x, _ring_schedule(x.shape[-2], -direction))
+    d + direction and ends at d, as in the reference. Its backward is the
+    ring allgather along ``-direction``."""
+    return _RingReduceScatter.apply(x, _ring_schedule(x.shape[-2], -direction))
 
 
 def bidi_ring_reduce_scatter_local(x: torch.Tensor) -> torch.Tensor:
     """Both directions carry half of each shard: the first half reduces
     along +1, the rest along -1, both in the same launch."""
     p = x.shape[-2]
-    return _transposed(x, _bidi_schedule(p, x.shape[-1] // p, direction=-1))
+    return _RingReduceScatter.apply(x, _bidi_schedule(p, x.shape[-1] // p, direction=-1))
 
 
 def plain_allgather_local(x: torch.Tensor) -> torch.Tensor:
@@ -184,11 +200,31 @@ def concurrent_ag_rs_local(ag: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Te
     ``ring_allgather`` launch of the whole ring schedule on the side stream,
     and the reduce-scatter one ``ring_allgather_transpose`` launch of the
     same schedule on the current stream: the port's form of "the two
-    streams use opposite directions"."""
-    if ag.requires_grad or rs.requires_grad:
-        raise NotImplementedError("concurrent_ag_rs_local has no backward in the port; "
-                                  "use ring_allgather_local and ring_reduce_scatter_local")
-    return _concurrent_ag_rs(ag, rs, overlap=ag.device.type == "cuda")
+    streams use opposite directions". The backward is the same pair the
+    other way round: the gather's cotangent goes through one
+    ``ring_allgather_transpose`` launch on the current stream, and the
+    reduce-scatter's through one ``ring_allgather`` launch on the side
+    stream, bitwise the backwards of the two separate calls."""
+    p = ag.shape[-2]
+    if rs.shape[-2] != p or rs.shape[-1] % p:
+        raise ValueError(f"rs {tuple(rs.shape)} is not (..., {p}, {p} m)")
+    if ag.device != rs.device:
+        raise ValueError(f"ag on {ag.device}, rs on {rs.device}")
+    return _ConcurrentAgRs.apply(ag, rs)
+
+
+class _ConcurrentAgRs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ag: torch.Tensor, rs: torch.Tensor):
+        return _concurrent_ag_rs(ag, rs, overlap=ag.device.type == "cuda")
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_ag: torch.Tensor, g_rs: torch.Tensor):
+        # the transpose of a gather is a reduce-scatter and the other way
+        # round, so the backward is the forward's pair on the swapped cotangents
+        d_rs, d_ag = _concurrent_ag_rs(g_rs, g_ag, overlap=g_ag.device.type == "cuda")
+        return d_ag, d_rs
 
 
 def _concurrent_ag_rs(ag: torch.Tensor, rs: torch.Tensor,
@@ -196,17 +232,12 @@ def _concurrent_ag_rs(ag: torch.Tensor, rs: torch.Tensor,
     """The work of ``concurrent_ag_rs_local``: with ``overlap`` the
     allgather on the side stream; without, the allgather and then the
     reduce-scatter on the current stream."""
-    p = ag.shape[-2]
-    if rs.shape[-2] != p or rs.shape[-1] % p:
-        raise ValueError(f"rs {tuple(rs.shape)} is not (..., {p}, {p} m)")
-    if ag.device != rs.device:
-        raise ValueError(f"ag on {ag.device}, rs on {rs.device}")
-    ag, schedule = ag.contiguous(), _ring_schedule(p)
+    ag, schedule = ag.contiguous(), _ring_schedule(ag.shape[-2])
     if not overlap:
-        return _flat(ring_allgather(ag, schedule)), ring_reduce_scatter_local(rs, direction=-1)
+        return _flat(ring_allgather(ag, schedule)), _transposed(rs, schedule)
     side = SideStream(ag.device)
     gathered, done = side.issue(ring_allgather, ag, schedule)
-    reduced = ring_reduce_scatter_local(rs, direction=-1)
+    reduced = _transposed(rs, schedule)
     side.join(done)
     return _flat(gathered), reduced
 

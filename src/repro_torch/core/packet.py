@@ -1,5 +1,5 @@
-"""Packet-level reliable Broadcast (paper §III), with the leaves' receive
-datapath on tensors.
+"""Packet-level reliable Broadcast (paper §III) and the facade of the
+M-chain Allgather, with the leaves' receive datapath on tensors.
 
 Port of ``simulate_packet_broadcast`` (src/repro/core/packet.py:1058) in the
 abstract-fabric mode (``topology=None``), scalar DPA fidelity and the
@@ -27,8 +27,14 @@ union: every nacker's missing row packed to u32 words (``csrc/bitmap.cu``),
 the rows OR-ed, the union's size their popcount. A round is a fixed number
 of launches whatever the number of leaves.
 
-The result equals the reference's field for field (``tests/test_torch_packet.py``
-on the CPU, ``chip_smoke.py`` on the card against the CPU run). Options of
+``simulate_packet_allgather`` (packet.py:1154) builds the Appendix-A
+schedule graph and runs it at packet fidelity: R = ceil(P/M) generations of
+up to M concurrent Broadcasts of this protocol, the round loop in
+``core/sched_ir._packet_allgather``.
+
+Each result equals the reference's field for field
+(``tests/test_torch_packet.py``, ``tests/test_torch_packet_allgather.py`` on
+the CPU, ``chip_smoke.py`` on the card against the CPU run). Options of
 the reference that are not ported raise ``NotImplementedError``: routed
 fabrics (``topology=``/``hosts=``), ``dpa_fidelity="event"`` and
 ``engine="reference"`` (ROADMAP.md).
@@ -43,7 +49,8 @@ import torch
 
 from repro_torch.core import protocol
 from repro_torch.core.engine import Engine, FabricParams, WorkerParams, worker_pool_completion
-from repro_torch.core.sched_ir import PhaseBreakdown, _chunking, _rnr_barrier
+from repro_torch.core.sched_ir import (PhaseBreakdown, _check_packet_options, _chunking,
+                                      _rnr_barrier)
 from repro_torch.device import device_of
 from repro_torch.kernels import bitmap, pool
 
@@ -69,6 +76,13 @@ class LossModel:
     def sample(self, n: int) -> np.ndarray:
         raise NotImplementedError
 
+    def sample_runs(self, sizes: list[int]) -> np.ndarray:
+        """The drop masks of consecutive ``sample`` calls of ``sizes``
+        packets, concatenated."""
+        if not sizes:
+            return np.zeros(0, dtype=bool)
+        return np.concatenate([self.sample(n) for n in sizes])
+
     @property
     def mean_rate(self) -> float:
         raise NotImplementedError
@@ -92,6 +106,11 @@ class BernoulliLoss(LossModel):
         if self._rng is None:
             raise RuntimeError("sample() on an unforked template")
         return self._rng.random(n) < self.rate
+
+    def sample_runs(self, sizes: list[int]) -> np.ndarray:
+        # numpy's uniform fills split: one draw of the total is bitwise the
+        # draws one after another
+        return self.sample(sum(sizes))
 
     @property
     def mean_rate(self) -> float:
@@ -500,17 +519,7 @@ def simulate_packet_broadcast(
     field for field to the reference's on the same arguments and generator.
     The leaves' receive datapath runs on ``device`` (default ``cuda``; pass
     ``device="cpu"`` for the plain versions)."""
-    if topology is not None or hosts is not None:
-        raise NotImplementedError("topology=/hosts=: the routed FatTree mode is not "
-                                  "ported yet (ROADMAP.md, after slice 4)")
-    if dpa_fidelity != "scalar" or dpa is not None:
-        raise NotImplementedError("dpa_fidelity='event' / dpa=: the event-level DPA is not "
-                                  "ported yet (ROADMAP.md, after slice 4)")
-    if engine == "reference":
-        raise NotImplementedError("engine='reference': only the vectorized executor is "
-                                  "ported (ROADMAP.md, after slice 4)")
-    if engine not in ("auto", "vectorized"):
-        raise ValueError(f"engine must be 'auto', 'vectorized' or 'reference', got {engine!r}")
+    _check_packet_options(topology, hosts, dpa_fidelity, dpa, engine)
     if not 0 <= root < p:
         raise ValueError(f"root {root} outside 0..{p - 1}")
     dev = device_of("cuda" if device is None else device)
@@ -558,3 +567,47 @@ def simulate_packet_broadcast(
         completed=completed,
         delivery_order=run.delivery_order() if run.delivery is not None else {},
     )
+
+
+# ------------------------------------------------------------ allgather
+
+
+@dataclass
+class PacketAllgatherResult:
+    """The reference's result (packet.py:1137): the fields of its
+    ``sched_ir.AllgatherResult`` plus the per-chain round traces. Host
+    values."""
+    time: float
+    phases: PhaseBreakdown
+    recovered: int
+    bytes_fast: int
+    bytes_recovery: int
+    bytes_total: int
+    per_rank_recv_tput: float
+    link_bytes: dict[str, float] = field(default_factory=dict)
+    rounds: list[RoundTrace] = field(default_factory=list)
+    rnr_drops: int = 0
+    retransmit_wire_bytes: int = 0
+    completed: bool = True
+
+
+def simulate_packet_allgather(
+        p: int, n_bytes: int, fabric: FabricParams, workers: WorkerParams,
+        rng: np.random.Generator, n_chains: int = 1, *, topology=None,
+        hosts=None, loss=None, max_rounds: int = DEFAULT_MAX_ROUNDS,
+        aggregate_nacks: bool = True, dpa_fidelity: str = "scalar",
+        dpa=None, engine: str = "auto", device=None) -> PacketAllgatherResult:
+    """Packet-fidelity M-chain Allgather on the abstract fabric (reference
+    packet.py:1154): builds the Appendix-A schedule graph
+    (``sched_ir.build_allgather``, uneven chains too) and executes it at
+    packet fidelity (``sched_ir._packet_allgather``). Equal field for field
+    to the reference's on the same arguments and generator; the leaves'
+    receive datapath runs on ``device`` (default ``cuda``; pass
+    ``device="cpu"`` for the plain versions)."""
+    from repro_torch.core import sched_ir
+
+    sched = sched_ir.build_allgather(p, n_bytes, n_chains)
+    return sched_ir.execute(sched, fabric, workers, rng, fidelity="packet",
+                            topology=topology, hosts=hosts, loss=loss, max_rounds=max_rounds,
+                            aggregate_nacks=aggregate_nacks, dpa_fidelity=dpa_fidelity,
+                            dpa=dpa, engine=engine, device=device)

@@ -2,11 +2,11 @@
 engine-backed timing facade.
 
 Port of the parts of ``src/repro/core/protocol.py`` the packet Broadcast
-uses: ``MTU``, ``segment``, ``bitmap_bytes`` and ``broadcast_time``; and
-``reassemble``, a leaf's receive datapath replayed on the chunk reassembly
-kernel in the order a Broadcast delivered them. The logical state machines (``LeafReceiver``, ``StagingRing``, ``Bitmap``),
-``allgather_time`` and the closed-form ``analytic_*`` oracle are queued in
-ROADMAP.md.
+and Allgather use: ``MTU``, ``segment``, ``bitmap_bytes``, ``broadcast_time`` and
+``allgather_time``; and ``reassemble``, a leaf's receive datapath replayed
+on the chunk reassembly kernel in the order a Broadcast delivered them. The
+logical state machines (``LeafReceiver``, ``StagingRing``, ``Bitmap``) and
+the closed-form ``analytic_*`` oracle are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -66,20 +66,34 @@ def broadcast_time(p: int, n_bytes: int, fabric=None, workers=None, *,
                    fidelity: str = "packet", seed: int = 0, device=None,
                    **kw) -> float:
     """Completion time of one reliable Broadcast rooted at rank 0, from the
-    packet engine (``core/packet.simulate_packet_broadcast``) with a
-    generator seeded by ``seed``, as the reference resolves
-    ``broadcast_time`` -> ``simulate_broadcast`` -> ``sched_ir.execute``.
-    Other keywords go to the packet engine. The leaves' receive datapath
-    runs on ``device`` (default ``cuda``)."""
-    from repro_torch.core import engine, packet   # deferred: packet imports us
+    packet engine with a generator seeded by ``seed``, as the reference
+    resolves it: ``broadcast_time`` -> ``simulator.simulate_broadcast`` ->
+    ``sched_ir.execute`` -> ``packet.simulate_packet_broadcast``. Other
+    keywords go to the packet engine. The leaves' receive datapath runs on
+    ``device`` (default ``cuda``)."""
+    from repro_torch.core import engine, simulator   # deferred: packet imports us
 
-    if fidelity != "packet":
-        raise NotImplementedError(
-            f"fidelity={fidelity!r}: the fluid and analytic fidelities are not "
-            "ported yet (ROADMAP.md, module queue)")
+    _no_event_dpa(kw)
+    return simulator.simulate_broadcast(
+        p, n_bytes, fabric or engine.FabricParams(), workers or engine.WorkerParams(),
+        np.random.default_rng(seed), fidelity=fidelity, device=device, **kw).time
+
+
+def allgather_time(p: int, n_bytes: int, fabric=None, workers=None, *,
+                   n_chains: int = 1, fidelity: str = "packet", seed: int = 0,
+                   device=None, **kw) -> float:
+    """Completion time of one reliable M-chain Allgather (reference
+    protocol.py:193), from ``simulator.simulate_allgather`` with a generator
+    seeded by ``seed``; as ``broadcast_time`` otherwise."""
+    from repro_torch.core import engine, simulator   # deferred: packet imports us
+
+    _no_event_dpa(kw)
+    return simulator.simulate_allgather(
+        p, n_bytes, fabric or engine.FabricParams(), workers or engine.WorkerParams(),
+        np.random.default_rng(seed), n_chains, fidelity=fidelity, device=device, **kw).time
+
+
+def _no_event_dpa(kw: dict) -> None:
     if kw.pop("dpa", None) is not None:
         raise NotImplementedError(
-            "dpa=: the event-level DPA is not ported yet (ROADMAP.md, module queue)")
-    return packet.simulate_packet_broadcast(
-        p, n_bytes, fabric or engine.FabricParams(), workers or engine.WorkerParams(),
-        np.random.default_rng(seed), device=device, **kw).time
+            "dpa=: the event-level DPA is not ported yet (ROADMAP.md §1, item 7)")

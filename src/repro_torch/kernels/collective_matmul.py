@@ -276,24 +276,57 @@ def allgather_matmul_local(x: torch.Tensor, w: torch.Tensor, *, use_pallas: bool
     way the result equals the plain gather followed by one ``matmul`` of the
     gathered rows, bitwise (the kernels have no split-K, so a row's sums do
     not depend on the rows beside it; torch's CPU product of a single row,
-    m = 1, sums in another order)."""
-    global allgather_launches
+    m = 1, sums in another order).
+
+    Differentiable in x and w (``_AllgatherMatmul``): for the cotangent g_d
+    of rank d's copy, dx is the gather's transpose of the per-rank products
+    g_d w^T (one ``ring_allgather_transpose`` launch of the ring schedule,
+    the gathers' backward), and dw the sum over ranks of X^T g_d, X the
+    gathered rows; the products run on ``matmul`` (``matmul_plain`` with
+    ``use_pallas=False``)."""
     if x.dim() < 3 or w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"allgather_matmul takes x (..., P, m, K) and w (K, N), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.requires_grad or w.requires_grad:
-        raise NotImplementedError("allgather_matmul_local has no backward in the port; the "
-                                  "FSDP path's gathers and rank_matmul have theirs")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"allgather_matmul runs on cuda or cpu tensors, got {x.device}")
     m, k = x.shape[-2:]
-    if not use_pallas:
-        return _allgather_matmul(x, w, matmul_plain)
-    _check_tiles(m, k, w.shape[1], bm, bk, bn)
-    if x.device.type == "cpu":
-        return _allgather_matmul(x, w, matmul)
-    allgather_launches += 1
-    return _one_launch(x, w, matmul)
+    if use_pallas:
+        _check_tiles(m, k, w.shape[1], bm, bk, bn)
+    return _AllgatherMatmul.apply(x, w, use_pallas)
+
+
+class _AllgatherMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, use_pallas: bool) -> torch.Tensor:
+        global allgather_launches
+        ctx.mm = matmul if use_pallas else matmul_plain
+        ctx.save_for_backward(x, w)
+        if not use_pallas:
+            return _allgather_matmul(x, w, matmul_plain)
+        if x.device.type == "cpu":
+            return _allgather_matmul(x, w, matmul)
+        allgather_launches += 1
+        return _one_launch(x, w, matmul)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        *lead, p, m, k = x.shape
+        n = w.shape[1]
+        g = g.to(x.dtype).reshape(-1, p * m, n)                 # (groups P, P m, N)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # every rank's full contribution g_d w^T, then the gather's transpose
+            contrib = ctx.mm(g, w.t().expand(g.shape[0], n, k))
+            dx = C._transposed(contrib.view(*lead, p, p * m * k),
+                               C._ring_schedule(p)).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            rows = x.reshape(-1, 1, p * m, k)
+            per_rank = [ctx.mm(rows[i].transpose(1, 2).expand(p, k, p * m), gi)
+                        for i, gi in enumerate(g.view(-1, p, p * m, n))]
+            dw = torch.stack(per_rank).sum((0, 1))
+        return dx, dw, None
 
 
 def make_allgather_matmul(mesh: StackedMesh, axis: str, **kw):

@@ -173,8 +173,9 @@ def test_allgather_matmul_refuses_what_the_reference_asserts(tiles):
     with pytest.raises(ValueError, match="tile"):
         M.allgather_matmul_local(x, w, **tiles)
     assert M.allgather_matmul_local(x, w, use_pallas=False, **tiles).shape == (4, 32, 32)
-    with pytest.raises(NotImplementedError, match="backward"):
-        M.allgather_matmul_local(x, w.requires_grad_())
+    w = w.requires_grad_()
+    (dw,) = torch.autograd.grad(M.allgather_matmul_local(x, w).sum(), w)
+    assert dw.shape == (64, 32) and torch.equal(dw, torch.zeros(64, 32))
 
 
 def test_smollm_widths_need_tiles_that_divide():
@@ -288,8 +289,9 @@ def test_concurrent_ag_rs_both_stream_paths_match_jax(ref, overlap, monkeypatch)
 def test_concurrent_ag_rs_checks_its_inputs():
     with pytest.raises(ValueError):
         C.concurrent_ag_rs_local(torch.zeros(4, 3), torch.zeros(4, 10))
-    with pytest.raises(NotImplementedError, match="backward"):
-        C.concurrent_ag_rs_local(torch.zeros(4, 3, requires_grad=True), torch.zeros(4, 8))
+    ag = torch.zeros(4, 3, requires_grad=True)
+    (d_ag,) = torch.autograd.grad(C.concurrent_ag_rs_local(ag, torch.zeros(4, 8))[0].sum(), ag)
+    assert torch.equal(d_ag, torch.full((4, 3), 4.0))
 
 
 # ------------------------------------------------------------ flatten_bucket

@@ -515,6 +515,61 @@ def test_packet_broadcast_on_cuda_equals_cpu(wk, loss):
     assert CR.launches == before + 2 * len(b.delivery_order)
 
 
+@pytest.mark.gpu
+def test_packet_allgather_on_cuda_equals_cpu():
+    """A lossy, jittered M-chain Allgather (P = 16, M = 4, one worker and a
+    short staging ring, so that the ring drops chunks) with its datapath on
+    the card equals its CPU run field for field, and launches the pool
+    scan, pack, OR and popcount."""
+    _need_cuda()
+    out = {}
+    before = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+    for dev in ("cpu", "cuda"):
+        out[dev] = PK.simulate_packet_allgather(
+            16, 4 << 20, E.FabricParams(), E.WorkerParams(staging_chunks=512),
+            np.random.default_rng(0), 4, loss=0.01, device=dev)
+    a, b = out["cpu"], out["cuda"]
+    after = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+    assert all(x > y for x, y in zip(after, before))
+    assert a.rnr_drops > 0 and a.rounds and a.completed
+    assert a == b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 0.5)])
+def test_collective_backwards_on_cuda_equal_cpu(dtype, tol):
+    """The allgather-matmul's backward on the card (its products on the
+    matmul kernel, dx's sum over ranks one transpose launch) within the
+    reference's allgather-matmul limits of its CPU run; concurrent AG/RS's
+    backward (one gather and one transpose launch) bitwise its CPU run."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(5)
+    x, w = torch.randn(8, 16, 64, generator=gen).to(dtype), torch.randn(64, 32, generator=gen)
+    w, g = w.to(dtype), torch.randn(8, 128, 32, generator=gen).to(dtype)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        xr, wr = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+        before = (M.allgather_launches, K.allgather_transpose_launches, _matmul_launches())
+        grads[dev] = torch.autograd.grad(M.allgather_matmul_local(xr, wr), (xr, wr), g.to(dev))
+        after = (M.allgather_launches, K.allgather_transpose_launches, _matmul_launches())
+        assert [b - a for a, b in zip(before, after)] == ([1, 1, 3] if dev == "cuda"
+                                                          else [0, 0, 0])
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(b.cpu().float(), a.float(), atol=tol, rtol=0)
+    ag, rs = torch.randn(2, 8, 48, generator=gen), torch.randn(2, 8, 8 * 5, generator=gen)
+    cot = (torch.randn(2, 8, 8 * 48, generator=gen), torch.randn(2, 8, 5, generator=gen))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        agr, rsr = ag.to(dev).requires_grad_(), rs.to(dev).requires_grad_()
+        outs = C.concurrent_ag_rs_local(agr, rsr)
+        before = (K.allgather_launches, K.allgather_transpose_launches)
+        grads[dev] = torch.autograd.grad(outs, (agr, rsr), tuple(c.to(dev) for c in cot))
+        torch.cuda.synchronize()
+        after = (K.allgather_launches, K.allgather_transpose_launches)
+        assert [b - a for a, b in zip(before, after)] == ([1, 1] if dev == "cuda" else [0, 0])
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(grads["cpu"], grads["cuda"]))
+
+
 # ------------------------------------------------ the collective layer
 
 

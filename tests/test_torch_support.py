@@ -27,8 +27,8 @@ from repro_torch import bridge
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
                                  get_model_config, reduced)
 from repro_torch.core.engine import FabricParams, WorkerParams
-from repro_torch.core.packet import simulate_packet_broadcast
-from repro_torch.core.protocol import broadcast_time
+from repro_torch.core.packet import simulate_packet_allgather, simulate_packet_broadcast
+from repro_torch.core.protocol import allgather_time, broadcast_time
 from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models import build_model
 from repro_torch.data.pipeline import SyntheticPipeline
@@ -220,9 +220,10 @@ def test_specs_match_reference(axes, multi_pod):
 
 def test_port_imports_neither_jax_nor_repro():
     """Importing repro_torch and running a CPU prefill, decode and train
-    step, a lossy packet broadcast, the collective layer's entry points
-    (the allgather-matmul through ``kernels.ops``, the drain, a bucket
-    broadcast and concurrent AG/RS), and a supervised run at a replicated
+    step, a lossy packet broadcast and allgather, the collective layer's
+    entry points (the allgather-matmul through ``kernels.ops``, the drain, a
+    bucket broadcast and concurrent AG/RS, with the backwards of the first
+    and the last), and a supervised run at a replicated
     batch with a failure, its checkpoints and an elastic restore, loads no
     jax and no module of the JAX package."""
     code = (
@@ -257,6 +258,10 @@ def test_port_imports_neither_jax_nor_repro():
         "    engine.WorkerParams(), np.random.default_rng(0), loss=0.01, device='cpu')\n"
         "assert r.completed and r.rounds\n"
         "assert protocol.broadcast_time(8, 1 << 16, device='cpu') > 0\n"
+        "a = packet.simulate_packet_allgather(10, 1 << 16, engine.FabricParams(),\n"
+        "    engine.WorkerParams(), np.random.default_rng(0), 4, loss=0.01, device='cpu')\n"
+        "assert a.completed and a.rounds\n"
+        "assert protocol.allgather_time(8, 1 << 16, n_chains=2, device='cpu') > 0\n"
         "from repro_torch.core import collectives as C\n"
         "from repro_torch.kernels import ops, ring_allgather\n"
         "from repro_torch.sharding.fsdp import flatten_bucket\n"
@@ -269,6 +274,12 @@ def test_port_imports_neither_jax_nor_repro():
         "assert torch.equal(C.make_broadcast(mesh, 'data', root=3)(rows)[0], rows[3])\n"
         "ag, rs = C.concurrent_ag_rs_local(x.reshape(8, -1), torch.randn(8, 16))\n"
         "assert ag.shape == (8, 512) and rs.shape == (8, 2)\n"
+        "xg, wg = x.clone().requires_grad_(), torch.randn(16, 8, requires_grad=True)\n"
+        "ops.make_allgather_matmul(mesh, 'data')(xg, wg).sum().backward()\n"
+        "assert xg.grad.shape == x.shape and wg.grad.shape == (16, 8)\n"
+        "ag = x.reshape(8, -1).clone().requires_grad_()\n"
+        "sum(t.sum() for t in C.concurrent_ag_rs_local(ag, torch.randn(8, 16))).backward()\n"
+        "assert ag.grad.shape == (8, 64)\n"
         "import tempfile\n"
         "from repro_torch.checkpoint import latest_step, restore, save\n"
         "from repro_torch.runtime.elastic import reshard_state, scale_plan\n"
@@ -333,6 +344,9 @@ def test_entry_points_default_to_cuda():
         lambda: simulate_packet_broadcast(8, 1 << 16, FabricParams(), WorkerParams(),
                                           np.random.default_rng(0)),
         lambda: broadcast_time(8, 1 << 16),
+        lambda: simulate_packet_allgather(8, 1 << 16, FabricParams(), WorkerParams(),
+                                          np.random.default_rng(0), 2),
+        lambda: allgather_time(8, 1 << 16),
     ]
     if torch.cuda.is_available():
         assert build_model(SMALL).init_cache(8, 4)["k"].device.type == "cuda"
