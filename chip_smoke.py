@@ -23,7 +23,8 @@
    bitwise, f16 too at n = 24, the two-group cotangent a non-contiguous
    view, max(1, ceil(k / 128)) launches a call; the
    matmul kernel (csrc/matmul.cu) against its plain version at every shape
-   the training and serving paths give it (forward and both backward
+   the training and serving paths give it, deepseek-moe-16b's (phases 3d
+   and 4d) included (forward and both backward
    products, bf16 and f32, the tied head's embed^T view included): f32
    within 1e-5 x max|plain|, bf16 within 1e-2 x max|plain|, every bf16
    product on the wgmma + TMA path; then that path's edge cases (the four
@@ -105,6 +106,31 @@
    (before the counts are zeroed: its products are f32), the reduced f32
    replicated step against a single-rank run (loss 1e-5, grad_norm 1e-4,
    relative);
+3d. serving deepseek-moe-16b at full size (28 layers, d_model 2048, 64
+   routed experts top-6 and 2 shared, bf16, weights drawn on the card by
+   ``bridge.device_params``: 16.9 B parameters, 31.5 GiB) on (data=8,
+   model=1): prefill of a 128-token prompt for batch 8 (capacity 120),
+   then greedy generation of 8 tokens, in every mode, logits and tokens
+   bitwise ``xla``'s; a prefill launches 308 gathers in each mcast mode
+   (11 sharded leaves x 28 layers: 2,156 bidi / 2,156 ring / 8,624 bcast
+   entries), no transpose, 281 bf16 matmuls (10 a layer: the attention
+   projections, the three expert products batched over the experts, the
+   three shared-expert products; and the head) and 28 f32 ones (the
+   router); a decode step the same matmuls and no gather kernel. Prefill
+   ms per mode, decode tok/s once (every mode decodes through the plain
+   gather), busy ms, idle share and peak memory, medians of 3.
+   Before it, reduced deepseek-moe-16b in f32 (capacity factor 1.25,
+   tokens dropped) on (data=8) against a single-rank run of the same
+   weights: logits within 1e-4, tokens and drop fraction equal (the
+   routing is global);
+4d. training deepseek-moe-16b at full width and 2 layers (1.6 B
+   parameters, batch 16 x 512, capacity 960, remat="full", AdamW) on the
+   same mesh in every mode: a warm-up, 2 timed steps and a profiled step
+   each; the first-step loss bitwise equal in every mode, the moe_*
+   metrics finite; a step launches 44 gathers, 22 transposes, 84 bf16
+   and 8 f32 matmuls. Then #1 and #1b at one expert leaf (2.95 GB of
+   gathered copies, past 2^31 bytes) in each mcast schedule, bitwise
+   their plain versions, and #3 at the MoE step's shapes, timed;
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
    receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
    Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
@@ -191,7 +217,8 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
 from repro_torch.checkpoint.ckpt import host_arrays  # noqa: E402
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig,  # noqa: E402
-                                 ShapeConfig, TrainConfig, get_model_config, reduced)
+                                 ShapeConfig, TrainConfig, get_model_config, reduced,
+                                 replace)
 from repro_torch.core import collectives as C  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import packet as PK  # noqa: E402
@@ -209,6 +236,8 @@ from repro_torch.runtime.fault import FailureInjector, TrainSupervisor  # noqa: 
 from repro_torch.runtime.serve_loop import (ServeState, greedy_generate,  # noqa: E402
                                             make_decode_step, make_prefill_step)
 from repro_torch.runtime.train_loop import init_state, make_train_step  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.sharding.ctx import use_ctx  # noqa: E402
 from repro_torch.sharding.fsdp import flatten_bucket  # noqa: E402
 from repro_torch.sharding.specs import is_sharded, tree_leaves  # noqa: E402
 
@@ -1022,6 +1051,11 @@ def _train_steps(cfg, mesh: StackedMesh, tree, batches: list, mode: str, timed: 
     row = {"mode": mode, "losses": losses, "grad_norms": norms, "warmup_step_ms": warm_s * 1e3,
            **_step_times(samples, shape), "launches_per_step": counts,
            **_profiled_step(step, state, batches[timed + 1], f"{mode} step")}
+    moe = {k: float(v) for k, v in m.items() if k.startswith("moe_")}
+    if moe:   # the MoE family's router metrics, of the last timed step
+        row["moe_metrics"] = moe
+        if not all(np.isfinite(list(moe.values()))):
+            raise AssertionError(f"{mode}: non-finite MoE metrics {moe}")
     _check_losses(cfg, mode, losses, norms)
     del state, m
     torch.cuda.empty_cache()
@@ -2327,6 +2361,332 @@ def concurrent_backward(ag: torch.Tensor, rs: torch.Tensor) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------- phases 3d and 4d: the MoE family
+
+MOE_ARCH = "deepseek-moe-16b"
+MOE_PROMPT, MOE_NEW = 128, 8    # batch BATCH: T = 1,024 tokens a prefill, capacity 120
+MOE_REPEATS = 3                 # host-clock samples per timed MoE call; the median is reported
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_TIMED = 2
+# the reduced reference's prompt: batch 8 x 8 = 64 tokens at top-2 of 8
+# experts, capacity 20 of the 16 an expert gets on average (tokens drop)
+MOE_SMALL_SEQ = 8
+
+
+def _moe_cfg():
+    return get_model_config(MOE_ARCH)
+
+
+def _moe_sharded_leaves(cfg) -> int:
+    """The dp-sharded leaves of one MoE layer: wq, wk, wv, wo, the router,
+    the three expert stacks and the three shared-expert matrices."""
+    return 4 + 1 + 3 + (3 if cfg.moe.n_shared_experts else 0)
+
+
+def _moe_matmuls(cfg, *, train: bool) -> tuple[int, int]:
+    """(bf16 launches, f32 launches) of the matmul kernel a prefill, a decode
+    step or (``train``, remat="full") a train step makes: per layer and
+    forward pass the four attention projections, the three shared-expert
+    products and the three expert products (each one launch batched over
+    the E experts) in bf16 and the router in f32; the head once. A train
+    step runs every forward product twice (the checkpointed recompute) and
+    each product's two backward products; the head's forward twice (the
+    checkpointed cross-entropy chunk) and its two backward products."""
+    per_layer = 4 + 3 + (3 if cfg.moe.n_shared_experts else 0)
+    passes = 4 if train else 1   # forward, recompute, dX, dW
+    return passes * per_layer * cfg.num_layers + passes, passes * cfg.num_layers
+
+
+def moe_capacity(cfg, tokens: int) -> int:
+    m = cfg.moe
+    return int(np.ceil(tokens * m.top_k / m.n_routed_experts * m.capacity_factor))
+
+
+def moe_matmul_cases(cfg, r: int, m: int, cap: int, dtype, *, train: bool,
+                     head_m: int | None = None) -> dict:
+    """Every matmul an MoE step launches, as ``matmul_cases``: per rank
+    (R = r, M = m tokens) the attention and shared-expert projections and
+    the router (f32), per expert (R = E, M = cap) the three expert
+    products, then the head."""
+    cases: dict = {}
+
+    def add(key, count):
+        cases[key] = cases.get(key, 0) + count
+
+    d, e, fe = cfg.d_model, cfg.moe.n_routed_experts, cfg.moe.d_ff_expert
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    fs = fe * cfg.moe.n_shared_experts
+    per_rank = [(d, q, dtype), (d, kv, dtype), (d, kv, dtype), (q, d, dtype),
+                (d, e, torch.float32)]
+    if fs:
+        per_rank += [(d, fs, dtype), (d, fs, dtype), (fs, d, dtype)]
+    products = [(r, m, k, n, dt) for k, n, dt in per_rank]
+    products += [(e, cap, k, n, dtype) for k, n in ((d, fe), (d, fe), (fe, d))]
+    for rr, mm, k, n, dt in products:
+        add((rr, mm, k, n, False, False, dt), cfg.num_layers * (2 if train else 1))
+        if train:
+            add((rr, mm, n, k, False, True, dt), cfg.num_layers)    # dY W^T
+            add((rr, k, mm, n, True, False, dt), cfg.num_layers)    # X^T dY
+    v = cfg.vocab_size
+    hm = m if head_m is None else head_m
+    head_t = cfg.tie_embeddings   # the tied head is embed^T, a transposed view
+    add((r, hm, d, v, False, head_t, dtype), 2 if train else 1)
+    if train:
+        add((r, hm, v, d, False, not head_t, dtype), 1)
+        add((r, d, hm, v, True, False, dtype), 1)
+    return cases
+
+
+def _moe_want(cfg, mesh: StackedMesh, mode: str, *, gathers: int, transposes: int,
+              matmuls: tuple[int, int]) -> dict[str, int]:
+    """Every count of ``_counts`` that an MoE call must show."""
+    p = mesh.n_ranks
+    g = 0 if mode == "xla" else gathers
+    t = 0 if mode == "xla" else transposes
+    return {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + ("matmul_wmma", "ring_step")},
+            "ring_allgather": g, **_want_entries(mode, g * (p - 1), p),
+            "ring_allgather_transpose": t,
+            **_want_entries(mode, t * (p - 1), p, "transpose_entries"),
+            "matmul": matmuls[0], "matmul_f32": matmuls[1]}
+
+
+def check_moe_small_reference() -> tuple[float, float]:
+    """Phase 3d: reduced deepseek-moe-16b in f32 (capacity factor 1.25): the
+    prefill and greedy tokens on (data=8) against a single-rank run of the
+    same weights, and the routing's drop fraction equal (the routing is
+    global: a per-rank router would drop other tokens). Returns the max abs
+    logit difference and the drop fraction."""
+    cfg = reduced(_moe_cfg())
+    tree = bridge.random_params(cfg, seed=1)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, MOE_SMALL_SEQ))).cuda()
+    outs = {}
+    for mesh in (None, StackedMesh(data=8, model=1)):
+        params = bridge.to_torch(tree, mesh, MeshConfig(), dtype=torch.float32)
+        run = RunConfig(model=cfg, shape=ShapeConfig("s", "prefill", MOE_SMALL_SEQ, 8),
+                        collective=CollectiveConfig(fsdp_mode="mcast"))
+        _, ctx, prefill = make_prefill_step(run, mesh)
+        _, _, decode = make_decode_step(run, mesh)
+        logits, _ = prefill(params, {"tokens": tokens})
+        toks = greedy_generate(prefill, decode, params, tokens, 8, MOE_SMALL_SEQ + 8)
+        with use_ctx(ctx):
+            _, aux, _ = transformer.dense_forward(params, cfg, {"tokens": tokens})
+        outs[mesh is None] = (logits, toks, aux["moe_drop_frac"].item())
+    err = (outs[True][0] - outs[False][0]).abs().max().item()
+    if not err <= 1e-4:
+        raise AssertionError(f"MoE sharded vs single-rank prefill differ by {err}")
+    if not torch.equal(outs[True][1], outs[False][1]):
+        raise AssertionError("MoE sharded vs single-rank greedy tokens differ")
+    drop = outs[True][2]
+    if outs[False][2] != drop or not drop > 0:
+        raise AssertionError(f"MoE drop fractions {outs[False][2]} (8 ranks) and {drop} "
+                             "(one rank): not equal, or nothing dropped")
+    return err, drop
+
+
+def _moe_decode_times(params, decode, pre, logits, out) -> dict:
+    """The MOE_NEW - 1 decode steps of greedy generation on their own, from
+    the prefilled cache (rewritten in place with the same values each
+    call): their last token must be generation's; wall ms (medians of
+    MOE_REPEATS), tok/s, busy ms and idle share of one profiled call."""
+    cache = {k: F.pad(v, (0, 0, 0, MOE_NEW)) for k, v in pre.items()}
+    pos0, tok0 = torch.full((BATCH,), MOE_PROMPT, device="cuda"), logits.argmax(-1)
+
+    def do_decode():
+        state, tok = ServeState(cache, pos0), tok0
+        for _ in range(MOE_NEW - 1):
+            step_logits, state = decode(params, state, tok)
+            tok = step_logits.argmax(-1)
+        return tok
+
+    if not torch.equal(do_decode(), out[:, -1]):
+        raise AssertionError("MoE decode loop disagrees with greedy_generate")
+    decode_s = _wall(do_decode, MOE_REPEATS)
+    dev_decode, prof_ms = _device_times(do_decode)
+    busy = sum(dev_decode.values())
+    top = sorted(dev_decode.items(), key=lambda kv: -kv[1])[:4]
+    print("[moe-serve] decode, top device time (ms): "
+          + json.dumps({k[:60]: t for k, t in top}), flush=True)
+    return {"decode_steps": MOE_NEW - 1,
+            "decode_ms_median": statistics.median(decode_s) * 1e3,
+            "decode_ms_samples": [t * 1e3 for t in decode_s],
+            "decode_tok_s": BATCH * (MOE_NEW - 1) / statistics.median(decode_s),
+            "decode_device_busy_ms": busy, "decode_profiled_wall_ms": prof_ms,
+            "decode_device_idle_share": 1 - busy / prof_ms}
+
+
+def moe_serve() -> None:
+    """Phase 3d: deepseek-moe-16b at full size (28 layers, bf16, weights
+    drawn on the card by ``bridge.device_params``) on (data=8, model=1):
+    a prefill of BATCH x MOE_PROMPT tokens, then greedy generation of
+    MOE_NEW tokens, in every mode; logits and tokens bitwise xla's; each
+    prefill launching a gather per sharded leaf and layer in the mcast
+    modes and the matmuls of ``_moe_matmuls``, no transpose, no ring step,
+    no wmma product. Decode is timed once, in the first mode: it gathers
+    by the plain gather in every mode."""
+    cfg = _moe_cfg()
+    mesh = StackedMesh(data=8, model=1)
+    t0 = time.perf_counter()
+    params = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(leaf.local.numel() if is_sharded(leaf.spec, ("data",))
+                   else leaf.local[0].numel() for leaf in tree_leaves(params))
+    print(f"[moe-serve] {cfg.name}: {cfg.num_layers} layers d_model {cfg.d_model}, "
+          f"{cfg.moe.n_routed_experts} experts top-{cfg.moe.top_k}, {n_params:,} parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.3f} s; resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, MOE_PROMPT))).cuda()
+    n_sharded = sum(1 for leaf in tree_leaves(params["blocks"])
+                    if is_sharded(leaf.spec, ("data",)))
+    if n_sharded != _moe_sharded_leaves(cfg):
+        raise AssertionError(f"{n_sharded} sharded leaves a layer, expected "
+                             f"{_moe_sharded_leaves(cfg)}")
+    gathers = cfg.num_layers * n_sharded
+    mm = _moe_matmuls(cfg, train=False)
+    print(f"[moe-serve] launches a prefill: {gathers} ring_allgather (mcast modes: "
+          f"{n_sharded} sharded leaves x {cfg.num_layers} layers), 0 transposes, "
+          f"{mm[0]} bf16 matmul (10 x {cfg.num_layers} layers + the head) and {mm[1]} f32 "
+          f"(the router, 1 x {cfg.num_layers}); a decode step the same matmuls and the "
+          "plain gather", flush=True)
+    ref = decode_row = None
+    for mode in MODES:
+        torch.cuda.reset_peak_memory_stats()
+        run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", MOE_PROMPT, BATCH),
+                        collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+        _, _, prefill = make_prefill_step(run, mesh)
+        _, _, decode = make_decode_step(run, mesh)
+
+        def do_prefill():
+            return prefill(params, {"tokens": tokens})
+
+        def do_generate():
+            return greedy_generate(prefill, decode, params, tokens, MOE_NEW,
+                                   MOE_PROMPT + MOE_NEW)
+
+        do_prefill()   # warm-up
+        (logits, pre), _, counts = _run(do_prefill)
+        out, _, gen_counts = _run(do_generate)
+        want = _moe_want(cfg, mesh, mode, gathers=gathers, transposes=0, matmuls=mm)
+        want_gen = dict(want, matmul=mm[0] * MOE_NEW, matmul_f32=mm[1] * MOE_NEW)
+        if counts != want or gen_counts != want_gen:
+            raise AssertionError(f"{mode}: MoE prefill launched {counts}, expected {want}; "
+                                 f"generation {gen_counts}, expected {want_gen}")
+        prefill_s = _wall(do_prefill, MOE_REPEATS)
+        dev_prefill, prefill_prof_ms = _device_times(do_prefill)
+        busy_ms = sum(dev_prefill.values())
+        if decode_row is None:   # decode gathers by the plain gather in every mode: once
+            decode_row = _moe_decode_times(params, decode, pre, logits, out)
+        if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{mode}: bad MoE logits {tuple(logits.shape)}")
+        if (out.shape != (BATCH, MOE_PROMPT + MOE_NEW)
+                or not torch.equal(out[:, :MOE_PROMPT], tokens)):
+            raise AssertionError(f"{mode}: bad MoE tokens {tuple(out.shape)}")
+        if ref is None:
+            ref = (logits, out)
+        diff = (logits.float() - ref[0].float()).abs().max().item()
+        if diff != 0 or not torch.equal(out, ref[1]):
+            raise AssertionError(f"MoE {mode} differs from xla: logits max diff {diff}")
+        row = {"mode": mode,
+               "prefill_ms_median": statistics.median(prefill_s) * 1e3,
+               "prefill_ms_samples": [t * 1e3 for t in prefill_s],
+               "launches_per_prefill": {k: v for k, v in counts.items() if v},
+               "prefill_device_busy_ms": busy_ms,
+               "prefill_profiled_wall_ms": prefill_prof_ms,
+               "prefill_device_idle_share": 1 - busy_ms / prefill_prof_ms,
+               "prefill_ring_allgather_device_ms": sum(
+                   t for k, t in dev_prefill.items() if "ring_allgather_kernel" in k),
+               "prefill_matmul_device_ms": sum(t for k, t in dev_prefill.items()
+                                               if "matmul_" in k),
+               **(decode_row if mode == MODES[0] else {}),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "max_abs_logit_diff_vs_xla": diff,
+               "sample_tokens": out[0, MOE_PROMPT:].tolist()}
+        print("[moe-serve] " + json.dumps(row), flush=True)
+        top = sorted(dev_prefill.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[moe-serve] {mode} prefill, top device time (ms): "
+              + json.dumps({k[:60]: t for k, t in top}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def moe_train() -> None:
+    """Phase 4d: deepseek-moe-16b at full width, MOE_TRAIN_LAYERS layers,
+    batch TRAIN_SHAPE (16 x 512), remat="full", AdamW, on (data=8,
+    model=1), weights from ``bridge.device_params``, in every mode: a
+    warm-up, MOE_TRAIN_TIMED timed steps and a profiled step each; the
+    first-step loss bitwise equal in every mode, the moe_* metrics finite,
+    a step launching a gather per sharded leaf and layer twice (the forward
+    and the recompute), a transpose per forward gather and the matmuls of
+    ``_moe_matmuls``."""
+    cfg = replace(_moe_cfg(), num_layers=MOE_TRAIN_LAYERS)
+    mesh = StackedMesh(data=8, model=1)
+    tree = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
+    pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
+    batches = [pipe.next_batch(i) for i in range(MOE_TRAIN_TIMED + 2)]
+    n_sharded = _moe_sharded_leaves(cfg)
+    gathers, transposes = 2 * n_sharded * cfg.num_layers, n_sharded * cfg.num_layers
+    mm = _moe_matmuls(cfg, train=True)
+    print(f"[moe-train] {cfg.name} at {cfg.num_layers} layers, batch "
+          f"{TRAIN_SHAPE.global_batch} x {TRAIN_SHAPE.seq_len} (capacity "
+          f"{moe_capacity(cfg, TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len)}): a step "
+          f"launches {gathers} ring_allgather, {transposes} transposes, {mm[0]} bf16 matmul "
+          f"(4 x (10 x {cfg.num_layers} + 1)) and {mm[1]} f32 (4 x {cfg.num_layers})",
+          flush=True)
+    first = {}
+    for mode in MODES:
+        torch.cuda.reset_peak_memory_stats()
+        want = _moe_want(cfg, mesh, mode, gathers=gathers, transposes=transposes, matmuls=mm)
+        row, _ = _train_steps(cfg, mesh, tree, batches, mode, MOE_TRAIN_TIMED, want)
+        row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print("[moe-train] " + json.dumps(row), flush=True)
+        first[mode] = row["losses"][0]
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"MoE first-step losses differ between modes: {first}")
+    print(f"[moe-train] first-step loss bitwise equal in every mode: {first['xla']!r}",
+          flush=True)
+    del tree
+    torch.cuda.empty_cache()
+
+
+def time_moe_kernels() -> dict:
+    """#1 and #1b at one expert leaf of deepseek-moe-16b on 8 ranks (w_gate:
+    a rank's shard 64 x 256 x 1408 bf16, the gathered copies 2.95 GB, past
+    2^31 bytes): the gather and its transpose in each mcast schedule, each
+    bitwise its plain version, timed beside it, the library call (the plain
+    gather; the cotangent's sum over ranks) and the bound, as
+    ``time_ring_steps``. Returns the means over the schedules."""
+    cfg = _moe_cfg()
+    p = 8
+    n = cfg.moe.n_routed_experts * cfg.d_model * cfg.moe.d_ff_expert // p
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((p, n), device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn((p, p * n), device="cuda", generator=gen).to(torch.bfloat16)
+    g3 = g.view(p, p, n)
+    bound = (p * p + p) * n * 2 / HBM_BYTES_PER_S * 1e3
+    rows = {}
+    for mode, sched in (("mcast", C._bidi_schedule(p, n)), ("mcast_ring", C._ring_schedule(p)),
+                        ("mcast_bcast", C._bcast_schedule(p, N_CHAINS))):
+        if not torch.equal(K.ring_allgather(x, sched), K.ring_allgather_plain(x, sched)):
+            raise AssertionError(f"{mode}: the gather of an expert leaf != plain")
+        if not torch.equal(C._transposed(g, sched), K.ring_allgather_transpose_plain(g3, sched)):
+            raise AssertionError(f"{mode}: the transpose of an expert leaf != plain")
+        rows[mode] = {"gather_ms": _time(lambda: K.ring_allgather(x, sched)),
+                      "gather_plain_ms": _time(lambda: K.ring_allgather_plain(x, sched)),
+                      "gather_device_ms": _device_ms(lambda: K.ring_allgather(x, sched), 5),
+                      "transpose_ms": _time(lambda: C._transposed(g, sched)),
+                      "transpose_plain_ms": _time(
+                          lambda: K.ring_allgather_transpose_plain(g3, sched)),
+                      "transpose_device_ms": _device_ms(lambda: C._transposed(g, sched), 5)}
+    out = {k: statistics.mean(r[k] for r in rows.values()) for k in rows["mcast"]}
+    out.update({"gather_library_ms": _time(lambda: C.plain_allgather_local(x)),
+                "transpose_library_ms": _time(lambda: g3.sum(-3)),
+                "bound_ms": bound, "p": p, "n": n, "gathered_bytes": p * p * n * 2})
+    print(f"[moe-kernels] one expert leaf, P={p} n={n} bf16: " + json.dumps(rows), flush=True)
+    print("[moe-kernels] means over the schedules: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2379,6 +2739,25 @@ def main() -> int:
                   **matmul_cases(cfg, 8, REPL_SHAPE.global_batch, torch.bfloat16, train=False),
                   **matmul_cases(small, 8, 4 * 64, torch.float32, train=True),
                   **matmul_cases(small, 1, 4 * 64, torch.float32, train=True)}
+    # phases 3d and 4d: deepseek-moe-16b's training (2 layers), prefill and
+    # decode steps, and the reduced f32 reference's, 8 ranks and 1
+    moe, moe_small = _moe_cfg(), reduced(_moe_cfg())
+    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    moe_train_cases = moe_matmul_cases(replace(moe, num_layers=MOE_TRAIN_LAYERS), 8,
+                                       tokens // 8, moe_capacity(moe, tokens), torch.bfloat16,
+                                       train=True)
+    small_t = 8 * MOE_SMALL_SEQ
+    path_cases.update({
+        **moe_train_cases,
+        **moe_matmul_cases(moe, 8, MOE_PROMPT, moe_capacity(moe, BATCH * MOE_PROMPT),
+                           torch.bfloat16, train=False, head_m=1),
+        **moe_matmul_cases(moe, 8, 1, BATCH, torch.bfloat16, train=False),
+        **moe_matmul_cases(moe_small, 8, MOE_SMALL_SEQ, moe_capacity(moe_small, small_t),
+                           torch.float32, train=False, head_m=1),
+        **moe_matmul_cases(moe_small, 1, small_t, moe_capacity(moe_small, small_t),
+                           torch.float32, train=False, head_m=8),
+        **moe_matmul_cases(moe_small, 8, 1, 8, torch.float32, train=False),
+        **moe_matmul_cases(moe_small, 1, 8, 8, torch.float32, train=False)})
     t0 = time.perf_counter()
     mm_err = check_matmul(path_cases)
     print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, every "
@@ -2433,11 +2812,38 @@ def main() -> int:
     print(f"[ckpt] phase 4c: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
           f"{json.dumps(ckpt_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    err, drop = check_moe_small_reference()
+    print(f"[reference] reduced f32 MoE sharded vs single-rank: max abs logit diff {err}, "
+          f"drop fraction {drop} on both ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()   # counts from here to the read are the MoE serving path's
+    moe_serve()
+    moe_serve_counts = _counts()
+    print(f"[moe-serve] phase 3d: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{json.dumps(moe_serve_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()   # counts from here to the read are the MoE training path's
+    moe_train()
+    moe_train_counts = _counts()
+    print(f"[moe-train] phase 4d: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{json.dumps(moe_train_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in MODEL_KERNELS:
         launches[name] = (serve_counts[name] + train_counts[name] + option_counts[name]
-                          + ckpt_counts[name])
+                          + ckpt_counts[name] + moe_serve_counts[name] + moe_train_counts[name])
         if train_counts[name] == 0 or option_counts[name] == 0 or ckpt_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
+        if moe_train_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the MoE training path")
+    # the MoE router's products run on the matmul kernel's f32 path
+    launches["matmul"] += moe_serve_counts["matmul_f32"] + moe_train_counts["matmul_f32"]
+    if any(moe_serve_counts[k] == 0 for k in ("ring_allgather", "matmul", "matmul_f32")):
+        raise AssertionError(f"a kernel was not launched on the MoE serving path: "
+                             f"{moe_serve_counts}")
     if serve_counts["ring_allgather"] == 0 or serve_counts["matmul"] == 0:
         raise AssertionError(f"a kernel was not launched on the serving path: {serve_counts}")
     if any(serve_counts[k] or train_counts[k] or option_counts[k] or ckpt_counts[k]
@@ -2476,6 +2882,10 @@ def main() -> int:
     mm = time_matmul(train_cases)
     print(f"[matmul] one train step's {mm['launches']} launches (mcast counted "
           f"{per_step['matmul']}): {json.dumps(mm)}", flush=True)
+    moe_mm = time_matmul(moe_train_cases)
+    print(f"[moe-matmul] one MoE train step's {moe_mm['launches']} launches: "
+          f"{json.dumps(moe_mm)}", flush=True)
+    time_moe_kernels()
     rx_t = time_rx_kernels(card)
     t0 = time.perf_counter()
     time_rx_shapes(_largest(ag_shapes, {"pool": 3, "bitmap_pack": 1, "bitmap_or_rows": 1}),

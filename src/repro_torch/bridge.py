@@ -1,7 +1,7 @@
 """Carries a parameter tree into the port.
 
-``to_torch`` takes the JAX package's dense parameter tree as numpy arrays,
-``{"embed", "final_ln", "blocks": {...stacked on L}}``, and returns the port's
+``to_torch`` takes the JAX package's dense or MoE parameter tree as numpy
+arrays, ``{"embed", "final_ln", "blocks": {...stacked on L}}``, and returns the port's
 tree of ``Stacked`` leaves: every leaf that ``param_pspecs`` shards over dp
 is split into the stacked (R, *local) layout, rank r's shard at index r; a
 leaf replicated over dp is one tensor expanded over the rank dim.
@@ -10,10 +10,14 @@ leaf replicated over dp is one tensor expanded over the rank dim.
 so that tests can compare parameters and optimizer moments after steps.
 
 ``random_params`` draws such a tree from a seed with numpy, in the
-reference's init scales (``repro.models.layers``), for runs without a
-checkpoint.
+reference's init scales (``repro.models.layers``, ``repro.models.moe``), for
+runs without a checkpoint. ``device_params`` draws a tree of the same
+shapes, scales and layout directly into each rank's shards on the device,
+for models too large for a host draw.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,13 +25,13 @@ import torch
 from repro_torch.configs.base import MeshConfig, ModelConfig
 from repro_torch.device import device_of
 from repro_torch.launch.mesh import StackedMesh
-from repro_torch.sharding.fsdp import global_tensor, split_global
+from repro_torch.sharding.fsdp import _rank_dim, global_tensor, split_global
 from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, is_sharded, tree_map,
                                        tree_map_with_path)
 
-# norm scales stay float32 whatever the weights' dtype, as the reference
-# initialises them
-_F32_LEAVES = ("ln1", "ln2", "final_ln")
+# norm scales and the MoE router stay float32 whatever the weights' dtype,
+# as the reference initialises them
+_F32_LEAVES = ("ln1", "ln2", "final_ln", "router")
 
 
 def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
@@ -68,38 +72,97 @@ def to_numpy(params, mesh: StackedMesh | None, mesh_cfg: MeshConfig) -> dict:
     return tree_map(leaf, params)
 
 
-def random_params(cfg: ModelConfig, seed: int) -> dict:
-    """Dense parameter tree drawn with numpy from ``seed``, float32, in the
-    reference's init scales (norm scales zero, as initialised there)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported; only dense")
-    rng = np.random.default_rng(seed)
-    d, h, kvh, hd, f, n_l = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                             cfg.d_ff, cfg.num_layers)
+class _Leaf(NamedTuple):
+    shape: tuple[int, ...]
+    scale: float   # std of the normal draw; 0 for a leaf of zeros (norm scales)
 
-    def normal(shape, scale):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
 
-    params = {
-        "embed": normal((cfg.vocab_size, d), 0.02),
-        "final_ln": np.zeros((d,), np.float32),
-        "blocks": {
-            "ln1": np.zeros((n_l, d), np.float32),
-            "attn": {
-                "wq": normal((n_l, d, h * hd), 1 / np.sqrt(d)),
-                "wk": normal((n_l, d, kvh * hd), 1 / np.sqrt(d)),
-                "wv": normal((n_l, d, kvh * hd), 1 / np.sqrt(d)),
-                "wo": normal((n_l, h * hd, d), 1 / np.sqrt(h * hd)),
-            },
-            "ln2": np.zeros((n_l, d), np.float32),
-            "mlp": {
-                "w_gate": normal((n_l, d, f), 1 / np.sqrt(d)),
-                "w_up": normal((n_l, d, f), 1 / np.sqrt(d)),
-                "w_down": normal((n_l, f, d), 1 / np.sqrt(f)),
-            },
+def _param_table(cfg: ModelConfig) -> dict:
+    """The parameter tree's leaves as (global shape, init scale), in the
+    reference's init scales (``layers.mlp_init``, ``moe.moe_init``) and in
+    the order in which ``random_params`` draws them."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported; only dense and moe")
+    d, h, kvh, hd, n_l = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    blocks = {
+        "ln1": _Leaf((n_l, d), 0.0),
+        "attn": {
+            "wq": _Leaf((n_l, d, h * hd), 1 / np.sqrt(d)),
+            "wk": _Leaf((n_l, d, kvh * hd), 1 / np.sqrt(d)),
+            "wv": _Leaf((n_l, d, kvh * hd), 1 / np.sqrt(d)),
+            "wo": _Leaf((n_l, h * hd, d), 1 / np.sqrt(h * hd)),
         },
+        "ln2": _Leaf((n_l, d), 0.0),
     }
+    if cfg.family == "moe":
+        m = cfg.moe
+        e, fe = m.n_routed_experts, m.d_ff_expert
+        blocks["moe"] = {
+            "router": _Leaf((n_l, d, e), 1 / np.sqrt(d)),
+            "w_gate": _Leaf((n_l, e, d, fe), 1 / np.sqrt(d)),
+            "w_up": _Leaf((n_l, e, d, fe), 1 / np.sqrt(d)),
+            "w_down": _Leaf((n_l, e, fe, d), 1 / np.sqrt(fe)),
+        }
+        if m.n_shared_experts:
+            blocks["moe"]["shared"] = _swiglu_table(n_l, d, fe * m.n_shared_experts)
+    else:
+        blocks["mlp"] = _swiglu_table(n_l, d, cfg.d_ff)
+    table = {"embed": _Leaf((cfg.vocab_size, d), 0.02), "final_ln": _Leaf((d,), 0.0),
+             "blocks": blocks}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), 1 / np.sqrt(d))
-    return params
+        table["lm_head"] = _Leaf((d, cfg.vocab_size), 1 / np.sqrt(d))
+    return table
 
+
+def _swiglu_table(n_l: int, d: int, f: int) -> dict:
+    return {"w_gate": _Leaf((n_l, d, f), 1 / np.sqrt(d)),
+            "w_up": _Leaf((n_l, d, f), 1 / np.sqrt(d)),
+            "w_down": _Leaf((n_l, f, d), 1 / np.sqrt(f))}
+
+
+def random_params(cfg: ModelConfig, seed: int) -> dict:
+    """Dense or MoE parameter tree drawn with numpy from ``seed``, float32,
+    in the reference's init scales (norm scales zero, as initialised there)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(leaf: _Leaf) -> np.ndarray:
+        if not leaf.scale:
+            return np.zeros(leaf.shape, np.float32)
+        return rng.standard_normal(leaf.shape, dtype=np.float32) * np.float32(leaf.scale)
+
+    return tree_map(draw, _param_table(cfg))
+
+
+def device_params(cfg: ModelConfig, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
+                  seed: int, dtype: torch.dtype, device: str | torch.device = "cuda"):
+    """A tree of ``Stacked`` leaves as ``to_torch`` lays it out, drawn on
+    ``device`` from a ``torch.Generator`` seeded with ``seed``: each rank's
+    shard of a split leaf directly (a global tensor is never made), a
+    replicated leaf once, expanded over the ranks. Same shapes, init scales
+    and dtypes as ``to_torch(random_params(cfg, seed), ...)`` (norm scales
+    zero and, with the router, float32), but not its numbers: this is not
+    the numpy draw. The reference's launchers draw on their device too
+    (``init_state``); a host draw of deepseek-moe-16b's 16.9 B parameters
+    would take 67.6 GB of float32."""
+    dev = device_of(device)
+    dp = dp_axes(mesh_cfg)
+    if mesh is not None and mesh.rank_axes != dp:
+        raise ValueError(f"{mesh} must stack exactly the dp axes {dp}")
+    n = 1 if mesh is None else mesh.n_ranks
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(path, spec_leaf: _Leaf) -> Stacked:
+        spec = () if mesh is None else _leaf_spec(path, spec_leaf, mesh, dp)
+        dt = torch.float32 if path[-1] in _F32_LEAVES else dtype
+        shape = list(spec_leaf.shape)
+        split = is_sharded(spec, dp)
+        if split:
+            shape[_rank_dim(spec)] //= n
+        t = torch.empty((n, *shape) if split else shape, dtype=dt, device=dev)
+        if spec_leaf.scale:
+            t.normal_(0.0, float(spec_leaf.scale), generator=gen)
+        else:
+            t.zero_()
+        return Stacked(t if split else t.expand(n, *shape), spec)
+
+    return tree_map_with_path(leaf, _param_table(cfg))

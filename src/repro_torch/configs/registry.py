@@ -19,7 +19,7 @@ def register(name: str):
 
 def _ensure_loaded() -> None:
     # import arch modules for their side-effectful @register decorators
-    from repro_torch.configs import smollm_135m  # noqa: F401
+    from repro_torch.configs import deepseek_moe_16b, smollm_135m  # noqa: F401
 
 
 def arch_names() -> list[str]:

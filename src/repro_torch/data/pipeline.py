@@ -1,5 +1,6 @@
 """Deterministic synthetic data pipeline (counterpart of
-``repro.data.pipeline`` for the dense family).
+``repro.data.pipeline`` for the dense and moe families, whose batches are
+the same).
 
 A reproducible token stream per (seed, step): the reference's numpy stream,
 so the batches hold the same token ids as the reference's. The step index
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import device_of
-from repro_torch.models.model_builder import batch_dims
+from repro_torch.models.model_builder import FAMILIES, batch_dims
 
 
 @dataclass(frozen=True)
@@ -29,8 +30,8 @@ class SyntheticPipeline:
 
     def __init__(self, model: ModelConfig, shape: ShapeConfig,
                  data: DataConfig = DataConfig(), *, device: str | torch.device = "cuda"):
-        if model.family != "dense":
-            raise NotImplementedError(f"family {model.family!r} is not ported; only dense")
+        if model.family not in FAMILIES:
+            raise NotImplementedError(f"family {model.family!r} is not ported; only {FAMILIES}")
         self.model = model
         self.shape = shape
         self.data = data

@@ -2,10 +2,13 @@
 allgathers, then greedy decoding, on one GPU.
 
     python -m repro_torch.launch.serve --arch smollm-135m
-    python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b --batch 8 --prompt-len 128
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu
 
 Weights are drawn from ``TrainConfig.seed`` in the reference's init scales (no
-checkpoint is read). The local mesh's eight data-parallel ranks
+checkpoint is read): with --smoke by numpy on the host (``bridge.random_params``),
+otherwise on the device, each rank's shards directly (``bridge.device_params``).
+The local mesh's eight data-parallel ranks
 (``launch.mesh.make_local_mesh``) are stacked on the one device; a batch
 that does not split over them (the default, 4, as in the reference) is
 replicated on every rank.
@@ -49,8 +52,12 @@ def main(argv: list[str] | None = None) -> None:
     run = RunConfig(model=model,
                     shape=ShapeConfig("serve", "prefill", args.prompt_len, args.batch),
                     collective=CollectiveConfig(fsdp_mode=args.fsdp_mode))
-    params = bridge.to_torch(bridge.random_params(model, run.train.seed), mesh, run.mesh,
-                             dtype=dtype_of(model.param_dtype), device=device)
+    if args.smoke:
+        params = bridge.to_torch(bridge.random_params(model, run.train.seed), mesh, run.mesh,
+                                 dtype=dtype_of(model.param_dtype), device=device)
+    else:
+        params = bridge.device_params(model, mesh, run.mesh, seed=run.train.seed,
+                                      dtype=dtype_of(model.param_dtype), device=device)
     _, _, prefill = make_prefill_step(run, mesh, device=device)
     _, _, decode = make_decode_step(run, mesh, device=device)
     tokens = torch.from_numpy(np.random.default_rng(run.train.seed).integers(

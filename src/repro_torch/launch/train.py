@@ -8,6 +8,9 @@ supervisor.
         --remat dots
     python -m repro_torch.launch.train --arch smollm-135m --mesh production --multi-pod \
         --ckpt-dir ckpt --ckpt-every 50
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --layers 2 --batch 16 \
+        --seq 512 --fsdp-mode mcast --steps 5
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu
 
 --prefetch gathers layer i + 1 during layer i (``CollectiveConfig.prefetch``;
 on the card on a side stream; the mcast modes only, as in the reference),
@@ -20,9 +23,12 @@ and block), "dots" (all of it but the products' outputs) or "none".
 ``model`` is layout only. A global batch that does not split over the dp
 ranks is replicated on each.
 
---smoke runs the reduced config of the arch (f32, two layers). Weights are
-drawn from ``TrainConfig.seed`` in the reference's init scales (no
-checkpoint is read at the start); the data is the synthetic pipeline's. The
+--smoke runs the reduced config of the arch (f32, two layers); --layers cuts
+the depth of the full-width one. Weights are drawn from ``TrainConfig.seed``
+in the reference's init scales (no checkpoint is read at the start): with
+--smoke by numpy on the host (``bridge.random_params``), otherwise on the
+device, each rank's shards directly (``bridge.device_params``). The data is
+the synthetic pipeline's. The
 steps run under ``runtime.fault.TrainSupervisor``: an async checkpoint into
 --ckpt-dir every --ckpt-every steps, and a restart from the latest one on a
 failure.
@@ -50,6 +56,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="gather layer i + 1 during layer i (mcast modes)")
     ap.add_argument("--batch", type=int, default=0, help="override global batch")
     ap.add_argument("--seq", type=int, default=0, help="override seq len")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth (full width)")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -58,11 +65,12 @@ def main(argv: list[str] | None = None) -> None:
 
     from repro_torch import bridge
     from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
-                                     TrainConfig, get_model_config, reduced)
+                                     TrainConfig, get_model_config, reduced, replace)
     from repro_torch.configs.base import SHAPES
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.device import device_of
     from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.models.layers import dtype_of
     from repro_torch.runtime.fault import TrainSupervisor
     from repro_torch.runtime.train_loop import init_state, make_train_step
 
@@ -70,11 +78,14 @@ def main(argv: list[str] | None = None) -> None:
     model = get_model_config(args.arch)
     shape = SHAPES[args.shape]
     if args.smoke:
-        model = reduced(model)
+        model = reduced(model, layers=args.layers or None)
         shape = ShapeConfig(shape.name, shape.kind, args.seq or 128, args.batch or 8)
-    elif args.batch or args.seq:
-        shape = ShapeConfig(shape.name, shape.kind, args.seq or shape.seq_len,
-                            args.batch or shape.global_batch)
+    else:
+        if args.layers:
+            model = replace(model, num_layers=args.layers)
+        if args.batch or args.seq:
+            shape = ShapeConfig(shape.name, shape.kind, args.seq or shape.seq_len,
+                                args.batch or shape.global_batch)
     run = RunConfig(model=model, shape=shape, mesh=MeshConfig(multi_pod=args.multi_pod),
                     train=TrainConfig(steps=args.steps, grad_accum=args.grad_accum,
                                       remat=args.remat, checkpoint_dir=args.ckpt_dir,
@@ -88,7 +99,12 @@ def main(argv: list[str] | None = None) -> None:
           f"S={shape.seq_len} device={device} mesh={mesh} fsdp={args.fsdp_mode} "
           f"remat={args.remat} prefetch={args.prefetch}", flush=True)
     _, _, step_fn = make_train_step(run, mesh, device=device)
-    state = init_state(run, mesh, bridge.random_params(model, run.train.seed), device=device)
+    if args.smoke:
+        tree = bridge.random_params(model, run.train.seed)
+    else:
+        tree = bridge.device_params(model, mesh, run.mesh, seed=run.train.seed,
+                                    dtype=dtype_of(model.param_dtype), device=device)
+    state = init_state(run, mesh, tree, device=device)
     pipe = SyntheticPipeline(model, shape, device=device)
     sup = TrainSupervisor(step_fn=step_fn, pipeline=pipe, ckpt_dir=args.ckpt_dir,
                           ckpt_every=args.ckpt_every)

@@ -1,4 +1,4 @@
-"""Model API of the port (dense family), counterpart of
+"""Model API of the port (dense and moe families), counterpart of
 ``repro.models.model_builder``:
 
     api = build_model(cfg, remat="full", device="cuda")
@@ -28,6 +28,7 @@ from repro_torch.device import device_of
 from repro_torch.models import layers, transformer
 
 XENT_CHUNK = 512
+FAMILIES = ("dense", "moe")
 
 
 def _xent_chunk(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor):
@@ -75,26 +76,32 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
     """remat: "none", "full" (checkpoint each layer's gather and block) or
     "dots" (the same, keeping every product's output); any other raises
     ValueError."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported; only dense")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported; only {FAMILIES}")
     transformer.check_remat(remat)
     dev = device_of(device)
     dt = layers.dtype_of(cfg.param_dtype)
 
     def forward_fn(params, batch):
-        x, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
+        x, _, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
         return transformer.from_ranks(transformer.final_hidden(params, cfg, x))
 
     def loss_fn(params, batch):
-        x, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
+        """Token-mean cross-entropy; MoE adds its router losses and reports
+        the three ``moe_*`` metrics (reference ``model_builder.py:166``)."""
+        x, aux, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
         x = transformer.final_hidden(params, cfg, x)
         targets = transformer.to_ranks(batch["targets"], transformer.n_ranks(params))
         loss = chunked_xent(x, transformer.head_matrix(params, cfg), targets)
-        return loss, {"xent": loss}
+        metrics = {"xent": loss}
+        if cfg.family == "moe":
+            loss = loss + aux["moe_aux"] + aux["moe_zloss"]
+            metrics.update(aux)
+        return loss, metrics
 
     def prefill_fn(params, batch):
-        x, cache = transformer.dense_forward(params, cfg, batch, want_cache=True,
-                                             remat=remat)
+        x, _, cache = transformer.dense_forward(params, cfg, batch, want_cache=True,
+                                                remat=remat)
         logits = transformer.lm_logits(params, cfg, x[:, :, -1:])[:, :, 0]
         return transformer.from_ranks(logits), cache
 
@@ -108,7 +115,7 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
 
 
 def batch_dims(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
-    """Shapes (no data) of every input of a (dense cfg, shape) cell."""
+    """Shapes (no data) of every input of a (dense or moe cfg, shape) cell."""
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         return {"tokens": (b, s), "targets": (b, s)}

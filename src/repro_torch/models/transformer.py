@@ -1,4 +1,4 @@
-"""Dense decoder stack (counterpart of the dense path of
+"""Dense and MoE decoder stack (counterpart of the dense and moe paths of
 ``repro.models.transformer``).
 
 Every dp rank is real: activations carry a leading rank dim R, rank r holds
@@ -26,8 +26,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import SideStream
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
-from repro_torch.sharding.ctx import get_ctx, maybe_gather_params, shard, use_ctx
+from repro_torch.models import layers, moe
+from repro_torch.sharding.ctx import (from_ranks, get_ctx, maybe_gather_params, shard,
+                                     to_ranks, use_ctx)
 from repro_torch.sharding.fsdp import gather_leaf
 from repro_torch.sharding.specs import Stacked, tree_map
 
@@ -39,25 +40,6 @@ def plain_gather(leaf: Stacked) -> torch.Tensor:
     plain gather (GSPMD's gather in the reference, in every mode)."""
     c = get_ctx()
     return gather_leaf(leaf.local, leaf.spec, c.mesh, c.dp_axes, "xla", 1)
-
-
-def to_ranks(t: torch.Tensor, r: int) -> torch.Tensor:
-    """Global batch (B, ...) -> (R, B/R, ...): rank r's rows; where the
-    context replicates the batch, (R, B, ...): every rank the whole batch (a
-    view)."""
-    if not get_ctx().shard_batch:
-        return t.expand(r, *t.shape)
-    if t.shape[0] % r:
-        raise ValueError(
-            f"global batch {t.shape[0]} does not split over {r} dp ranks, yet the "
-            "context shards the batch over dp")
-    return t.reshape(r, t.shape[0] // r, *t.shape[1:])
-
-
-def from_ranks(t: torch.Tensor) -> torch.Tensor:
-    """The inverse of ``to_ranks``: (R, B/R, ...) -> (B, ...), rank-major; a
-    replicated batch's rank 0 copy, (B, ...) (every rank computes the same)."""
-    return t.flatten(0, 1) if get_ctx().shard_batch else t[0]
 
 
 def n_ranks(params: Params) -> int:
@@ -73,8 +55,9 @@ def layer_slice(blocks: Params, i: int) -> Params:
 
 
 def dense_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_kv: bool):
-    """Prefill path. x (R, B, S, D); p one layer's gathered weights.
-    Returns (x, (k, v) each (R*B, KV, S, hd) | None)."""
+    """Train/prefill path. x (R, B, S, D); p one layer's gathered weights.
+    Returns (x, aux metrics ({} but for MoE), (k, v) each (R*B, KV, S, hd) |
+    None). Reference: ``transformer.py:53``."""
     r, b = x.shape[:2]
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.qkv_split(p["attn"], h, cfg)
@@ -91,9 +74,14 @@ def dense_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_k
     )
     x = x + shard(layers.out_proj(p["attn"], o.unflatten(0, (r, b))), "dp", "sp", None)
     h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + shard(layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg)), "dp", "sp", None)
+    aux = {}
+    if cfg.family == "moe":
+        ff, aux = moe.moe_apply(p["moe"], h2, cfg)
+    else:
+        ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))
+    x = x + shard(ff, "dp", "sp", None)
     kv = (k.transpose(1, 2), v.transpose(1, 2)) if want_kv else None  # (B,KV,S,hd)
-    return x, kv
+    return x, aux, kv
 
 
 def _mlp_act(cfg: ModelConfig) -> str:
@@ -121,7 +109,8 @@ def _decode_attention(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torch.T
 
 def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kc, vc, pos):
     """Decode path. x (R, B, D); kc/vc (global batch, KV, S, hd), updated in
-    place; pos (R, B). Returns x."""
+    place; pos (R, B). Returns x. MoE routes without drops (reference
+    ``transformer.py:132``)."""
     h = layers.rms_norm(x[:, :, None], p["ln1"], cfg.norm_eps)   # (R,B,1,D)
     q, k, v = layers.qkv_split(p["attn"], h, cfg)
     q = apply_positions(q, pos[..., None], cfg)
@@ -131,7 +120,11 @@ def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kc, vc, pos):
     o = _decode_attention(q[:, :, 0], kc, vc, pos, cfg)
     x = x + layers.out_proj(p["attn"], o[:, :, None])[:, :, 0]
     h2 = layers.rms_norm(x[:, :, None], p["ln2"], cfg.norm_eps)
-    return x + layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))[:, :, 0]
+    if cfg.family == "moe":
+        ff, _ = moe.moe_apply(p["moe"], h2, cfg, no_drop=True)
+    else:
+        ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))
+    return x + ff[:, :, 0]
 
 
 # ----------------------------------------------------------------- LM skeleton
@@ -206,8 +199,24 @@ def _remat(body, remat: str):
     return lambda *args: checkpoint(body, *args, **kw)
 
 
+def _aux0(cfg: ModelConfig) -> dict:
+    return ({"moe_aux": 0.0, "moe_zloss": 0.0, "moe_drop_frac": 0.0}
+            if cfg.family == "moe" else {})
+
+
+def _add_aux(acc: dict, aux: dict) -> dict:
+    return {k: acc.get(k, 0.0) + v for k, v in aux.items()} if aux else acc
+
+
+def _mean_aux(cfg: ModelConfig, aux: dict) -> dict:
+    """The layers' summed aux metrics over the layer count (MoE)."""
+    return {k: v / cfg.num_layers for k, v in aux.items()} if cfg.family == "moe" else aux
+
+
 def _scan_blocks(params, cfg, x, positions, *, want_kv, remat: str = "none"):
-    """Layer loop: gather layer i's weights, then apply the block. With
+    """Layer loop: gather layer i's weights, then apply the block; the
+    blocks' aux metrics are summed, then divided by the layer count
+    (reference ``transformer.py:190``). With
     remat="full" or "dots" the gather and the block are one checkpointed
     body, so the backward gathers the layer again, as the reference's
     jax.checkpoint of its scan body does. With the context's
@@ -223,11 +232,12 @@ def _scan_blocks(params, cfg, x, positions, *, want_kv, remat: str = "none"):
             return dense_block_apply(bp, x, cfg, positions=positions, want_kv=want_kv)
 
     fn = _remat(body, remat)
-    kvs = []
+    kvs, aux = [], _aux0(cfg)
     for i in range(cfg.num_layers):
-        x, kv = fn(x, layer_slice(params["blocks"], i))
+        x, layer_aux, kv = fn(x, layer_slice(params["blocks"], i))
+        aux = _add_aux(aux, layer_aux)
         kvs.append(kv)
-    return x, kvs
+    return x, _mean_aux(cfg, aux), kvs
 
 
 def _scan_blocks_prefetch(params, cfg, x, positions, *, remat: str = "none"):
@@ -255,30 +265,34 @@ def _scan_blocks_prefetch(params, cfg, x, positions, *, remat: str = "none"):
         g_next, ready_next = side.issue(gather, layer_next)   # prefetch layer i + 1
         side.join(ready)
         with use_ctx(ctx):
-            x, _ = dense_block_apply(gathered, x, cfg, positions=positions, want_kv=False)
-        return x, g_next, ready_next
+            x, aux, _ = dense_block_apply(gathered, x, cfg, positions=positions,
+                                          want_kv=False)
+        return x, aux, g_next, ready_next
 
     fn = _remat(body, remat)
     gathered, ready = side.issue(gather, layer_slice(blocks, 0))
+    aux = _aux0(cfg)
     for i in range(1, cfg.num_layers):
-        x, gathered, ready = fn(x, gathered, ready, layer_slice(blocks, i))
+        x, layer_aux, gathered, ready = fn(x, gathered, ready, layer_slice(blocks, i))
+        aux = _add_aux(aux, layer_aux)
     side.join(ready)
-    x, _ = dense_block_apply(gathered, x, cfg, positions=positions, want_kv=False)
-    return x, None
+    x, layer_aux, _ = dense_block_apply(gathered, x, cfg, positions=positions, want_kv=False)
+    return x, _mean_aux(cfg, _add_aux(aux, layer_aux)), None
 
 
 def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
     """batch: tokens (B, S). Returns (hidden (R, B/R, S, D) or, replicated,
-    (R, B, S, D); cache | None); the cache is {"k", "v"} of (L, B, KV, S, hd)."""
+    (R, B, S, D); aux metrics ({} but for MoE); cache | None); the cache is
+    {"k", "v"} of (L, B, KV, S, hd)."""
     tokens = to_ranks(batch["tokens"], n_ranks(params))
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[2], device=x.device)[None, :]
-    x, kvs = _scan_blocks(params, cfg, x, positions, want_kv=want_cache, remat=remat)
+    x, aux, kvs = _scan_blocks(params, cfg, x, positions, want_kv=want_cache, remat=remat)
     cache = None
     if want_cache:
         cache = {name: torch.stack([from_ranks(kv[j].unflatten(0, x.shape[:2])) for kv in kvs])
                  for j, name in enumerate(("k", "v"))}
-    return x, cache
+    return x, aux, cache
 
 
 def dense_decode_step(params, cfg: ModelConfig, cache, token, pos):

@@ -61,9 +61,11 @@ def greedy_generate(prefill, decode, params, prompt_tokens: torch.Tensor,
 
     The reference's greedy_generate feeds the prompt through decode one token at a
     time; here the prompt goes through the prefill step, the path that
-    crosses the paper's gather, and decode continues from its cache. The
-    tokens are the same: new token 0 is the argmax of the last prompt
-    position's logits either way."""
+    crosses the paper's gather, and decode continues from its cache. For
+    the dense family the tokens are the same: new token 0 is the argmax of
+    the last prompt position's logits either way. For MoE they are the
+    reference's prefill step's and decode step's: the prefill routes with
+    its capacity, which may drop tokens, where decode drops none."""
     b, s = prompt_tokens.shape
     if cache_len < s + max_new - 1:
         raise ValueError(f"cache_len {cache_len} < {s + max_new - 1} positions")

@@ -112,9 +112,13 @@ def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
 
 def init_state(run: RunConfig, mesh: StackedMesh | None, tree: dict, *,
                device: str | torch.device = "cuda") -> TrainState:
-    """The train state over a dense numpy parameter tree (``bridge``):
-    parameters in ``param_dtype`` (norm scales f32), zero f32 moments."""
-    params = bridge.to_torch(tree, mesh, run.mesh, dtype=dtype_of(run.model.param_dtype),
-                             device=device)
-    params = trainable(params, dp_axes(run.mesh))
+    """The train state over a parameter tree: the numpy tree
+    (``bridge.random_params``, carried over by ``bridge.to_torch``:
+    parameters in ``param_dtype``, norm scales and the router f32) or a
+    tree of ``Stacked`` leaves already on the device
+    (``bridge.device_params``); zero f32 moments."""
+    if not isinstance(tree_leaves(tree)[0], Stacked):
+        tree = bridge.to_torch(tree, mesh, run.mesh, dtype=dtype_of(run.model.param_dtype),
+                               device=device)
+    params = trainable(tree, dp_axes(run.mesh))
     return TrainState(params, adamw.init(params))

@@ -87,6 +87,25 @@ def maybe_gather_params(tree):
     return c.gather_params(tree)
 
 
+def to_ranks(t: torch.Tensor, r: int) -> torch.Tensor:
+    """Global batch (B, ...) -> (R, B/R, ...): rank r's rows; where the
+    context replicates the batch, (R, B, ...): every rank the whole batch (a
+    view)."""
+    if not get_ctx().shard_batch:
+        return t.expand(r, *t.shape)
+    if t.shape[0] % r:
+        raise ValueError(
+            f"global batch {t.shape[0]} does not split over {r} dp ranks, yet the "
+            "context shards the batch over dp")
+    return t.reshape(r, t.shape[0] // r, *t.shape[1:])
+
+
+def from_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``to_ranks``: (R, B/R, ...) -> (B, ...), rank-major; a
+    replicated batch's rank 0 copy, (B, ...) (every rank computes the same)."""
+    return t.flatten(0, 1) if get_ctx().shard_batch else t[0]
+
+
 def shard(x: torch.Tensor, *dims) -> torch.Tensor:
     """No-op: on the stacked backend the layout is fixed by the rank dim."""
     return x

@@ -74,6 +74,13 @@ _RULES: dict[str, tuple] = {
     "lru_a_bias": ("tp",), "lru_x_bias": ("tp",), "lru_lam": ("tp",),
     "conv_b": ("tp",),
 }
+# MoE expert tensors carry a leading E dim sharded over tp (EP):
+_MOE_RULES = {
+    "w_gate": ("tp", "dp", None),
+    "w_up": ("tp", "dp", None),
+    "w_down": ("tp", None, "dp"),
+    "router": ("dp", None),
+}
 
 
 def dp_axes(mesh_cfg: MeshConfig) -> tuple[str, ...]:
@@ -96,9 +103,14 @@ def _resolve_dim(dim_size: int, tag, mesh: StackedMesh, dp: tuple[str, ...]):
 
 
 def _leaf_spec(path: tuple, leaf, mesh: StackedMesh, dp: tuple[str, ...]) -> Spec:
-    """Spec of a global leaf (anything with ``.shape``) named by ``path``."""
+    """Spec of a global leaf (anything with ``.shape``) named by ``path``:
+    the MoE rules inside ``moe`` but not inside its ``shared`` experts
+    (reference ``sharding/specs.py:78``)."""
     name = path[-1]
-    rules = {"w_out": _OUT_IN} if name == "w_out" else _RULES
+    in_moe = "moe" in path and "shared" not in path
+    rules = _MOE_RULES if (in_moe and name in _MOE_RULES) else _RULES
+    if name == "w_out":
+        rules = {"w_out": _OUT_IN}
     if name not in rules:
         return ()  # replicate (norms, biases)
     tags = rules[name]

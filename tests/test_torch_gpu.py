@@ -898,3 +898,115 @@ def test_async_save_does_not_race_the_next_step(tmp_path):
     back, _ = restore(str(tmp_path), 1, state)
     for key, a in _host_state(back).items():
         np.testing.assert_array_equal(a, want[key], err_msg=key)
+
+
+# ------------------------------------------------------------------ MoE
+
+
+def _moe_layer(r: int, dtype, device):
+    """Layer 0 of reduced deepseek-moe-16b's MoE weights as every rank's
+    gathered copy (R, *global), and its config."""
+    cfg = reduced(get_model_config("deepseek-moe-16b"))
+    tree = bridge.random_params(cfg, 5)["blocks"]["moe"]
+
+    def leaf(a, name):
+        t = torch.from_numpy(a[0]).to(device, torch.float32 if name == "router" else dtype)
+        return t.expand(r, *t.shape).contiguous()
+
+    p = {k: ({n: leaf(a, n) for n, a in v.items()} if isinstance(v, dict) else leaf(v, k))
+         for k, v in tree.items()}
+    return cfg, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.1)])
+def test_moe_apply_on_cuda_equals_cpu(dtype, tol):
+    """moe_apply on the card against its CPU run on the same weights and
+    tokens (4 ranks, capacity 1.25: tokens dropped): the output within
+    ``tol`` (the kernels' sums against torch's), the same drop fraction;
+    every product a matmul launch (three expert products, three shared,
+    the router in f32)."""
+    _need_cuda()
+    from repro_torch.models import moe
+    from repro_torch.sharding.ctx import ShardCtx
+    x = torch.randn(4, 2, 8, 64, generator=torch.Generator().manual_seed(0)).to(dtype)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, p = _moe_layer(4, dtype, dev)
+        before = (_matmul_launches(), M.launches_f32)
+        with use_ctx(ShardCtx(mesh=None)):
+            y, metrics = moe.moe_apply(p, x.to(dev), cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            f32 = 7 if dtype == torch.float32 else 1   # the router's product is f32
+            assert (_matmul_launches() - before[0], M.launches_f32 - before[1]) == (7, f32)
+        out[dev] = (y.cpu().float(), {k: float(v) for k, v in metrics.items()})
+    assert out["cpu"][1]["moe_drop_frac"] > 0
+    assert out["cuda"][1]["moe_drop_frac"] == out["cpu"][1]["moe_drop_frac"]
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_moe_apply_on_cuda_is_deterministic():
+    """No atomics in the dispatch, the combine or their backwards: a forward
+    and a backward run twice give the same bits."""
+    _need_cuda()
+    from repro_torch.models import moe
+    from repro_torch.sharding.ctx import ShardCtx
+    runs = []
+    for _ in range(2):
+        cfg, p = _moe_layer(4, torch.bfloat16, "cuda")
+        for name in ("w_gate", "w_up", "w_down", "router"):
+            p[name].requires_grad_()
+        x = torch.randn(4, 16, 32, 64, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+        x = x.to(torch.bfloat16).requires_grad_()
+        with use_ctx(ShardCtx(mesh=None)):
+            y, metrics = moe.moe_apply(p, x, cfg)
+        grads = torch.autograd.grad(y.float().square().sum() + metrics["moe_aux"],
+                                    [x, *(p[n] for n in ("w_gate", "w_up", "w_down", "router"))])
+        runs.append((y, grads))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+# one flat rank shard whose gathered copies pass 2^31 bytes: 8 x 8 x n bf16
+_BIG_N = (1 << 24) + 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ring", "bidi", "bcast"])
+def test_gather_and_transpose_past_2_31_bytes(mode):
+    """#1 and #1b where the gathered buffer (2.15 GB) holds byte offsets
+    past 2^31: bitwise their plain versions."""
+    _need_cuda()
+    p = 8
+    sched = {"ring": C._ring_schedule(p), "bidi": C._bidi_schedule(p, _BIG_N),
+             "bcast": C._bcast_schedule(p, 2)}[mode]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(p, _BIG_N, device="cuda", generator=gen).to(torch.bfloat16)
+    got = K.ring_allgather(x, sched)
+    assert got.numel() * got.element_size() > 2**31
+    assert torch.equal(got, K.ring_allgather_plain(x, sched))
+    del got
+    g = torch.randn(p, p, _BIG_N, device="cuda", generator=gen).to(torch.bfloat16)
+    got = C._transposed(g.view(p, -1), sched)
+    assert torch.equal(got, K.ring_allgather_transpose_plain(g, sched))
+
+
+@pytest.mark.gpu
+def test_matmul_past_2_31_bytes():
+    """#3 where a rank's operand starts past 2^31 bytes and the output is
+    2.5 GB (every rank's copy of deepseek-moe-16b's head): within the
+    kernel's limits of the plain product."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(8, 1536, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(8, 2048, 102400, device="cuda", generator=gen).to(torch.bfloat16)
+    assert w[7].data_ptr() - w.data_ptr() > 2**31
+    got = M.matmul(x, w)
+    assert got.numel() * got.element_size() > 2**31
+    want = M.matmul_plain(x, w)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
