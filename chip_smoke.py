@@ -153,6 +153,29 @@
    and popcount per round. Wall ms on the card and the CPU, device busy
    ms, idle share and device ms per kernel; the kernels at the largest
    shapes of their calls;
+5c. the paper's figures from the fluid and analytic fidelities
+   (core/sched_ir.py's fluid lowerings, core/engine.py's max-min solve as
+   tensor ops on the engine's device, core/topology.py, core/cost_model.py)
+   at the reference's sizes (benchmarks/paper_figs.py), each run on the card
+   equal field for field to the same call on the CPU: Fig. 11, fluid
+   Allgathers at P = 188 of 16 KiB, 128 KiB and 1 MiB (56 Gbit/s links, 2
+   workers of 9 GiB/s; at 128 KiB within 0.5x to 1.5x of the ring's per-rank
+   throughput); Fig. 10, ``sweep_phase_breakdown`` up to 188 nodes
+   (mcast_frac > 0.99 at 16 nodes and more and 4 MiB); Fig. 12 from routed
+   engine runs on a k = 32 fat-tree at 128, 512 and 1,024 hosts, 64 KiB a
+   rank, a tree flow a rank against ``cost_model.routed_ring_allgather``
+   (bytes the shard times the summed tree edges and route lengths,
+   multicast <= 0.55x the ring at 512 and more, time between 0.95x the
+   receive bound and the ring's), the vectorized solve on the card; a lossy
+   routed Broadcast (188 hosts of a k = 16 fat-tree, 64 MiB, 1e-3 drops, 2
+   workers) with its 187 leaves' pools in one pool launch; the static
+   traffic counts of Figs. 2 and 12 (ring over multicast in [1.5, 2.5] and
+   [1.5, 2.2]). Before them, the pool's row pass on the card bitwise the 1-D
+   pool on ragged rows whose staging ring overflows. Prints each figure's
+   host ms on the card and the CPU, busy ms and idle share, solves, flows
+   solved, vectorized solves (on the card) and their filling iterations,
+   and pool launches, which must equal what the figures' generations imply
+   (the card's run is the profiled one);
 6. the collective layer's remaining entry points, each driven once with the
    launch counts zeroed before and read after: (a) the double-buffered
    drain (csrc/double_buffer_drain.cu) equal to its plain version on every
@@ -220,9 +243,12 @@ from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig,  # noq
                                  ShapeConfig, TrainConfig, get_model_config, reduced,
                                  replace)
 from repro_torch.core import collectives as C  # noqa: E402
+from repro_torch.core import cost_model as CM  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import packet as PK  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
+from repro_torch.core import simulator as SIM  # noqa: E402
+from repro_torch.core import topology as TOPO  # noqa: E402
 from repro_torch.data.pipeline import SyntheticPipeline  # noqa: E402
 from repro_torch.kernels import bitmap as BM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -1461,18 +1487,27 @@ def _bcast(name: str, device: str) -> PK.PacketBcastResult:
                                         collect_delivery=True, device=device)
 
 
-def _assert_same(a: PK.PacketBcastResult, b: PK.PacketBcastResult, what: str) -> None:
-    """Every field of two results, exactly."""
-    if not np.array_equal(a.completion, b.completion):
-        raise AssertionError(f"{what}: completion times differ")
-    for name in ("phases", "delivered_fast", "recovered", "rnr_drops", "bytes_fast",
-                 "bytes_recovery", "bytes_total", "link_bytes", "rounds",
-                 "retransmit_wire_bytes", "duplicates", "completed"):
-        if getattr(a, name) != getattr(b, name):
-            raise AssertionError(f"{what}: {name} {getattr(a, name)} != {getattr(b, name)}")
-    if sorted(a.delivery_order) != sorted(b.delivery_order) or not all(
-            np.array_equal(a.delivery_order[k], b.delivery_order[k]) for k in a.delivery_order):
-        raise AssertionError(f"{what}: delivery orders differ")
+def _same_fields(a, b, what: str) -> None:
+    """Every field of two results (dataclasses, dicts, lists, numbers),
+    exactly: arrays element for element, dicts key for key and in order."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _same_fields(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: arrays differ")
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"{what}: keys differ")
+        for k in a:
+            _same_fields(a[k], b[k], f"{what}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_fields(x, y, f"{what}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{what}: {a!r} != {b!r}")
 
 
 def _exact(name: str, got, want, case) -> float:
@@ -1675,7 +1710,7 @@ def packet_path() -> tuple[dict[str, int], dict[str, PK.PacketBcastResult]]:
             raise AssertionError(f"{name}: {counts[name]} launches on the packet path, "
                                  f"{len(calls[name])} calls in its round traces")
     for name in BCASTS:
-        _assert_same(card[name], cpu[name], f"broadcast {name}, card vs CPU")
+        _same_fields(card[name], cpu[name], f"broadcast {name}, card vs CPU")
     print(f"[packet] A and B on the card equal their CPU runs field for field; all {leaves} "
           f"leaves of A rebuilt the root's buffer by reassembly", flush=True)
     dev, prof_ms = _device_times(lambda: replay(card["A"], BCASTS["A"][1]))
@@ -1862,15 +1897,6 @@ def _ag(name: str, device: str) -> PK.PacketAllgatherResult:
                                         AG_CHAINS, loss=loss, device=device)
 
 
-def _assert_same_ag(a: PK.PacketAllgatherResult, b: PK.PacketAllgatherResult,
-                    what: str) -> None:
-    """Every field of two Allgather results, exactly."""
-    for f in dataclasses.fields(a):
-        if getattr(a, f.name) != getattr(b, f.name):
-            raise AssertionError(f"{what}: {f.name} {getattr(a, f.name)} != "
-                                 f"{getattr(b, f.name)}")
-
-
 def _ag_rounds(res: PK.PacketAllgatherResult) -> int:
     """The recovery rounds of a run: a round adds one RoundTrace for each of
     its live chains, all with the round's shared end time, and a later
@@ -1943,7 +1969,7 @@ def allgather_path() -> tuple[dict[str, int], dict]:
     if card["AG-B"].rounds == [] or card["AG-A"].rounds:
         raise AssertionError("AG-B must recover chunks and the lossless AG-A none")
     for name in AGS:
-        _assert_same_ag(card[name], cpu[name], f"allgather {name}, card vs CPU")
+        _same_fields(card[name], cpu[name], f"allgather {name}, card vs CPU")
     print(f"[allgather] AG-A and AG-B on the card equal their CPU runs field for field; "
           f"launches {json.dumps({k: counts[k] for k in AG_KERNELS})} as their traces imply",
           flush=True)
@@ -1992,6 +2018,199 @@ def _largest(calls: dict[str, list], keep: dict[str, int]) -> dict[str, list]:
         top = sorted(set(calls[name]), key=size, reverse=True)[:k]
         out[name] = [c for c in calls[name] if c in top]
     return out
+
+
+# ------------------------------------------- phase 5c: the paper's figures
+
+# Fig. 10 / 11: the UCC testbed's 56 Gbit/s links (benchmarks/paper_figs.py:53,70)
+FIG_LINK = 56e9 / 8
+FIG11_SIZES = (1 << 14, 1 << 17, 1 << 20)
+FIG10_SIZES, FIG10_NODES = [4096, 1 << 17, 4 << 20], [2, 16, 188]
+# Fig. 12 from routed engine runs: 64 KiB a rank on a k = 32 fat-tree
+# (benchmarks/paper_figs.py:188, fabric_sweep)
+FIG12_HOSTS = (128, 512, 1024)
+FIG12_SHARD = 64 << 10
+# the lossy routed Broadcast: the 188-host testbed (k = 16), 64 MiB, 2 workers
+LOSSY_BCAST = (188, 64 << 20)
+
+
+def fig11(device: str) -> list:
+    """Fig. 11: fluid Allgathers at P = 188 of 16 KiB, 128 KiB and 1 MiB,
+    one generator carried across the three."""
+    fab = E.FabricParams(b_link=FIG_LINK)
+    wk = E.WorkerParams(n_recv_workers=2, thread_tput=9.0 * (1 << 30))
+    rng = np.random.default_rng(0)
+    return [SIM.simulate_allgather(188, size, fab, wk, rng, device=device)
+            for size in FIG11_SIZES]
+
+
+def fig10(device: str) -> list[dict]:
+    """Fig. 10: the phase breakdown up to 188 nodes."""
+    return SIM.sweep_phase_breakdown(FIG10_SIZES, FIG10_NODES, seed=0, device=device)
+
+
+def fig12_routed(device: str) -> list:
+    """Fig. 12 from routed engine runs: at each P, the multicast Allgather
+    (a tree flow a rank, one generation) and the P2P ring on the same
+    k = 32 fat-tree; (P, Allgather result, ring time, ring link bytes)."""
+    fab = E.FabricParams(p_drop=0.0, jitter=0.0)
+    wk = E.WorkerParams(n_recv_workers=16)
+    out = []
+    for p in FIG12_HOSTS:
+        topo = TOPO.FatTree(k=32, n_hosts=p, b_host=fab.b_link)
+        ag = SIM.simulate_allgather(p, FIG12_SHARD, fab, wk, np.random.default_rng(0),
+                                    n_chains=p, topology=topo, device=device)
+        t_ring, ring_lb = CM.routed_ring_allgather(topo, p, p * FIG12_SHARD, fab,
+                                                   device=device)
+        out.append((p, ag, t_ring, ring_lb))
+    return out
+
+
+def lossy_bcast(device: str):
+    """The lossy routed Broadcast: P = 188 on the testbed's k = 16 fat-tree,
+    64 MiB, 1e-3 drops, 1 us jitter, 2 workers."""
+    p, n_bytes = LOSSY_BCAST
+    fab = E.FabricParams(p_drop=1e-3)
+    topo = TOPO.FatTree(k=16, n_hosts=p, b_host=fab.b_link)
+    return SIM.simulate_broadcast(p, n_bytes, fab, E.WorkerParams(n_recv_workers=2),
+                                  np.random.default_rng(0), topology=topo, device=device)
+
+
+def static_traffic() -> dict:
+    """Figs. 2 and 12 as static counts (no engine): ring over multicast
+    Allgather bytes on k = 32 / 1,024 hosts (1 MiB) and on the k = 16 /
+    188-host testbed (64 KiB a rank), and the testbed's pipelined-ring
+    Broadcast over multicast."""
+    tree = TOPO.FatTree(k=32, n_hosts=1024)
+    fig2 = (CM.p2p_ring_allgather_traffic(tree, 1024, 1 << 20)
+            / CM.mcast_allgather_traffic(tree, 1024, 1 << 20))
+    tree = TOPO.FatTree(k=16, n_hosts=188)
+    n = 1 << 16
+    fig12 = (CM.p2p_ring_allgather_traffic(tree, 188, n * 188)
+             / CM.mcast_allgather_traffic(tree, 188, n * 188))
+    fig12_bcast = (CM.p2p_ring_pipeline_bcast_traffic(tree, 188, n)
+                   / CM.mcast_bcast_traffic(tree, 188, n))
+    return {"fig2_allgather_ring_over_mcast": fig2, "fig12_allgather_ring_over_mcast": fig12,
+            "fig12_bcast_ring_over_mcast": fig12_bcast}
+
+
+def check_pool_rows() -> int:
+    """The fluid Broadcast's row pass on the card (ragged rows padded with
+    +inf, one launch) bitwise ``worker_pool_completion`` of each row's real
+    prefix, where the staging ring overflows. Returns the rows checked."""
+    rng = np.random.default_rng(7)
+    lens = (0, 1, 255, 256, 257, 4096, 16384)
+    rows = np.full((len(lens), max(lens)), np.inf)
+    for k, n in enumerate(lens):
+        rows[k, :n] = np.sort(rng.uniform(0.0, 2e-3, n))
+    drops = 0
+    for w, staging in ((1, 256), (2, 512), (7, 64)):
+        done, mask = E.worker_pool_completion_rows(torch.from_numpy(rows).cuda(), w, 3e-7,
+                                                   staging)
+        done, mask = done.cpu().numpy(), mask.cpu().numpy()
+        for k, n in enumerate(lens):
+            want, rnr = E.worker_pool_completion(rows[k, :n], w, 3e-7, staging)
+            if not np.array_equal(done[k, :n], want) or int(mask[k].sum()) != rnr \
+                    or mask[k, n:].any():
+                raise AssertionError(f"pool rows != the 1-D pool: row of {n}, W = {w}")
+            drops += rnr
+    if not drops:
+        raise AssertionError("the pool row check's staging ring never overflowed")
+    return 3 * len(lens)
+
+
+def _figure(name: str, fn, pools: int) -> tuple:
+    """One figure on the CPU, then on the card under the profiler (counts
+    zeroed before, read after), field for field equal. Prints host ms on
+    both (the card's with the profiler on), the card's busy ms and idle
+    share, the solves and pool launches; ``pools``: the pool launches the
+    figure's generations imply. Returns (card result, pool launches, the
+    card run's engine counts)."""
+    t0 = time.perf_counter()
+    cpu = fn("cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    E.counts.update(dict.fromkeys(E.counts, 0))
+    _zero_counts()
+    out = []
+    dev, card_ms = _device_times(lambda: out.append(fn("cuda")))
+    card = out[0]
+    counts, launches = dict(E.counts), PL.launches
+    _same_fields(card, cpu, f"{name}, card vs CPU")
+    if launches != pools:
+        raise AssertionError(f"{name}: {launches} pool launches, its generations imply {pools}")
+    busy = sum(dev.values()) if dev else None   # no device record: not measured
+    print("[figures] " + json.dumps({
+        "figure": name, "card_host_ms": card_ms, "cpu_host_ms": cpu_ms,
+        "device_busy_ms": busy, "device_idle_share": None if busy is None else 1 - busy / card_ms,
+        **counts, "pool_launches": launches,
+        "top_device_ms": {k[:50]: t for k, t in sorted(dev.items(), key=lambda kv: -kv[1])[:4]}}),
+        flush=True)
+    return card, launches, counts
+
+
+def figures_path() -> int:
+    """Phase 5c: the paper's Figs. 2, 10, 11 and 12 at the reference's full
+    sizes, each run on the card equal to the same call on the CPU field for
+    field, each figure's bounds (benchmarks/paper_figs.py's asserts); the
+    vectorized max-min solve on the card; the lossy Broadcast's leaves in one
+    pool launch. Returns the phase's pool launches."""
+    print(f"[figures] pool row pass == the 1-D pool on {check_pool_rows()} ragged rows, the "
+          "staging ring overflowing", flush=True)
+    total = 0
+    res, n, _ = _figure("fig11", fig11, len(FIG11_SIZES) * 188)
+    total += n
+    for size, ag in zip(FIG11_SIZES, res):
+        ring_tput = (188 - 1) * size / CM.allgather_time_ring(size, FIG_LINK, 188)
+        ratio = ag.per_rank_recv_tput / ring_tput
+        print(f"[figures] fig11 {size} B: multicast {ag.per_rank_recv_tput / 1e9} GB/s a rank, "
+              f"ring {ring_tput / 1e9}, ratio {ratio}", flush=True)
+        if size == 1 << 17 and not 0.5 < ratio < 1.5:
+            raise AssertionError(f"fig11: multicast / ring at 128 KiB {ratio}, not in (0.5, 1.5)")
+    rows, n, _ = _figure("fig10", fig10, len(FIG10_SIZES) * sum(FIG10_NODES))
+    total += n
+    for r in rows:
+        print(f"[figures] fig10 P={r['nodes']} {r['bytes']} B: mcast_frac {r['mcast_frac']} "
+              f"rnr {r['rnr_frac']} rel {r['reliability_frac']}", flush=True)
+        if r["nodes"] >= 16 and r["bytes"] == 4 << 20 and not r["mcast_frac"] > 0.99:
+            raise AssertionError(f"fig10: mcast_frac {r['mcast_frac']} at {r['nodes']} nodes")
+    runs, n, counts = _figure("fig12_routed", fig12_routed, len(FIG12_HOSTS))
+    total += n
+    if not counts["device_solves"]:
+        raise AssertionError("fig12: no max-min solve ran its vectorized filling on the card")
+    for p, ag, t_ring, ring_lb in runs:
+        topo, hosts = TOPO.FatTree(k=32, n_hosts=p), list(range(p))
+        edges = sum(len(topo.multicast_tree(h, hosts)) for h in hosts)
+        hops = sum(len(topo.route(hosts[i], hosts[(i + 1) % p])) for i in range(p))
+        mc_bytes, ring_bytes = sum(ag.link_bytes.values()), sum(ring_lb.values())
+        mc_want, ring_want = FIG12_SHARD * edges, (p - 1) * FIG12_SHARD * hops
+        t_bound = (p - 1) * FIG12_SHARD / E.FabricParams().b_link
+        print(f"[figures] fig12 P={p}: multicast {mc_bytes} port bytes ({edges} tree edges), "
+              f"ring {ring_bytes} ({hops} hops), ratio {mc_bytes / ring_bytes}; time "
+              f"{ag.time} s, ring {t_ring}, bound {t_bound}", flush=True)
+        if abs(mc_bytes - mc_want) > 1e-6 * mc_want or abs(ring_bytes - ring_want) > \
+                1e-6 * ring_want:
+            raise AssertionError(f"fig12 P={p}: bytes {mc_bytes} / {ring_bytes}, the trees and "
+                                 f"routes give {mc_want} / {ring_want}")
+        if not (mc_bytes <= 0.55 * ring_bytes if p >= 512 else mc_bytes < ring_bytes):
+            raise AssertionError(f"fig12 P={p}: multicast / ring bytes {mc_bytes / ring_bytes}")
+        if not 0.95 * t_bound <= ag.time <= t_ring:
+            raise AssertionError(f"fig12 P={p}: time {ag.time} outside [{0.95 * t_bound}, "
+                                 f"{t_ring}]")
+    res, n, _ = _figure("lossy_broadcast", lossy_bcast, 1)
+    total += n
+    print(f"[figures] lossy broadcast: time {res.time} s, recovered {res.recovered}, rnr "
+          f"{res.rnr_drops}, phases {json.dumps(dataclasses.asdict(res.phases))}", flush=True)
+    if not res.recovered:
+        raise AssertionError("the lossy broadcast recovered no chunk")
+    t0 = time.perf_counter()
+    ratios = static_traffic()
+    print(f"[figures] static counts {json.dumps(ratios)} "
+          f"({(time.perf_counter() - t0) * 1e3} host ms)", flush=True)
+    if not (1.5 <= ratios["fig2_allgather_ring_over_mcast"] <= 2.5
+            and 1.5 <= ratios["fig12_allgather_ring_over_mcast"] <= 2.2
+            and 1.3 <= ratios["fig12_bcast_ring_over_mcast"] <= 2.5):
+        raise AssertionError(f"static traffic ratios out of the paper's bands: {ratios}")
+    return total
 
 
 # ------------------------------------------------------- the collective layer
@@ -2863,6 +3082,11 @@ def main() -> int:
           flush=True)
     for name in AG_KERNELS:
         launches[name] += ag_counts[name]
+    t0 = time.perf_counter()
+    fig_pools = figures_path()   # zeroes the counts before each figure's card run
+    print(f"[figures] phase 5c passed: {fig_pools} pool launches "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches["pool"] += fig_pools
     t0 = time.perf_counter()
     drain_cases, drain_err = check_drain()
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)

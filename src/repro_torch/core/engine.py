@@ -1,30 +1,55 @@
-"""Fluid-flow event engine and the 1-D worker pool, as far as the packet
-Broadcast's abstract-fabric mode uses them.
+"""Fluid-flow event engine over routes, and the leaf worker pool.
 
-Port of ``src/repro/core/engine.py``:
+Port of ``src/repro/core/engine.py:74-638``:
 
 - ``FabricParams``, ``WorkerParams``: the same parameters and defaults.
-- ``Engine`` / ``Link`` / ``Flow``: the discrete-event fluid engine for
-  flows that each cross one named link. The flows on a link share it
-  equally, which is the reference's max-min allocation for such flows; each
-  flow records piecewise-linear progress from which ``Flow.chunk_times``
-  recovers per-chunk times exactly. It is host code on Python floats and
-  numpy, as in the reference. The Broadcast drives one link (the root's
-  send link) with one flow at a time. Routes over several links and the
-  max-min solve across them come with the routed FatTree mode (ROADMAP).
+- ``Engine`` / ``Link`` / ``Flow``: the discrete-event fluid engine. A Link
+  is a directed bandwidth server (one direction of a NIC or of a fabric
+  cable, from ``core/topology.py`` or added by name); a Flow crosses an
+  ordered set of links (a route, or the edge set of a multicast tree) at
+  one rate, set by global max-min water-filling across every link it
+  crosses, and charges its bytes to each of them (``link_bytes``, the
+  switch-port counters of Fig. 12). Each flow records piecewise-linear
+  progress from which ``Flow.chunk_times`` recovers per-chunk times exactly.
+- The max-min solve, as in the reference: progressive filling by dicts
+  (``_max_min_rates_py``) while the active flows cross fewer than
+  ``_NUMPY_RATES_MIN_MEMBERS`` (flow, link) memberships, and over the
+  flow-by-link incidence at or above (``_max_min_rates_vec``, the
+  reference's ``_max_min_rates_np``), whose filling runs as tensor ops on
+  the engine's ``device``. Each step is the reference's f64 operation, in
+  its order, so the rates are bitwise numpy's on every device (a capped
+  flow's subtraction, a weighted sum, is added on the host in the
+  reference's order). The solve is incremental: only the connected
+  component of the flow-link graph that an event touched is solved again,
+  and ``ENGINE_MAXMIN=reference`` solves everything at every event, the
+  oracle the incremental mode is held to.
 - ``worker_pool_completion`` / ``staging_rnr_mask``: the 1-D T-server pool
-  and its staging-ring rule in numpy, for the root's NACK service (at most
-  one arrival per leaf). The leaves' row-batched pool is the pool kernel
-  (``kernels/pool.py``, ``csrc/pool.cu``).
+  and its staging-ring rule in numpy (the root's NACK service, at most one
+  arrival per leaf); ``worker_pool_completion_rows``, R rows of arrivals in
+  one pass on the pool kernel (``kernels/pool.py``, ``csrc/pool.cu``).
+
+The engine's ``device`` (default ``cuda``) is resolved at its first
+vectorized solve: an engine whose solves all stay on the dict path never
+touches it. Each engine keeps the reference's ``maxmin_solves`` and
+``maxmin_flows_solved``; ``counts`` adds up every engine's work.
 """
 from __future__ import annotations
 
 import heapq
 import itertools
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from repro_torch.device import device_of
+from repro_torch.kernels import pool
+
+# every engine's solves, flows solved, vectorized solves (on the engine's
+# device) and filling iterations of those (a host sync each)
+counts = dict.fromkeys(("solves", "flows_solved", "device_solves", "fill_iterations"), 0)
 
 # ------------------------------------------------------------------ parameters
 
@@ -50,36 +75,31 @@ class WorkerParams:
 # ---------------------------------------------------------------- fluid engine
 
 
-class Link:
-    """Directed bandwidth server, shared equally by the flows crossing it."""
-
-    __slots__ = ("name", "capacity")
-
-    def __init__(self, name: str, capacity: float):
-        if not capacity > 0:
-            raise ValueError(f"link {name}: capacity must be > 0, got {capacity}")
-        self.name = name
-        self.capacity = float(capacity)
-
-
 class Flow:
-    """One byte stream across one link; progress is kept as segments
-    (t0, t1, bytes_at_t0, rate)."""
+    """One byte stream across an ordered set of links, at one rate on all of
+    them; progress is kept as segments (t0, t1, bytes_at_t0, rate)."""
 
-    __slots__ = ("link", "n_bytes", "tag", "t_start", "remaining", "t_end", "segments",
-                 "_eps")
+    __slots__ = ("links", "n_bytes", "tag", "t_start", "rate_cap", "remaining", "t_end",
+                 "segments", "_eps")
 
-    def __init__(self, link: Link, n_bytes: float, t_start: float, tag: str | None):
-        self.link = link
+    def __init__(self, links: tuple["Link", ...], n_bytes: float, t_start: float,
+                 tag: str | None, rate_cap: float | None):
+        self.links = links
         self.n_bytes = float(n_bytes)
         self.tag = tag
         self.t_start = t_start
+        self.rate_cap = rate_cap
         self.remaining = float(n_bytes)
         # finish threshold: a sub-byte relative epsilon absorbs the fp error
         # that fluid progress accumulates
         self._eps = 1e-9 + self.n_bytes * 1e-12
         self.t_end: float | None = None
         self.segments: list[tuple[float, float, float, float]] = []
+
+    @property
+    def link(self) -> "Link | None":
+        """The first (injection-side) link."""
+        return self.links[0] if self.links else None
 
     @property
     def done(self) -> bool:
@@ -106,81 +126,407 @@ class Flow:
         return self.time_at_bytes(np.minimum(marks, self.n_bytes))
 
 
+class Link:
+    """Directed bandwidth server, max-min shared by the active flows that
+    cross it. ``src``/``dst`` name its endpoints in a topology;
+    ``bytes_served`` is its live byte counter; ``loss`` may carry a packet
+    loss model, which the fluid engine ignores."""
+
+    __slots__ = ("name", "capacity", "active", "bytes_served", "src", "dst", "loss")
+
+    def __init__(self, name: str, capacity: float, src: str | None = None,
+                 dst: str | None = None):
+        if not capacity > 0:
+            raise ValueError(f"link {name}: capacity must be > 0, got {capacity}")
+        self.name = name
+        self.capacity = float(capacity)
+        self.active: list[Flow] = []
+        self.bytes_served = 0.0
+        self.src = src
+        self.dst = dst
+        self.loss = None
+
+    def __repr__(self) -> str:
+        return f"Link({self.name}, cap={self.capacity:g}, bytes={self.bytes_served:g})"
+
+
+# Membership count at which the vectorized filling takes over from the dict
+# one (the reference's crossover)
+_NUMPY_RATES_MIN_MEMBERS = 512
+
+
+def _max_min_rates_py(active: list[Flow]) -> dict[Flow, float]:
+    """Global max-min fair allocation by progressive filling (dict path):
+    find the smallest equal share among the links' unfrozen flows, freeze
+    every unfrozen flow of every link at that share, subtract, repeat; a
+    flow's rate cap freezes it early at the cap."""
+    rem: dict[Link, float] = {}
+    members: dict[Link, list[Flow]] = {}
+    for f in active:
+        for link in f.links:
+            if link not in rem:
+                rem[link] = link.capacity
+                members[link] = []
+            members[link].append(f)
+    out: dict[Flow, float] = {}
+    unfrozen: dict[Flow, None] = dict.fromkeys(active)   # insertion-ordered set
+    while unfrozen:
+        best = math.inf
+        for link, fl in members.items():
+            n = sum(1 for f in fl if f in unfrozen)
+            if n:
+                best = min(best, rem[link] / n)
+        if best is math.inf:       # every remaining flow crosses no link
+            for f in unfrozen:
+                out[f] = f.rate_cap if f.rate_cap is not None else math.inf
+            break
+        capped = [f for f in unfrozen if f.rate_cap is not None and f.rate_cap < best]
+        if capped:
+            for f in capped:
+                out[f] = f.rate_cap
+                del unfrozen[f]
+                for link in f.links:
+                    rem[link] = max(rem[link] - f.rate_cap, 0.0)
+            continue
+        newly: dict[Flow, None] = {}
+        for link, fl in members.items():
+            n = sum(1 for f in fl if f in unfrozen)
+            if n and rem[link] <= best * n * (1.0 + 1e-12):
+                for f in fl:
+                    if f in unfrozen:
+                        newly[f] = None
+        for f in newly:
+            out[f] = best
+            del unfrozen[f]
+        for f in newly:
+            for link in f.links:
+                rem[link] = max(rem[link] - best, 0.0)
+    return out
+
+
+def _max_min_rates_vec(active: list[Flow], device: torch.device) -> dict[Flow, float]:
+    """Progressive filling over the flow-link incidence (COO), as tensor ops
+    on ``device``: the allocation of ``_max_min_rates_py``, bitwise the
+    reference's ``_max_min_rates_np``. Per iteration: the unfrozen flows a
+    link carries (an integer scatter-add, exact), each link's share
+    ``rem / cnt``, the smallest share, the flows under their cap; then one
+    host sync reads whether all flows are frozen, whether any link carries
+    one, whether a cap bites, and the smallest share. A capped step
+    subtracts the caps from their links on the host, summed in the
+    reference's order (a weighted bincount); a filling step freezes the
+    flows of every link within 1e-12 of the smallest share and subtracts
+    ``best * count`` (a multiply, then a subtract)."""
+    link_ix: dict[Link, int] = {}
+    mf: list[int] = []
+    ml: list[int] = []
+    for i, f in enumerate(active):
+        for link in f.links:
+            ml.append(link_ix.setdefault(link, len(link_ix)))
+            mf.append(i)
+    n_flows, n_links = len(active), len(link_ix)
+    mfa_np = np.asarray(mf, dtype=np.int64)
+    mla_np = np.asarray(ml, dtype=np.int64)
+    mfa = torch.from_numpy(mfa_np).to(device)
+    mla = torch.from_numpy(mla_np).to(device)
+    caps = np.empty(n_links)
+    for link, j in link_ix.items():
+        caps[j] = link.capacity
+    fcap_np = np.array([math.inf if f.rate_cap is None else f.rate_cap for f in active])
+    fcap = torch.from_numpy(fcap_np).to(device)
+    rate = torch.zeros(n_flows, dtype=torch.float64, device=device)
+    frozen = torch.zeros(n_flows, dtype=torch.bool, device=device)
+    rem = torch.from_numpy(caps).to(device)
+    inf = torch.tensor(math.inf, dtype=torch.float64, device=device)
+    while True:
+        counts["fill_iterations"] += 1
+        live = ~frozen[mfa]
+        cnt_i = torch.zeros(n_links, dtype=torch.int64, device=device).index_add_(
+            0, mla, live.to(torch.int64))
+        cnt = cnt_i.to(torch.float64)
+        has = cnt_i > 0
+        share = torch.where(has, rem / cnt, inf)
+        best_t = share.min()
+        cap_hit = ~frozen & (fcap < best_t)
+        all_frozen, any_has, any_cap, best = torch.stack([
+            frozen.all().to(torch.float64), has.any().to(torch.float64),
+            cap_hit.any().to(torch.float64), best_t]).tolist()
+        if all_frozen:
+            break
+        if not any_has:
+            rate = torch.where(frozen, rate, fcap)
+            break
+        if any_cap:
+            rate = torch.where(cap_hit, fcap, rate)
+            frozen |= cap_hit
+            hit_m = cap_hit[mfa].cpu().numpy()
+            sub = np.bincount(mla_np[hit_m], weights=rate.cpu().numpy()[mfa_np[hit_m]],
+                              minlength=n_links)
+            rem = (rem - torch.from_numpy(sub).to(device)).clamp_min_(0.0)
+            continue
+        tight = has & (share <= best * (1.0 + 1e-12))
+        hit = (tight[mla] & live).to(torch.int64)
+        newly = torch.zeros(n_flows, dtype=torch.int64, device=device).index_add_(
+            0, mfa, hit) > 0
+        rate = torch.where(newly, best_t, rate)
+        frozen |= newly
+        n_new = torch.zeros(n_links, dtype=torch.int64, device=device).index_add_(
+            0, mla, newly[mfa].to(torch.int64))
+        rem = (rem - best_t * n_new.to(torch.float64)).clamp_min_(0.0)
+    return dict(zip(active, rate.cpu().tolist()))
+
+
 class Engine:
     """Event-driven fluid simulator. Flows may start in the future; the loop
-    advances between starts and finishes and re-shares each link at every
-    event."""
+    advances between starts and finishes, and the max-min allocation is
+    solved again at every event, incrementally: every Link holds its active
+    flows, and an arrival or completion solves only the connected component
+    of the flow-link graph it touched (every event of one timestamp in one
+    batch). Disjoint components share no links, so a component's filling
+    runs the global solve's float operations in its order.
+    ``ENGINE_MAXMIN=reference`` selects the global solve at every event
+    instead. ``device``: where the vectorized solve runs (default ``cuda``)."""
 
-    def __init__(self, t0: float = 0.0):
+    def __init__(self, t0: float = 0.0, *, device=None):
         self.now = t0
         self._links: dict[str, Link] = {}
         self._pending: list[tuple[float, int, Flow]] = []   # start events
         self._active: list[Flow] = []
         self._seq = itertools.count()
+        mode = os.environ.get("ENGINE_MAXMIN", "") or "incremental"
+        if mode not in ("incremental", "reference"):
+            raise ValueError(f"ENGINE_MAXMIN must be 'incremental' or 'reference', got {mode!r}")
+        self._maxmin_mode = mode
+        self._device_name = "cuda" if device is None else device
+        self._device: torch.device | None = None
+        # cached rates (valid for the active set once _dirty drains), and the
+        # flows whose arrival or completion invalidated their component
+        self._rates_cache: dict[Flow, float] = {}
+        self._dirty: list[Flow] = []
+        self.maxmin_solves = 0
+        self.maxmin_flows_solved = 0
 
+    @property
+    def device(self) -> torch.device:
+        if self._device is None:
+            self._device = device_of(self._device_name)
+        return self._device
+
+    # -- construction
     def add_link(self, name: str, capacity: float) -> Link:
         if name not in self._links:
             self._links[name] = Link(name, capacity)
         return self._links[name]
 
-    def submit(self, link: str | Link, n_bytes: float, *, t_start: float | None = None,
-               tag: str | None = None) -> Flow:
-        """Submit a flow of ``n_bytes`` across ``link`` (a Link or the name
-        of one added), starting at ``t_start`` (default now)."""
+    def _resolve_links(self, route) -> tuple[Link, ...]:
+        """A link name, a Link, or a sequence of either. A topology's Links
+        are registered, so that ``utilization`` and ``link_bytes`` see them;
+        a name taken by another Link, or a link twice in a route, raises."""
+        if isinstance(route, (str, Link)):
+            route = (route,)
+        out: list[Link] = []
+        seen: set[int] = set()
+        for item in route:
+            link = self._links[item] if isinstance(item, str) else item
+            if not isinstance(link, Link):
+                raise TypeError(f"not a link: {item!r}")
+            if self._links.setdefault(link.name, link) is not link:
+                raise ValueError(f"link name collision: {link.name}")
+            if id(link) in seen:
+                raise ValueError(f"duplicate link in route: {link.name}")
+            seen.add(id(link))
+            out.append(link)
+        return tuple(out)
+
+    def submit(self, route, n_bytes: float, *, t_start: float | None = None,
+               tag: str | None = None, rate_cap: float | None = None) -> Flow:
+        """A flow of ``n_bytes`` across ``route`` (a link name, a Link, or an
+        ordered sequence of links: ``Topology.route`` or ``multicast_tree``),
+        starting at ``t_start`` (default now), at its max-min share and at
+        most ``rate_cap``; its bytes are charged to every link. An empty
+        route completes at ``t_start``."""
         t = self.now if t_start is None else float(t_start)
         if t < self.now - 1e-12:
             raise ValueError(f"cannot submit at {t}, before now ({self.now})")
-        flow = Flow(self._links[link] if isinstance(link, str) else link, n_bytes, t, tag)
+        flow = Flow(self._resolve_links(route), n_bytes, t, tag, rate_cap)
         heapq.heappush(self._pending, (t, next(self._seq), flow))
         return flow
 
-    def _rates(self) -> dict[Flow, float]:
-        sharing: dict[Link, int] = {}
-        for f in self._active:
-            sharing[f.link] = sharing.get(f.link, 0) + 1
-        return {f: f.link.capacity / sharing[f.link] for f in self._active}
+    def submit_route(self, route, n_bytes: float, **kw) -> Flow:
+        """Unicast flow along an ordered Link path (``submit``)."""
+        return self.submit(route, n_bytes, **kw)
 
-    def _step(self) -> bool:
-        """Advance to the next event. Returns False when idle."""
-        rates = self._rates()
-        t_next = self._pending[0][0] if self._pending else math.inf
+    def submit_tree(self, edges, n_bytes: float, **kw) -> Flow:
+        """Multicast tree flow, the switches' replication: its rate is the
+        smallest share over the tree's edges and each edge serves all its
+        bytes (``submit``)."""
+        return self.submit(edges, n_bytes, **kw)
+
+    # -- event loop
+    def _solve(self, flows: list[Flow]) -> dict[Flow, float]:
+        """Progressive filling over ``flows``; the vectorized path by the
+        global active membership count, as the reference chooses."""
+        n_members = sum(len(f.links) for f in self._active)
+        self.maxmin_solves += 1
+        self.maxmin_flows_solved += len(flows)
+        counts["solves"] += 1
+        counts["flows_solved"] += len(flows)
+        if n_members >= _NUMPY_RATES_MIN_MEMBERS:
+            counts["device_solves"] += 1
+            return _max_min_rates_vec(flows, self.device)
+        return _max_min_rates_py(flows)
+
+    def _rates(self) -> dict[Flow, float]:
+        """The global allocation over the active set."""
+        if not self._active:
+            return {}
+        return self._solve(self._active)
+
+    def _component(self, seed_links) -> list[Flow]:
+        """Flows joined (through shared links) to any seed link, in
+        ``_active`` order, so that a component's filling visits its flows in
+        the global solve's order."""
+        seen_links: set[int] = set()
+        stack: list[Link] = []
+        for link in seed_links:
+            if id(link) not in seen_links:
+                seen_links.add(id(link))
+                stack.append(link)
+        comp_ids: set[int] = set()
+        while stack:
+            link = stack.pop()
+            for f in link.active:
+                if id(f) not in comp_ids:
+                    comp_ids.add(id(f))
+                    for l2 in f.links:
+                        if id(l2) not in seen_links:
+                            seen_links.add(id(l2))
+                            stack.append(l2)
+        return [f for f in self._active if id(f) in comp_ids]
+
+    def _current_rates(self) -> dict[Flow, float]:
+        """The cached allocation, the dirty components solved again (in
+        "reference" mode: the global solve every time)."""
+        if self._maxmin_mode == "reference":
+            return self._rates()
+        if self._dirty:
+            dirty, self._dirty = self._dirty, []
+            cache = self._rates_cache
+            seed_links: list[Link] = []
+            for f in dirty:
+                if f.t_end is not None:
+                    cache.pop(f, None)
+                seed_links.extend(f.links)
+            if not self._active:
+                cache.clear()
+            else:
+                comp = self._component(seed_links)
+                if comp:
+                    cache.update(self._solve(comp))
+        return self._rates_cache
+
+    def _progress(self, dt: float, rates: dict[Flow, float]) -> None:
+        if dt <= 0:
+            return
         for f in self._active:
-            t_next = min(t_next, self.now + f.remaining / rates[f])
+            r = rates.get(f, 0.0)
+            f.segments.append((self.now, self.now + dt, f.n_bytes - f.remaining, r))
+            moved = min(r * dt, f.remaining)
+            f.remaining -= moved
+            for link in f.links:
+                link.bytes_served += moved
+
+    def _step(self, t_limit: float = math.inf) -> bool:
+        """Advance to the next event (or ``t_limit``). Returns False when idle."""
+        rates = self._current_rates()
+        t_next = t_limit
+        if self._pending:
+            t_next = min(t_next, self._pending[0][0])
+        for f in self._active:
+            r = rates.get(f, 0.0)
+            if r > 0:
+                t_next = min(t_next, self.now + f.remaining / r)
         if t_next == math.inf:
             return False
-        dt = t_next - self.now
-        if dt > 0:
-            for f in self._active:
-                r = rates[f]
-                f.segments.append((self.now, self.now + dt, f.n_bytes - f.remaining, r))
-                f.remaining -= min(r * dt, f.remaining)
+        self._progress(t_next - self.now, rates)
         self.now = t_next
         # finishes (also flows whose residual would not advance the clock)
         still = []
+        touched: set[Link] = set()
+        changed: list[Flow] = []
         for f in self._active:
-            if f.remaining <= f._eps or self.now + f.remaining / rates[f] <= self.now:
+            r = rates.get(f, 0.0)
+            stalled = r > 0 and self.now + f.remaining / r <= self.now
+            if f.remaining <= f._eps or stalled:
                 f.remaining = 0.0
                 f.t_end = self.now
+                touched.update(f.links)
+                changed.append(f)
             else:
                 still.append(f)
         self._active = still
+        for link in touched:
+            link.active = [fl for fl in link.active if fl.t_end is None]
         # starts
         while self._pending and self._pending[0][0] <= self.now + 1e-15:
             _, _, f = heapq.heappop(self._pending)
-            if f.n_bytes <= 0:
+            if f.n_bytes <= 0 or not f.links:
                 f.t_end = max(self.now, f.t_start)
             else:
+                for link in f.links:
+                    link.active.append(f)
                 self._active.append(f)
+                changed.append(f)
+        self._dirty.extend(changed)
         return bool(self._active or self._pending)
+
+    def advance_to(self, t: float) -> None:
+        while self.now < t and self._step(t):
+            pass
+        self.now = max(self.now, t)
+
+    def wait(self, *flows: Flow) -> float:
+        """Advance until every given flow completes; returns the latest end."""
+        while any(not f.done for f in flows):
+            if not self._step(math.inf):
+                break
+        if not all(f.done for f in flows):
+            raise RuntimeError("deadlock: flows never started")
+        return max(f.t_end for f in flows)
 
     def run(self) -> float:
         """Drain every submitted flow; returns the final time."""
-        while self._step():
+        while self._step(math.inf):
             pass
         return self.now
 
+    def utilization(self, horizon: float | None = None) -> dict[str, float]:
+        """Per-link bytes_served / (capacity * horizon)."""
+        h = horizon if horizon is not None else self.now
+        if h <= 0:
+            return {n: 0.0 for n in self._links}
+        return {n: l.bytes_served / (l.capacity * h) for n, l in self._links.items()}
+
+    def link_bytes(self) -> dict[str, float]:
+        """Live per-link byte counters (the switch-port view of Fig. 12)."""
+        return {n: l.bytes_served for n, l in self._links.items()}
+
 
 # ------------------------------------------------- leaf worker pool (receive)
+
+
+def worker_pool_completion_loop(arrivals: np.ndarray, n_workers: int, service: float,
+                                staging: int) -> tuple[np.ndarray, int]:
+    """The T-server queue one chunk at a time, with staging-ring (RNR)
+    overflow counting; ``arrivals`` sorted. The oracle of the other forms."""
+    n = arrivals.shape[0]
+    done = np.empty(n)
+    rnr = 0
+    for k in range(n):
+        start = arrivals[k] if k < n_workers else max(arrivals[k], done[k - n_workers])
+        if k >= staging and done[k - staging] > arrivals[k]:
+            rnr += 1
+        done[k] = start + service
+    return done, rnr
 
 
 def staging_rnr_mask(done: np.ndarray, arrivals: np.ndarray,
@@ -212,3 +558,15 @@ def worker_pool_completion(arrivals: np.ndarray, n_workers: int,
         done[idx] = np.maximum.accumulate(shifted) + (i + 1.0) * service
     rnr = int(staging_rnr_mask(done, arrivals, staging).sum())
     return done, rnr
+
+
+def worker_pool_completion_rows(arrivals: torch.Tensor, n_workers: int, service: float,
+                                staging: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``worker_pool_completion`` and ``staging_rnr_mask`` over R stacked
+    rows at once: (R, n) f64 rows, each sorted, ragged rows padded at the
+    end with +inf. Returns (done (R, n), rnr mask (R, n)); padded columns
+    come back +inf and False. Bitwise the 1-D functions on each row's real
+    prefix (a chunk's worker is its position mod W, which padding at the
+    end does not move). One launch of the pool kernel for a CUDA tensor,
+    the plain version for a CPU one."""
+    return pool.pool_completion_rows(arrivals, n_workers, service, staging)

@@ -524,7 +524,7 @@ def simulate_packet_broadcast(
         raise ValueError(f"root {root} outside 0..{p - 1}")
     dev = device_of("cuda" if device is None else device)
     t_rnr = _rnr_barrier(p, fabric, workers)
-    eng = Engine()
+    eng = Engine(device=dev)
     run = _BroadcastRun(p, n_bytes, fabric, workers, rng, root, eng, dev, loss=loss,
                         aggregate_nacks=aggregate_nacks, collect_delivery=collect_delivery)
     run.submit_fast(t_rnr)

@@ -1,14 +1,20 @@
 """Reliable Broadcast protocol: segmentation, bitmap sizing, and the
 engine-backed timing facade.
 
-Port of the parts of ``src/repro/core/protocol.py`` the packet Broadcast
-and Allgather use: ``MTU``, ``segment``, ``bitmap_bytes``, ``broadcast_time`` and
-``allgather_time``; and ``reassemble``, a leaf's receive datapath replayed
-on the chunk reassembly kernel in the order a Broadcast delivered them. The
-logical state machines (``LeafReceiver``, ``StagingRing``, ``Bitmap``) and
-the closed-form ``analytic_*`` oracle are queued in ROADMAP.md.
+Port of the parts of ``src/repro/core/protocol.py`` the Broadcast and
+Allgather use: ``MTU``, ``segment``, ``bitmap_bytes``, ``cutoff_time``,
+``broadcast_time`` and ``allgather_time``; the closed-form oracle of the
+analytic fidelity (``analytic_rnr_barrier``, ``analytic_bcast_time``,
+``analytic_allgather_time``, ``analytic_ring_allgather_time``,
+``analytic_ring_reduce_scatter_time``, reference protocol.py:216-299); and
+``reassemble``, a leaf's receive datapath replayed on the chunk reassembly
+kernel in the order a Broadcast delivered them. The logical state machines
+(``LeafReceiver``, ``StagingRing``, ``Bitmap``) and the closed forms of the
+composite collectives are queued in ROADMAP.md.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -62,15 +68,20 @@ def bitmap_bytes(buffer_bytes: int, mtu: int = MTU) -> int:
     return (-(-buffer_bytes // mtu) + 7) // 8
 
 
+def cutoff_time(n_bytes: int, b_link: float, alpha: float = 50e-6) -> float:
+    """§III-C: timeout = N/B_link + alpha (RNR sync + network noise)."""
+    return n_bytes / b_link + alpha
+
+
 def broadcast_time(p: int, n_bytes: int, fabric=None, workers=None, *,
                    fidelity: str = "packet", seed: int = 0, device=None,
                    **kw) -> float:
     """Completion time of one reliable Broadcast rooted at rank 0, from the
-    packet engine with a generator seeded by ``seed``, as the reference
-    resolves it: ``broadcast_time`` -> ``simulator.simulate_broadcast`` ->
-    ``sched_ir.execute`` -> ``packet.simulate_packet_broadcast``. Other
-    keywords go to the packet engine. The leaves' receive datapath runs on
-    ``device`` (default ``cuda``)."""
+    engine of ``fidelity`` (the packet engine by default, or the fluid one)
+    with a generator seeded by ``seed``, as the reference resolves it:
+    ``broadcast_time`` -> ``simulator.simulate_broadcast`` ->
+    ``sched_ir.execute``. Other keywords go to the packet engine. The
+    leaves' receive datapath runs on ``device`` (default ``cuda``)."""
     from repro_torch.core import engine, simulator   # deferred: packet imports us
 
     _no_event_dpa(kw)
@@ -83,8 +94,8 @@ def allgather_time(p: int, n_bytes: int, fabric=None, workers=None, *,
                    n_chains: int = 1, fidelity: str = "packet", seed: int = 0,
                    device=None, **kw) -> float:
     """Completion time of one reliable M-chain Allgather (reference
-    protocol.py:193), from ``simulator.simulate_allgather`` with a generator
-    seeded by ``seed``; as ``broadcast_time`` otherwise."""
+    protocol.py:193), from ``simulator.simulate_allgather`` at ``fidelity``
+    with a generator seeded by ``seed``; as ``broadcast_time`` otherwise."""
     from repro_torch.core import engine, simulator   # deferred: packet imports us
 
     _no_event_dpa(kw)
@@ -97,3 +108,47 @@ def _no_event_dpa(kw: dict) -> None:
     if kw.pop("dpa", None) is not None:
         raise NotImplementedError(
             "dpa=: the event-level DPA is not ported yet (ROADMAP.md §1, item 7)")
+
+
+# ----------------------------------------------- closed-form cross-check oracle
+
+
+def analytic_rnr_barrier(p: int, latency: float, rnr_hop: float = 1.5e-6) -> float:
+    """§V-A recursive-doubling RNR barrier (the engines' own)."""
+    return math.ceil(math.log2(max(p, 2))) * (latency + rnr_hop)
+
+
+def analytic_bcast_time(p: int, n_bytes: int, b_link: float, latency: float, *,
+                        pool_rate: float | None = None, depth: int = 1,
+                        rnr_hop: float = 1.5e-6) -> float:
+    """Lossless closed form of the Broadcast: RNR barrier + the stream at the
+    slower of wire and worker pool + per-hop latency + final handshake."""
+    rate = b_link if pool_rate is None else min(b_link, pool_rate)
+    return (analytic_rnr_barrier(p, latency, rnr_hop)
+            + n_bytes / rate + depth * latency + latency)
+
+
+def analytic_allgather_time(p: int, n_bytes: int, b_link: float, latency: float, *,
+                            n_chains: int = 1, pool_rate: float | None = None,
+                            rnr_hop: float = 1.5e-6) -> float:
+    """Lossless closed form (a lower bound) of the Allgather: RNR barrier +
+    the (P-1)N gathered bytes at the slower of wire and worker pool + one
+    activation hop a generation (R = ceil(P/M)) + the final handshake."""
+    rate = b_link if pool_rate is None else min(b_link, pool_rate)
+    rounds = -(-p // n_chains)
+    return (analytic_rnr_barrier(p, latency, rnr_hop)
+            + (p - 1) * n_bytes / rate + rounds * latency + latency)
+
+
+def analytic_ring_allgather_time(p: int, n_bytes: int, b_link: float,
+                                 latency: float) -> float:
+    """Closed form of the ring Allgather: P-1 generations, each forwarding an
+    N-byte shard on the full-duplex NIC plus one hop."""
+    return (p - 1) * (n_bytes / b_link + latency)
+
+
+def analytic_ring_reduce_scatter_time(p: int, n_bytes: int, b_link: float,
+                                      latency: float) -> float:
+    """Closed form of the ring Reduce-Scatter of an N-byte buffer a rank:
+    P-1 generations of the N/P shard (reduction at line rate)."""
+    return (p - 1) * (n_bytes / p / b_link + latency)

@@ -1,27 +1,36 @@
 """Collective schedule IR: the typed schedule graph of the paper's
-collectives, and its packet-fidelity lowering for the Broadcast and the
-M-chain Allgather.
+collectives, and its fluid, analytic and packet lowerings.
 
-Port of ``src/repro/core/sched_ir.py`` as far as the packet Broadcast and
-Allgather in abstract-fabric mode use it:
+Port of ``src/repro/core/sched_ir.py``:
 
-- ``PhaseBreakdown``, ``_chunking``, ``_rnr_barrier`` (sched_ir.py:79-129;
-  the fluid lowering's ``BcastResult`` and ``AllgatherResult`` come with it);
+- ``PhaseBreakdown``, ``BcastResult``, ``AllgatherResult``, ``_chunking``,
+  ``_rnr_barrier`` (sched_ir.py:79-129);
 - the ops ``Multicast``, ``Unicast``, ``Reduce`` and ``Schedule`` with its
   activation DAG, ``rounds()`` and ``n_rounds`` (:136-243);
 - ``payload_bytes``, ``canonical_key``, ``validate`` (:246-336);
-- the builders ``build_broadcast_tree`` and ``build_allgather`` (:339-362);
-- ``execute(..., fidelity="packet")`` for the kinds ``broadcast`` (which
-  lowers to ``core/packet.simulate_packet_broadcast``) and ``allgather``
-  (``_packet_allgather``, :1163-1879, its vectorized executor).
+- the builders ``build_broadcast_tree``, ``build_allgather``,
+  ``build_ring_allgather`` and ``build_ring_reduce_scatter``;
+- the fluid lowerings ``_fluid_broadcast``, ``_fluid_allgather`` and
+  ``_fluid_ring`` (:622-908), on the abstract fabric or a routed
+  ``core/topology.py`` fabric (``topology=``, ``hosts=``): the fluid engine
+  (``core/engine.py``; its vectorized max-min solve on ``device``) and the
+  leaves' pools on the pool kernel (``csrc/pool.cu``), the Broadcast's
+  P - 1 leaves in one launch;
+- the analytic lowering ``_exec_analytic`` (:2012), the closed forms of
+  ``core/protocol.py``;
+- ``execute`` at the fluid and analytic fidelities for the kinds
+  ``broadcast``, ``allgather``, ``ring_allgather`` and ``reduce_scatter``,
+  and at packet fidelity for ``broadcast`` (``core/packet.
+  simulate_packet_broadcast``) and ``allgather`` (``_packet_allgather``,
+  :1163-1879, its vectorized executor, abstract fabric).
 
 A Schedule is a DAG of typed ops joined by activation edges, the §IV-A
 chain signal ("when I finish multicasting I activate my chain
 successor"); "round r" is the r-th topological generation of the DAG. The
-other builders (ring, hierarchical, reduce-scatter, all-reduce, pipelined,
-``build_fsdp_step``) and the fluid and analytic lowerings are queued in
-ROADMAP.md (§1, item 5): ``execute`` raises ``NotImplementedError`` for
-them, naming that item.
+other builders (hierarchical, all-reduce, pipelined, ``build_fsdp_step``),
+the composite executors, the ring schedules at packet fidelity and the
+routed packet mode are queued in ROADMAP.md (§1, items 6a and 6b):
+``execute`` raises ``NotImplementedError`` for them, naming the item.
 """
 from __future__ import annotations
 
@@ -33,8 +42,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core import protocol
 from repro_torch.core import schedule as seq
-from repro_torch.core.engine import Engine, FabricParams, WorkerParams, worker_pool_completion
+from repro_torch.core.engine import (Engine, FabricParams, WorkerParams, worker_pool_completion,
+                                     worker_pool_completion_rows)
 from repro_torch.device import device_of
 from repro_torch.kernels import bitmap, pool
 
@@ -44,7 +55,8 @@ KINDS = ("broadcast", "allgather", "ring_allgather", "reduce_scatter",
 #: per-op transport tags (None: let the fabric route); multicast is
 #: switched-only, islands have no switch replication
 TRANSPORTS = (None, "intra_host", "island", "switched")
-_QUEUED = "ROADMAP.md §1, item 5: the fluid and analytic lowerings and the other builders"
+_QUEUED = ("ROADMAP.md §1, item 6b: the hierarchical and all-reduce builders, the FSDP step, "
+           "the composite executors and the ring schedules at packet fidelity")
 
 
 # -------------------------------------------------------------- shared pieces
@@ -59,6 +71,37 @@ class PhaseBreakdown:
 
     def total(self) -> float:
         return self.rnr_sync + self.multicast + self.reliability + self.handshake
+
+
+@dataclass
+class BcastResult:
+    completion: np.ndarray            # per-leaf completion time (s)
+    phases: PhaseBreakdown
+    delivered_fast: int
+    recovered: int
+    rnr_drops: int
+    bytes_fast: int
+    bytes_recovery: int
+    bytes_total: int                  # conservation: fast + recovery == total
+    link_bytes: dict[str, float] = field(default_factory=dict)
+    # ^ routed mode only: per-fabric-link bytes from the same engine run
+
+    @property
+    def time(self) -> float:
+        return float(self.completion.max(initial=0.0))
+
+
+@dataclass
+class AllgatherResult:
+    time: float
+    phases: PhaseBreakdown
+    recovered: int
+    bytes_fast: int
+    bytes_recovery: int
+    bytes_total: int
+    per_rank_recv_tput: float         # (P-1)*N / time  (Fig. 11 metric)
+    link_bytes: dict[str, float] = field(default_factory=dict)
+    # ^ routed mode only: per-fabric-link bytes from the same engine run
 
 
 def _chunking(n_bytes: int, mtu: int) -> tuple[int, int]:
@@ -284,6 +327,340 @@ def build_allgather(p: int, n_bytes: int, m: int = 1) -> Schedule:
     return Schedule("allgather", p, n_bytes, tuple(ops), act, meta={"n_chains": m})
 
 
+def build_ring_allgather(p: int, n_bytes: int) -> Schedule:
+    """Classical ring Allgather (reference sched_ir.py:364): P-1 generations,
+    each rank forwarding the shard it just received to its right neighbour
+    (RC unicasts)."""
+    ops: list[Op] = []
+    act: list[tuple[int, int]] = []
+    idx: dict[tuple[int, int], int] = {}
+    for s in range(p - 1):
+        for i in range(p):
+            idx[(s, i)] = len(ops)
+            ops.append(Unicast(i, (i + 1) % p, n_bytes))
+        if s:
+            act += [(idx[(s - 1, (i - 1) % p)], idx[(s, i)]) for i in range(p)]
+    return Schedule("ring_allgather", p, n_bytes, tuple(ops), tuple(act))
+
+
+def build_ring_reduce_scatter(p: int, n_bytes: int) -> Schedule:
+    """Ring Reduce-Scatter of an ``n_bytes`` buffer a rank (reference
+    sched_ir.py:464): P-1 generations of single-source Reduce edges, each
+    carrying the N/P shard being summed around the ring."""
+    shard = n_bytes / p
+    ops: list[Op] = []
+    act: list[tuple[int, int]] = []
+    idx: dict[tuple[int, int], int] = {}
+    for s in range(p - 1):
+        for i in range(p):
+            idx[(s, i)] = len(ops)
+            ops.append(Reduce((i + 1) % p, (i,), shard))
+        if s:
+            act += [(idx[(s - 1, (i - 1) % p)], idx[(s, i)]) for i in range(p)]
+    return Schedule("reduce_scatter", p, n_bytes, tuple(ops), tuple(act),
+                    meta={"shard_bytes": shard})
+
+
+# ----------------------------------------------------------- fluid lowerings
+
+
+def _placed(topology, hosts, p: int) -> list[int]:
+    """The ranks' hosts on ``topology`` (default 0..P-1), its counters reset."""
+    hosts = list(hosts) if hosts is not None else list(range(p))
+    if len(hosts) != p:
+        raise ValueError(f"{len(hosts)} hosts for {p} ranks")
+    topology.reset()
+    return hosts
+
+
+def _fluid_broadcast(sched: Schedule, fabric: FabricParams, workers: WorkerParams,
+                     rng: np.random.Generator, *, topology=None, hosts=None,
+                     device=None) -> BcastResult:
+    """Fluid lowering of a single-Multicast schedule (reference
+    sched_ir.py:622). The root's stream is one flow, on its send link or, on
+    a topology, the multicast tree (the per-leaf latency then scales with the
+    routed hop count). On the host, leaf by leaf (the root skipped), each
+    leaf's jitter and drop draws in the reference's order; on ``device``
+    (default ``cuda``), every leaf's arrivals (injection + latency + jitter,
+    the dropped ones +inf), one row a leaf, sorted, so that each row holds
+    its survivors in order and +inf after them, and all rows through the
+    pool in one launch of ``csrc/pool.cu``. Each row's last completion,
+    survivor count and staging-ring drops come back to the host in one copy,
+    where the fetch-ring recovery and the final handshake are the
+    reference's arithmetic."""
+    dev = device_of("cuda" if device is None else device)
+    (op,) = sched.ops
+    p, n_bytes, root = sched.p, sched.n_bytes, op.root
+    n_chunks, chunk = _chunking(n_bytes, fabric.mtu)
+    t_rnr = _rnr_barrier(p, fabric, workers)
+
+    eng = Engine(device=dev)
+    if topology is not None:
+        hosts = _placed(topology, hosts, p)
+        tree = topology.multicast_tree(hosts[root], hosts)
+        flow = eng.submit_tree(tree, n_chunks * chunk, t_start=t_rnr, tag="mcast")
+        hop_lat = [len(topology.route(hosts[root], hosts[leaf])) * fabric.latency
+                   for leaf in range(p)]
+    else:
+        # abstract mode: a single flow on the root's send link, one hop
+        eng.add_link("root.send", fabric.b_link)
+        flow = eng.submit("root.send", n_chunks * chunk, t_start=t_rnr)
+        hop_lat = [fabric.latency] * p
+    eng.run()
+    inject = flow.chunk_times(n_chunks, chunk)
+    service = chunk / workers.thread_tput
+    cutoff = t_rnr + protocol.cutoff_time(n_bytes, fabric.b_link, fabric.alpha)
+
+    leaves = [leaf for leaf in range(p) if leaf != root]
+    jit = np.empty((len(leaves), n_chunks))
+    dropped = np.empty((len(leaves), n_chunks), dtype=bool)
+    for k in range(len(leaves)):
+        jit[k] = rng.uniform(0.0, fabric.jitter, size=n_chunks)
+        dropped[k] = rng.random(n_chunks) < fabric.p_drop
+    n_drop = dropped.sum(1)
+    hop = torch.tensor([hop_lat[leaf] for leaf in leaves], dtype=torch.float64, device=dev)
+    delay = hop[:, None] + torch.from_numpy(jit).to(dev)
+    arr = torch.from_numpy(inject).to(dev)[None, :] + delay
+    arr = torch.where(torch.from_numpy(dropped).to(dev), math.inf, arr)
+    rows = torch.sort(arr, dim=1).values
+    counts = torch.from_numpy(n_chunks - n_drop).to(dev)
+    done, rnr = worker_pool_completion_rows(rows, workers.n_recv_workers, service,
+                                            workers.staging_chunks)
+    last = done.gather(1, (counts - 1).clamp_min(0)[:, None])[:, 0]
+    per_leaf = torch.stack([last, rnr.sum(1).to(torch.float64)]).cpu().numpy()
+
+    completion = np.zeros(p)
+    completion[root] = inject[-1]
+    recovered_total = rnr_total = fast_total = 0
+    t_mcast_end = t_rnr
+    t_rel_end = 0.0
+    for k, leaf in enumerate(leaves):
+        n_lost = int(n_drop[k])
+        rnr_k = int(per_leaf[1, k])
+        rnr_total += rnr_k
+        fast_total += n_chunks - n_lost - rnr_k
+        t_fast = per_leaf[0, k] if n_lost < n_chunks else t_rnr
+        missing = n_lost + rnr_k
+        if missing:
+            # fetch ring (§III-C): wait for the cutoff, then selective RDMA
+            # reads from the left neighbour
+            t0 = max(t_fast, cutoff)
+            t_fetch = t0 + missing * (2 * fabric.latency + chunk / fabric.b_link)
+            recovered_total += missing
+            completion[leaf] = t_fetch
+            t_rel_end = max(t_rel_end, t_fetch - t0)
+        else:
+            completion[leaf] = t_fast
+        t_mcast_end = max(t_mcast_end, t_fast)
+
+    # final handshake: send final to left, need final from right (§III-C)
+    shifted = np.roll(completion, -1)
+    completion = np.maximum(completion, shifted) + fabric.latency
+    return BcastResult(
+        completion=completion,
+        phases=PhaseBreakdown(rnr_sync=t_rnr, multicast=t_mcast_end - t_rnr,
+                              reliability=t_rel_end, handshake=fabric.latency),
+        delivered_fast=fast_total,
+        recovered=recovered_total,
+        rnr_drops=rnr_total,
+        bytes_fast=fast_total * chunk,
+        bytes_recovery=recovered_total * chunk,
+        bytes_total=(p - 1) * n_chunks * chunk,
+        link_bytes=eng.link_bytes() if topology is not None else {},
+    )
+
+
+def _fluid_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerParams,
+                     rng: np.random.Generator, *, topology=None, hosts=None, co_hosts=(),
+                     device=None) -> AllgatherResult:
+    """Fluid lowering of an Appendix-A allgather schedule (reference
+    sched_ir.py:710): each generation's Multicast roots inject at once, and
+    the leaf receive path (link and worker pool) is the shared bottleneck;
+    generations are chained by the activation signal. On a topology each
+    chain is a multicast tree flow, and ``co_hosts`` lists further host sets
+    running the same schedule at once, whose tree flows are submitted beside
+    (their bytes counted, their contention felt). A generation's arrivals
+    are the reference's host arithmetic; its pool is a one-row launch of
+    ``csrc/pool.cu`` on ``device`` (default ``cuda``)."""
+    dev = device_of("cuda" if device is None else device)
+    p, n_bytes = sched.p, sched.n_bytes
+    generations = sched.rounds()
+    n_chunks, chunk = _chunking(n_bytes, fabric.mtu)
+    service = chunk / workers.thread_tput
+    t_rnr = _rnr_barrier(p, fabric, workers)
+
+    eng = Engine(device=dev)
+    if topology is not None:
+        hosts = _placed(topology, hosts, p)
+    else:
+        eng.add_link("leaf.recv", fabric.b_link)
+
+    t = t_rnr
+    recovered_total = fast_bytes = rec_bytes = 0
+    mcast_time = rel_time = 0.0
+    for round_ops in generations:
+        m = len(round_ops)
+        total_chunks = m * n_chunks
+        if topology is not None:
+            roots = [hosts[sched.ops[i].root] for i in round_ops]
+            flows = [eng.submit_tree(topology.multicast_tree(root, hosts), n_chunks * chunk,
+                                     t_start=t, tag=f"chain{root}")
+                     for root in roots]
+            for co in co_hosts:
+                for i in round_ops:
+                    co_root = co[sched.ops[i].root]
+                    eng.submit_tree(topology.multicast_tree(co_root, list(co)),
+                                    n_chunks * chunk, t_start=t, tag=f"costripe{co_root}")
+        else:
+            # m chain roots inject at once onto the leaf's ejection link
+            flows = [eng.submit("leaf.recv", n_chunks * chunk, t_start=t,
+                                tag=f"chain{sched.ops[i].root}")
+                     for i in round_ops]
+        eng.run()
+        arrive_spacing = np.sort(np.concatenate([f.chunk_times(n_chunks, chunk)
+                                                 for f in flows]))
+        delay = fabric.latency + rng.uniform(0.0, fabric.jitter, size=total_chunks)
+        dropped = rng.random(total_chunks) < fabric.p_drop
+        arrivals = np.sort((arrive_spacing + delay)[~dropped])
+        t_fast, rnr = t, 0
+        if arrivals.size:
+            done, mask = worker_pool_completion_rows(
+                torch.from_numpy(arrivals)[None].to(dev), workers.n_recv_workers, service,
+                workers.staging_chunks)
+            t_fast, rnr = torch.stack([done[0, -1], mask.sum().to(torch.float64)]).tolist()
+            rnr = int(rnr)
+        missing = int(dropped.sum()) + rnr
+        cutoff = t + protocol.cutoff_time(m * n_bytes, fabric.b_link, fabric.alpha)
+        t_round_end = t_fast
+        if missing:
+            t0 = max(t_fast, cutoff)
+            t_round_end = t0 + missing * (2 * fabric.latency + chunk / fabric.b_link)
+            rel_time += t_round_end - t0
+            recovered_total += missing
+        mcast_time += max(t_fast - t, 0.0)
+        fast_bytes += (total_chunks - missing) * chunk
+        rec_bytes += missing * chunk
+        # activation signal to the next root of every chain
+        t = max(t_round_end + fabric.latency, eng.now)
+
+    t_done = t + fabric.latency  # final handshake
+    return AllgatherResult(
+        time=t_done,
+        phases=PhaseBreakdown(rnr_sync=t_rnr, multicast=mcast_time, reliability=rel_time,
+                              handshake=fabric.latency),
+        recovered=recovered_total,
+        bytes_fast=fast_bytes,
+        bytes_recovery=rec_bytes,
+        bytes_total=p * n_chunks * chunk,
+        per_rank_recv_tput=(p - 1) * n_bytes / t_done,
+        link_bytes=eng.link_bytes() if topology is not None else {},
+    )
+
+
+@dataclass
+class RingCollectiveResult:
+    """Result of a ring schedule (ring_allgather / reduce_scatter):
+    generation-synchronous neighbour exchange on RC transport."""
+    time: float
+    phases: PhaseBreakdown
+    n_rounds: int
+    bytes_total: float                 # receiver payload (== payload_bytes)
+    bytes_recovery: float = 0.0        # packet fidelity: RC goodput inflation
+    link_bytes: dict[str, float] = field(default_factory=dict)
+
+
+def _fluid_ring(sched: Schedule, fabric: FabricParams, workers: WorkerParams,
+                rng: np.random.Generator, *, topology=None, hosts=None, co_hosts=(),
+                device=None) -> RingCollectiveResult:
+    """Fluid lowering of a ring schedule (reference sched_ir.py:849): each
+    generation every rank forwards its shard to its right neighbour. On the
+    abstract fabric one send and one receive flow of the representative
+    rank's full-duplex NIC a generation; on a topology every op is a routed
+    unicast (its transport pinning the tier where the fabric has tiers), and
+    ``co_hosts`` adds sibling stripes' flows. A Reduce edge costs its wire
+    bytes. The engine's vectorized solve runs on ``device``."""
+    dev = device_of("cuda" if device is None else device)
+    p = sched.p
+    generations = sched.rounds()
+    eng = Engine(device=dev)
+    if topology is not None:
+        hosts = _placed(topology, hosts, p)
+        tiered = getattr(topology, "supports_transport", False)
+
+        def routed(src: int, dst: int, transport):
+            return (topology.route(src, dst, transport=transport) if tiered
+                    else topology.route(src, dst))
+
+        route_cache: dict[tuple, list] = {}
+
+        def route_of(op: Op):
+            src = op.src if isinstance(op, Unicast) else op.srcs[0]
+            key = (src, op.dst, op.transport)
+            if key not in route_cache:
+                route_cache[key] = routed(hosts[src], hosts[op.dst], op.transport)
+            return route_cache[key]
+    else:
+        eng.add_link("ring.send", fabric.b_link)
+        eng.add_link("ring.recv", fabric.b_link)
+
+    t = 0.0
+    wire_time = 0.0
+    for round_ops in generations:
+        ops = [sched.ops[i] for i in round_ops]
+        for op in ops:
+            if not isinstance(op, (Unicast, Reduce)) or (isinstance(op, Reduce)
+                                                         and len(op.srcs) != 1):
+                raise ValueError(f"the ring lowering takes unicasts and single-source "
+                                 f"Reduce edges, got {op}")
+        if topology is not None:
+            flows = [eng.submit_route(route_of(op), op.nbytes, t_start=t, tag=f"ring{i}")
+                     for i, op in enumerate(ops)]
+            for s, co in enumerate(co_hosts):
+                for i, op in enumerate(ops):
+                    src = op.src if isinstance(op, Unicast) else op.srcs[0]
+                    eng.submit_route(routed(co[src], co[op.dst], op.transport), op.nbytes,
+                                     t_start=t, tag=f"costripe{s}.{i}")
+        else:
+            nbytes = ops[0].nbytes
+            flows = [eng.submit("ring.send", nbytes, t_start=t, tag="ring"),
+                     eng.submit("ring.recv", nbytes, t_start=t, tag="ring")]
+        eng.run()
+        t_end = max(f.t_end for f in flows)
+        wire_time += t_end - t
+        t = t_end + fabric.latency     # the shard must reach the neighbour
+    return RingCollectiveResult(
+        time=t,
+        phases=PhaseBreakdown(multicast=wire_time, handshake=len(generations) * fabric.latency),
+        n_rounds=len(generations),
+        bytes_total=payload_bytes(sched),
+        link_bytes=eng.link_bytes() if topology is not None else {},
+    )
+
+
+# ------------------------------------------------------------ analytic path
+
+
+def _exec_analytic(sched: Schedule, fabric: FabricParams, workers: WorkerParams) -> float:
+    """Closed-form oracle per schedule kind (``core/protocol.py``
+    ``analytic_*``; reference sched_ir.py:2012): the lossless lower bound
+    the engines are held against (analytic <= fluid <= packet)."""
+    b, lat = fabric.b_link, fabric.latency
+    pool_rate = workers.n_recv_workers * workers.thread_tput
+    hop = workers.rnr_barrier_hop
+    p, n = sched.p, sched.n_bytes
+    if sched.kind == "broadcast":
+        return protocol.analytic_bcast_time(p, n, b, lat, pool_rate=pool_rate, rnr_hop=hop)
+    if sched.kind == "allgather":
+        return protocol.analytic_allgather_time(p, n, b, lat, n_chains=sched.meta["n_chains"],
+                                                pool_rate=pool_rate, rnr_hop=hop)
+    if sched.kind == "ring_allgather":
+        return protocol.analytic_ring_allgather_time(p, n, b, lat)
+    if sched.kind == "reduce_scatter":
+        return protocol.analytic_ring_reduce_scatter_time(p, n, b, lat)
+    raise NotImplementedError(f"kind {sched.kind!r} at fidelity='analytic' is not ported "
+                              f"yet ({_QUEUED})")
+
+
 # --------------------------------------------------- packet-fidelity Allgather
 
 
@@ -291,8 +668,8 @@ def _check_packet_options(topology, hosts, dpa_fidelity: str, dpa, engine: str) 
     """The reference's packet options that the port does not have raise, as
     ``simulate_packet_broadcast`` raises them."""
     if topology is not None or hosts is not None:
-        raise NotImplementedError("topology=/hosts=: the routed FatTree mode is not "
-                                  "ported yet (ROADMAP.md §1, item 6)")
+        raise NotImplementedError("topology=/hosts= at packet fidelity: the routed packet "
+                                  "mode is not ported yet (ROADMAP.md §1, item 6a)")
     if dpa_fidelity != "scalar" or dpa is not None:
         raise NotImplementedError("dpa_fidelity='event' / dpa=: the event-level DPA is not "
                                   "ported yet (ROADMAP.md §1, item 7)")
@@ -394,7 +771,7 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
     lat = fabric.latency
     t_rnr = _rnr_barrier(p, fabric, workers)
     template = pk.resolve_loss(loss, fabric)
-    eng = Engine()
+    eng = Engine(device=dev)
     recv_link = eng.add_link("leaf.recv", fabric.b_link)
     # one loss process per leaf (its ejection carrier), shared by every
     # chain that reaches it and persistent across generations
@@ -556,19 +933,43 @@ def execute(sched: Schedule, fabric: FabricParams | None = None,
             fidelity: str = "fluid", topology=None, hosts=None, loss=None, device=None,
             **kw):
     """Lower ``sched`` onto the chosen fidelity and run it (reference
-    sched_ir.py:2051). Ported: ``fidelity="packet"`` for the kinds
-    ``broadcast`` (``core/packet.simulate_packet_broadcast``) and
-    ``allgather`` (``_packet_allgather``), with the packet keywords
-    (``max_rounds``, ``aggregate_nacks``, ``engine``, ...) in ``kw``; the
-    leaves' receive datapath runs on ``device`` (default ``cuda``). Every
-    other fidelity or kind raises ``NotImplementedError``."""
+    sched_ir.py:2051), with the reference's guards: the analytic oracle
+    takes no loss, no engine keyword and no ``topology=``/``hosts=``; the
+    fluid fidelity takes no loss and no packet keyword. Ported: the fluid
+    and analytic fidelities for the kinds ``broadcast``, ``allgather``,
+    ``ring_allgather`` and ``reduce_scatter`` (fluid on the abstract fabric
+    or a routed topology), and ``fidelity="packet"`` for ``broadcast``
+    (``core/packet.simulate_packet_broadcast``) and ``allgather``
+    (``_packet_allgather``) on the abstract fabric, with the packet keywords
+    (``max_rounds``, ``aggregate_nacks``, ``engine``, ...) in ``kw``. The
+    engine's vectorized solve and the leaves' receive datapath run on
+    ``device`` (default ``cuda``). Every other kind, and the ring kinds at
+    packet fidelity, raise ``NotImplementedError``."""
     if fidelity not in FIDELITIES:
         raise ValueError(f"fidelity must be one of {FIDELITIES}, got {fidelity!r}")
     fabric = fabric or FabricParams()
     workers = workers or WorkerParams()
     rng = rng if rng is not None else np.random.default_rng(0)
-    if fidelity != "packet":
-        raise NotImplementedError(f"fidelity={fidelity!r} is not ported yet ({_QUEUED})")
+    if sched.kind not in ("broadcast", "allgather", "ring_allgather", "reduce_scatter"):
+        raise NotImplementedError(f"kind {sched.kind!r} is not ported yet ({_QUEUED})")
+
+    if fidelity == "analytic":
+        if loss is not None or kw:
+            raise ValueError("the analytic oracle is lossless and takes no engine options")
+        if topology is not None or hosts is not None:
+            raise ValueError("the analytic oracle has no routed mode (topology=/hosts=)")
+        return _exec_analytic(sched, fabric, workers)
+
+    if fidelity == "fluid":
+        if loss is not None:
+            raise ValueError("loss models require fidelity='packet'")
+        if kw:
+            raise ValueError(f"{sorted(kw)} require fidelity='packet'")
+        lower = {"broadcast": _fluid_broadcast, "allgather": _fluid_allgather,
+                 "ring_allgather": _fluid_ring, "reduce_scatter": _fluid_ring}[sched.kind]
+        return lower(sched, fabric, workers, rng, topology=topology, hosts=hosts,
+                     device=device)
+
     if sched.kind == "broadcast":
         from repro_torch.core import packet as pk   # deferred: packet imports this module
 
@@ -578,4 +979,5 @@ def execute(sched: Schedule, fabric: FabricParams | None = None,
     if sched.kind == "allgather":
         return _packet_allgather(sched, fabric, workers, rng, topology=topology, hosts=hosts,
                                  loss=loss, device=device, **kw)
-    raise NotImplementedError(f"kind {sched.kind!r} is not ported yet ({_QUEUED})")
+    raise NotImplementedError(f"kind {sched.kind!r} at fidelity='packet' is not ported yet "
+                              f"({_QUEUED})")

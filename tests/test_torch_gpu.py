@@ -19,6 +19,8 @@ from repro_torch.core import collectives as C
 from repro_torch.core import engine as E
 from repro_torch.core import packet as PK
 from repro_torch.core import protocol
+from repro_torch.core import simulator as S
+from repro_torch.core import topology as T
 from repro_torch.kernels import bitmap as BM
 from repro_torch.kernels import build
 from repro_torch.kernels import chunk_reassembly as CR
@@ -533,6 +535,91 @@ def test_packet_allgather_on_cuda_equals_cpu():
     assert all(x > y for x, y in zip(after, before))
     assert a.rnr_drops > 0 and a.rounds and a.completed
     assert a == b
+
+
+@pytest.mark.gpu
+def test_fluid_routed_allgather_on_cuda_equals_cpu():
+    """A routed fluid Allgather (64 hosts of a k = 8 fat-tree, a tree flow a
+    rank in one generation, so the max-min solve takes its vectorized path)
+    on the card equals its CPU run field for field, link bytes included; the
+    solve ran on the card and each generation's pool was one launch."""
+    _need_cuda()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        solves, launches = E.counts["device_solves"], PL.launches
+        topo = T.FatTree(k=8, n_hosts=64, b_host=E.FabricParams().b_link)
+        out[dev] = S.simulate_allgather(64, 1 << 16, E.FabricParams(p_drop=0.01),
+                                        E.WorkerParams(n_recv_workers=2, staging_chunks=64),
+                                        np.random.default_rng(0), 64, topology=topo,
+                                        device=dev)
+        assert E.counts["device_solves"] > solves
+        assert PL.launches - launches == (1 if dev == "cuda" else 0)
+    a, b = out["cpu"], out["cuda"]
+    assert a.recovered > 0 and a.link_bytes
+    assert a == b and list(a.link_bytes) == list(b.link_bytes)
+
+
+@pytest.mark.gpu
+def test_engine_vectorized_solve_on_cuda_equals_cpu(monkeypatch):
+    """Random routes over 40 links, 240 flows with staggered starts, a
+    third of them rate-capped: the engine with its vectorized filling on the
+    card gives the CPU's segments, ends and link bytes, in incremental and
+    global mode."""
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    caps = rng.choice([1.0, 2.0, 3.5, 5.0, 8.0, 10.0, 16.0], 40)
+    flows = [(rng.choice(40, size=int(rng.integers(1, 7)), replace=False),
+              float(rng.uniform(0.5, 20.0)), float(rng.choice([0.0, 0.5, 1.5, 2.0])),
+              (None, None, 1.5, 4.0)[int(rng.integers(4))]) for _ in range(240)]
+    for mode in ("incremental", "reference"):
+        monkeypatch.setenv("ENGINE_MAXMIN", mode)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            solves = E.counts["device_solves"]
+            eng = E.Engine(device=dev)
+            links = [eng.add_link(f"l{i}", c) for i, c in enumerate(caps)]
+            fs = [eng.submit([links[i] for i in route], b, t_start=t, rate_cap=cap)
+                  for route, b, t, cap in flows]
+            eng.run()
+            assert E.counts["device_solves"] > solves
+            out[dev] = ([f.segments for f in fs], [f.t_end for f in fs],
+                        list(eng.link_bytes().items()))
+        assert out["cpu"] == out["cuda"]
+
+
+@pytest.mark.gpu
+def test_fluid_broadcast_on_cuda_equals_cpu():
+    """A lossy routed fluid Broadcast whose one-worker pools overflow the
+    staging ring: every leaf's pool in one launch on the card, each field
+    equal to the CPU run; the row pass on the card bitwise the 1-D pool of
+    each leaf."""
+    _need_cuda()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        launches = PL.launches
+        topo = T.FatTree(k=8, n_hosts=40, b_host=E.FabricParams().b_link)
+        out[dev] = S.simulate_broadcast(40, 4 << 20, E.FabricParams(p_drop=1e-3),
+                                        E.WorkerParams(staging_chunks=128),
+                                        np.random.default_rng(3), 5, topology=topo, device=dev)
+        assert PL.launches - launches == (1 if dev == "cuda" else 0)
+    a, b = out["cpu"], out["cuda"]
+    assert a.rnr_drops > 0 and a.recovered > 0
+    assert np.array_equal(a.completion, b.completion)
+    for name in ("phases", "delivered_fast", "recovered", "rnr_drops", "bytes_fast",
+                 "bytes_recovery", "bytes_total", "link_bytes"):
+        assert getattr(a, name) == getattr(b, name), name
+    rng = np.random.default_rng(1)
+    lens = (1, 300, 5000, 4096)
+    rows = np.full((len(lens), max(lens)), np.inf)
+    for k, n in enumerate(lens):
+        rows[k, :n] = np.sort(rng.uniform(0.0, 1e-3, n))
+    done, mask = E.worker_pool_completion_rows(torch.from_numpy(rows).cuda(), 3, 1e-6, 256)
+    for k, n in enumerate(lens):
+        d1, rnr = E.worker_pool_completion(rows[k, :n], 3, 1e-6, 256)
+        assert np.array_equal(done[k, :n].cpu().numpy(), d1)
+        assert int(mask[k].sum()) == rnr
+        assert not mask[k, n:].any()
+    assert int(mask.sum()) > 0
 
 
 @pytest.mark.gpu

@@ -212,7 +212,8 @@ def test_unported_options_raise():
                dict(dpa_fidelity="event"), dict(engine="reference")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             packet.simulate_packet_broadcast(*args, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        protocol.broadcast_time(8, 1 << 16, fidelity="fluid", device="cpu")
+    # the fluid fidelity is ported: equal to the reference's
+    assert protocol.broadcast_time(8, 1 << 16, fidelity="fluid", device="cpu") == \
+        ref_protocol.broadcast_time(8, 1 << 16, fidelity="fluid")
     with pytest.raises(NotImplementedError):
         protocol.broadcast_time(8, 1 << 16, dpa=object(), device="cpu")

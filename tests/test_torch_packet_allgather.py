@@ -288,10 +288,14 @@ def test_unported_options_raise():
             packet.simulate_packet_allgather(*args, device="cpu", **kw)
     with pytest.raises(ValueError, match="engine"):
         packet.simulate_packet_allgather(*args, device="cpu", engine="fast")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulator.simulate_allgather(*args, device="cpu")          # fidelity="fluid"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        protocol.allgather_time(8, 1 << 16, fidelity="fluid", device="cpu")
+    # the fluid fidelity is ported: equal to the reference's
+    got = simulator.simulate_allgather(*args, device="cpu")          # fidelity="fluid"
+    want = ref_sim.simulate_allgather(8, 1 << 16, ref_engine.FabricParams(),
+                                      ref_engine.WorkerParams(), np.random.default_rng(0), 2)
+    assert (got.time, dataclasses.astuple(got.phases)) == \
+        (want.time, dataclasses.astuple(want.phases))
+    assert protocol.allgather_time(8, 1 << 16, fidelity="fluid", device="cpu") == \
+        ref_protocol.allgather_time(8, 1 << 16, fidelity="fluid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         protocol.allgather_time(8, 1 << 16, dpa=object(), device="cpu")
     ring = sched_ir.Schedule("ring_allgather", 2, 8, (sched_ir.Unicast(0, 1, 8),))
