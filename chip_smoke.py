@@ -176,6 +176,30 @@
    solved, vectorized solves (on the card) and their filling iterations,
    and pool launches, which must equal what the figures' generations imply
    (the card's run is the profiled one);
+5d. the routed packet mode and the FSDP step (core/packet.py's routed
+   Broadcast, core/sched_ir.py's routed packet Allgather and
+   ``fsdp_submitters``, core/engine.py's FSDP timeline), each cell run on
+   the CPU and on the card, field for field equal, printed as 5c's: (a)
+   ``protocol_loss_sweep``'s part A, 1 MiB Broadcasts at 0.1 % per-link
+   loss on k = 16 and k = 32 fat-trees at P = 16, 64, 256 and 512, 16
+   workers, no jitter, seeds 0 to 2, and the no-aggregation ablation at
+   512: every run complete with its bytes conserved, one root NACK a round
+   when aggregated, the recovery time's growth from 16 to 512 at most 1.5 x
+   log2(512) / log2(16) = 3.375, the ablation no faster; (b) AG-R, AG-B's
+   Allgather (188 hosts x 4 MiB x 4 chains, 8 workers, 1 us jitter, seed
+   0) on FatTree(k = 16, n_hosts = 188) at 1e-3 per-link loss; (c)
+   ``fsdp_contention_sweep``'s grid (P 16 and 64, layers of 64 and 256 MB,
+   8 layers, every policy, abstract fluid: split's bubble fraction under
+   naive's in every cell), the routed step at P = 64 on FatTree(k = 8,
+   n_hosts = 64) at oversubscription 1 and 4 (4 layers of 256 MB, every
+   policy fluid, mcast and split with the packet overlay at 1e-3; split
+   under naive; a max-min solve on the card), and ``multi_job_contention``
+   (two jobs on the even and odd hosts of a k = 8, 32-host fat-tree,
+   oversubscription 1, 2 and 4, 3 layers of 128 MB: the worst slowdown
+   under 1.01 at 1, over 1.3 at 4, and not falling). The launches of the
+   pool, pack, OR and popcount must equal what the runs' rounds imply: a
+   pool pass per fast path (per generation) and per recovery round, one
+   pack, OR and popcount per round; the FSDP cells launch none;
 6. the collective layer's remaining entry points, each driven once with the
    launch counts zeroed before and read after: (a) the double-buffered
    drain (csrc/double_buffer_drain.cu) equal to its plain version on every
@@ -220,6 +244,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2119,13 +2144,15 @@ def check_pool_rows() -> int:
     return 3 * len(lens)
 
 
-def _figure(name: str, fn, pools: int) -> tuple:
-    """One figure on the CPU, then on the card under the profiler (counts
-    zeroed before, read after), field for field equal. Prints host ms on
-    both (the card's with the profiler on), the card's busy ms and idle
-    share, the solves and pool launches; ``pools``: the pool launches the
-    figure's generations imply. Returns (card result, pool launches, the
-    card run's engine counts)."""
+def _figure(name: str, fn, implied, tag: str = "figures") -> tuple:
+    """One figure (or cell) on the CPU, then on the card under the profiler
+    (counts zeroed before, read after), field for field equal. Prints host
+    ms on both (the card's with the profiler on), the card's busy ms and
+    idle share, the solves and the launches of the receive kernels;
+    ``implied(card result)``: the launches the run's generations and
+    rounds imply, by kernel (the others none), which the card run must
+    equal. Returns (card result, launches by kernel, the card run's engine
+    counts)."""
     t0 = time.perf_counter()
     cpu = fn("cpu")
     cpu_ms = (time.perf_counter() - t0) * 1e3
@@ -2134,15 +2161,17 @@ def _figure(name: str, fn, pools: int) -> tuple:
     out = []
     dev, card_ms = _device_times(lambda: out.append(fn("cuda")))
     card = out[0]
-    counts, launches = dict(E.counts), PL.launches
+    counts, launches = dict(E.counts), {k: _counts()[k] for k in AG_KERNELS}
     _same_fields(card, cpu, f"{name}, card vs CPU")
-    if launches != pools:
-        raise AssertionError(f"{name}: {launches} pool launches, its generations imply {pools}")
+    want = {k: implied(card).get(k, 0) for k in AG_KERNELS}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, its generations and rounds "
+                             f"imply {want}")
     busy = sum(dev.values()) if dev else None   # no device record: not measured
-    print("[figures] " + json.dumps({
+    print(f"[{tag}] " + json.dumps({
         "figure": name, "card_host_ms": card_ms, "cpu_host_ms": cpu_ms,
         "device_busy_ms": busy, "device_idle_share": None if busy is None else 1 - busy / card_ms,
-        **counts, "pool_launches": launches,
+        **counts, "launches": launches,
         "top_device_ms": {k[:50]: t for k, t in sorted(dev.items(), key=lambda kv: -kv[1])[:4]}}),
         flush=True)
     return card, launches, counts
@@ -2157,8 +2186,8 @@ def figures_path() -> int:
     print(f"[figures] pool row pass == the 1-D pool on {check_pool_rows()} ragged rows, the "
           "staging ring overflowing", flush=True)
     total = 0
-    res, n, _ = _figure("fig11", fig11, len(FIG11_SIZES) * 188)
-    total += n
+    res, n, _ = _figure("fig11", fig11, lambda _: {"pool": len(FIG11_SIZES) * 188})
+    total += n["pool"]
     for size, ag in zip(FIG11_SIZES, res):
         ring_tput = (188 - 1) * size / CM.allgather_time_ring(size, FIG_LINK, 188)
         ratio = ag.per_rank_recv_tput / ring_tput
@@ -2166,15 +2195,17 @@ def figures_path() -> int:
               f"ring {ring_tput / 1e9}, ratio {ratio}", flush=True)
         if size == 1 << 17 and not 0.5 < ratio < 1.5:
             raise AssertionError(f"fig11: multicast / ring at 128 KiB {ratio}, not in (0.5, 1.5)")
-    rows, n, _ = _figure("fig10", fig10, len(FIG10_SIZES) * sum(FIG10_NODES))
-    total += n
+    rows, n, _ = _figure("fig10", fig10,
+                         lambda _: {"pool": len(FIG10_SIZES) * sum(FIG10_NODES)})
+    total += n["pool"]
     for r in rows:
         print(f"[figures] fig10 P={r['nodes']} {r['bytes']} B: mcast_frac {r['mcast_frac']} "
               f"rnr {r['rnr_frac']} rel {r['reliability_frac']}", flush=True)
         if r["nodes"] >= 16 and r["bytes"] == 4 << 20 and not r["mcast_frac"] > 0.99:
             raise AssertionError(f"fig10: mcast_frac {r['mcast_frac']} at {r['nodes']} nodes")
-    runs, n, counts = _figure("fig12_routed", fig12_routed, len(FIG12_HOSTS))
-    total += n
+    runs, n, counts = _figure("fig12_routed", fig12_routed,
+                              lambda _: {"pool": len(FIG12_HOSTS)})
+    total += n["pool"]
     if not counts["device_solves"]:
         raise AssertionError("fig12: no max-min solve ran its vectorized filling on the card")
     for p, ag, t_ring, ring_lb in runs:
@@ -2196,8 +2227,8 @@ def figures_path() -> int:
         if not 0.95 * t_bound <= ag.time <= t_ring:
             raise AssertionError(f"fig12 P={p}: time {ag.time} outside [{0.95 * t_bound}, "
                                  f"{t_ring}]")
-    res, n, _ = _figure("lossy_broadcast", lossy_bcast, 1)
-    total += n
+    res, n, _ = _figure("lossy_broadcast", lossy_bcast, lambda _: {"pool": 1})
+    total += n["pool"]
     print(f"[figures] lossy broadcast: time {res.time} s, recovered {res.recovered}, rnr "
           f"{res.rnr_drops}, phases {json.dumps(dataclasses.asdict(res.phases))}", flush=True)
     if not res.recovered:
@@ -2210,6 +2241,183 @@ def figures_path() -> int:
             and 1.5 <= ratios["fig12_allgather_ring_over_mcast"] <= 2.2
             and 1.3 <= ratios["fig12_bcast_ring_over_mcast"] <= 2.5):
         raise AssertionError(f"static traffic ratios out of the paper's bands: {ratios}")
+    return total
+
+
+# ------------------------------- phase 5d: routed packet and the FSDP step
+
+# (a) protocol_loss_sweep's part A (benchmarks/paper_figs.py:255): 1 MiB
+# Broadcasts at 0.1 % per-link loss on k = 16 (P <= 128) and k = 32
+# fat-trees, 16 workers, no jitter, seeds 0 to 2; the no-aggregation
+# ablation at the largest P
+LOSS_SWEEP_P = (16, 64, 256, 512)
+LOSS_SWEEP_SEEDS = (0, 1, 2)
+LOSS_SWEEP_BYTES = 1 << 20
+LINK_LOSS = 1e-3
+# (b) AG-R: AG-B's Allgather (188 hosts x 4 MiB x 4 chains, 8 workers, 1 us
+# jitter, seed 0) on the testbed's routed k = 16 fat-tree, per-link loss 1e-3
+AGR = (188, 4 << 20, 4)
+# (c) fsdp_contention_sweep's grid (benchmarks/paper_figs.py:777), abstract
+# fluid; the routed step at P = 64 on FatTree(k = 8, n_hosts = 64); and
+# multi_job_contention's two jobs (benchmarks/paper_figs.py:243)
+FSDP_PS, FSDP_LAYER_BYTES, FSDP_LAYERS = (16, 64), (64e6, 256e6), 8
+FSDP_ROUTED_P, FSDP_ROUTED_LAYERS, FSDP_ROUTED_BYTES = 64, 4, 256e6
+OVERSUB = (1.0, 4.0)
+MULTI_JOB_OVERSUB = (1.0, 2.0, 4.0)
+
+
+def _sweep_topology(p: int, fab) -> TOPO.FatTree:
+    return TOPO.FatTree(k=32 if p > 128 else 16, n_hosts=p, b_host=fab.b_link)
+
+
+def loss_sweep(device: str) -> dict:
+    """(a): every (P, seed) Broadcast aggregated, and the ablation's."""
+    fab = E.FabricParams(jitter=0.0)
+    wk = E.WorkerParams(n_recv_workers=16)
+    runs = {}
+    for p in LOSS_SWEEP_P:
+        for s in LOSS_SWEEP_SEEDS:
+            runs[f"P{p}.seed{s}"] = SIM.simulate_broadcast(
+                p, LOSS_SWEEP_BYTES, fab, wk, np.random.default_rng(s),
+                topology=_sweep_topology(p, fab), fidelity="packet", loss=LINK_LOSS,
+                device=device)
+    p1 = max(LOSS_SWEEP_P)
+    runs["noagg"] = SIM.simulate_broadcast(
+        p1, LOSS_SWEEP_BYTES, fab, wk, np.random.default_rng(LOSS_SWEEP_SEEDS[0]),
+        topology=_sweep_topology(p1, fab), fidelity="packet", loss=LINK_LOSS,
+        aggregate_nacks=False, device=device)
+    return runs
+
+
+def bcast_launches(runs: dict) -> dict[str, int]:
+    """A routed Broadcast's launches: one pool pass for its fast path and
+    one a round, one pack, OR and popcount a round (one block of rows each
+    at these sizes)."""
+    rounds = sum(len(r.rounds) for r in runs.values())
+    return {"pool": len(runs) + rounds, "bitmap_pack": rounds, "bitmap_or_rows": rounds,
+            "bitmap_popcount": rounds}
+
+
+def ag_routed(device: str) -> PK.PacketAllgatherResult:
+    """(b) AG-R."""
+    p, n_bytes, m = AGR
+    return SIM.simulate_allgather(p, n_bytes, E.FabricParams(), E.WorkerParams(n_recv_workers=8),
+                                  np.random.default_rng(0), m,
+                                  topology=TOPO.FatTree(k=16, n_hosts=p), fidelity="packet",
+                                  loss=LINK_LOSS, device=device)
+
+
+def fsdp_grid(device: str) -> list[dict]:
+    """(c) the contention sweep's grid, abstract fluid."""
+    return E.sweep_fsdp_contention(ps=FSDP_PS, layer_bytes=FSDP_LAYER_BYTES,
+                                   n_layers=FSDP_LAYERS, device=device)
+
+
+def fsdp_routed(device: str) -> dict:
+    """(c) the routed step: every policy fluid, mcast and split with the
+    packet overlay at loss 1e-3, at each oversubscription."""
+    out = {}
+    for o in OVERSUB:
+        for policy in E.FSDP_POLICIES:
+            for fidelity in ("fluid", "packet"):
+                if fidelity == "packet" and policy == "naive":
+                    continue
+                topo = TOPO.FatTree(k=8, n_hosts=FSDP_ROUTED_P, oversubscription=o)
+                out[f"o{o:g}.{policy}.{fidelity}"] = E.simulate_fsdp_step(
+                    n_layers=FSDP_ROUTED_LAYERS, layer_bytes=FSDP_ROUTED_BYTES,
+                    p=FSDP_ROUTED_P, policy=policy, topology=topo, fidelity=fidelity,
+                    loss=LINK_LOSS if fidelity == "packet" else None,
+                    rng=np.random.default_rng(0), device=device)
+    return out
+
+
+def multi_job(device: str) -> dict:
+    """(c) two FSDP jobs on the even and odd hosts of a k = 8 fat-tree."""
+    jobs = {"A": list(range(0, 32, 2)), "B": list(range(1, 32, 2))}
+    return {o: E.simulate_multi_job(TOPO.FatTree(k=8, n_hosts=32, oversubscription=o), jobs,
+                                    layer_bytes=128e6, n_layers=3, policy="mcast",
+                                    device=device)
+            for o in MULTI_JOB_OVERSUB}
+
+
+def routed_path() -> dict[str, int]:
+    """Phase 5d: the routed packet mode and the FSDP step, each cell run on
+    the CPU and then on the card (counts zeroed before, read after), field
+    for field equal, the receive kernels' launches equal to what the runs'
+    rounds imply; the benchmarks' assertions. Returns the phase's launches
+    of #6, #6b, #7 and #8/#9."""
+    total = dict.fromkeys(AG_KERNELS, 0)
+
+    def add(launches):
+        for k in AG_KERNELS:
+            total[k] += launches[k]
+
+    runs, n, _ = _figure("loss_sweep", loss_sweep, bcast_launches, tag="routed")
+    add(n)
+    rec = {}
+    for p in LOSS_SWEEP_P:
+        per = [runs[f"P{p}.seed{s}"] for s in LOSS_SWEEP_SEEDS]
+        for r in per:
+            if not r.completed or r.bytes_fast + r.bytes_recovery != r.bytes_total:
+                raise AssertionError(f"loss sweep P={p}: incomplete or bytes not conserved")
+            if any(tr.root_nack_msgs != 1 for tr in r.rounds):
+                raise AssertionError(f"loss sweep P={p}: the root served more than one NACK a "
+                                     "round with aggregation")
+        rec[p] = sum(r.phases.reliability for r in per) / len(per)
+        print(f"[routed] loss sweep P={p}: recovery {rec[p] * 1e6} us (mean of "
+              f"{len(per)} seeds), rounds {[len(r.rounds) for r in per]}", flush=True)
+    p0, p1 = min(LOSS_SWEEP_P), max(LOSS_SWEEP_P)
+    growth, bound = rec[p1] / rec[p0], 1.5 * math.log2(p1) / math.log2(p0)
+    agg, noagg = runs[f"P{p1}.seed{LOSS_SWEEP_SEEDS[0]}"], runs["noagg"]
+    print(f"[routed] recovery growth P{p0} -> P{p1}: {growth} (bound {bound}); ablation at "
+          f"P{p1}: {noagg.phases.reliability * 1e6} us without aggregation, "
+          f"{agg.phases.reliability * 1e6} with; root NACKs a round "
+          f"{[tr.root_nack_msgs for tr in noagg.rounds]}", flush=True)
+    if not growth <= bound:
+        raise AssertionError(f"recovery grew {growth}x from P{p0} to P{p1}, over {bound}")
+    if not noagg.phases.reliability >= agg.phases.reliability - 1e-12:
+        raise AssertionError("the no-aggregation ablation recovered faster")
+
+    res, n, counts = _figure("ag_routed", ag_routed, lambda r: {
+        "pool": -(-AGR[0] // AGR[2]) + _ag_rounds(r), "bitmap_pack": _ag_rounds(r),
+        "bitmap_or_rows": _ag_rounds(r), "bitmap_popcount": _ag_rounds(r)}, tag="routed")
+    add(n)
+    print(f"[routed] AG-R: time {res.time} s, recovered {res.recovered}, recovery rounds "
+          f"{_ag_rounds(res)} ({len(res.rounds)} traces), {len(res.link_bytes)} links, "
+          f"phases {json.dumps(dataclasses.asdict(res.phases))}", flush=True)
+    if not (res.completed and res.recovered and res.link_bytes):
+        raise AssertionError("AG-R must complete and recover chunks")
+    if AGR[0] * AGR[2] * (AGR[1] // E.FabricParams().mtu) > PK._BLOCK_ELEMS:
+        raise AssertionError("AG-R's fast path takes more than one block of pool rows")
+
+    rows, n, _ = _figure("fsdp_grid", fsdp_grid, lambda _: {}, tag="routed")
+    add(n)
+    bubbles: dict[tuple, dict] = {}
+    for r in rows:
+        bubbles.setdefault((r["p"], r["layer_bytes"]), {})[r["policy"]] = r["bubble_fraction"]
+    for key, b in bubbles.items():
+        print(f"[routed] fsdp P={key[0]} {key[1] / 1e6:g} MB: bubble fraction {json.dumps(b)}",
+              flush=True)
+        if not b["split"] < b["naive"]:
+            raise AssertionError(f"fsdp {key}: split bubbles {b['split']} not under naive's")
+    steps, n, counts = _figure("fsdp_routed", fsdp_routed, lambda _: {}, tag="routed")
+    add(n)
+    for key, r in steps.items():
+        print(f"[routed] fsdp routed P={FSDP_ROUTED_P} {key}: step {r.step_time * 1e3} ms, "
+              f"bubble fraction {r.bubble_fraction}", flush=True)
+    for o in OVERSUB:
+        if not steps[f"o{o:g}.split.fluid"].bubble_fraction < \
+                steps[f"o{o:g}.naive.fluid"].bubble_fraction:
+            raise AssertionError(f"routed fsdp at oversubscription {o}: split not under naive")
+    if not counts["device_solves"]:
+        raise AssertionError("the routed FSDP step ran no max-min solve on the card")
+    jobs, n, _ = _figure("multi_job", multi_job, lambda _: {}, tag="routed")
+    add(n)
+    slow = {o: max(r.slowdown.values()) for o, r in jobs.items()}
+    print(f"[routed] multi-job slowdowns by oversubscription {json.dumps(slow)}; core bytes "
+          f"{json.dumps({o: r.core_bytes for o, r in jobs.items()})}", flush=True)
+    if not (slow[1.0] < 1.01 and slow[4.0] > 1.3 and slow[1.0] <= slow[2.0] <= slow[4.0]):
+        raise AssertionError(f"multi-job slowdowns {slow}")
     return total
 
 
@@ -3087,6 +3295,12 @@ def main() -> int:
     print(f"[figures] phase 5c passed: {fig_pools} pool launches "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     launches["pool"] += fig_pools
+    t0 = time.perf_counter()
+    routed = routed_path()   # zeroes the counts before each cell's card run
+    print(f"[routed] phase 5d passed: launches {json.dumps(routed)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name in AG_KERNELS:
+        launches[name] += routed[name]
     t0 = time.perf_counter()
     drain_cases, drain_err = check_drain()
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)

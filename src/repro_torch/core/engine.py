@@ -1,6 +1,7 @@
-"""Fluid-flow event engine over routes, and the leaf worker pool.
+"""Fluid-flow event engine over routes, the leaf worker pool, and the FSDP
+step's contention timeline.
 
-Port of ``src/repro/core/engine.py:74-638``:
+Port of ``src/repro/core/engine.py``:
 
 - ``FabricParams``, ``WorkerParams``: the same parameters and defaults.
 - ``Engine`` / ``Link`` / ``Flow``: the discrete-event fluid engine. A Link
@@ -27,6 +28,12 @@ Port of ``src/repro/core/engine.py:74-638``:
   and its staging-ring rule in numpy (the root's NACK service, at most one
   arrival per leaf); ``worker_pool_completion_rows``, R rows of arrivals in
   one pass on the pool kernel (``kernels/pool.py``, ``csrc/pool.cu``).
+- The FSDP timeline (engine.py:640-1154): ``simulate_fsdp_step`` (uniform
+  layers, ``layers=`` of ``LayerProfile``s, or ``model=``; fluid, or packet
+  with ``_make_ag_loss_overlay``), ``sweep_fsdp_contention`` and
+  ``simulate_multi_job``, each Engine on the caller's ``device``. The flows
+  come from ``sched_ir.fsdp_submitters``. ``progress_engine="host"`` waits
+  for the event-level DPA (ROADMAP.md item 7) and raises.
 
 The engine's ``device`` (default ``cuda``) is resolved at its first
 vectorized solve: an engine whose solves all stay on the dict path never
@@ -570,3 +577,409 @@ def worker_pool_completion_rows(arrivals: torch.Tensor, n_workers: int, service:
     end does not move). One launch of the pool kernel for a CUDA tensor,
     the plain version for a CPU one."""
     return pool.pool_completion_rows(arrivals, n_workers, service, staging)
+
+
+# ----------------------------------------------------- FSDP contention model
+
+
+FSDP_POLICIES = ("naive", "mcast", "split")
+PROGRESS_ENGINES = ("dpa", "host")
+
+
+@dataclass
+class FsdpStepResult:
+    policy: str
+    step_time: float                  # wall time of fwd + bwd (+ RS drain)
+    compute_time: float               # sum of useful layer compute
+    bubble_fraction: float            # 1 - compute_time / step_time
+    phase_times: dict[str, float]     # forward / backward / rs_drain
+    link_utilization: dict[str, float]
+    ag_bytes: float                   # per-node AG bytes moved (dominant direction)
+    rs_bytes: float
+    n_layers: int
+    p: int
+    progress_engine: str = "dpa"      # who runs the reliability datapath
+    datapath_tput: float | None = None  # host engine bytes/s (None: the DPA, line rate)
+
+
+@dataclass(frozen=True)
+class LayerProfile:
+    """One layer of a heterogeneous FSDP step (``simulate_fsdp_step``
+    ``layers=``): compute seconds at full-node capability and the layer's
+    parameter bytes (its AG/RS wire volume)."""
+    fwd_s: float          # forward compute seconds
+    bwd_s: float          # backward compute seconds
+    layer_bytes: float    # parameter bytes gathered and reduce-scattered
+
+    def __post_init__(self):
+        if not (self.fwd_s >= 0.0 and self.bwd_s >= 0.0):
+            raise ValueError(f"compute seconds must be >= 0, got {self.fwd_s}, {self.bwd_s}")
+        if not self.layer_bytes > 0.0:
+            raise ValueError(f"layer_bytes must be > 0, got {self.layer_bytes}")
+
+
+def _layer_bytes_from_model(model, dtype_bytes: int) -> tuple[int, float]:
+    """(n_layers, parameter bytes a layer) of a registered config, from the
+    port's copy of the reference's analytic parameter count (dense and moe
+    families; the others raise)."""
+    from repro_torch.models.model_builder import count_params_analytic
+
+    n_layers = model.num_layers
+    return n_layers, count_params_analytic(model) / n_layers * dtype_bytes
+
+
+def _make_ag_loss_overlay(fidelity: str, loss, rng, policy: str, topology, hosts, p: int,
+                          gather_bytes: float, shard_bytes: float, fabric: FabricParams,
+                          workers: "WorkerParams | None"):
+    """A layer's AG loss and recovery penalty at ``fidelity="packet"``
+    (reference engine.py:682). Multicast policies: per-link drops on every AG
+    tree and the NACK and retransmission rounds of ``packet.
+    recovery_overlay``, the worst tree's (a layer's AG is ready when every
+    tree recovered); the links' processes are shared by every tree that
+    crosses them. Unicast "naive": the RC goodput inflation 1/(1-q_path).
+    The fluid fidelity pays nothing. The callable takes ``(gather_b,
+    shard_b)`` so that a layer of ``layers=`` pays at its own volume."""
+    if fidelity != "packet":
+        return lambda *a: 0.0
+    from repro_torch.core import packet as packet_mod   # deferred: packet imports this module
+    from repro_torch.core.sched_ir import _chunking
+
+    rng = rng if rng is not None else np.random.default_rng(0)
+    template = packet_mod.resolve_loss(loss, fabric)
+    if template is None:
+        return lambda *a: 0.0
+    if workers is None:
+        # NACK service: one fully threaded DPA core
+        workers = WorkerParams(n_recv_workers=16)
+    hosts = list(hosts)
+
+    if policy == "naive":
+        if topology is not None:
+            hops = [len(topology.route(hosts[i], hosts[(i + 1) % p])) for i in range(p)]
+            path_len = max(sum(hops) / len(hops), 1.0)
+        else:
+            path_len = 1.0
+        inflation = packet_mod.rc_goodput_inflation(template.mean_rate, path_len)
+
+        def naive_overlay(gather_b: float = gather_bytes, shard_b: float = shard_bytes) -> float:
+            return 2.0 * gather_b / fabric.b_link * inflation
+
+        return naive_overlay
+
+    tree_infos = []
+    if topology is not None:
+        all_models: dict[int, object] = {}
+        for h in hosts:
+            tree = topology.multicast_tree(h, hosts)
+            paths = packet_mod.tree_paths(tree, topology.host(h),
+                                          [topology.host(x) for x in hosts if x != h])
+            for links in paths.values():
+                for link in links:
+                    if id(link) not in all_models:
+                        all_models[id(link)] = link.loss or template.fork(rng)
+            models = {id(link): all_models[id(link)] for links in paths.values()
+                      for link in links}
+            tree_infos.append((paths, models, min(link.capacity for link in tree)))
+    else:
+        # one carrier (one loss process) per leaf ejection link, shared by
+        # every tree that crosses it
+        carriers = {x: packet_mod._AbstractCarrier() for x in hosts}
+        leaf_models = {x: template.fork(rng) for x in sorted(carriers)}
+        for h in hosts:
+            paths = {x: [carriers[x]] for x in hosts if x != h}
+            models = {id(carriers[x]): leaf_models[x] for x in hosts if x != h}
+            tree_infos.append((paths, models, fabric.b_link))
+
+    def overlay(gather_b: float = gather_bytes, shard_b: float = shard_bytes) -> float:
+        n_chunks, chunk = _chunking(int(shard_b), fabric.mtu)
+        return max(packet_mod.recovery_overlay(paths, models, n_chunks, chunk, rate, fabric,
+                                               workers, rng)
+                   for paths, models, rate in tree_infos)
+
+    return overlay
+
+
+def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 256e6,
+                       layers: "list[LayerProfile] | None" = None, p: int = 16,
+                       fabric: FabricParams | None = None, policy: str = "naive",
+                       n_chains: int = 2, tokens_per_device: int = 4096,
+                       hw_flops: float = 200e12, dtype_bytes: int = 2, topology=None,
+                       hosts=None, fidelity: str = "fluid", loss=None,
+                       rng: "np.random.Generator | None" = None,
+                       workers: "WorkerParams | None" = None, progress_engine: str = "dpa",
+                       schedule=None, device=None) -> FsdpStepResult:
+    """The interleaved forward-AG, backward-RS and compute timeline of one
+    FSDP step (reference engine.py:752), equal field for field to the
+    reference's on the same arguments and generator.
+
+    Per layer the parameters are sharded 1/p a node; the forward pass
+    gathers layer i+1 during layer i's compute (prefetch), the backward pass
+    gathers again in reverse order while reduce-scattering each layer's
+    gradients, so the AG and RS streams contend for the node's injection and
+    ejection bandwidth. The flows come from ``sched_ir.fsdp_submitters``
+    over ``sched_ir.build_fsdp_step`` (or ``schedule=``): the abstract NIC
+    (naive: one shared half-duplex medium; mcast: a multicast AG whose
+    receive stream shares the ejection link with the ring RS; split: the
+    multicast AG and an in-network RS, opposite directions), or with
+    ``topology=`` routed rings, multicast trees and aggregation trees on the
+    fabric (ranks on ``hosts``). bubble_fraction = 1 - compute / step.
+
+    ``fidelity="packet"`` adds each layer's AG loss overlay
+    (``_make_ag_loss_overlay``; ``loss`` a rate or a ``LossModel``, ``rng``
+    its generator, ``workers`` the NACK-service pool). ``layers=`` gives a
+    heterogeneous per-layer profile, ``model=`` a registered config (the
+    dense and moe families) whose analytic parameter count sets the layer
+    bytes. Every Engine runs its vectorized max-min solve on ``device``
+    (default ``cuda``). ``progress_engine="host"`` needs the event-level DPA
+    (``dpa_engine.pool_tput_event``) and raises."""
+    if policy not in FSDP_POLICIES:
+        raise ValueError(f"policy must be one of {FSDP_POLICIES}, got {policy!r}")
+    if fidelity not in ("fluid", "packet"):
+        raise ValueError(f"fidelity must be 'fluid' or 'packet', got {fidelity!r}")
+    if progress_engine not in PROGRESS_ENGINES:
+        raise ValueError(f"progress_engine must be one of {PROGRESS_ENGINES}, "
+                         f"got {progress_engine!r}")
+    if fidelity != "packet" and loss is not None:
+        raise ValueError("loss models require fidelity='packet'")
+    if progress_engine == "host":
+        raise NotImplementedError("progress_engine='host' needs the event-level DPA "
+                                  "(dpa_engine.pool_tput_event), not ported yet "
+                                  "(ROADMAP.md §1, item 7)")
+    dev = device_of("cuda" if device is None else device)
+    fabric = fabric or FabricParams()
+    if model is not None:
+        if layers is not None:
+            raise ValueError("pass model= or layers=, not both")
+        n_layers, layer_bytes = _layer_bytes_from_model(model, dtype_bytes)
+    if layers is not None:
+        layers = list(layers)
+        n_layers = len(layers)
+        # the op template carries the largest layer; smaller layers scale
+        # their flows down through the submitters' scale argument
+        layer_bytes = max(lp.layer_bytes for lp in layers)
+    if p < 2 or n_layers < 1:
+        raise ValueError(f"need p >= 2 and n_layers >= 1, got {p}, {n_layers}")
+
+    gather_bytes = (p - 1) / p * layer_bytes     # bytes a node must receive
+    shard_bytes = layer_bytes / p
+    if layers is None:
+        fwd_t = 2.0 * (layer_bytes / dtype_bytes) * tokens_per_device / hw_flops
+        bwd_t = 2.0 * fwd_t
+        fwd_ts = [fwd_t] * n_layers
+        bwd_ts = [bwd_t] * n_layers
+        scales = [1.0] * n_layers                # x * 1.0 is bit-exact
+        gathers = [gather_bytes] * n_layers
+        shards = [shard_bytes] * n_layers
+    else:
+        fwd_ts = [lp.fwd_s for lp in layers]
+        bwd_ts = [lp.bwd_s for lp in layers]
+        scales = [lp.layer_bytes / layer_bytes for lp in layers]
+        gathers = [(p - 1) / p * lp.layer_bytes for lp in layers]
+        shards = [lp.layer_bytes / p for lp in layers]
+
+    from repro_torch.core import sched_ir   # deferred: sched_ir imports this module
+
+    sched = schedule
+    if sched is None:
+        sched = sched_ir.build_fsdp_step(p=p, n_layers=n_layers, layer_bytes=layer_bytes,
+                                         policy=policy, n_chains=n_chains)
+    elif sched.kind != "fsdp_step" or sched.p != p or sched.meta["policy"] != policy:
+        raise ValueError(f"schedule {sched.kind} p={sched.p} {sched.meta.get('policy')} is not "
+                         f"an fsdp_step of p={p} {policy}")
+    eng = Engine(device=dev)
+    if topology is not None:
+        topology.reset()
+    hosts = hosts if hosts is not None else range(p)
+    submit_ag, submit_rs, ag_sync = sched_ir.fsdp_submitters(sched, eng, fabric,
+                                                             topology=topology, hosts=hosts)
+    ag_overlay = _make_ag_loss_overlay(fidelity, loss, rng, policy, topology, hosts, p,
+                                       gather_bytes, shard_bytes, fabric, workers)
+    compute_total = 0.0
+
+    def ag_ready(flows, i: int) -> float:
+        """A layer's parameters are usable when the wire delivered them, the
+        chain activations passed and the loss overlay recovered."""
+        return eng.wait(*flows) + ag_sync + ag_overlay(gathers[i], shards[i])
+
+    # forward: AG(i+1) prefetched at the compute start of layer i
+    ag = [None] * n_layers
+    ag[0] = submit_ag(0.0, scales[0])
+    t = 0.0
+    for i in range(n_layers):
+        start = max(t, ag_ready(ag[i], i))
+        if i + 1 < n_layers:
+            ag[i + 1] = submit_ag(start, scales[i + 1])
+        t = start + fwd_ts[i]
+        compute_total += fwd_ts[i]
+    t_fwd_end = t
+
+    # backward: gather the parameters again in reverse order, RS the grads
+    ag_b = [None] * n_layers
+    ag_b[n_layers - 1] = submit_ag(t_fwd_end, scales[n_layers - 1])
+    rs_flows: list[Flow] = []
+    for i in range(n_layers - 1, -1, -1):
+        start = max(t, ag_ready(ag_b[i], i))
+        if i - 1 >= 0:
+            ag_b[i - 1] = submit_ag(start, scales[i - 1])
+        t = start + bwd_ts[i]
+        compute_total += bwd_ts[i]
+        rs_flows += submit_rs(t, scales[i])
+    t_bwd_end = t
+
+    t_rs_done = eng.wait(*rs_flows) if rs_flows else t_bwd_end
+    step_time = max(t_bwd_end, t_rs_done)
+    eng.advance_to(step_time)
+
+    return FsdpStepResult(
+        policy=policy,
+        step_time=step_time,
+        compute_time=compute_total,
+        bubble_fraction=1.0 - compute_total / step_time,
+        phase_times={
+            "forward": t_fwd_end,
+            "backward": t_bwd_end - t_fwd_end,
+            "rs_drain": max(t_rs_done - t_bwd_end, 0.0),
+        },
+        link_utilization=eng.utilization(step_time),
+        # forward prefetch + backward gather / one RS a layer
+        ag_bytes=(gather_bytes * 2 * n_layers if layers is None else 2.0 * sum(gathers)),
+        rs_bytes=(gather_bytes * n_layers if layers is None else float(sum(gathers))),
+        n_layers=n_layers,
+        p=p,
+        progress_engine=progress_engine,
+        datapath_tput=None,
+    )
+
+
+def sweep_fsdp_contention(*, ps=(8, 16, 64), layer_bytes=(64e6, 256e6), n_layers: int = 8,
+                          fabric: FabricParams | None = None, policies=FSDP_POLICIES,
+                          hw_flops: float = 200e12, tokens_per_device: int = 4096,
+                          device=None) -> list[dict]:
+    """A grid of ``simulate_fsdp_step`` calls (reference engine.py:1003):
+    one row a (p, layer bytes, policy); raises where split's bubble fraction
+    is above naive's."""
+    fabric = fabric or FabricParams()
+    rows = []
+    for p in ps:
+        for lb in layer_bytes:
+            per_policy = {}
+            for pol in policies:
+                r = simulate_fsdp_step(n_layers=n_layers, layer_bytes=lb, p=p, fabric=fabric,
+                                       policy=pol, hw_flops=hw_flops,
+                                       tokens_per_device=tokens_per_device, device=device)
+                per_policy[pol] = r
+                rows.append({
+                    "p": p, "layer_bytes": lb, "policy": pol,
+                    "step_time": r.step_time,
+                    "bubble_fraction": r.bubble_fraction,
+                    "link_utilization": r.link_utilization,
+                })
+            if "naive" in per_policy and "split" in per_policy:
+                split, naive = (per_policy["split"].bubble_fraction,
+                                per_policy["naive"].bubble_fraction)
+                if not split <= naive + 1e-12:
+                    raise AssertionError(f"split bubbles {split} above naive's {naive} at "
+                                         f"p={p}, layer bytes {lb}")
+    return rows
+
+
+# ------------------------------------------------ multi-job fabric contention
+
+
+@dataclass
+class MultiJobResult:
+    policy: str
+    n_layers: int
+    solo_time: dict[str, float]        # each job alone on the fabric
+    contended_time: dict[str, float]   # all jobs co-scheduled
+    slowdown: dict[str, float]         # contended / solo, per job
+    core_bytes: float                  # contended-run bytes on the agg<->core tier
+    link_utilization: dict[str, float]  # contended run, per fabric link
+
+
+def simulate_multi_job(topology, jobs: dict[str, "list[int]"], *,
+                       layer_bytes: float = 256e6, n_layers: int = 4,
+                       policy: str = "mcast", fabric: FabricParams | None = None,
+                       hw_flops: float = 200e12, tokens_per_device: int = 4096,
+                       dtype_bytes: int = 2, device=None) -> MultiJobResult:
+    """Several FSDP jobs on disjoint host sets of one fabric (reference
+    engine.py:1055). Each job runs ``n_layers`` layer steps: gather the
+    layer's parameters (routed as ``simulate_fsdp_step``'s topology mode),
+    compute, gather the next. The jobs' flows meet on shared edge, agg and
+    core links. Each job also runs alone on the same fabric; slowdown =
+    contended / solo. The co-simulation interleaves the jobs on one engine:
+    after every engine event a job whose AG completed submits its next
+    layer at now + sync + compute. Every engine solves on ``device``
+    (default ``cuda``)."""
+    dev = device_of("cuda" if device is None else device)
+    fabric = fabric or FabricParams()
+    names = list(jobs)
+    all_hosts = [h for hs in jobs.values() for h in hs]
+    if len(set(all_hosts)) != len(all_hosts):
+        raise ValueError("jobs must use disjoint hosts")
+    if not all(len(hs) >= 2 for hs in jobs.values()):
+        raise ValueError("every job needs at least two hosts")
+
+    from repro_torch.core import sched_ir   # deferred: sched_ir imports this module
+
+    def run(subset: list[str]) -> tuple[dict[str, float], Engine]:
+        topology.reset()
+        eng = Engine(device=dev)
+        state: dict[str, dict] = {}
+        for name in subset:
+            hs = list(jobs[name])
+            p = len(hs)
+            sched = sched_ir.build_fsdp_step(p=p, n_layers=n_layers, layer_bytes=layer_bytes,
+                                             policy=policy, n_chains=p)
+            submit_ag, _, ag_sync = sched_ir.fsdp_submitters(sched, eng, fabric,
+                                                             topology=topology, hosts=hs)
+            state[name] = {
+                "submit": submit_ag, "sync": ag_sync,
+                "fwd": 2.0 * (layer_bytes / dtype_bytes) * tokens_per_device / hw_flops,
+                "layer": 0, "flows": None, "end": None,
+            }
+        for st in state.values():
+            st["flows"] = st["submit"](0.0)
+        idle_seen = False
+        while True:
+            progressed = True
+            while progressed:      # a finish may unblock several jobs at once
+                progressed = False
+                for st in state.values():
+                    if st["end"] is None and all(f.done for f in st["flows"]):
+                        st["layer"] += 1
+                        t_next = eng.now + st["sync"] + st["fwd"]
+                        if st["layer"] >= n_layers:
+                            st["end"] = t_next
+                        else:
+                            st["flows"] = st["submit"](t_next)
+                            progressed = True
+            if all(st["end"] is not None for st in state.values()):
+                break
+            # _step returns False on the call that retires the last flows;
+            # the completion pass above gets one more look before an idle
+            # engine with unfinished jobs counts as a deadlock
+            if not eng._step(math.inf):
+                if idle_seen:
+                    raise RuntimeError("multi-job co-simulation deadlocked")
+                idle_seen = True
+            else:
+                idle_seen = False
+        return {name: state[name]["end"] for name in subset}, eng
+
+    solo: dict[str, float] = {}
+    for name in names:
+        solo.update(run([name])[0])
+    contended, eng = run(names)
+    horizon = max(contended.values())
+    core = getattr(topology, "core_links", None)
+    core_bytes = sum(link.bytes_served for link in core()) if core else 0.0
+    return MultiJobResult(
+        policy=policy,
+        n_layers=n_layers,
+        solo_time=solo,
+        contended_time=contended,
+        slowdown={n: contended[n] / solo[n] for n in names},
+        core_bytes=core_bytes,
+        link_utilization=eng.utilization(horizon),
+    )

@@ -1,48 +1,62 @@
 """Packet-level reliable Broadcast (paper §III) and the facade of the
 M-chain Allgather, with the leaves' receive datapath on tensors.
 
-Port of ``simulate_packet_broadcast`` (src/repro/core/packet.py:1058) in the
-abstract-fabric mode (``topology=None``), scalar DPA fidelity and the
-vectorized executor (``_VecBroadcastRun``, packet.py:760). Per Broadcast:
+Port of ``simulate_packet_broadcast`` (src/repro/core/packet.py:1058) with
+scalar DPA fidelity and the vectorized executor (``_VecBroadcastRun``,
+packet.py:760), on the abstract fabric (``topology=None``) or a routed
+``core/topology.py`` fabric (``topology=``, ``hosts=``). Per Broadcast:
 
   1. The root's stream is cut into MTU chunks; their injection times come
-     from one fluid flow on the root's send link (``core/engine.py``).
-  2. Every leaf sits behind one pseudo-link of independent loss (its
-     ejection hop): a per-leaf ``LossModel`` draws its drop mask.
+     from one fluid flow (``core/engine.py``): on the root's send link, or
+     on a topology the multicast tree ``multicast_tree(hosts[root],
+     hosts)``.
+  2. Every link samples a per-packet drop mask from its ``LossModel``; a
+     leaf loses what any link of its root->leaf path dropped, so a drop on
+     an upstream link is shared by every leaf below it. On the abstract
+     fabric each leaf sits behind one carrier (its ejection hop) of its own.
+     A leaf's hop latency is its path length times the link latency.
   3. The survivors, with arrival jitter, run through every leaf's worker
      pool; staging-ring (RNR) drops join the missing set.
   4. Recovery rounds: at the cutoff timer every incomplete leaf sends its
      missing bitmap as a NACK; the switches OR them (one aggregated NACK at
      the root, or one per leaf with ``aggregate_nacks=False``), and the root
-     multicasts the union of missing chunks. Repeat until complete.
+     multicasts the union of missing chunks down the tree pruned to the
+     NACKing leaves (a tree flow of the same engine on a topology). Repeat
+     until complete.
 
 Where the state lives. The fluid event loop and the random draws stay on
-the host, in the reference's exact order: the per-leaf loss forks, one
-mask per leaf per round, one sized jitter draw per block of leaves, all
-from the caller's ``np.random.Generator``. The result is a function of that
-stream. The leaves x chunks work runs on ``device``: the arrival matrix,
-its stable sort, the pool pass (``csrc/pool.cu``), the per-leaf missing
-flags (one (leaves, chunks) bool matrix) and completion times, and the NACK
-union: every nacker's missing row packed to u32 words (``csrc/bitmap.cu``),
-the rows OR-ed, the union's size their popcount. A round is a fixed number
-of launches whatever the number of leaves.
+the host, in the reference's exact order: the per-link loss forks, one
+mask per link per round (only the pruned tree's links in recovery), one
+sized jitter draw per block of leaves, all from the caller's
+``np.random.Generator`` and the links' own. The result is a function of
+that stream. The leaves x chunks work runs on ``device``: a round's link
+masks go there as one (links x chunks) matrix (pinned on the way to a
+card) and are OR-ed along the leaves' paths one tree level at a time; the
+arrival matrix, its stable sort, the pool pass (``csrc/pool.cu``), the
+per-leaf missing flags and completion times, and the NACK union: every
+nacker's missing row packed to u32 words (``csrc/bitmap.cu``), the rows
+OR-ed, the union's size their popcount. A round is a fixed number of
+launches whatever the number of leaves.
 
 ``simulate_packet_allgather`` (packet.py:1154) builds the Appendix-A
 schedule graph and runs it at packet fidelity: R = ceil(P/M) generations of
 up to M concurrent Broadcasts of this protocol, the round loop in
-``core/sched_ir._packet_allgather``.
+``core/sched_ir._packet_allgather``. ``recovery_overlay`` (packet.py:1183)
+is the FSDP step's closed loss overlay (``core/engine.simulate_fsdp_step``).
 
 Each result equals the reference's field for field
-(``tests/test_torch_packet.py``, ``tests/test_torch_packet_allgather.py`` on
-the CPU, ``chip_smoke.py`` on the card against the CPU run). Options of
-the reference that are not ported raise ``NotImplementedError``: routed
-fabrics (``topology=``/``hosts=``), ``dpa_fidelity="event"`` and
-``engine="reference"`` (ROADMAP.md).
+(``tests/test_torch_packet.py``, ``tests/test_torch_packet_allgather.py``,
+``tests/test_torch_routed_packet.py`` on the CPU, ``chip_smoke.py`` on the
+card against the CPU run). Options of the reference that are not ported
+raise ``NotImplementedError``: ``dpa_fidelity="event"`` and ``dpa=`` (the
+event-level DPA, ROADMAP.md item 7) and ``engine="reference"``.
 """
 from __future__ import annotations
 
 import math
+from collections import defaultdict
 from dataclasses import dataclass, field
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -191,17 +205,174 @@ def resolve_loss(loss, fabric: FabricParams) -> LossModel | None:
     return BernoulliLoss(rate) if rate > 0 else None
 
 
-def _sample_link_round(models: list[LossModel | None], n: int) -> list[np.ndarray]:
-    """One drop mask per link for the round's n packets, in link order."""
+def rc_goodput_inflation(mean_rate: float, path_len: float) -> float:
+    """Reliable-unicast (RC) transport retransmits in hardware (go-back-N),
+    so loss is a deterministic goodput inflation: the extra wire-time
+    fraction 1/(1-q_path) - 1 of a path crossing ``path_len`` lossy links of
+    mean rate ``mean_rate`` (reference packet.py:248). The FSDP "naive"
+    overlay and the ring schedules at packet fidelity share it."""
+    q_path = 1.0 - (1.0 - mean_rate) ** path_len
+    return 1.0 / (1.0 - q_path) - 1.0
+
+
+def attach_loss(topology, template: LossModel, rng: np.random.Generator,
+                predicate=None) -> int:
+    """Fork ``template`` onto every fabric Link (or those whose name
+    satisfies ``predicate``); returns the number of links armed. An armed
+    link keeps its model, and a Gilbert-Elliott model its burst state,
+    across simulator calls on the same fabric."""
+    n = 0
+    for link in topology.links().values():
+        if predicate is None or predicate(link.name):
+            link.loss = template.fork(rng)
+            n += 1
+    return n
+
+
+class _AbstractCarrier:
+    """Loss carrier of the abstract fabric: the one hop between the root's
+    send link and one leaf."""
+
+    __slots__ = ("loss",)
+
+    def __init__(self):
+        self.loss = None
+
+
+# ------------------------------------------------------------- tree plumbing
+
+
+def tree_paths(tree_links: Sequence, root_name: str,
+               leaf_names: Sequence[str]) -> dict[str, list]:
+    """Each leaf's ordered root->leaf Link path inside a multicast tree's
+    edge set (an arborescence, so the path is unique; reference
+    packet.py:276)."""
+    children = defaultdict(list)
+    for link in tree_links:
+        if link.src is None or link.dst is None:
+            raise ValueError(f"tree link without endpoints: {link}")
+        children[link.src].append(link)
+    want = set(leaf_names)
+    paths: dict[str, list] = {}
+    stack = [(root_name, [])]
+    while stack:
+        node, acc = stack.pop()
+        if node in want:
+            paths[node] = acc
+        for link in children[node]:
+            stack.append((link.dst, acc + [link]))
+    missing = want - set(paths)
+    if missing:
+        raise ValueError(f"leaves unreachable in tree: {sorted(missing)}")
+    return paths
+
+
+def _sample_link_round(link_models: dict[int, LossModel | None],
+                       n: int) -> dict[int, np.ndarray]:
+    """One drop mask per distinct link for the round's n packets, in the
+    dict's order: drawn once per link, not per leaf, so that a drop upstream
+    is shared by every leaf below it."""
     zeros = np.zeros(n, dtype=bool)
-    return [m.sample(n) if m is not None else zeros for m in models]
+    return {lid: (m.sample(n) if m is not None else zeros) for lid, m in link_models.items()}
 
 
-def _stacked_lost(masks: list[np.ndarray], n: int) -> np.ndarray:
-    """(leaves, n) bool: row k is what leaf k lost. On the abstract fabric a
-    leaf's path is its one ejection link, so the reference's OR along the
-    tree levels is the stack of the links' masks (routed trees: ROADMAP)."""
-    return np.stack(masks) if masks else np.zeros((0, n), dtype=bool)
+def _leaf_lost(path: list, masks: dict[int, np.ndarray], n: int) -> np.ndarray:
+    """What one leaf lost: the OR of its path's link masks."""
+    lost = np.zeros(n, dtype=bool)
+    for link in path:
+        lost |= masks[id(link)]
+    return lost
+
+
+def _mask_rows(n_rows: int, width: int, device: torch.device) -> torch.Tensor:
+    """A zeroed (n_rows + 1, width) bool matrix on the host for link masks,
+    pinned when it goes to a card; its last row stays zero, the padding of
+    paths shorter than the deepest."""
+    return torch.zeros((n_rows + 1, width), dtype=torch.bool,
+                       pin_memory=device.type == "cuda")
+
+
+def _jitter_on(rng: np.random.Generator, jitter: float, n: int,
+               device: torch.device) -> torch.Tensor:
+    """``rng.uniform(0.0, jitter, size=n)`` on ``device``, drawn into a host
+    buffer that is pinned on the way to a card. numpy's uniform is ``0.0 +
+    jitter * u`` of the generator's next doubles ``u``, so ``random(out=)``
+    scaled by ``jitter`` is bitwise the same draws, the same stream
+    consumed."""
+    buf = torch.empty(n, dtype=torch.float64, pin_memory=device.type == "cuda")
+    view = buf.numpy()
+    rng.random(out=view)
+    view *= jitter
+    return buf.to(device, non_blocking=True)
+
+
+def _or_levels(rows: torch.Tensor, idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    """OR of mask rows along paths, on ``device``: ``rows`` (R + 1, n) bool
+    on the host, copied once; ``idx`` (..., D) each path's row per tree
+    level, a shorter path padded with the zero row R. One gather and one OR
+    a level. Returns (..., n)."""
+    mat = rows.to(device, non_blocking=True)
+    ix = torch.from_numpy(np.ascontiguousarray(idx)).to(device)
+    lost = mat[ix[..., 0]]
+    for d in range(1, idx.shape[-1]):
+        lost |= mat[ix[..., d]]
+    return lost
+
+
+def _stacked_lost(paths: dict, masks: dict[int, np.ndarray], leaves, n: int,
+                  device: torch.device | None = None) -> torch.Tensor:
+    """(len(leaves), n) bool on ``device`` (default the CPU): row k is
+    ``_leaf_lost(paths[leaves[k]])``, the reference's batch form
+    (packet.py:371). The masks are stacked into one (links x chunks)
+    matrix in the dict's order and OR-ed along every leaf's path one tree
+    level at a time; the abstract fabric is the case of one carrier a
+    leaf."""
+    dev = torch.device("cpu") if device is None else device
+    row_of = {lid: k for k, lid in enumerate(masks)}
+    rows = _mask_rows(len(row_of), n, dev)
+    view = rows.numpy()
+    for k, m in enumerate(masks.values()):
+        view[k] = m
+    depth = max((len(paths[lf]) for lf in leaves), default=0)
+    idx = np.full((len(leaves), max(depth, 1)), len(row_of), dtype=np.int64)
+    for k, lf in enumerate(leaves):
+        idx[k, :len(paths[lf])] = [row_of[id(link)] for link in paths[lf]]
+    return _or_levels(rows, idx, dev)
+
+
+def _models_on_paths(paths: dict, models: dict[int, LossModel | None],
+                     leaves) -> dict[int, LossModel | None]:
+    """The models of the links on the given leaves' paths, in first-seen
+    order: the links a pruned retransmit tree crosses."""
+    return {id(link): models[id(link)] for leaf in leaves for link in paths[leaf]}
+
+
+def _link_models(paths: dict[str, list], template: LossModel | None,
+                 rng: np.random.Generator,
+                 cache: dict[int, LossModel | None] | None = None,
+                 ) -> dict[int, LossModel | None]:
+    """Each link's loss process (reference packet.py:404): a Link armed by
+    ``attach_loss`` keeps its own; any other forks ``template`` once. The
+    forks go in ``sorted(paths)`` order, and the keys are host names on a
+    topology, so "h10" forks before "h2". ``cache`` shares the forks across
+    callers: the M chains of an Allgather that cross one Link see one loss
+    process, whose state persists across rounds and generations."""
+    out: dict[int, LossModel | None] = {}
+    for leaf in sorted(paths):
+        for link in paths[leaf]:
+            lid = id(link)
+            if lid in out:
+                continue
+            if cache is not None and lid in cache:
+                out[lid] = cache[lid]
+                continue
+            model = getattr(link, "loss", None)
+            if model is None and template is not None:
+                model = template.fork(rng)
+            out[lid] = model
+            if cache is not None:
+                cache[lid] = model
+    return out
 
 
 # --------------------------------------------------------------- NACK + DPA
@@ -271,30 +442,50 @@ class _BroadcastRun:
       missing  (L, n) bool   chunk j still missing at leaf row k
       tdone    (L,) f64      time the leaf's pool last drained
 
-    Rows are the leaves in ascending rank order (the root excluded)."""
+    Rows are the leaves in ascending rank order (the root excluded). Each
+    leaf's path is its root->leaf links in the multicast tree on a
+    topology, or its one carrier on the abstract fabric; ``models`` holds
+    every link's loss process in the reference's order."""
 
     def __init__(self, p: int, n_bytes: int, fabric: FabricParams, workers: WorkerParams,
                  rng: np.random.Generator, root: int, eng: Engine, device: torch.device, *,
-                 loss=None, aggregate_nacks: bool = True, tag: str = "mcast",
-                 collect_delivery: bool = False):
+                 topology=None, hosts=None, loss=None, aggregate_nacks: bool = True,
+                 tag: str = "mcast", collect_delivery: bool = False):
         self.p, self.fabric, self.workers, self.rng = p, fabric, workers, rng
         self.root, self.eng, self.dev = root, eng, device
-        self.aggregate = aggregate_nacks
+        self.topology, self.aggregate = topology, aggregate_nacks
         self.n_chunks, self.chunk = _chunking(n_bytes, fabric.mtu)
         self.service = self.chunk / workers.thread_tput
         self.tag = tag
         template = resolve_loss(loss, fabric)
-        self.leaf_ids = [leaf for leaf in range(p) if leaf != root]
-        # one independent loss process per leaf, forked in leaf order
-        self.models = [template.fork(rng) if template is not None else None
-                       for _ in self.leaf_ids]
+        if topology is not None:
+            self.hosts = list(hosts) if hosts is not None else list(range(p))
+            if len(self.hosts) != p:
+                raise ValueError(f"{len(self.hosts)} hosts for {p} ranks")
+            self.tree = topology.multicast_tree(self.hosts[root], self.hosts)
+            names = {leaf: topology.host(self.hosts[leaf]) for leaf in range(p) if leaf != root}
+            by_name = tree_paths(self.tree, topology.host(self.hosts[root]),
+                                 list(names.values()))
+            self.paths = {leaf: by_name[name] for leaf, name in names.items()}
+            # forked in the order of the leaves' host names (a string sort)
+            self.models = _link_models({names[leaf]: self.paths[leaf] for leaf in names},
+                                       template, rng)
+        else:
+            self.tree = None
+            self.paths = {leaf: [_AbstractCarrier()] for leaf in range(p) if leaf != root}
+            # one independent loss process per leaf, forked in leaf order
+            self.models = {id(c): (template.fork(rng) if template is not None else None)
+                           for leaf in sorted(self.paths) for c in self.paths[leaf]}
+        self.leaf_ids = sorted(self.paths)
         n_leaves = len(self.leaf_ids)
-        self._lossless = template is None
+        # a link armed by attach_loss carries loss without a template
+        self._lossless = all(m is None for m in self.models.values())
         # after the forks the rng feeds only jitter draws; at jitter == 0 each
         # draw is exactly 0.0 and x + 0.0 == x, so they are skipped (the
         # reference's vectorized engine does the same)
         self._skip_jitter = fabric.jitter == 0.0
-        self.hop = np.full(n_leaves, 1 * fabric.latency)   # one abstract hop
+        # hop latency: the path's length in links (one abstract hop)
+        self.hop = np.array([len(self.paths[leaf]) * fabric.latency for leaf in self.leaf_ids])
         self._hop = torch.from_numpy(self.hop).to(device)
         self.missing = torch.zeros((n_leaves, self.n_chunks), dtype=torch.bool, device=device)
         self.tdone = torch.zeros(n_leaves, dtype=torch.float64, device=device)
@@ -313,8 +504,7 @@ class _BroadcastRun:
     def _draw_jitter(self, total: int) -> torch.Tensor | None:
         if self._skip_jitter:
             return None
-        jit = self.rng.uniform(0.0, self.fabric.jitter, size=total)
-        return torch.from_numpy(jit).to(self.dev)
+        return _jitter_on(self.rng, self.fabric.jitter, total, self.dev)
 
     def _receive(self, rows: torch.Tensor, cols: torch.Tensor, inject: torch.Tensor,
                  wanted: torch.Tensor, lost: torch.Tensor | None):
@@ -357,9 +547,12 @@ class _BroadcastRun:
 
     # -- round 0: the multicast fast path
     def submit_fast(self, t_start: float):
-        link = self.eng.add_link(f"{self.tag}.root{self.root}.send", self.fabric.b_link)
-        self.flow = self.eng.submit(link, self.n_chunks * self.chunk, t_start=t_start,
-                                    tag=self.tag)
+        nbytes = self.n_chunks * self.chunk
+        if self.tree is not None:
+            self.flow = self.eng.submit_tree(self.tree, nbytes, t_start=t_start, tag=self.tag)
+        else:
+            link = self.eng.add_link(f"{self.tag}.root{self.root}.send", self.fabric.b_link)
+            self.flow = self.eng.submit(link, nbytes, t_start=t_start, tag=self.tag)
         self.t_start = t_start
         return self.flow
 
@@ -373,22 +566,24 @@ class _BroadcastRun:
         masks = _sample_link_round(self.models, n)
         cols = torch.arange(n, device=self.dev)
         if n_leaves and self._lossless and self._skip_jitter:
-            # no loss, no jitter: every leaf (one hop each) sees the same
-            # arrival row, so one pool pass serves all
-            done, rnr = pool.pool_completion_rows((inject + self._hop[0])[None, :],
-                                                  self.workers.n_recv_workers, self.service,
-                                                  self.workers.staging_chunks)
-            t_last = float(done[0, -1])
-            self.rnr_total += int(rnr.sum()) * n_leaves
-            self.missing[:] = rnr
+            # no loss, no jitter: every leaf at one hop latency sees the same
+            # arrival row, so one pool pass a distinct latency serves all
+            hops, group = np.unique(self.hop, return_inverse=True)
+            done, rnr = pool.pool_completion_rows(
+                inject[None, :] + torch.from_numpy(hops).to(self.dev)[:, None],
+                self.workers.n_recv_workers, self.service, self.workers.staging_chunks)
+            grp = torch.from_numpy(group).to(self.dev)
+            t_last = done[:, -1]
+            self.rnr_total += int(rnr.sum(1)[grp].sum())
+            self.missing[:] = rnr[grp]
             if self.delivery is not None:
-                psn = torch.where(rnr[0], -1, cols).to(torch.int32).cpu().numpy()
-                self.delivery.append((np.arange(n_leaves), np.broadcast_to(psn, (n_leaves, n))))
-            self.tdone.fill_(t_last)
-            self.t_fast_end = max(self.t_fast_end, t_last)
+                psn = torch.where(rnr, -1, cols).to(torch.int32).cpu().numpy()
+                self.delivery.append((np.arange(n_leaves), psn[group]))
+            self.tdone[:] = t_last[grp]
+            self.t_fast_end = max(self.t_fast_end, float(t_last.max()))
         else:
-            lost_all = None if self._lossless else torch.from_numpy(
-                _stacked_lost(masks, n)).to(self.dev)
+            lost_all = None if self._lossless else _stacked_lost(
+                self.paths, masks, self.leaf_ids, n, self.dev)
             blk = max(1, _BLOCK_ELEMS // max(n, 1))
             wanted = torch.ones((min(blk, n_leaves), n), dtype=torch.bool, device=self.dev)
             for s0 in range(0, n_leaves, blk):
@@ -431,12 +626,15 @@ class _BroadcastRun:
             arrivals = np.array([t_send.max()])   # the root serves ONE aggregated NACK
         else:
             arrivals = np.sort(t_send)
-        return self._submit_retransmit(union, n_union, nackers, arrivals)
+        leaves = [self.leaf_ids[k] for k in idx.tolist()]
+        return self._submit_retransmit(union, n_union, nackers, leaves, arrivals)
 
     def _submit_retransmit(self, union: torch.Tensor, n_union: int, nackers: torch.Tensor,
-                           arrivals: np.ndarray):
+                           leaves: list[int], arrivals: np.ndarray):
         """Root side of a round: serve the NACK arrivals on the root's pool,
-        then inject the union as a flow on the root's send link."""
+        then inject the union: a flow on the root's send link, or on a
+        topology a tree flow down the tree pruned to the root and the
+        nackers."""
         if n_union == 0:
             raise RuntimeError("a NACK round with an empty union")
         fab, wk = self.fabric, self.workers
@@ -445,19 +643,26 @@ class _BroadcastRun:
                                          wk.staging_chunks)
         t_root_done = float(done[-1])
         t_retx = max(t_root_done, self.eng.now)
-        flow = self.eng.submit(f"{self.tag}.root{self.root}.send", n_union * self.chunk,
-                               t_start=t_retx, tag=f"{self.tag}.retx")
-        return (flow, union, n_union, nackers, arrivals, float(t_root_done))
+        if self.tree is not None:
+            members = [self.hosts[self.root]] + [self.hosts[leaf] for leaf in leaves]
+            rtree = self.topology.multicast_tree(self.hosts[self.root], members)
+            flow = self.eng.submit_tree(rtree, n_union * self.chunk, t_start=t_retx,
+                                        tag=f"{self.tag}.retx")
+        else:
+            flow = self.eng.submit(f"{self.tag}.root{self.root}.send", n_union * self.chunk,
+                                   t_start=t_retx, tag=f"{self.tag}.retx")
+        return (flow, union, n_union, nackers, leaves, arrivals, float(t_root_done))
 
     def deliver_retransmit(self, meta) -> None:
-        flow, union, u, nackers, arrivals, t_root_done = meta
+        flow, union, u, nackers, leaves, arrivals, t_root_done = meta
         inject = torch.from_numpy(flow.chunk_times(u, self.chunk)).to(self.dev)
-        # sample ONLY the nackers' links: advancing a loss process (a GE
-        # chain) on a link that carries no retransmission would shift its bursts
-        pruned = [self.models[k] for k in nackers.cpu().tolist()]
+        # sample ONLY the links of the pruned tree, the nackers' paths:
+        # advancing a loss process (a GE chain) on a link that carries no
+        # retransmission would shift its bursts
+        pruned = _models_on_paths(self.paths, self.models, leaves)
         masks = _sample_link_round(pruned, u)
-        lost_all = (torch.from_numpy(_stacked_lost(masks, u)).to(self.dev)
-                    if any(m is not None for m in pruned) else None)
+        lost_all = (_stacked_lost(self.paths, masks, leaves, u, self.dev)
+                    if any(m is not None for m in pruned.values()) else None)
         recovered_round = 0
         t_round_end = t_root_done
         blk = max(1, _BLOCK_ELEMS // max(u, 1))
@@ -515,18 +720,23 @@ def simulate_packet_broadcast(
         aggregate_nacks: bool = True, collect_delivery: bool = False,
         dpa_fidelity: str = "scalar", dpa=None, engine: str = "auto",
         device=None) -> PacketBcastResult:
-    """Packet-fidelity reliable Broadcast on the abstract fabric, equal
-    field for field to the reference's on the same arguments and generator.
-    The leaves' receive datapath runs on ``device`` (default ``cuda``; pass
+    """Packet-fidelity reliable Broadcast on the abstract fabric or, with
+    ``topology=`` (ranks on ``hosts``, default 0..P-1), routed down the
+    multicast tree, equal field for field to the reference's on the same
+    arguments and generator (``link_bytes`` the routed engine run's). The
+    leaves' receive datapath runs on ``device`` (default ``cuda``; pass
     ``device="cpu"`` for the plain versions)."""
-    _check_packet_options(topology, hosts, dpa_fidelity, dpa, engine)
+    _check_packet_options(dpa_fidelity, dpa, engine)
     if not 0 <= root < p:
         raise ValueError(f"root {root} outside 0..{p - 1}")
     dev = device_of("cuda" if device is None else device)
     t_rnr = _rnr_barrier(p, fabric, workers)
     eng = Engine(device=dev)
-    run = _BroadcastRun(p, n_bytes, fabric, workers, rng, root, eng, dev, loss=loss,
-                        aggregate_nacks=aggregate_nacks, collect_delivery=collect_delivery)
+    if topology is not None:
+        topology.reset()
+    run = _BroadcastRun(p, n_bytes, fabric, workers, rng, root, eng, dev, topology=topology,
+                        hosts=hosts, loss=loss, aggregate_nacks=aggregate_nacks,
+                        collect_delivery=collect_delivery)
     run.submit_fast(t_rnr)
     eng.run()
     run.deliver_fast()
@@ -560,7 +770,7 @@ def simulate_packet_broadcast(
         bytes_fast=st["delivered_fast"] * run.chunk,
         bytes_recovery=st["recovered"] * run.chunk,
         bytes_total=(p - 1) * run.n_chunks * run.chunk,
-        link_bytes={},
+        link_bytes=eng.link_bytes() if topology is not None else {},
         rounds=run.rounds,
         retransmit_wire_bytes=run.retransmit_wire,
         duplicates=run.duplicates,
@@ -597,8 +807,8 @@ def simulate_packet_allgather(
         hosts=None, loss=None, max_rounds: int = DEFAULT_MAX_ROUNDS,
         aggregate_nacks: bool = True, dpa_fidelity: str = "scalar",
         dpa=None, engine: str = "auto", device=None) -> PacketAllgatherResult:
-    """Packet-fidelity M-chain Allgather on the abstract fabric (reference
-    packet.py:1154): builds the Appendix-A schedule graph
+    """Packet-fidelity M-chain Allgather on the abstract fabric or a routed
+    topology (reference packet.py:1154): builds the Appendix-A schedule graph
     (``sched_ir.build_allgather``, uneven chains too) and executes it at
     packet fidelity (``sched_ir._packet_allgather``). Equal field for field
     to the reference's on the same arguments and generator; the leaves'
@@ -611,3 +821,55 @@ def simulate_packet_allgather(
                             topology=topology, hosts=hosts, loss=loss, max_rounds=max_rounds,
                             aggregate_nacks=aggregate_nacks, dpa_fidelity=dpa_fidelity,
                             dpa=dpa, engine=engine, device=device)
+
+
+# --------------------------------------------- FSDP overlay (closed timing)
+
+
+def recovery_overlay(paths: dict, models: dict[int, LossModel | None],
+                     n_chunks: int, chunk: int, bottleneck_rate: float,
+                     fabric: FabricParams, workers: WorkerParams,
+                     rng: np.random.Generator, *,
+                     max_rounds: int = DEFAULT_MAX_ROUNDS,
+                     aggregate_nacks: bool = True) -> float:
+    """The extra completion time a loss process adds to a tree flow that is
+    already timed (reference packet.py:1183, the FSDP step's packet
+    overlay): sampled NACK / retransmission rounds, the retransmit stream
+    served at the tree's bottleneck rate, without entering the max-min
+    allocation again. Host numpy: the masks of one tree's links, one
+    round at a time."""
+    missing = {}
+    masks = _sample_link_round(models, n_chunks)
+    for leaf, path in paths.items():
+        lost = _leaf_lost(path, masks, n_chunks)
+        if lost.any():
+            missing[leaf] = lost
+    extra = 0.0
+    depth = max((len(p) for p in paths.values()), default=1)
+    for _ in range(max_rounds):
+        if not missing:
+            break
+        union = np.zeros(n_chunks, dtype=bool)
+        for lost in missing.values():
+            union |= lost
+        n_union = int(union.sum())
+        n_msgs = 1 if aggregate_nacks else len(missing)
+        # ceil(msgs / workers) service batches: one aggregated NACK is one
+        # full service on one worker
+        batches = -(-n_msgs // max(workers.n_recv_workers, 1))
+        t_nack = fabric.alpha + depth * fabric.latency \
+            + batches * _nack_service(n_chunks, workers, fabric.mtu)
+        t_retx = n_union * chunk / bottleneck_rate + depth * fabric.latency
+        extra += t_nack + t_retx
+        rmasks = _sample_link_round(_models_on_paths(paths, models, sorted(missing)), n_union)
+        upos = np.nonzero(union)[0]
+        nxt = {}
+        for leaf, lost in missing.items():
+            pos = np.searchsorted(upos, np.nonzero(lost)[0])
+            still = _leaf_lost(paths[leaf], rmasks, n_union)[pos]
+            if still.any():
+                again = np.zeros(n_chunks, dtype=bool)
+                again[np.nonzero(lost)[0][still]] = True
+                nxt[leaf] = again
+        missing = nxt
+    return extra

@@ -9,28 +9,34 @@ Port of ``src/repro/core/sched_ir.py``:
   activation DAG, ``rounds()`` and ``n_rounds`` (:136-243);
 - ``payload_bytes``, ``canonical_key``, ``validate`` (:246-336);
 - the builders ``build_broadcast_tree``, ``build_allgather``,
-  ``build_ring_allgather`` and ``build_ring_reduce_scatter``;
+  ``build_ring_allgather``, ``build_ring_reduce_scatter`` and
+  ``build_fsdp_step`` (:557);
 - the fluid lowerings ``_fluid_broadcast``, ``_fluid_allgather`` and
   ``_fluid_ring`` (:622-908), on the abstract fabric or a routed
   ``core/topology.py`` fabric (``topology=``, ``hosts=``): the fluid engine
   (``core/engine.py``; its vectorized max-min solve on ``device``) and the
   leaves' pools on the pool kernel (``csrc/pool.cu``), the Broadcast's
   P - 1 leaves in one launch;
+- the packet lowerings: ``_packet_allgather`` (:1163-1879, its vectorized
+  executor) on the abstract fabric or a topology, with ``_Chain`` (the
+  reference's ``_PacketChainRun``) and the link masks of a pass OR-ed
+  along the chains' paths on ``device``; ``_packet_ring`` (:911), RC
+  goodput inflation over the fluid ring;
+- ``fsdp_submitters`` (:1882), the FSDP step's per-layer flows, abstract
+  or routed;
 - the analytic lowering ``_exec_analytic`` (:2012), the closed forms of
   ``core/protocol.py``;
-- ``execute`` at the fluid and analytic fidelities for the kinds
-  ``broadcast``, ``allgather``, ``ring_allgather`` and ``reduce_scatter``,
-  and at packet fidelity for ``broadcast`` (``core/packet.
-  simulate_packet_broadcast``) and ``allgather`` (``_packet_allgather``,
-  :1163-1879, its vectorized executor, abstract fabric).
+- ``execute`` (:2051) for the kinds ``broadcast``, ``allgather``,
+  ``ring_allgather``, ``reduce_scatter`` (every fidelity) and
+  ``fsdp_step`` (fluid and packet, ``core/engine.simulate_fsdp_step``).
 
 A Schedule is a DAG of typed ops joined by activation edges, the §IV-A
 chain signal ("when I finish multicasting I activate my chain
 successor"); "round r" is the r-th topological generation of the DAG. The
-other builders (hierarchical, all-reduce, pipelined, ``build_fsdp_step``),
-the composite executors, the ring schedules at packet fidelity and the
-routed packet mode are queued in ROADMAP.md (§1, items 6a and 6b):
-``execute`` raises ``NotImplementedError`` for them, naming the item.
+hierarchical and all-reduce builders and their composite executors are
+queued in ROADMAP.md (§1, item 6b): ``execute`` raises
+``NotImplementedError`` for the kinds ``allreduce`` and
+``hier_allgather``, naming the item.
 """
 from __future__ import annotations
 
@@ -44,8 +50,8 @@ import torch
 
 from repro_torch.core import protocol
 from repro_torch.core import schedule as seq
-from repro_torch.core.engine import (Engine, FabricParams, WorkerParams, worker_pool_completion,
-                                     worker_pool_completion_rows)
+from repro_torch.core.engine import (FSDP_POLICIES, Engine, FabricParams, WorkerParams,
+                                     worker_pool_completion, worker_pool_completion_rows)
 from repro_torch.device import device_of
 from repro_torch.kernels import bitmap, pool
 
@@ -55,8 +61,8 @@ KINDS = ("broadcast", "allgather", "ring_allgather", "reduce_scatter",
 #: per-op transport tags (None: let the fabric route); multicast is
 #: switched-only, islands have no switch replication
 TRANSPORTS = (None, "intra_host", "island", "switched")
-_QUEUED = ("ROADMAP.md §1, item 6b: the hierarchical and all-reduce builders, the FSDP step, "
-           "the composite executors and the ring schedules at packet fidelity")
+_QUEUED = ("ROADMAP.md §1, item 6b: the hierarchical and all-reduce builders and their "
+           "composite executors")
 
 
 # -------------------------------------------------------------- shared pieces
@@ -361,6 +367,66 @@ def build_ring_reduce_scatter(p: int, n_bytes: int) -> Schedule:
                     meta={"shard_bytes": shard})
 
 
+def build_fsdp_step(*, p: int, n_layers: int = 32, layer_bytes: float = 256e6,
+                    policy: str = "mcast", n_chains: int = 2, **compute) -> Schedule:
+    """One FSDP training step as a schedule graph (reference
+    sched_ir.py:557): per layer a forward AG (prefetched), a backward AG and
+    a backward RS, each in the op type the policy puts on the wire:
+
+      naive   AG and RS both P2P rings (Unicast / single-source Reduce
+              edges carrying the full (P-1)/P gather bytes)
+      mcast   AG as P Multicasts of the 1/P shard (switch replication);
+              RS stays a ring of Reduce edges
+      split   AG Multicasts down, in-network aggregation Reduces up
+              (every source reduced toward dst: Insight 2's RS_inc)
+
+    Activation edges: each rank's prefetch chain (layer i+1's AG after
+    layer i's) and each layer's RS after its backward AG.
+    ``fsdp_submitters`` lowers the per-layer op template onto an Engine;
+    ``core/engine.simulate_fsdp_step`` interleaves the flows with compute."""
+    if policy not in FSDP_POLICIES:
+        raise ValueError(f"policy must be one of {FSDP_POLICIES}, got {policy!r}")
+    if p < 2 or n_layers < 1:
+        raise ValueError(f"need p >= 2 and n_layers >= 1, got {p}, {n_layers}")
+    gather = (p - 1) / p * layer_bytes
+    shard = layer_bytes / p
+    group = tuple(range(p))
+
+    def ag_ops() -> list[Op]:
+        if policy == "naive":
+            return [Unicast(i, (i + 1) % p, gather) for i in range(p)]
+        return [Multicast(i, group, shard) for i in range(p)]
+
+    def rs_ops() -> list[Op]:
+        if policy == "split":
+            return [Reduce(i, tuple(x for x in group if x != i), shard) for i in range(p)]
+        return [Reduce((i + 1) % p, (i,), gather) for i in range(p)]
+
+    ops: list[Op] = []
+    act: list[tuple[int, int]] = []
+    fwd: list[list[int]] = []
+    for layer in range(n_layers):
+        base = len(ops)
+        ops += ag_ops()
+        fwd.append(list(range(base, base + p)))
+        if layer:
+            act += [(fwd[layer - 1][i], fwd[layer][i]) for i in range(p)]
+    prev = fwd[-1]
+    for layer in range(n_layers - 1, -1, -1):
+        base = len(ops)
+        ops += ag_ops()
+        idx = list(range(base, base + p))
+        act += [(prev[i], idx[i]) for i in range(p)]
+        rbase = len(ops)
+        ops += rs_ops()
+        act += [(idx[i], rbase + i) for i in range(p)]
+        prev = idx
+    return Schedule("fsdp_step", p, int(layer_bytes), tuple(ops), tuple(act),
+                    meta=dict(policy=policy, n_layers=n_layers, layer_bytes=layer_bytes,
+                              n_chains=n_chains, gather_bytes=gather, shard_bytes=shard,
+                              compute=dict(compute)))
+
+
 # ----------------------------------------------------------- fluid lowerings
 
 
@@ -637,6 +703,159 @@ def _fluid_ring(sched: Schedule, fabric: FabricParams, workers: WorkerParams,
     )
 
 
+def _packet_ring(sched: Schedule, fabric: FabricParams, workers: WorkerParams,
+                 rng: np.random.Generator, *, topology=None, hosts=None, loss=None,
+                 device=None) -> RingCollectiveResult:
+    """Packet fidelity for ring schedules (reference sched_ir.py:911): RC
+    transport retransmits in hardware (go-back-N), so loss is a goodput
+    inflation 1/(1 - q_path) of the wire time (``packet.
+    rc_goodput_inflation``), q_path over the mean route length of the first
+    generation's ops (their transport's tier where the fabric has tiers).
+    At loss 0 it is the fluid lowering exactly."""
+    from repro_torch.core import packet as pk   # deferred: packet imports this module
+
+    base = _fluid_ring(sched, fabric, workers, rng, topology=topology, hosts=hosts,
+                       device=device)
+    template = pk.resolve_loss(loss, fabric)
+    if template is None:
+        return base
+    if topology is not None:
+        host_list = list(hosts) if hosts is not None else list(range(sched.p))
+        tiered = getattr(topology, "supports_transport", False)
+
+        def route_len(op) -> int:
+            src = op.src if isinstance(op, Unicast) else op.srcs[0]
+            if tiered:
+                return len(topology.route(host_list[src], host_list[op.dst],
+                                          transport=op.transport))
+            return len(topology.route(host_list[src], host_list[op.dst]))
+
+        hops = [route_len(sched.ops[i]) for i in sched.rounds()[0]]
+        path_len = max(sum(hops) / len(hops), 1.0)
+    else:
+        path_len = 1.0
+    inflate = pk.rc_goodput_inflation(template.mean_rate, path_len)
+    extra = base.phases.multicast * inflate
+    base.time += extra
+    base.phases.reliability = extra
+    base.bytes_recovery = base.bytes_total * inflate
+    return base
+
+
+# ----------------------------------------------------------- FSDP lowering
+
+
+def fsdp_submitters(sched: Schedule, eng: Engine, fabric: FabricParams, *,
+                    topology=None, hosts=None):
+    """Lower the per-layer AG/RS op template of a ``build_fsdp_step``
+    schedule onto an Engine (reference sched_ir.py:1882): returns
+    ``(submit_ag, submit_rs, ag_sync)``, the closures the FSDP timeline
+    calls per layer, and the AG's activation latency. On a topology every op
+    is a routed unicast, a multicast tree or an aggregation tree flow;
+    abstractly the ops fall on the representative rank's NIC links (naive:
+    one shared half-duplex medium; mcast and split: a full-duplex send and
+    receive). The caller resets the topology (multi-job runs share one
+    fabric). Each closure takes ``(t, scale=1.0)``: ``scale`` multiplies the
+    layer's wire bytes against the template's ``layer_bytes``."""
+    p = sched.p
+    meta = sched.meta
+    n_chains = meta["n_chains"]
+    # byte quantities come from meta (the builder's expressions); the op
+    # template of the first layer decides the policy's wire structure
+    gather_bytes, shard_bytes = meta["gather_bytes"], meta["shard_bytes"]
+    b = fabric.b_link
+    ag_template = sched.ops[:p]                                   # layer 0's AG ops
+    rs_template = [op for op in sched.ops if isinstance(op, Reduce)][:p]
+    if isinstance(ag_template[0], Unicast):
+        policy = "naive"
+    elif len(rs_template[0].srcs) > 1:
+        policy = "split"
+    else:
+        policy = "mcast"
+    if policy != meta["policy"]:
+        raise ValueError(f"the op template is {policy}, the meta says {meta['policy']}")
+
+    if topology is not None:
+        hosts = list(hosts) if hosts is not None else list(range(p))
+        if len(hosts) != p:
+            raise ValueError(f"{len(hosts)} hosts for {p} ranks")
+
+        def submit_ring(routes, tag, nbytes, t):
+            return [eng.submit_route(r, nbytes, t_start=t, tag=tag) for r in routes]
+
+        if policy == "naive":
+            # both collectives as P2P rings in the same direction: their
+            # flows share every host link and the ECMP paths between them
+            ring = [topology.route(hosts[op.src], hosts[op.dst]) for op in ag_template]
+
+            def submit_ag(t, scale=1.0):
+                return submit_ring(ring, "ag", gather_bytes * scale, t)
+
+            def submit_rs(t, scale=1.0):
+                return submit_ring(ring, "rs", gather_bytes * scale, t)
+
+            return submit_ag, submit_rs, (p - 1) * fabric.latency
+
+        mcast_trees = [topology.multicast_tree(hosts[op.root], hosts) for op in ag_template]
+
+        def submit_ag(t, scale=1.0):
+            # every host multicasts its 1/P shard; the switches replicate
+            return [eng.submit_tree(tree, shard_bytes * scale, t_start=t, tag="ag")
+                    for tree in mcast_trees]
+
+        if policy == "mcast":
+            ring = [topology.route(hosts[op.srcs[0]], hosts[op.dst]) for op in rs_template]
+
+            def submit_rs(t, scale=1.0):
+                return submit_ring(ring, "rs", gather_bytes * scale, t)
+        else:   # split: RS_inc, aggregation trees opposite the AG trees
+            agg_trees = [topology.aggregation_tree(hosts[op.dst], hosts) for op in rs_template]
+
+            def submit_rs(t, scale=1.0):
+                return [eng.submit_tree(tree, shard_bytes * scale, t_start=t, tag="rs")
+                        for tree in agg_trees]
+
+        rounds = max(p // max(n_chains, 1), 1)
+        return submit_ag, submit_rs, rounds * fabric.latency
+
+    if policy == "naive":
+        eng.add_link("shared", b)
+
+        def submit_ag(t, scale=1.0):
+            # ring AG: (p-1)/p*L sent and received through the shared medium
+            return [eng.submit("shared", 2 * gather_bytes * scale, t_start=t, tag="ag")]
+
+        def submit_rs(t, scale=1.0):
+            return [eng.submit("shared", 2 * gather_bytes * scale, t_start=t, tag="rs")]
+
+        return submit_ag, submit_rs, (p - 1) * fabric.latency
+
+    # mcast and split share the multicast AG; they differ in the RS
+    eng.add_link("send", b)
+    eng.add_link("recv", b)
+
+    def submit_ag(t, scale=1.0):
+        # AG_mc: receive-bound (its send share is 1/p)
+        return [eng.submit("send", shard_bytes * scale, t_start=t, tag="ag"),
+                eng.submit("recv", gather_bytes * scale, t_start=t, tag="ag")]
+
+    if policy == "mcast":
+        def submit_rs(t, scale=1.0):
+            # ring RS: the full gather bytes both ways, so its receive
+            # stream contends with AG_mc on the ejection link
+            return [eng.submit("send", gather_bytes * scale, t_start=t, tag="rs"),
+                    eng.submit("recv", gather_bytes * scale, t_start=t, tag="rs")]
+    else:
+        def submit_rs(t, scale=1.0):
+            # RS_inc: send-bound; the switch reduces, the node receives only
+            # its own reduced shard
+            return [eng.submit("send", gather_bytes * scale, t_start=t, tag="rs"),
+                    eng.submit("recv", shard_bytes * scale, t_start=t, tag="rs")]
+
+    rounds = max(p // max(n_chains, 1), 1)
+    return submit_ag, submit_rs, rounds * fabric.latency
+
+
 # ------------------------------------------------------------ analytic path
 
 
@@ -664,12 +883,9 @@ def _exec_analytic(sched: Schedule, fabric: FabricParams, workers: WorkerParams)
 # --------------------------------------------------- packet-fidelity Allgather
 
 
-def _check_packet_options(topology, hosts, dpa_fidelity: str, dpa, engine: str) -> None:
+def _check_packet_options(dpa_fidelity: str, dpa, engine: str) -> None:
     """The reference's packet options that the port does not have raise, as
     ``simulate_packet_broadcast`` raises them."""
-    if topology is not None or hosts is not None:
-        raise NotImplementedError("topology=/hosts= at packet fidelity: the routed packet "
-                                  "mode is not ported yet (ROADMAP.md §1, item 6a)")
     if dpa_fidelity != "scalar" or dpa is not None:
         raise NotImplementedError("dpa_fidelity='event' / dpa=: the event-level DPA is not "
                                   "ported yet (ROADMAP.md §1, item 7)")
@@ -680,23 +896,96 @@ def _check_packet_options(topology, hosts, dpa_fidelity: str, dpa, engine: str) 
         raise ValueError(f"engine must be 'auto', 'vectorized' or 'reference', got {engine!r}")
 
 
-def _draw_losses(models: list, leaves, sizes: np.ndarray) -> np.ndarray | None:
-    """The drop masks of a pass, on the host, in the reference's order. For
-    each leaf row k (``leaves[k]``), ``sizes[k]`` lists the packets of each
-    of its sends in chain order (0: none); each leaf's loss process draws
-    its sends in that order (``LossModel.sample_runs``). Returns the
-    concatenation over the rows, row-major (None where no leaf has a loss
-    process: nothing is drawn)."""
-    if all(models[leaf] is None for leaf in leaves):
+class _Chain:
+    """One Multicast op of a packet Allgather generation (the reference's
+    ``_PacketChainRun``, sched_ir.py:1163): its tree flow, each leaf's path
+    and the loss process of every link on the paths. On a topology the
+    paths are the tree's root->leaf links, and ``model_cache`` gives one
+    process per physical link, shared by every chain that crosses it and
+    kept across rounds and generations; abstractly a leaf's path is its
+    ejection carrier, shared by every chain. ``rows``: each link's row in
+    ``models`` (its order); ``idx`` (P, D): each leaf's path as rows, -1 past
+    the path's end and for the chain's own root; ``hop`` (P,): each leaf's
+    path latency."""
+
+    __slots__ = ("root", "tree", "paths", "models", "rows", "idx", "hop", "flow")
+
+    def __init__(self, root: int, p: int, latency: float, topology, hosts: list[int],
+                 carriers, template, rng: np.random.Generator, model_cache: dict):
+        from repro_torch.core import packet as pk   # deferred: packet imports this module
+
+        self.root = root
+        self.flow = None
+        if topology is None:
+            # ``carriers``: (paths, models, rows) of every leaf's carrier,
+            # built once an Allgather; leaf x's carrier is row x
+            self.tree = None
+            self.paths, self.models, self.rows = carriers
+            at = np.arange(p)
+            self.idx = np.where(at == root, -1, at)[:, None]
+            self.hop = np.where(at == root, 0.0, latency)
+            return
+        self.tree = topology.multicast_tree(hosts[root], hosts)
+        names = {leaf: topology.host(hosts[leaf]) for leaf in range(p) if leaf != root}
+        by_name = pk.tree_paths(self.tree, topology.host(hosts[root]), list(names.values()))
+        self.paths = {leaf: by_name[name] for leaf, name in names.items()}
+        # forks in the order of the leaves' host names, from the caller's rng
+        self.models = pk._link_models({names[leaf]: self.paths[leaf] for leaf in names},
+                                      template, rng, cache=model_cache)
+        self.rows = {lid: k for k, lid in enumerate(self.models)}
+        depth = max((len(path) for path in self.paths.values()), default=1)
+        self.idx = np.full((p, depth), -1, dtype=np.int64)
+        self.hop = np.zeros(p)
+        for leaf, path in self.paths.items():
+            self.idx[leaf, :len(path)] = [self.rows[id(link)] for link in path]
+            self.hop[leaf] = len(path) * latency
+
+    def links(self) -> dict:
+        """The links of the chain's tree with their loss processes: the
+        fast path's draws. A chain sends nothing to its own root, so
+        abstractly the root's carrier is not among them (drawing on it would
+        shift the shared process)."""
+        if self.tree is not None:
+            return self.models
+        return {lid: m for lid, m in self.models.items() if self.rows[lid] != self.root}
+
+
+def _chain_losses(chains: list[_Chain], sampled: list[dict], sizes: list[int],
+                  leaves: np.ndarray, width: int, dev: torch.device) -> torch.Tensor | None:
+    """What each leaf lost from each chain in one pass: (len(leaves),
+    len(chains), width) bool on ``dev``, or None where no sampled link has a
+    loss process. Chain c draws ``sizes[c]`` packets on each link of
+    ``sampled[c]`` (its links, or in recovery the pruned tree's); each
+    process draws its chains in chain order (``LossModel.sample_runs``),
+    which is the reference's order per process. The masks go to the device
+    as one (chains x links, width) matrix and are OR-ed along the paths one
+    tree level at a time (``packet._or_levels``)."""
+    from repro_torch.core import packet as pk   # deferred: packet imports this module
+
+    groups: dict[int, tuple] = {}
+    offsets = np.cumsum([0] + [len(ch.models) for ch in chains])
+    for c, ch in enumerate(chains):
+        for lid, model in sampled[c].items():
+            if model is not None:
+                groups.setdefault(id(model), (model, []))[1].append(
+                    (offsets[c] + ch.rows[lid], sizes[c]))
+    if not groups:
         return None
-    parts = []
-    for leaf, row in zip(leaves, sizes):
-        runs = [int(s) for s in row if s]
-        if models[leaf] is None:
-            parts.append(np.zeros(sum(runs), dtype=bool))
-        else:
-            parts.append(models[leaf].sample_runs(runs))
-    return np.concatenate(parts) if parts else np.zeros(0, dtype=bool)
+    zero = int(offsets[-1])
+    mat = pk._mask_rows(zero, width, dev)
+    view = mat.numpy()
+    for model, runs in groups.values():
+        drops = model.sample_runs([s for _, s in runs])
+        at = 0
+        for r, s in runs:
+            view[r, :s] = drops[at:at + s]
+            at += s
+    depth = max(ch.idx.shape[1] for ch in chains)
+    idx = np.full((leaves.size, len(chains), depth), zero, dtype=np.int64)
+    for c, ch in enumerate(chains):
+        part = ch.idx[leaves]
+        idx[:, c, :part.shape[1]] = np.where(part >= 0, part + offsets[c], zero)
+    return pk._or_levels(mat, idx, dev)
 
 
 def _merged_pool(arr: torch.Tensor, counts: torch.Tensor, t_floor: torch.Tensor,
@@ -738,30 +1027,37 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
                       dpa_fidelity: str = "scalar", dpa=None, engine: str = "auto",
                       device=None):
     """Packet-fidelity lowering of an allgather schedule (reference
-    sched_ir.py:1210, the vectorized executor, abstract fabric, scalar DPA).
+    sched_ir.py:1210, the vectorized executor, scalar DPA), on the abstract
+    fabric or a routed topology (``topology=``, ``hosts=``).
 
     Each generation of the activation DAG runs its chain roots' Broadcasts
-    at once: every chain's flow, and every retransmission, shares the one
-    link ``leaf.recv`` of a single fluid engine (host); every leaf's worker
-    pool serves the merged arrivals of all chains; a generation's
-    activation of the next waits for all its chains and their recovery.
+    at once on one fluid engine (host): abstractly every chain's flow, and
+    every retransmission, shares the link ``leaf.recv``; on a topology each
+    is a tree flow, the retransmission down the tree pruned to the chain's
+    root and nackers. Every leaf's worker pool serves the merged arrivals of
+    all chains; a generation's activation of the next waits for all its
+    chains and their recovery.
 
-    Host: the engine, and every random draw in the reference's order (one
-    loss process per leaf for the whole Allgather, forked in leaf order
-    0..P-1, drawn by each chain for its non-root leaves in chain order, and
-    in recovery by each chain for its NACKing leaves; one sized jitter draw
-    per pass, leaf-major and chain-minor). ``device``: the leaves x chains
-    x chunks state (the missing flags (P, M, chunks), the merged arrival
-    matrix, its stable sort, the pool pass on ``csrc/pool.cu``), and each
-    round's NACK unions, every live chain's at once: the missing rows of
-    the NACKing leaves packed to u32 words (``csrc/bitmap.cu``), the rows
-    OR-ed, a popcount per chain. A generation's fast path is one pool
-    launch and a recovery round one pool, pack, OR and popcount launch,
-    whatever the number of leaves and chains (the pool's rows in blocks of
-    ``_BLOCK_ELEMS`` elements)."""
+    Host: the engine, and every random draw in the reference's order: the
+    link loss forks (abstractly one carrier a leaf, forked in leaf order
+    0..P-1; routed one process a physical link, forked as each generation's
+    chains first reach it, in host-name order), each chain's masks on its
+    links (in recovery on its pruned tree's), and one sized jitter draw per
+    pass, leaf-major and chain-minor. With a topology and a loss template
+    the jitter draws are made even at ``jitter == 0`` (they are all 0.0),
+    because later generations fork link models from the same generator.
+    ``device``: the link masks of a pass as one matrix, OR-ed along the
+    paths one tree level at a time; the leaves x chains x chunks state (the
+    missing flags (P, M, chunks), the merged arrival matrix, its stable
+    sort, the pool pass on ``csrc/pool.cu``), and each round's NACK unions,
+    every live chain's at once: the missing rows of the NACKing leaves
+    packed to u32 words (``csrc/bitmap.cu``), the rows OR-ed, a popcount per
+    chain. A generation's fast path is one pool launch and a recovery round
+    one pool, pack, OR and popcount launch, whatever the number of leaves
+    and chains (the pool's rows in blocks of ``_BLOCK_ELEMS`` elements)."""
     from repro_torch.core import packet as pk   # deferred: packet imports this module
 
-    _check_packet_options(topology, hosts, dpa_fidelity, dpa, engine)
+    _check_packet_options(dpa_fidelity, dpa, engine)
     dev = device_of("cuda" if device is None else device)
     p, n_bytes = sched.p, sched.n_bytes
     if max_rounds is None:
@@ -772,12 +1068,25 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
     t_rnr = _rnr_barrier(p, fabric, workers)
     template = pk.resolve_loss(loss, fabric)
     eng = Engine(device=dev)
-    recv_link = eng.add_link("leaf.recv", fabric.b_link)
-    # one loss process per leaf (its ejection carrier), shared by every
-    # chain that reaches it and persistent across generations
-    models = [template.fork(rng) if template is not None else None for _ in range(p)]
-    # at jitter 0 every draw is exactly 0.0 and x + 0.0 == x: nothing is drawn
-    skip_jitter = fabric.jitter == 0.0
+    carriers = None
+    if topology is not None:
+        host_list = _placed(topology, hosts, p)
+    else:
+        host_list = list(range(p))
+        recv_link = eng.add_link("leaf.recv", fabric.b_link)
+        # one loss process per leaf (its ejection carrier), shared by every
+        # chain that reaches it and persistent across generations
+        carriers = [pk._AbstractCarrier() for _ in range(p)]
+        if template is not None:
+            for c in carriers:
+                c.loss = template.fork(rng)
+        carriers = ({x: [c] for x, c in enumerate(carriers)},
+                    {id(c): c.loss for c in carriers}, {id(c): x for x, c in enumerate(carriers)})
+    # routed: one loss process per physical link for the whole Allgather
+    model_cache: dict[int, object] = {}
+    # at jitter 0 every draw is exactly 0.0 and x + 0.0 == x: nothing is
+    # drawn, unless later generations fork link models from the generator
+    skip_jitter = fabric.jitter == 0.0 and (topology is None or template is None)
     service = chunk / workers.thread_tput
     nack_service = pk._nack_service(n, workers, fabric.mtu)
     leaves = np.arange(p)
@@ -786,8 +1095,7 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
         """One sized draw for a pass, added to the arrivals row-major:
         leaf-major, chain-minor, chunks ascending, as the reference draws."""
         if not skip_jitter:
-            jit = rng.uniform(0.0, fabric.jitter, size=int(counts.sum()))
-            arr[got] = arr[got] + torch.from_numpy(jit).to(dev)
+            arr[got] = arr[got] + pk._jitter_on(rng, fabric.jitter, int(counts.sum()), dev)
 
     t = t_rnr
     traces = []
@@ -795,31 +1103,41 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
     recovered_total = rnr_total = retx_wire = fast_total = undelivered = 0
     completed = True
     for round_ops in generations:
-        roots = np.array([sched.ops[i].root for i in round_ops])
+        chains = [_Chain(sched.ops[i].root, p, lat, topology, host_list, carriers, template,
+                         rng, model_cache) for i in round_ops]
+        roots = np.array([ch.root for ch in chains])
         m = roots.size
-        flows = [eng.submit(recv_link, n * chunk, t_start=t, tag=f"chain{r}") for r in roots]
+        for ch in chains:
+            if ch.tree is not None:
+                ch.flow = eng.submit_tree(ch.tree, n * chunk, t_start=t,
+                                          tag=f"chain{host_list[ch.root]}")
+            else:
+                ch.flow = eng.submit(recv_link, n * chunk, t_start=t, tag=f"chain{ch.root}")
         eng.run()
-        inject = torch.from_numpy(np.stack([f.chunk_times(n, chunk) for f in flows])).to(dev)
-        cutoff = max(f.t_end for f in flows) + fabric.alpha
+        inject = torch.from_numpy(np.stack([ch.flow.chunk_times(n, chunk)
+                                            for ch in chains])).to(dev)
+        # abstractly every path is one hop: a scalar, nothing to copy
+        hop = lat if topology is None else torch.from_numpy(
+            np.stack([ch.hop for ch in chains], 1)).to(dev)[:, :, None]    # (P, M, 1)
+        cutoff = max(ch.flow.t_end for ch in chains) + fabric.alpha
         # fast path: (P, M, chunks); a chain sends nothing to its own root
         valid = leaves[:, None] != roots[None, :]
-        lost_flat = _draw_losses(models, leaves, np.where(valid, n, 0))
+        lost = None if topology is None and template is None else _chain_losses(
+            chains, [ch.links() for ch in chains], [n] * m, leaves, n, dev)
         got = torch.from_numpy(valid).to(dev)[:, :, None].expand(p, m, n)
-        if lost_flat is not None:
-            lost = torch.zeros((p, m, n), dtype=torch.bool, device=dev)
-            lost[got] = torch.from_numpy(lost_flat).to(dev)
+        if lost is not None:
             got = got & ~lost
         counts = got.sum((1, 2))
-        arr = torch.where(got, inject[None] + lat, math.inf)
+        arr = torch.where(got, inject[None] + hop, math.inf)
         jitter(arr, got, counts)
         t_floor = torch.full((p,), t, dtype=torch.float64, device=dev)
         leaf_done, rnr = _merged_pool(arr, counts, t_floor, workers, service, pk._BLOCK_ELEMS)
         rnr_total += int(rnr.sum())
-        missing = rnr if lost_flat is None else lost | rnr
+        missing = rnr if lost is None else lost | rnr
         t_fast = max(t, float(leaf_done.max()))
         mcast_time += max(t_fast - t, 0.0)
         # interleaved recovery: every incomplete chain NACKs and retransmits
-        # at once; the retransmissions share the link and every leaf's pool
+        # at once; the retransmissions share the fabric and every leaf's pool
         t_round_end = t_fast
         for _ in range(max_rounds):
             nacking = missing.any(2)                                   # (P, M)
@@ -841,17 +1159,25 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
             union = bitmap.bitmap_unpack(agg, n)                       # (L, chunks)
             done_np = leaf_done.cpu().numpy()
             retx = []
-            for li in range(live.size):   # the chain roots' NACK service (host)
+            live_chains = [chains[c] for c in live]
+            for li, ch in enumerate(live_chains):   # the chain roots' NACK service (host)
                 nackers = rl[nack_rl[:, li]]
-                t_send = np.maximum(done_np[nackers], cutoff) + lat
+                t_send = np.maximum(done_np[nackers], cutoff) + ch.hop[nackers]
                 arrivals = np.array([t_send.max()]) if aggregate_nacks else np.sort(t_send)
                 done, _ = worker_pool_completion(arrivals, workers.n_recv_workers,
                                                  nack_service, workers.staging_chunks)
                 t_retx = max(float(done[-1]), eng.now)
-                flow = eng.submit(recv_link, int(u[li]) * chunk, t_start=t_retx,
-                                  tag=f"chain{roots[live[li]]}.retx")
-                retx.append((flow, nackers.size, arrivals))
-                retx_wire += int(u[li]) * chunk
+                nbytes = int(u[li]) * chunk
+                if ch.tree is not None:
+                    members = [host_list[ch.root]] + [host_list[x] for x in nackers]
+                    flow = eng.submit_tree(topology.multicast_tree(host_list[ch.root], members),
+                                           nbytes, t_start=t_retx,
+                                           tag=f"chain{host_list[ch.root]}.retx")
+                else:
+                    flow = eng.submit(recv_link, nbytes, t_start=t_retx,
+                                      tag=f"chain{ch.root}.retx")
+                retx.append((flow, nackers, arrivals))
+                retx_wire += nbytes
             eng.run()
             cutoff = max(f.t_end for f, _, _ in retx) + fabric.alpha
             u_max = int(u.max())
@@ -865,16 +1191,14 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
                                           stable=True).indices[:, :u_max], n)
             miss_pad = torch.cat([miss, miss.new_zeros(rl.size, live.size, 1)], 2)
             want = miss_pad.gather(2, upos[None].expand(rl.size, -1, -1))
-            lost_flat = _draw_losses(models, rl, np.where(nack_rl, u[None, :], 0))
-            got = want
-            if lost_flat is not None:
-                sent = torch.from_numpy(nack_rl).to(dev)[:, :, None] & (
-                    pos[None, None, :] < torch.from_numpy(u).to(dev)[None, :, None])
-                lost = torch.zeros_like(want)
-                lost[sent] = torch.from_numpy(lost_flat).to(dev)
-                got = want & ~lost
+            # the pruned trees' links only: the links of each chain's nackers
+            pruned = [pk._models_on_paths(ch.paths, ch.models, nackers.tolist())
+                      for ch, (_, nackers, _) in zip(live_chains, retx)]
+            lost = _chain_losses(live_chains, pruned, [int(x) for x in u], rl, u_max, dev)
+            got = want if lost is None else want & ~lost
             counts = got.sum((1, 2))
-            arr = torch.where(got, inj_r.to(dev)[None] + lat, math.inf)
+            hop_r = hop if topology is None else hop[rows][:, cols]
+            arr = torch.where(got, inj_r.to(dev)[None] + hop_r, math.inf)
             jitter(arr, got, counts)
             t_done, rnr = _merged_pool(arr, counts, leaf_done[rows], workers, service,
                                        pk._BLOCK_ELEMS)
@@ -887,9 +1211,9 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
             missing[rows[:, None], cols[None, :]] = miss & ~cleared[:, :, :n]
             leaf_done[rows] = t_done
             t_round_end = max(t_round_end, float(t_done.max()))
-            for li, (flow, n_nack, arrivals) in enumerate(retx):
+            for li, (flow, nackers, arrivals) in enumerate(retx):
                 traces.append(pk.RoundTrace(
-                    nack_leaves=int(n_nack),
+                    nack_leaves=int(nackers.size),
                     root_nack_msgs=int(arrivals.shape[0]),
                     union_chunks=int(u[li]),
                     t_nack_root=float(arrivals.max()),
@@ -917,7 +1241,7 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
         bytes_recovery=recovered_total * chunk,
         bytes_total=p * (p - 1) * n * chunk,
         per_rank_recv_tput=(p - 1) * n_bytes / t_done,
-        link_bytes={},
+        link_bytes=eng.link_bytes() if topology is not None else {},
         rounds=traces,
         rnr_drops=rnr_total,
         retransmit_wire_bytes=retx_wire,
@@ -935,23 +1259,38 @@ def execute(sched: Schedule, fabric: FabricParams | None = None,
     """Lower ``sched`` onto the chosen fidelity and run it (reference
     sched_ir.py:2051), with the reference's guards: the analytic oracle
     takes no loss, no engine keyword and no ``topology=``/``hosts=``; the
-    fluid fidelity takes no loss and no packet keyword. Ported: the fluid
-    and analytic fidelities for the kinds ``broadcast``, ``allgather``,
-    ``ring_allgather`` and ``reduce_scatter`` (fluid on the abstract fabric
-    or a routed topology), and ``fidelity="packet"`` for ``broadcast``
-    (``core/packet.simulate_packet_broadcast``) and ``allgather``
-    (``_packet_allgather``) on the abstract fabric, with the packet keywords
-    (``max_rounds``, ``aggregate_nacks``, ``engine``, ...) in ``kw``. The
-    engine's vectorized solve and the leaves' receive datapath run on
-    ``device`` (default ``cuda``). Every other kind, and the ring kinds at
-    packet fidelity, raise ``NotImplementedError``."""
+    fluid fidelity takes no loss and no packet keyword; the ring schedules
+    at packet fidelity take no packet keyword. Ported, on the abstract
+    fabric or a routed topology: the fluid and analytic fidelities for the
+    kinds ``broadcast``, ``allgather``, ``ring_allgather`` and
+    ``reduce_scatter``; ``fidelity="packet"`` for ``broadcast``
+    (``core/packet.simulate_packet_broadcast``), ``allgather``
+    (``_packet_allgather``) and the ring kinds (``_packet_ring``), with the
+    packet keywords (``max_rounds``, ``aggregate_nacks``, ``engine``, ...)
+    in ``kw``; and ``fsdp_step`` at the fluid and packet fidelities
+    (``core/engine.simulate_fsdp_step`` over the schedule, its compute
+    keywords in ``kw``). The engine's vectorized solve and the leaves'
+    receive datapath run on ``device`` (default ``cuda``). The kinds
+    ``allreduce`` and ``hier_allgather`` raise ``NotImplementedError``."""
     if fidelity not in FIDELITIES:
         raise ValueError(f"fidelity must be one of {FIDELITIES}, got {fidelity!r}")
     fabric = fabric or FabricParams()
     workers = workers or WorkerParams()
     rng = rng if rng is not None else np.random.default_rng(0)
-    if sched.kind not in ("broadcast", "allgather", "ring_allgather", "reduce_scatter"):
+    if sched.kind in ("allreduce", "hier_allgather"):
         raise NotImplementedError(f"kind {sched.kind!r} is not ported yet ({_QUEUED})")
+
+    if sched.kind == "fsdp_step":
+        from repro_torch.core import engine as engine_mod   # deferred: engine imports us
+
+        if fidelity not in ("fluid", "packet"):
+            raise ValueError("fsdp_step supports the fluid and packet fidelities")
+        meta = sched.meta
+        return engine_mod.simulate_fsdp_step(
+            n_layers=meta["n_layers"], layer_bytes=meta["layer_bytes"], p=sched.p,
+            fabric=fabric, policy=meta["policy"], n_chains=meta["n_chains"],
+            topology=topology, hosts=hosts, fidelity=fidelity, loss=loss, rng=rng,
+            workers=workers, schedule=sched, device=device, **meta.get("compute", {}), **kw)
 
     if fidelity == "analytic":
         if loss is not None or kw:
@@ -979,5 +1318,7 @@ def execute(sched: Schedule, fabric: FabricParams | None = None,
     if sched.kind == "allgather":
         return _packet_allgather(sched, fabric, workers, rng, topology=topology, hosts=hosts,
                                  loss=loss, device=device, **kw)
-    raise NotImplementedError(f"kind {sched.kind!r} at fidelity='packet' is not ported yet "
-                              f"({_QUEUED})")
+    if kw:
+        raise ValueError(f"{sorted(kw)} not supported for ring schedules (RC transport)")
+    return _packet_ring(sched, fabric, workers, rng, topology=topology, hosts=hosts, loss=loss,
+                        device=device)

@@ -31,6 +31,26 @@ XENT_CHUNK = 512
 FAMILIES = ("dense", "moe")
 
 
+def count_params_analytic(cfg: ModelConfig) -> int:
+    """The parameter count from the config alone, the reference's
+    arithmetic (``repro.models.model_builder.count_params_analytic``) for
+    the families the port has; the others raise, queued in ROADMAP.md §1,
+    item 12."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md §1, "
+                                  f"item 12); only {FAMILIES}")
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = d * h * hd * 2 + d * kvh * hd * 2
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.family == "dense":
+        per = attn + d * cfg.d_ff * (3 if cfg.act == "swiglu" else 2)
+    else:
+        m = cfg.moe
+        per = (attn + m.n_routed_experts * 3 * d * m.d_ff_expert
+               + 3 * d * m.d_ff_expert * m.n_shared_experts + d * m.n_routed_experts)
+    return cfg.num_layers * per + embed
+
+
 def _xent_chunk(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor):
     """h (R, b, c, D), t (R, b, c), head (R, D, V) -> (sum of NLL, count)."""
     logits = layers.rank_matmul(h, head).float()

@@ -505,16 +505,33 @@ def test_guards_raise_like_the_reference():
         sched_ir.execute(b, fidelity="exact")
     with pytest.raises(ValueError, match="hosts"):
         sched_ir.execute(b, topology=topo, hosts=[0, 1], device="cpu")
+    # the routed packet mode, the ring kinds at packet fidelity and the FSDP
+    # step compute now, equal to the reference's
+    ref_t = ref_topo.FatTree(k=4)
+    got = sched_ir.execute(b, fidelity="packet", topology=topo, device="cpu")
+    want = ref_ir.execute(ref_ir.build_broadcast_tree(4, 1 << 12), fidelity="packet",
+                          topology=ref_t)
+    assert (got.time, got.link_bytes) == (want.time, want.link_bytes) and got.link_bytes
+    got = simulator.simulate_allgather(4, 1 << 12, engine.FabricParams(), engine.WorkerParams(),
+                                       np.random.default_rng(0), 2, topology=topo,
+                                       fidelity="packet", device="cpu")
+    want = ref_sim.simulate_allgather(4, 1 << 12, ref_engine.FabricParams(),
+                                      ref_engine.WorkerParams(), np.random.default_rng(0), 2,
+                                      topology=ref_t, fidelity="packet")
+    assert (got.time, got.link_bytes) == (want.time, want.link_bytes)
+    got = sched_ir.execute(ring, fidelity="packet", loss=0.01, device="cpu")
+    want = ref_ir.execute(ref_ir.build_ring_allgather(4, 1 << 12), fidelity="packet", loss=0.01)
+    assert (got.time, got.bytes_recovery) == (want.time, want.bytes_recovery)
+    fsdp = sched_ir.build_fsdp_step(p=4, n_layers=2, layer_bytes=1 << 20)
+    for fidelity in ("fluid", "packet"):
+        got = sched_ir.execute(fsdp, fidelity=fidelity, device="cpu")
+        want = ref_ir.execute(ref_ir.build_fsdp_step(p=4, n_layers=2, layer_bytes=1 << 20),
+                              fidelity=fidelity)
+        assert (got.step_time, got.bubble_fraction) == (want.step_time, want.bubble_fraction)
+    with pytest.raises(ValueError, match="fidelities"):
+        sched_ir.execute(fsdp, fidelity="analytic", device="cpu")
     # what is not ported yet raises, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="item 6a"):
-        sched_ir.execute(b, fidelity="packet", topology=topo, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6a"):
-        simulator.simulate_allgather(4, 1 << 12, engine.FabricParams(), engine.WorkerParams(),
-                                     np.random.default_rng(0), 2, topology=topo,
-                                     fidelity="packet", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        sched_ir.execute(ring, fidelity="packet", device="cpu")
-    for kind in ("allreduce", "hier_allgather", "fsdp_step"):
+    for kind in ("allreduce", "hier_allgather"):
         other = sched_ir.Schedule(kind, 2, 8, (sched_ir.Unicast(0, 1, 8),))
         for fidelity in sched_ir.FIDELITIES:
             with pytest.raises(NotImplementedError, match="item 6b"):

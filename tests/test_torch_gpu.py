@@ -538,6 +538,59 @@ def test_packet_allgather_on_cuda_equals_cpu():
 
 
 @pytest.mark.gpu
+def test_routed_packet_broadcast_and_allgather_on_cuda_equal_cpu():
+    """The routed packet Broadcast (64 hosts of a k = 8 fat-tree, per-link
+    loss, the masks OR-ed along the tree on the card) and Allgather (16
+    hosts, 4 chains, jitter) on the card equal their CPU runs field for
+    field, link bytes included, and launch the receive kernels."""
+    _need_cuda()
+    out = {}
+    before = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+    for dev in ("cpu", "cuda"):
+        topo = T.FatTree(k=8, n_hosts=64, b_host=E.FabricParams().b_link)
+        bc = PK.simulate_packet_broadcast(64, 4 << 20, E.FabricParams(),
+                                          E.WorkerParams(n_recv_workers=8),
+                                          np.random.default_rng(0), topology=topo, loss=0.005,
+                                          collect_delivery=True, device=dev)
+        ag = PK.simulate_packet_allgather(16, 1 << 20, E.FabricParams(),
+                                          E.WorkerParams(n_recv_workers=8),
+                                          np.random.default_rng(1), 4,
+                                          topology=T.FatTree(k=8, n_hosts=16), loss=0.005,
+                                          device=dev)
+        out[dev] = (bc, ag)
+    after = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+    assert all(x > y for x, y in zip(after, before))
+    (a, a_ag), (b, b_ag) = out["cpu"], out["cuda"]
+    assert a.rounds and a.link_bytes and a_ag.recovered and a_ag.link_bytes
+    assert np.array_equal(a.completion, b.completion) and a.phases == b.phases
+    assert a.rounds == b.rounds and a.link_bytes == b.link_bytes
+    for leaf, order in a.delivery_order.items():
+        assert np.array_equal(order, b.delivery_order[leaf])
+    assert a_ag == b_ag
+
+
+@pytest.mark.gpu
+def test_routed_fsdp_step_on_cuda_equals_cpu():
+    """The routed FSDP step (64 hosts of an oversubscribed k = 8 fat-tree,
+    the split policy with the packet overlay) and two-job contention on the
+    card equal their CPU runs; the max-min solve ran on the card."""
+    _need_cuda()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        solves = E.counts["device_solves"]
+        step = E.simulate_fsdp_step(n_layers=2, layer_bytes=64e6, p=64, policy="split",
+                                    topology=T.FatTree(k=8, n_hosts=64, oversubscription=4),
+                                    fidelity="packet", loss=1e-3, rng=np.random.default_rng(0),
+                                    device=dev)
+        jobs = E.simulate_multi_job(T.FatTree(k=8, n_hosts=32, oversubscription=4),
+                                    {"A": list(range(0, 32, 2)), "B": list(range(1, 32, 2))},
+                                    layer_bytes=64e6, n_layers=2, device=dev)
+        assert E.counts["device_solves"] > solves
+        out[dev] = (step, jobs)
+    assert out["cpu"] == out["cuda"]
+
+
+@pytest.mark.gpu
 def test_fluid_routed_allgather_on_cuda_equals_cpu():
     """A routed fluid Allgather (64 hosts of a k = 8 fat-tree, a tree flow a
     rank in one generation, so the max-min solve takes its vectorized path)

@@ -208,10 +208,24 @@ def test_loss_models_and_flow_times_match_reference():
 
 def test_unported_options_raise():
     args = (8, 1 << 16, engine.FabricParams(), engine.WorkerParams(), np.random.default_rng(0))
-    for kw in (dict(topology=object()), dict(hosts=list(range(8))),
-               dict(dpa_fidelity="event"), dict(engine="reference")):
+    for kw in (dict(dpa_fidelity="event"), dict(dpa=object()), dict(engine="reference")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             packet.simulate_packet_broadcast(*args, device="cpu", **kw)
+    # topology= and hosts= are ported (the routed packet mode): equal to the
+    # reference's; without a topology the hosts only name the ranks
+    from repro.core import topology as ref_topo
+    from repro_torch.core import topology
+
+    for kw, ref_kw in ((dict(topology=topology.FatTree(k=4)),
+                        dict(topology=ref_topo.FatTree(k=4))),
+                       (dict(hosts=list(range(8, 0, -1))), dict(hosts=list(range(8, 0, -1))))):
+        got = packet.simulate_packet_broadcast(
+            8, 1 << 16, engine.FabricParams(), engine.WorkerParams(**WK),
+            np.random.default_rng(0), loss=0.02, device="cpu", **kw)
+        want = ref_packet.simulate_packet_broadcast(
+            8, 1 << 16, ref_engine.FabricParams(), ref_engine.WorkerParams(**WK),
+            np.random.default_rng(0), loss=0.02, **ref_kw)
+        assert_bcast_equal(got, want, ctx=f"{sorted(kw)}")
     # the fluid fidelity is ported: equal to the reference's
     assert protocol.broadcast_time(8, 1 << 16, fidelity="fluid", device="cpu") == \
         ref_protocol.broadcast_time(8, 1 << 16, fidelity="fluid")

@@ -282,12 +282,26 @@ def test_staggered_flows_share_one_link_like_the_reference():
 def test_unported_options_raise():
     args = (8, 1 << 16, engine.FabricParams(), engine.WorkerParams(), np.random.default_rng(0),
             2)
-    for kw in (dict(topology=object()), dict(hosts=list(range(8))),
-               dict(dpa_fidelity="event"), dict(dpa=object()), dict(engine="reference")):
+    for kw in (dict(dpa_fidelity="event"), dict(dpa=object()), dict(engine="reference")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             packet.simulate_packet_allgather(*args, device="cpu", **kw)
     with pytest.raises(ValueError, match="engine"):
         packet.simulate_packet_allgather(*args, device="cpu", engine="fast")
+    # topology= and hosts= are ported (the routed packet mode): equal to the
+    # reference's; without a topology the hosts only name the ranks
+    from repro.core import topology as ref_topo
+    from repro_torch.core import topology
+
+    for kw, ref_kw in ((dict(topology=topology.FatTree(k=4)),
+                        dict(topology=ref_topo.FatTree(k=4))),
+                       (dict(hosts=list(range(8, 0, -1))), dict(hosts=list(range(8, 0, -1))))):
+        got = packet.simulate_packet_allgather(
+            8, 1 << 16, engine.FabricParams(), engine.WorkerParams(), np.random.default_rng(0),
+            2, loss=0.02, device="cpu", **kw)
+        want = ref_packet.simulate_packet_allgather(
+            8, 1 << 16, ref_engine.FabricParams(), ref_engine.WorkerParams(),
+            np.random.default_rng(0), 2, loss=0.02, **ref_kw)
+        assert_ag_equal(got, want, ctx=f"{sorted(kw)}")
     # the fluid fidelity is ported: equal to the reference's
     got = simulator.simulate_allgather(*args, device="cpu")          # fidelity="fluid"
     want = ref_sim.simulate_allgather(8, 1 << 16, ref_engine.FabricParams(),
@@ -298,8 +312,12 @@ def test_unported_options_raise():
         ref_protocol.allgather_time(8, 1 << 16, fidelity="fluid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         protocol.allgather_time(8, 1 << 16, dpa=object(), device="cpu")
+    # the ring kinds at packet fidelity are ported: equal to the reference's
     ring = sched_ir.Schedule("ring_allgather", 2, 8, (sched_ir.Unicast(0, 1, 8),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched_ir.execute(ring, fidelity="packet", device="cpu")
+    ref_ring = ref_ir.Schedule("ring_allgather", 2, 8, (ref_ir.Unicast(0, 1, 8),))
+    got = sched_ir.execute(ring, fidelity="packet", loss=0.01, device="cpu")
+    want = ref_ir.execute(ref_ring, fidelity="packet", loss=0.01)
+    assert (got.time, got.bytes_recovery, got.n_rounds) == \
+        (want.time, want.bytes_recovery, want.n_rounds)
     with pytest.raises(ValueError, match="fidelity"):
         simulator.simulate_allgather(*args, fidelity="analytic", device="cpu")
