@@ -200,6 +200,31 @@
    pool, pack, OR and popcount must equal what the runs' rounds imply: a
    pool pass per fast path (per generation) and per recovery round, one
    pack, OR and popcount per round; the FSDP cells launch none;
+5e. the SmartNIC offload (core/dpa.py, core/dpa_engine.py, the event-level
+   DPA of core/packet.py and core/sched_ir.py, ``progress_engine="host"``),
+   at benchmarks/paper_figs.py's sizes: (a) the DPA model's closed forms on
+   the host (Table I, Figs. 5, 13, 14, 15 and 16, the economics, part A's
+   NACK budget of 16 UD threads above 511 a round, more than 16
+   communicators in the LLC), each beside its assertion; then, each cell on
+   the CPU and on the card, field for field equal, printed as 5c's: (b)
+   ``dpa_scaling_sweep``: the event engine's Figs. 13 and 14 (UD and UC at
+   1 to 16 threads; saturation at <= 4 threads for UC, 8 to 16 for UD), the
+   full-core capacity within 10 % of ``pool_tput``, Fig. 16 (128 UD threads
+   hold 1.6 Tbit/s, 8 do not), Fig. 5's DPA core over 1.2x a host core, the
+   FSDP step (4 layers x 64 MB, P = 16, split) slower with more bubbles on
+   2 host cores than on the DPA, and a lossy Broadcast (P = 16, 1 MiB, 1e-3,
+   16 workers, seed 0) no faster on the event DPA than on the scalar pool;
+   (c) ``protocol_loss_sweep``'s parts B and C at P = 64, 1 MiB, 16 workers,
+   no jitter: 27 Broadcasts at 9 loss rates (1e-4 to 0.3) x seeds 0 to 2
+   against ``analytic_ring_pipeline_bcast_time`` (the crossover above
+   1e-3), and Gilbert-Elliott at 1e-2 in bursts of 16 against i.i.d. at
+   1e-2; (d) AG-E, 64 hosts x 1 MiB x 4 chains, 1e-3 loss, 1 us jitter,
+   seed 0, on the event DPA (``dpa=DpaConfig("UD", 16)``) and its scalar
+   twin (``workers_from_dpa`` of the same config). In event mode the leaves'
+   pools run on the host (no pool launch) and each recovery round launches
+   one pack, OR and popcount; in scalar mode as 5b; the launches must equal
+   what the runs imply. Prints the event pools' share of each run's host
+   time and the phase's wall time;
 6. the collective layer's remaining entry points, each driven once with the
    launch counts zeroed before and read after: (a) the double-buffered
    drain (csrc/double_buffer_drain.cu) equal to its plain version on every
@@ -237,7 +262,8 @@ idle share from the profiler; the CPU run's wall times, taken the same
 way, beside each broadcast),
 each kernel's times beside its bound, a JSON line of kernels, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero if any check
-fails or there is no CUDA device.
+fails or there is no CUDA device. The launches of the pool, pack, OR and
+popcount in the kernels line include phases 5b to 5e's.
 """
 from __future__ import annotations
 
@@ -269,6 +295,8 @@ from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig,  # noq
                                  replace)
 from repro_torch.core import collectives as C  # noqa: E402
 from repro_torch.core import cost_model as CM  # noqa: E402
+from repro_torch.core import dpa as DPA  # noqa: E402
+from repro_torch.core import dpa_engine as DE  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import packet as PK  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
@@ -2421,6 +2449,275 @@ def routed_path() -> dict[str, int]:
     return total
 
 
+# ------------------------------- phase 5e: the SmartNIC offload (the DPA)
+
+# (a) the DPA model's figures (benchmarks/paper_figs.py: table1_datapath,
+# fig5_cpu_datapath, fig13_14_thread_scaling, fig15_chunk_sizes, fig16_tbit),
+# part A's NACK budget and the LLC's communicators: closed forms on the host
+DPA_THREADS = (1, 2, 4, 8, 16)
+FIG15_CHUNKS = (4096, 8192, 16384, 32768)
+FIG16_THREADS = (16, 64, 128)
+# (c) protocol_loss_sweep's parts B and C (benchmarks/paper_figs.py:331):
+# 1 MiB Broadcasts at P = 64 on the abstract fabric, 16 workers, no jitter
+PART_B_P = 64
+PART_B_LOSS = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 2e-1, 3e-1)
+PART_C_RATE, PART_C_BURST = 1e-2, 16.0
+# (d) AG-E: 64 hosts x 1 MiB x 4 chains, 1e-3 loss per leaf, 1 us jitter,
+# seed 0, on 16 UD threads of the DPA: event fidelity and its scalar twin
+AGE = (64, 1 << 20, 4)
+AGE_DPA = ("UD", 16)
+_POOL_CLOCK: dict[tuple[str, str], tuple[float, float]] = {}
+
+
+def _pool_clocked(name: str, fn):
+    """``fn(device)`` with the event pools' host seconds summed
+    (``DpaEventPool.service_batch``, every batch) beside the call's own
+    seconds, kept by (name, device) in ``_POOL_CLOCK``."""
+    def run(device: str):
+        spent = [0.0]
+        orig = DE.DpaEventPool.service_batch
+
+        def timed(self, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(self, *args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+
+        DE.DpaEventPool.service_batch = timed
+        t0 = time.perf_counter()
+        try:
+            out = fn(device)
+        finally:
+            DE.DpaEventPool.service_batch = orig
+        _POOL_CLOCK[(name, device)] = (spent[0], time.perf_counter() - t0)
+        return out
+    return run
+
+
+def _check(ok: bool, what: str) -> str:
+    if not ok:
+        raise AssertionError(what)
+    return "holds"
+
+
+def dpa_model_figures() -> dict:
+    """(a) Table I, Figs. 5 and 13 to 16, the economics, part A's NACK
+    budget (16 UD threads serve more NACKs a round than P = 512 sends) and
+    the communicators in the LLC (more than 16, §III-D), each with its
+    assertion from benchmarks/paper_figs.py."""
+    gib, link = DPA.GIB, DPA.LINK_200G_BYTES
+    out = {"table1": DPA.TABLE1, "fig5_cpu_core_gibs": DPA.CPU_CORE_TPUT_GIB}
+    checks = {"table1: UC over UD above 2": _check(
+        DPA.TABLE1["UC"]["tput_gib"] / DPA.TABLE1["UD"]["tput_gib"] > 2, "table1")}
+    checks["fig5: no CPU core holds the 200G link"] = _check(
+        all(g * gib < link for g in DPA.CPU_CORE_TPUT_GIB.values()), "fig5 cpu")
+    out["fig5_dpa_core16t_UD_gibs"] = DPA.sustained_tput(DPA.DpaConfig("UD", 16)) / gib
+    checks["fig5: 16 DPA threads hold 99 % of it"] = _check(
+        out["fig5_dpa_core16t_UD_gibs"] * gib >= 0.99 * link, "fig5 dpa")
+    out["fig13_gibs"] = {t: {n: DPA.sustained_tput(DPA.DpaConfig(t, n)) / gib
+                             for n in DPA_THREADS} for t in ("UD", "UC")}
+    out["fig14_threads_to_linerate"] = {t: DPA.threads_to_saturate(t) for t in ("UD", "UC")}
+    checks["fig14: UC <= 4, UD 8 to 16"] = _check(
+        out["fig14_threads_to_linerate"]["UC"] <= 4
+        and 8 <= out["fig14_threads_to_linerate"]["UD"] <= 16, "fig14")
+    out["fig15_UC_threads_to_linerate"] = {
+        c: next(t for t in range(1, 257)
+                if DPA.sustained_tput(DPA.DpaConfig("UC", t, c)) >= 0.99 * link)
+        for c in FIG15_CHUNKS}
+    need = DPA.link_chunk_arrival_rate(DPA.LINK_1600G_BYTES)
+    out["fig16_required_Mchunks_s"] = need / 1e6
+    out["fig16_UD_Mchunks_s"] = {n: DPA.sustained_chunk_rate(
+        DPA.DpaConfig("UD", n, 64, DPA.LINK_1600G_BYTES)) / 1e6 for n in FIG16_THREADS}
+    checks["fig16: 128 UD threads hold 1.6 Tbit/s"] = _check(DPA.tbit_feasible("UD", 128),
+                                                             "fig16")
+    out["economics"] = DPA.economics_summary()
+    out["dpa_nack_rate_msgs_per_s"] = DPA.nack_rate(DPA.DpaConfig("UD", 16))
+    checks["part A: the NACK budget exceeds 511 a round"] = _check(
+        out["dpa_nack_rate_msgs_per_s"] > max(LOSS_SWEEP_P) - 1, "nack budget")
+    out["communicators_in_llc"] = protocol.communicators_in_llc()
+    checks["§III-D: more than 16 communicators in the LLC"] = _check(
+        out["communicators_in_llc"] > 16, "llc")
+    out["checks"] = checks
+    return out
+
+
+def _age_workers() -> E.WorkerParams:
+    return E.workers_from_dpa(DPA.DpaConfig(*AGE_DPA))
+
+
+def dpa_sweep(device: str) -> dict:
+    """(b) ``dpa_scaling_sweep`` (benchmarks/paper_figs.py:490): the event
+    engine's Figs. 13 and 14, the full-core anchors, Fig. 16, Fig. 5's DPA
+    core against a host core, the FSDP step on the host progress engine
+    against the DPA, and the event-against-scalar lossy Broadcast."""
+    out = {"fig13": {t: {n: DE.sustained_tput_event(DE.EventDpaParams.from_table1(t, n))
+                         for n in DPA_THREADS} for t in ("UD", "UC")},
+           "sat_event": {t: DE.threads_to_saturate_event(t) for t in ("UD", "UC")},
+           "core16": {t: (DE.pool_tput_event(DE.EventDpaParams.from_table1(t, 16)),
+                          DPA.pool_tput(DPA.DpaConfig(t, 16))) for t in ("UD", "UC")}}
+    need = DPA.link_chunk_arrival_rate(DPA.LINK_1600G_BYTES)
+    out["fig16"] = (DE.sustained_chunk_rate_event(DE.EventDpaParams.from_table1("UD", 128),
+                                                  need, chunk_bytes=64), need,
+                    DPA.sustained_chunk_rate(DPA.DpaConfig("UD", 128, 64,
+                                                           DPA.LINK_1600G_BYTES)))
+    out["tbit"] = (DE.tbit_feasible_event("UD", 128), DE.tbit_feasible_event("UD", 8))
+    out["fig5"] = (DE.sustained_tput_event(DE.EventDpaParams.from_table1("UD", 16)),
+                   DE.pool_tput_event(DE.EventDpaParams.host_cpu(1)))
+    kw = dict(n_layers=4, layer_bytes=64e6, p=16, policy="split", device=device)
+    out["fsdp"] = (E.simulate_fsdp_step(**kw),
+                   E.simulate_fsdp_step(**kw, progress_engine="host", host_cores=2))
+    fab, wk = E.FabricParams(jitter=0.0), E.WorkerParams(n_recv_workers=16)
+    out["bcast"] = tuple(
+        SIM.simulate_broadcast(16, 1 << 20, fab, wk, np.random.default_rng(0),
+                               fidelity="packet", loss=1e-3, device=device, dpa_fidelity=fid)
+        for fid in ("scalar", "event"))
+    return out
+
+
+def loss_parts(device: str) -> dict:
+    """(c) parts B and C: every (loss rate, seed) Broadcast at P = 64, then
+    Gilbert-Elliott at 1e-2 in bursts of 16 and i.i.d. at 1e-2, seed 0."""
+    fab, wk = E.FabricParams(jitter=0.0), E.WorkerParams(n_recv_workers=16)
+    runs = {f"q{q:g}.seed{s}": SIM.simulate_broadcast(
+        PART_B_P, LOSS_SWEEP_BYTES, fab, wk, np.random.default_rng(s), fidelity="packet",
+        loss=q, device=device) for q in PART_B_LOSS for s in LOSS_SWEEP_SEEDS}
+    for name, loss in (("ge", PK.GilbertElliottLoss.from_rate(PART_C_RATE,
+                                                              mean_burst=PART_C_BURST)),
+                       ("iid", PART_C_RATE)):
+        runs[name] = SIM.simulate_broadcast(PART_B_P, LOSS_SWEEP_BYTES, fab, wk,
+                                            np.random.default_rng(0), fidelity="packet",
+                                            loss=loss, device=device)
+    return runs
+
+
+def _age(fidelity: str):
+    def run(device: str) -> PK.PacketAllgatherResult:
+        p, n_bytes, m = AGE
+        kw = dict(dpa_fidelity="event", dpa=DPA.DpaConfig(*AGE_DPA)) \
+            if fidelity == "event" else {}
+        return PK.simulate_packet_allgather(p, n_bytes, E.FabricParams(), _age_workers(),
+                                            np.random.default_rng(0), m, loss=LINK_LOSS,
+                                            device=device, **kw)
+    return run
+
+
+def _rounds_launches(rounds: int, pools: int) -> dict[str, int]:
+    return {"pool": pools, "bitmap_pack": rounds, "bitmap_or_rows": rounds,
+            "bitmap_popcount": rounds}
+
+
+def dpa_path() -> dict[str, int]:
+    """Phase 5e: the SmartNIC offload. (a) the DPA model's figures on the
+    host; (b), (c) and (d) each run on the CPU and then on the card (counts
+    zeroed before, read after), field for field equal, the receive kernels'
+    launches equal to what the runs imply: in event mode no pool pass for
+    the leaves and one pack, OR and popcount a recovery round; in scalar
+    mode as phase 5b. The event pools' host share of each run is printed.
+    Returns the phase's launches of #6, #6b, #7 and #8/#9."""
+    total = dict.fromkeys(AG_KERNELS, 0)
+
+    def add(launches):
+        for k in AG_KERNELS:
+            total[k] += launches[k]
+
+    def pools(name: str) -> None:
+        for device in ("cpu", "cuda"):
+            spent, wall = _POOL_CLOCK[(name, device)]
+            print(f"[dpa] {name} on the {'card' if device == 'cuda' else 'CPU'}: event pools "
+                  f"{spent * 1e3} host ms of {wall * 1e3} ({spent / wall} of the run)",
+                  flush=True)
+
+    t0 = time.perf_counter()
+    figs = dpa_model_figures()
+    print(f"[dpa] (a) the DPA model's figures {json.dumps(figs, default=str)} "
+          f"({(time.perf_counter() - t0) * 1e3} host ms)", flush=True)
+
+    def sweep_implied(r):
+        scl, evt = r["bcast"]
+        return _rounds_launches(len(scl.rounds) + len(evt.rounds), 1 + len(scl.rounds))
+
+    sw, n, _ = _figure("dpa_sweep", _pool_clocked("dpa_sweep", dpa_sweep), sweep_implied,
+                       tag="dpa")
+    add(n)
+    pools("dpa_sweep")
+    sat_an = {t: DPA.threads_to_saturate(t) for t in ("UD", "UC")}
+    core = {t: ev / an for t, (ev, an) in sw["core16"].items()}
+    rate, need, an_rate = sw["fig16"]
+    dpa_core, host_core = sw["fig5"]
+    d, h = sw["fsdp"]
+    scl, evt = sw["bcast"]
+    fig13 = {t: {k: v / DPA.GIB for k, v in r.items()} for t, r in sw["fig13"].items()}
+    print(f"[dpa] (b) event engine: fig13 GiB/s {json.dumps(fig13)}; saturation threads "
+          f"{json.dumps(sw['sat_event'])} (analytic {json.dumps(sat_an)})"
+          f"; core16 over pool_tput {json.dumps(core)}; fig16 {rate / 1e6} of {need / 1e6} "
+          f"Mchunks/s ({rate / need}, analytic {an_rate / 1e6}); fig5 DPA core over host core "
+          f"{dpa_core / host_core} (host {host_core / DPA.GIB} GiB/s); FSDP host over DPA step "
+          f"{h.step_time / d.step_time}, bubbles {h.bubble_fraction} vs {d.bubble_fraction}, "
+          f"host datapath {h.datapath_tput / DPA.GIB} GiB/s; event over scalar Broadcast "
+          f"{evt.time / scl.time} ({evt.time * 1e6} vs {scl.time * 1e6} us)", flush=True)
+    if not (sw["sat_event"]["UC"] <= 4 and 8 <= sw["sat_event"]["UD"] <= 16):
+        raise AssertionError(f"event saturation threads {sw['sat_event']}")
+    if not all(abs(r - 1.0) < 0.10 for r in core.values()):
+        raise AssertionError(f"event core16 capacity off the oracle: {core}")
+    if not (sw["tbit"] == (True, False) and abs(rate / an_rate - 1.0) < 0.10):
+        raise AssertionError(f"fig16 by events: feasible {sw['tbit']}, {rate} vs {an_rate}")
+    if not (dpa_core / host_core > 1.2 and host_core < DPA.LINK_200G_BYTES):
+        raise AssertionError(f"fig5 by events: {dpa_core} vs host {host_core}")
+    if not (h.step_time > d.step_time and h.bubble_fraction > d.bubble_fraction):
+        raise AssertionError("the host progress engine's FSDP step is not slower")
+    if not (evt.completed and evt.time >= scl.time - 1e-12):
+        raise AssertionError(f"event Broadcast {evt.time} faster than scalar {scl.time}")
+
+    runs, n, _ = _figure("loss_parts_bc", loss_parts, bcast_launches, tag="dpa")
+    add(n)
+    t_mc, t_ring, crossover = [], [], None
+    for i, q in enumerate(PART_B_LOSS):
+        per = [runs[f"q{q:g}.seed{s}"] for s in LOSS_SWEEP_SEEDS]
+        if not all(r.completed and r.bytes_fast + r.bytes_recovery == r.bytes_total
+                   for r in per):
+            raise AssertionError(f"part B at loss {q}: incomplete or bytes not conserved")
+        t_mc.append(sum(r.time for r in per) / len(per))
+        t_ring.append(protocol.analytic_ring_pipeline_bcast_time(
+            PART_B_P, LOSS_SWEEP_BYTES, E.FabricParams().b_link, E.FabricParams().latency,
+            loss_rate=q))
+        if crossover is None and t_mc[i] > t_ring[i]:
+            crossover = math.sqrt(PART_B_LOSS[i - 1] * q) if i else q
+    print(f"[dpa] (c) part B at P={PART_B_P}: multicast over ring "
+          f"{json.dumps({f'{q:g}': m / r for q, m, r in zip(PART_B_LOSS, t_mc, t_ring)})}; "
+          f"crossover {crossover}", flush=True)
+    if not (crossover is None or crossover > 1e-3):
+        raise AssertionError(f"the multicast-unicast crossover {crossover} is not above 1e-3")
+    ge, iid = runs["ge"], runs["iid"]
+    if not (ge.completed and iid.completed):
+        raise AssertionError("part C: a Broadcast did not complete")
+    print(f"[dpa] (c) part C: Gilbert-Elliott over i.i.d. recovery "
+          f"{ge.phases.reliability / max(iid.phases.reliability, 1e-12)} "
+          f"({ge.phases.reliability * 1e6} vs {iid.phases.reliability * 1e6} us)", flush=True)
+
+    gens = -(-AGE[0] // AGE[2])
+    n_chunks = AGE[1] // E.FabricParams().mtu
+    if AGE[0] * AGE[2] * n_chunks > PK._BLOCK_ELEMS:
+        raise AssertionError("AG-E's fast path takes more than one block of pool rows")
+    res = {}
+    for fidelity in ("event", "scalar"):
+        name = f"AG-E.{fidelity}"
+        res[fidelity], n, _ = _figure(
+            name, _pool_clocked(name, _age(fidelity)),
+            lambda r, f=fidelity: _rounds_launches(_ag_rounds(r), 0 if f == "event"
+                                                   else gens + _ag_rounds(r)), tag="dpa")
+        add(n)
+        pools(name)
+        r = res[fidelity]
+        print(f"[dpa] (d) {name}: time {r.time} s, recovered {r.recovered}, recovery rounds "
+              f"{_ag_rounds(r)}, rnr {r.rnr_drops}, launches {json.dumps(n)}", flush=True)
+        if not (r.completed and r.recovered):
+            raise AssertionError(f"{name} must complete and recover chunks")
+    print(f"[dpa] (d) AG-E event over scalar {res['event'].time / res['scalar'].time}",
+          flush=True)
+    return total
+
+
 # ------------------------------------------------------- the collective layer
 
 AGMM_ROWS = (BATCH * PROMPT // 8, TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len // 8)
@@ -3301,6 +3598,12 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in AG_KERNELS:
         launches[name] += routed[name]
+    t0 = time.perf_counter()
+    offload = dpa_path()   # zeroes the counts before each cell's card run
+    print(f"[dpa] phase 5e passed: launches {json.dumps(offload)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name in AG_KERNELS:
+        launches[name] += offload[name]
     t0 = time.perf_counter()
     drain_cases, drain_err = check_drain()
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)

@@ -105,8 +105,12 @@ def _param_table(cfg: ModelConfig) -> dict:
         }
         if m.n_shared_experts:
             blocks["moe"]["shared"] = _swiglu_table(n_l, d, fe * m.n_shared_experts)
-    else:
+    elif cfg.act == "swiglu":
         blocks["mlp"] = _swiglu_table(n_l, d, cfg.d_ff)
+    else:
+        # any other activation: the plain two-layer MLP (layers.mlp_init)
+        blocks["mlp"] = {"w_in": _Leaf((n_l, d, cfg.d_ff), 1 / np.sqrt(d)),
+                         "w_out": _Leaf((n_l, cfg.d_ff, d), 1 / np.sqrt(cfg.d_ff))}
     table = {"embed": _Leaf((cfg.vocab_size, d), 0.02), "final_ln": _Leaf((d,), 0.0),
              "blocks": blocks}
     if not cfg.tie_embeddings:

@@ -3,7 +3,9 @@ step's contention timeline.
 
 Port of ``src/repro/core/engine.py``:
 
-- ``FabricParams``, ``WorkerParams``: the same parameters and defaults.
+- ``FabricParams``, ``WorkerParams``: the same parameters and defaults;
+  ``workers_from_dpa``, the leaf pool of the calibrated DPA model
+  (``core/dpa.py``).
 - ``Engine`` / ``Link`` / ``Flow``: the discrete-event fluid engine. A Link
   is a directed bandwidth server (one direction of a NIC or of a fabric
   cable, from ``core/topology.py`` or added by name); a Flow crosses an
@@ -32,8 +34,9 @@ Port of ``src/repro/core/engine.py``:
   layers, ``layers=`` of ``LayerProfile``s, or ``model=``; fluid, or packet
   with ``_make_ag_loss_overlay``), ``sweep_fsdp_contention`` and
   ``simulate_multi_job``, each Engine on the caller's ``device``. The flows
-  come from ``sched_ir.fsdp_submitters``. ``progress_engine="host"`` waits
-  for the event-level DPA (ROADMAP.md item 7) and raises.
+  come from ``sched_ir.fsdp_submitters``. ``progress_engine="host"`` runs
+  the receive datapath on host cores, whose throughput the event-level DPA
+  measures (``dpa_engine.pool_tput_event``).
 
 The engine's ``device`` (default ``cuda``) is resolved at its first
 vectorized solve: an engine whose solves all stay on the dict path never
@@ -51,6 +54,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import dpa as dpa_model
 from repro_torch.device import device_of
 from repro_torch.kernels import pool
 
@@ -77,6 +81,18 @@ class WorkerParams:
     thread_tput: float = 5.2 * (1 << 30)   # bytes/s per worker (Table I UD)
     staging_chunks: int = 8192
     rnr_barrier_hop: float = 1.5e-6
+
+
+def workers_from_dpa(cfg: dpa_model.DpaConfig, *, staging_chunks: int = 8192,
+                     rnr_barrier_hop: float = 1.5e-6) -> WorkerParams:
+    """The leaf worker pool of the calibrated DPA offload model (reference
+    engine.py:92): ``dpa.pool_tput`` (within-core T^e latency hiding, the
+    per-core NIC-interface cap, linear across cores) spread evenly over
+    ``cfg.n_threads`` workers, so that 16 UD threads do not serve 16x one
+    thread."""
+    tput = dpa_model.pool_tput(cfg)
+    return WorkerParams(n_recv_workers=cfg.n_threads, thread_tput=tput / cfg.n_threads,
+                        staging_chunks=staging_chunks, rnr_barrier_hop=rnr_barrier_hop)
 
 
 # ---------------------------------------------------------------- fluid engine
@@ -707,7 +723,8 @@ def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 2
                        hosts=None, fidelity: str = "fluid", loss=None,
                        rng: "np.random.Generator | None" = None,
                        workers: "WorkerParams | None" = None, progress_engine: str = "dpa",
-                       schedule=None, device=None) -> FsdpStepResult:
+                       host_cores: int = 2, host_total_cores: int = 108, schedule=None,
+                       device=None) -> FsdpStepResult:
     """The interleaved forward-AG, backward-RS and compute timeline of one
     FSDP step (reference engine.py:752), equal field for field to the
     reference's on the same arguments and generator.
@@ -730,8 +747,17 @@ def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 2
     heterogeneous per-layer profile, ``model=`` a registered config (the
     dense and moe families) whose analytic parameter count sets the layer
     bytes. Every Engine runs its vectorized max-min solve on ``device``
-    (default ``cuda``). ``progress_engine="host"`` needs the event-level DPA
-    (``dpa_engine.pool_tput_event``) and raises."""
+    (default ``cuda``).
+
+    ``progress_engine`` is who runs the reliability datapath (§VII-d):
+    ``"dpa"`` the SmartNIC, which keeps up with the wire and leaves the host
+    cores to compute; ``"host"`` ``host_cores`` Epyc-class cores running it
+    in software (``dpa_engine.EventDpaParams.host_cpu``). Then a layer's AG
+    is not ready before its gathered bytes also drained through the
+    engine's measured throughput (``datapath_tput``, from
+    ``dpa_engine.pool_tput_event``), and every layer's compute stretches by
+    host_total_cores / (host_total_cores - host_cores); the stretch counts
+    as bubble, not as useful compute."""
     if policy not in FSDP_POLICIES:
         raise ValueError(f"policy must be one of {FSDP_POLICIES}, got {policy!r}")
     if fidelity not in ("fluid", "packet"):
@@ -742,9 +768,16 @@ def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 2
     if fidelity != "packet" and loss is not None:
         raise ValueError("loss models require fidelity='packet'")
     if progress_engine == "host":
-        raise NotImplementedError("progress_engine='host' needs the event-level DPA "
-                                  "(dpa_engine.pool_tput_event), not ported yet "
-                                  "(ROADMAP.md §1, item 7)")
+        from repro_torch.core import dpa_engine   # deferred: dpa_engine imports this module
+
+        if not 1 <= host_cores < host_total_cores:
+            raise ValueError(f"need 1 <= host_cores < host_total_cores, got {host_cores}, "
+                             f"{host_total_cores}")
+        datapath_cap = dpa_engine.pool_tput_event(dpa_engine.EventDpaParams.host_cpu(host_cores))
+        compute_scale = host_total_cores / (host_total_cores - host_cores)
+    else:
+        datapath_cap = None
+        compute_scale = 1.0
     dev = device_of("cuda" if device is None else device)
     fabric = fabric or FabricParams()
     if model is not None:
@@ -763,7 +796,7 @@ def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 2
     gather_bytes = (p - 1) / p * layer_bytes     # bytes a node must receive
     shard_bytes = layer_bytes / p
     if layers is None:
-        fwd_t = 2.0 * (layer_bytes / dtype_bytes) * tokens_per_device / hw_flops
+        fwd_t = 2.0 * (layer_bytes / dtype_bytes) * tokens_per_device / hw_flops * compute_scale
         bwd_t = 2.0 * fwd_t
         fwd_ts = [fwd_t] * n_layers
         bwd_ts = [bwd_t] * n_layers
@@ -771,8 +804,8 @@ def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 2
         gathers = [gather_bytes] * n_layers
         shards = [shard_bytes] * n_layers
     else:
-        fwd_ts = [lp.fwd_s for lp in layers]
-        bwd_ts = [lp.bwd_s for lp in layers]
+        fwd_ts = [lp.fwd_s * compute_scale for lp in layers]
+        bwd_ts = [lp.bwd_s * compute_scale for lp in layers]
         scales = [lp.layer_bytes / layer_bytes for lp in layers]
         gathers = [(p - 1) / p * lp.layer_bytes for lp in layers]
         shards = [lp.layer_bytes / p for lp in layers]
@@ -795,34 +828,43 @@ def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 2
     ag_overlay = _make_ag_loss_overlay(fidelity, loss, rng, policy, topology, hosts, p,
                                        gather_bytes, shard_bytes, fabric, workers)
     compute_total = 0.0
+    # useful compute at full-node capability: the host engine's stretch
+    # (stolen cores) is protocol overhead and shows up as bubble
+    fwd_useful = [ft / compute_scale for ft in fwd_ts]
+    bwd_useful = [bt / compute_scale for bt in bwd_ts]
 
-    def ag_ready(flows, i: int) -> float:
-        """A layer's parameters are usable when the wire delivered them, the
-        chain activations passed and the loss overlay recovered."""
-        return eng.wait(*flows) + ag_sync + ag_overlay(gathers[i], shards[i])
+    def ag_ready(t_submit: float, flows, i: int) -> float:
+        """A layer's parameters are usable when the wire delivered them (and,
+        on the host progress engine, the gathered bytes drained through its
+        software datapath), the chain activations passed and the loss
+        overlay recovered."""
+        t_wire = eng.wait(*flows)
+        if datapath_cap is not None:
+            t_wire = max(t_wire, t_submit + gathers[i] / datapath_cap)
+        return t_wire + ag_sync + ag_overlay(gathers[i], shards[i])
 
     # forward: AG(i+1) prefetched at the compute start of layer i
     ag = [None] * n_layers
-    ag[0] = submit_ag(0.0, scales[0])
+    ag[0] = (0.0, submit_ag(0.0, scales[0]))
     t = 0.0
     for i in range(n_layers):
-        start = max(t, ag_ready(ag[i], i))
+        start = max(t, ag_ready(*ag[i], i))
         if i + 1 < n_layers:
-            ag[i + 1] = submit_ag(start, scales[i + 1])
+            ag[i + 1] = (start, submit_ag(start, scales[i + 1]))
         t = start + fwd_ts[i]
-        compute_total += fwd_ts[i]
+        compute_total += fwd_useful[i]
     t_fwd_end = t
 
     # backward: gather the parameters again in reverse order, RS the grads
     ag_b = [None] * n_layers
-    ag_b[n_layers - 1] = submit_ag(t_fwd_end, scales[n_layers - 1])
+    ag_b[n_layers - 1] = (t_fwd_end, submit_ag(t_fwd_end, scales[n_layers - 1]))
     rs_flows: list[Flow] = []
     for i in range(n_layers - 1, -1, -1):
-        start = max(t, ag_ready(ag_b[i], i))
+        start = max(t, ag_ready(*ag_b[i], i))
         if i - 1 >= 0:
-            ag_b[i - 1] = submit_ag(start, scales[i - 1])
+            ag_b[i - 1] = (start, submit_ag(start, scales[i - 1]))
         t = start + bwd_ts[i]
-        compute_total += bwd_ts[i]
+        compute_total += bwd_useful[i]
         rs_flows += submit_rs(t, scales[i])
     t_bwd_end = t
 
@@ -847,7 +889,7 @@ def simulate_fsdp_step(model=None, *, n_layers: int = 32, layer_bytes: float = 2
         n_layers=n_layers,
         p=p,
         progress_engine=progress_engine,
-        datapath_tput=None,
+        datapath_tput=datapath_cap,
     )
 
 

@@ -2,9 +2,9 @@
 M-chain Allgather, with the leaves' receive datapath on tensors.
 
 Port of ``simulate_packet_broadcast`` (src/repro/core/packet.py:1058) with
-scalar DPA fidelity and the vectorized executor (``_VecBroadcastRun``,
-packet.py:760), on the abstract fabric (``topology=None``) or a routed
-``core/topology.py`` fabric (``topology=``, ``hosts=``). Per Broadcast:
+the vectorized executor (``_VecBroadcastRun``, packet.py:760), on the
+abstract fabric (``topology=None``) or a routed ``core/topology.py`` fabric
+(``topology=``, ``hosts=``), at either DPA fidelity. Per Broadcast:
 
   1. The root's stream is cut into MTU chunks; their injection times come
      from one fluid flow (``core/engine.py``): on the root's send link, or
@@ -38,6 +38,18 @@ nacker's missing row packed to u32 words (``csrc/bitmap.cu``), the rows
 OR-ed, the union's size their popcount. A round is a fixed number of
 launches whatever the number of leaves.
 
+The DPA's two fidelities (``dpa_fidelity=``, reference packet.py:45):
+``"scalar"``, the T-server worker pool above (``workers``, or
+``engine.workers_from_dpa`` of a ``dpa.DpaConfig``), on the pool kernel;
+``"event"``, the event-level progress engine of ``core/dpa_engine.py``
+(``dpa=``: an ``EventDpaParams`` or a ``DpaConfig``; None gives a Table-I UD
+pool with the workers' thread count). In event mode every leaf and the root
+own a persistent ``DpaEventPool``: the root serves the NACKs and posts the
+retransmissions on its pool, and each pass takes the sorted arrival rows
+and their counts to the host once, runs the leaves' pools in leaf order
+there and brings the latest done times and the staging-ring drops back. The
+NACK unions stay on the card; no pool kernel runs for the leaves.
+
 ``simulate_packet_allgather`` (packet.py:1154) builds the Appendix-A
 schedule graph and runs it at packet fidelity: R = ceil(P/M) generations of
 up to M concurrent Broadcasts of this protocol, the round loop in
@@ -47,9 +59,8 @@ is the FSDP step's closed loss overlay (``core/engine.simulate_fsdp_step``).
 Each result equals the reference's field for field
 (``tests/test_torch_packet.py``, ``tests/test_torch_packet_allgather.py``,
 ``tests/test_torch_routed_packet.py`` on the CPU, ``chip_smoke.py`` on the
-card against the CPU run). Options of the reference that are not ported
-raise ``NotImplementedError``: ``dpa_fidelity="event"`` and ``dpa=`` (the
-event-level DPA, ROADMAP.md item 7) and ``engine="reference"``.
+card against the CPU run). ``engine="reference"``, the reference's
+per-leaf executor, is not ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,9 +73,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import protocol
-from repro_torch.core.engine import Engine, FabricParams, WorkerParams, worker_pool_completion
+from repro_torch.core.dpa_engine import DpaEventPool, resolve_event_params
+from repro_torch.core.engine import Engine, FabricParams, WorkerParams
 from repro_torch.core.sched_ir import (PhaseBreakdown, _check_packet_options, _chunking,
-                                      _rnr_barrier)
+                                      _event_rows, _rnr_barrier, _serve_nacks)
 from repro_torch.device import device_of
 from repro_torch.kernels import bitmap, pool
 
@@ -450,7 +462,8 @@ class _BroadcastRun:
     def __init__(self, p: int, n_bytes: int, fabric: FabricParams, workers: WorkerParams,
                  rng: np.random.Generator, root: int, eng: Engine, device: torch.device, *,
                  topology=None, hosts=None, loss=None, aggregate_nacks: bool = True,
-                 tag: str = "mcast", collect_delivery: bool = False):
+                 tag: str = "mcast", collect_delivery: bool = False,
+                 dpa_fidelity: str = "scalar", dpa=None):
         self.p, self.fabric, self.workers, self.rng = p, fabric, workers, rng
         self.root, self.eng, self.dev = root, eng, device
         self.topology, self.aggregate = topology, aggregate_nacks
@@ -478,6 +491,15 @@ class _BroadcastRun:
                            for leaf in sorted(self.paths) for c in self.paths[leaf]}
         self.leaf_ids = sorted(self.paths)
         n_leaves = len(self.leaf_ids)
+        if dpa_fidelity == "event":
+            # one DPA progress engine per NIC, persistent across rounds (leaf
+            # rows, then the root's): the root's NACK service and retransmit
+            # posting run on its contexts
+            params = resolve_event_params(dpa, workers.n_recv_workers)
+            self.pools = [DpaEventPool(params) for _ in self.leaf_ids]
+            self.root_pool = DpaEventPool(params)
+        else:
+            self.pools = self.root_pool = None
         # a link armed by attach_loss carries loss without a template
         self._lossless = all(m is None for m in self.models.values())
         # after the forks the rng feeds only jitter draws; at jitter == 0 each
@@ -530,10 +552,15 @@ class _BroadcastRun:
             key = (~arrived).to(torch.uint8)
         order = torch.sort(key, dim=1, stable=True).indices
         arr = arr.gather(1, order)
-        done, rnr = pool.pool_completion_rows(arr, self.workers.n_recv_workers,
-                                              self.service, self.workers.staging_chunks)
-        last = (counts - 1).clamp(min=0)
-        t_last = torch.where(counts > 0, done.gather(1, last[:, None])[:, 0], math.nan)
+        if self.pools is None:
+            done, rnr = pool.pool_completion_rows(arr, self.workers.n_recv_workers,
+                                                  self.service, self.workers.staging_chunks)
+            last = (counts - 1).clamp(min=0)
+            t_last = torch.where(counts > 0, done.gather(1, last[:, None])[:, 0], math.nan)
+        else:
+            # the leaves' event pools, in leaf order on the host
+            t_last, rnr = _event_rows([self.pools[r] for r in rows.cpu().tolist()], arr, counts,
+                                      self.chunk, self.workers.staging_chunks)
         # staging-ring drops join what the link lost
         rnr_cols = torch.zeros_like(rnr).scatter_(1, order, rnr)
         still = rnr_cols if lost is None else (wanted & lost) | rnr_cols
@@ -565,9 +592,10 @@ class _BroadcastRun:
         self._cutoff = self.flow.t_end + self.fabric.alpha
         masks = _sample_link_round(self.models, n)
         cols = torch.arange(n, device=self.dev)
-        if n_leaves and self._lossless and self._skip_jitter:
-            # no loss, no jitter: every leaf at one hop latency sees the same
-            # arrival row, so one pool pass a distinct latency serves all
+        if n_leaves and self._lossless and self._skip_jitter and self.pools is None:
+            # no loss, no jitter, a memoryless pool: every leaf at one hop
+            # latency sees the same arrival row, so one pool pass a distinct
+            # latency serves all
             hops, group = np.unique(self.hop, return_inverse=True)
             done, rnr = pool.pool_completion_rows(
                 inject[None, :] + torch.from_numpy(hops).to(self.dev)[:, None],
@@ -638,11 +666,9 @@ class _BroadcastRun:
         if n_union == 0:
             raise RuntimeError("a NACK round with an empty union")
         fab, wk = self.fabric, self.workers
-        done, _ = worker_pool_completion(arrivals, wk.n_recv_workers,
-                                         _nack_service(self.n_chunks, wk, fab.mtu),
-                                         wk.staging_chunks)
-        t_root_done = float(done[-1])
-        t_retx = max(t_root_done, self.eng.now)
+        t_root_done, t_retx = _serve_nacks(
+            self.root_pool, arrivals, wk, _nack_service(self.n_chunks, wk, fab.mtu),
+            _nack_wire_bytes(self.n_chunks, fab.mtu), n_union, self.chunk, self.eng.now)
         if self.tree is not None:
             members = [self.hosts[self.root]] + [self.hosts[leaf] for leaf in leaves]
             rtree = self.topology.multicast_tree(self.hosts[self.root], members)
@@ -723,8 +749,10 @@ def simulate_packet_broadcast(
     """Packet-fidelity reliable Broadcast on the abstract fabric or, with
     ``topology=`` (ranks on ``hosts``, default 0..P-1), routed down the
     multicast tree, equal field for field to the reference's on the same
-    arguments and generator (``link_bytes`` the routed engine run's). The
-    leaves' receive datapath runs on ``device`` (default ``cuda``; pass
+    arguments and generator (``link_bytes`` the routed engine run's).
+    ``dpa_fidelity="event"`` swaps the scalar worker pool for the event-level
+    DPA progress engine (``dpa=``: its ``EventDpaParams`` or ``DpaConfig``).
+    The leaves' receive datapath runs on ``device`` (default ``cuda``; pass
     ``device="cpu"`` for the plain versions)."""
     _check_packet_options(dpa_fidelity, dpa, engine)
     if not 0 <= root < p:
@@ -736,7 +764,7 @@ def simulate_packet_broadcast(
         topology.reset()
     run = _BroadcastRun(p, n_bytes, fabric, workers, rng, root, eng, dev, topology=topology,
                         hosts=hosts, loss=loss, aggregate_nacks=aggregate_nacks,
-                        collect_delivery=collect_delivery)
+                        collect_delivery=collect_delivery, dpa_fidelity=dpa_fidelity, dpa=dpa)
     run.submit_fast(t_rnr)
     eng.run()
     run.deliver_fast()
@@ -811,9 +839,12 @@ def simulate_packet_allgather(
     topology (reference packet.py:1154): builds the Appendix-A schedule graph
     (``sched_ir.build_allgather``, uneven chains too) and executes it at
     packet fidelity (``sched_ir._packet_allgather``). Equal field for field
-    to the reference's on the same arguments and generator; the leaves'
-    receive datapath runs on ``device`` (default ``cuda``; pass
-    ``device="cpu"`` for the plain versions)."""
+    to the reference's on the same arguments and generator.
+    ``dpa_fidelity="event"`` gives every host a persistent event-level DPA; a
+    chain root's NACK service and retransmit posting then run on the
+    contexts that receive the other chains. The leaves' receive datapath
+    runs on ``device`` (default ``cuda``; pass ``device="cpu"`` for the
+    plain versions)."""
     from repro_torch.core import sched_ir
 
     sched = sched_ir.build_allgather(p, n_bytes, n_chains)

@@ -50,8 +50,10 @@ import torch
 
 from repro_torch.core import protocol
 from repro_torch.core import schedule as seq
+from repro_torch.core.dpa_engine import DPA_FIDELITIES, DpaEventPool, resolve_event_params
 from repro_torch.core.engine import (FSDP_POLICIES, Engine, FabricParams, WorkerParams,
-                                     worker_pool_completion, worker_pool_completion_rows)
+                                     staging_rnr_mask, worker_pool_completion,
+                                     worker_pool_completion_rows)
 from repro_torch.device import device_of
 from repro_torch.kernels import bitmap, pool
 
@@ -884,16 +886,56 @@ def _exec_analytic(sched: Schedule, fabric: FabricParams, workers: WorkerParams)
 
 
 def _check_packet_options(dpa_fidelity: str, dpa, engine: str) -> None:
-    """The reference's packet options that the port does not have raise, as
-    ``simulate_packet_broadcast`` raises them."""
-    if dpa_fidelity != "scalar" or dpa is not None:
-        raise NotImplementedError("dpa_fidelity='event' / dpa=: the event-level DPA is not "
-                                  "ported yet (ROADMAP.md §1, item 7)")
+    """The packet options' guards, as the reference's; ``engine="reference"``,
+    the reference's per-leaf executor, is not ported and raises."""
+    if dpa_fidelity not in DPA_FIDELITIES:
+        raise ValueError(f"dpa_fidelity must be one of {DPA_FIDELITIES}, got {dpa_fidelity!r}")
+    if dpa is not None and dpa_fidelity != "event":
+        raise ValueError("dpa= requires dpa_fidelity='event'")
     if engine == "reference":
-        raise NotImplementedError("engine='reference': only the vectorized executor is "
-                                  "ported (ROADMAP.md)")
+        raise NotImplementedError("engine='reference': the reference's per-leaf packet "
+                                  "executor is not ported (ROADMAP.md §1, \"Not queued\")")
     if engine not in ("auto", "vectorized"):
         raise ValueError(f"engine must be 'auto', 'vectorized' or 'reference', got {engine!r}")
+
+
+def _event_rows(pools: list, vals: torch.Tensor, counts: torch.Tensor, chunk: float,
+                staging: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The event-level DPA's pass over sorted arrival rows: ``vals`` (B, w)
+    and ``counts`` (B,) come to the host once, row k's real prefix goes
+    through ``pools[k]`` (a persistent ``DpaEventPool``, in row order), and
+    (t_last (B,): the latest done time, NaN for an empty row; the
+    staging-ring drops (B, w) in ``vals``' order) go back to its device."""
+    arr, cnt = vals.cpu().numpy(), counts.cpu().numpy()
+    t_last = np.full(arr.shape[0], np.nan)
+    rnr = np.zeros(arr.shape, dtype=bool)
+    for k, dpa_pool in enumerate(pools):
+        c = int(cnt[k])
+        if c:
+            a = arr[k, :c]
+            done = dpa_pool.service_batch(a, chunk)
+            t_last[k] = done.max()
+            rnr[k, :c] = staging_rnr_mask(done, a, staging)
+    return torch.from_numpy(t_last).to(vals.device), torch.from_numpy(rnr).to(vals.device)
+
+
+def _serve_nacks(root_pool, arrivals: np.ndarray, workers: WorkerParams, nack_service: float,
+                 nack_wire: int, n_union: int, chunk: float, now: float) -> tuple[float, float]:
+    """The root's side of a recovery round: the NACK arrivals served by the
+    scalar pool (``root_pool`` None) or by the root's persistent event pool,
+    which then posts the ``n_union`` retransmit WQEs on the same contexts
+    (the wire injection overlaps the posting). Returns (the NACKs' latest
+    service time, the retransmission's start)."""
+    if root_pool is None:
+        done, _ = worker_pool_completion(arrivals, workers.n_recv_workers, nack_service,
+                                         workers.staging_chunks)
+        return float(done[-1]), max(float(done[-1]), now)
+    t_done, _ = root_pool.service_with_rnr(arrivals, np.arange(arrivals.shape[0]), nack_wire,
+                                           workers.staging_chunks, kind="nack",
+                                           wire_bytes=nack_wire)
+    t_retx = max(t_done, now)
+    root_pool.service_batch(np.full(n_union, t_retx), chunk, kind="retx")
+    return t_done, t_retx
 
 
 class _Chain:
@@ -989,7 +1031,8 @@ def _chain_losses(chains: list[_Chain], sampled: list[dict], sizes: list[int],
 
 
 def _merged_pool(arr: torch.Tensor, counts: torch.Tensor, t_floor: torch.Tensor,
-                 workers: WorkerParams, service: float, block_elems: int):
+                 workers: WorkerParams, service: float, block_elems: int,
+                 pools: list | None = None, chunk: float = 0.0):
     """Every leaf's worker pool fed the merged stream of all chains, as one
     pass over a (rows, chains, width) arrival matrix on its device. ``arr``
     holds each delivered chunk's arrival time and +inf where nothing
@@ -999,7 +1042,10 @@ def _merged_pool(arr: torch.Tensor, counts: torch.Tensor, t_floor: torch.Tensor,
     of its concatenated rows does, and the +inf sentinels sort past the
     real entries. ``counts`` (rows,) are the real entries a row. Rows go
     through the pool kernel in blocks of ``block_elems`` elements (one
-    launch at every shape this port's checks run). Returns (t_done (rows,):
+    launch at every shape this port's checks run), or with ``pools`` (a
+    ``DpaEventPool`` a row) through the event-level DPA on the host
+    (``_event_rows``: the reference's per-leaf merged pass, the stable sort
+    still on the device). Returns (t_done (rows,):
     the latest completion of a row's real entries, ``t_floor`` where it
     has none; the staging-ring drops (rows, chains, width) in ``arr``'s
     layout)."""
@@ -1012,10 +1058,14 @@ def _merged_pool(arr: torch.Tensor, counts: torch.Tensor, t_floor: torch.Tensor,
     for b0 in range(0, b, blk):
         b1 = min(b0 + blk, b)
         vals, order = torch.sort(rows[b0:b1], dim=1, stable=True)
-        done, drop = pool.pool_completion_rows(vals, workers.n_recv_workers, service,
-                                               workers.staging_chunks)
-        real = pos[None, :] < counts[b0:b1, None]
-        last = torch.where(real, done, -math.inf).amax(1)
+        if pools is None:
+            done, drop = pool.pool_completion_rows(vals, workers.n_recv_workers, service,
+                                                   workers.staging_chunks)
+            real = pos[None, :] < counts[b0:b1, None]
+            last = torch.where(real, done, -math.inf).amax(1)
+        else:
+            last, drop = _event_rows(pools[b0:b1], vals, counts[b0:b1], chunk,
+                                     workers.staging_chunks)
         t_done[b0:b1] = torch.where(counts[b0:b1] > 0, last, t_floor[b0:b1])
         rnr[b0:b1] = torch.zeros_like(drop).scatter_(1, order, drop)
     return t_done, rnr.view(b, m, w)
@@ -1027,8 +1077,8 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
                       dpa_fidelity: str = "scalar", dpa=None, engine: str = "auto",
                       device=None):
     """Packet-fidelity lowering of an allgather schedule (reference
-    sched_ir.py:1210, the vectorized executor, scalar DPA), on the abstract
-    fabric or a routed topology (``topology=``, ``hosts=``).
+    sched_ir.py:1210, the vectorized executor), on the abstract fabric or a
+    routed topology (``topology=``, ``hosts=``), at either DPA fidelity.
 
     Each generation of the activation DAG runs its chain roots' Broadcasts
     at once on one fluid engine (host): abstractly every chain's flow, and
@@ -1089,7 +1139,13 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
     skip_jitter = fabric.jitter == 0.0 and (topology is None or template is None)
     service = chunk / workers.thread_tput
     nack_service = pk._nack_service(n, workers, fabric.mtu)
+    nack_wire = pk._nack_wire_bytes(n, fabric.mtu)
     leaves = np.arange(p)
+    # the event-level DPA: one persistent progress engine a host
+    pools = None
+    if dpa_fidelity == "event":
+        params = resolve_event_params(dpa, workers.n_recv_workers)
+        pools = [DpaEventPool(params) for _ in range(p)]
 
     def jitter(arr: torch.Tensor, got: torch.Tensor, counts: torch.Tensor) -> None:
         """One sized draw for a pass, added to the arrivals row-major:
@@ -1131,7 +1187,8 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
         arr = torch.where(got, inject[None] + hop, math.inf)
         jitter(arr, got, counts)
         t_floor = torch.full((p,), t, dtype=torch.float64, device=dev)
-        leaf_done, rnr = _merged_pool(arr, counts, t_floor, workers, service, pk._BLOCK_ELEMS)
+        leaf_done, rnr = _merged_pool(arr, counts, t_floor, workers, service, pk._BLOCK_ELEMS,
+                                      pools, chunk)
         rnr_total += int(rnr.sum())
         missing = rnr if lost is None else lost | rnr
         t_fast = max(t, float(leaf_done.max()))
@@ -1164,9 +1221,11 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
                 nackers = rl[nack_rl[:, li]]
                 t_send = np.maximum(done_np[nackers], cutoff) + ch.hop[nackers]
                 arrivals = np.array([t_send.max()]) if aggregate_nacks else np.sort(t_send)
-                done, _ = worker_pool_completion(arrivals, workers.n_recv_workers,
-                                                 nack_service, workers.staging_chunks)
-                t_retx = max(float(done[-1]), eng.now)
+                # the chain root's DPA serves the NACKs: in event mode the
+                # contexts that receive every other chain's stream
+                _, t_retx = _serve_nacks(None if pools is None else pools[ch.root], arrivals,
+                                         workers, nack_service, nack_wire, int(u[li]), chunk,
+                                         eng.now)
                 nbytes = int(u[li]) * chunk
                 if ch.tree is not None:
                     members = [host_list[ch.root]] + [host_list[x] for x in nackers]
@@ -1201,7 +1260,8 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
             arr = torch.where(got, inj_r.to(dev)[None] + hop_r, math.inf)
             jitter(arr, got, counts)
             t_done, rnr = _merged_pool(arr, counts, leaf_done[rows], workers, service,
-                                       pk._BLOCK_ELEMS)
+                                       pk._BLOCK_ELEMS,
+                                       None if pools is None else [pools[x] for x in rl], chunk)
             delivered = got & ~rnr
             rnr_total += int(rnr.sum())
             per_chain = delivered.sum((0, 2)).cpu().numpy()

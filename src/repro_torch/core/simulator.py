@@ -10,7 +10,11 @@ Port of ``src/repro/core/simulator.py``. ``simulate_broadcast`` and
            recovery is the closed-form fetch-ring term;
   "packet" the packet lowering (``core/packet.py``): MTU packets, per-leaf
            loss models (``loss=``), NACK aggregation and retransmission
-           rounds; at loss 0 it reproduces the fluid times.
+           rounds; at loss 0 it reproduces the fluid times. Its DPA has two
+           fidelities (``dpa_fidelity="scalar"|"event"``, forwarded): the
+           scalar worker pool (``workers_from_dpa``, re-exported here, sizes
+           it from the calibrated model), or the event-level progress
+           engine of ``core/dpa_engine.py`` (``dpa=``).
 
 With ``topology=`` (``core/topology.py``: ``FatTree``, ``IslandFatTree``,
 ``Torus2D``; fluid fidelity) the ranks sit on hosts (``hosts=``, default
@@ -26,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core import sched_ir
-from repro_torch.core.engine import FabricParams, WorkerParams
+from repro_torch.core.engine import (FabricParams, WorkerParams,  # noqa: F401 (re-exported)
+                                     workers_from_dpa)
 
 FIDELITIES = ("fluid", "packet")
 

@@ -64,6 +64,39 @@ def test_fsdp_step_matches_reference(o, policy, fidelity):
     assert rng_t.random() == rng_r.random()
 
 
+@pytest.mark.parametrize("fidelity", ["fluid", "packet"])
+@pytest.mark.parametrize("policy", ["naive", "mcast", "split"])
+@pytest.mark.parametrize("o", [None, 4.0])
+def test_host_progress_engine_matches_reference(o, policy, fidelity):
+    """progress_engine="host": the receive datapath on host cores (its
+    throughput from the event engine, ``datapath_tput``), the compute
+    stretched by the stolen cores; uniform and with ``layers=``."""
+    loss = 1e-3 if fidelity == "packet" else None
+    for cores, total in ((2, 108), (1, 16), (4, 54)):
+        got, want, rng_t, rng_r = step_both(o, n_layers=4, layer_bytes=64e6, p=16,
+                                            policy=policy, fidelity=fidelity, loss=loss,
+                                            progress_engine="host", host_cores=cores,
+                                            host_total_cores=total)
+        assert_same(got, want, ctx=f"host {o} {policy} {fidelity} {cores}/{total}")
+        assert rng_t.random() == rng_r.random()
+        assert got.progress_engine == "host" and got.datapath_tput > 0
+        dpa_run, _, _, _ = step_both(o, n_layers=4, layer_bytes=64e6, p=16, policy=policy,
+                                     fidelity=fidelity, loss=loss)
+        assert got.step_time > dpa_run.step_time and dpa_run.datapath_tput is None
+    layers_t = [engine.LayerProfile(1e-3 * (i + 1), 2e-3 * (i + 1), 16e6 * (i + 1))
+                for i in range(3)]
+    layers_r = [ref_engine.LayerProfile(lp.fwd_s, lp.bwd_s, lp.layer_bytes) for lp in layers_t]
+    t_topo, r_topo = _fabrics(o)
+    got = engine.simulate_fsdp_step(layers=layers_t, p=16, policy=policy, topology=t_topo,
+                                    fidelity=fidelity, loss=loss, rng=np.random.default_rng(3),
+                                    progress_engine="host", host_cores=3, device="cpu")
+    want = ref_engine.simulate_fsdp_step(layers=layers_r, p=16, policy=policy,
+                                         topology=r_topo, fidelity=fidelity, loss=loss,
+                                         rng=np.random.default_rng(3), progress_engine="host",
+                                         host_cores=3)
+    assert_same(got, want, ctx=f"host layers {o} {policy} {fidelity}")
+
+
 @pytest.mark.parametrize("policy", ["naive", "mcast", "split"])
 @pytest.mark.parametrize("o", [None, 4.0])
 def test_fsdp_step_with_layers_matches_reference(o, policy):
@@ -162,8 +195,12 @@ def test_multi_job_matches_reference(o):
 
 
 def test_what_still_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine.simulate_fsdp_step(p=8, progress_engine="host", device="cpu")
+    with pytest.raises(ValueError, match="progress_engine"):
+        engine.simulate_fsdp_step(p=8, progress_engine="smartnic", device="cpu")
+    for cores, total in ((0, 108), (108, 108)):
+        with pytest.raises(ValueError, match="host_cores"):
+            engine.simulate_fsdp_step(p=8, progress_engine="host", host_cores=cores,
+                                      host_total_cores=total, device="cpu")
     with pytest.raises(ValueError, match="loss"):
         engine.simulate_fsdp_step(p=8, loss=1e-3, device="cpu")
     with pytest.raises(ValueError, match="policy"):

@@ -570,6 +570,41 @@ def test_routed_packet_broadcast_and_allgather_on_cuda_equal_cpu():
 
 
 @pytest.mark.gpu
+def test_event_dpa_packet_paths_on_cuda_equal_cpu():
+    """The event-level DPA on the card: a lossy Broadcast with a short
+    staging ring (P = 32, 4 UD threads) and a routed Allgather (16 hosts,
+    4 chains, jitter) equal their CPU runs field for field. The leaves'
+    pools run on the host: no pool launch; each recovery round one pack, OR
+    and popcount."""
+    _need_cuda()
+    from repro_torch.core import dpa
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+        bc = PK.simulate_packet_broadcast(32, 4 << 20, E.FabricParams(),
+                                          E.WorkerParams(staging_chunks=256),
+                                          np.random.default_rng(0), loss=0.01,
+                                          collect_delivery=True, dpa_fidelity="event",
+                                          dpa=dpa.DpaConfig("UD", 4), device=dev)
+        ag = PK.simulate_packet_allgather(16, 1 << 20, E.FabricParams(),
+                                          E.WorkerParams(n_recv_workers=8),
+                                          np.random.default_rng(1), 4,
+                                          topology=T.FatTree(k=8, n_hosts=16), loss=0.005,
+                                          dpa_fidelity="event", device=dev)
+        after = (PL.launches, BM.pack_launches, BM.or_launches, BM.popcount_launches)
+        out[dev] = (bc, ag, [x - y for x, y in zip(after, before)])
+    (a, a_ag, _), (b, b_ag, launched) = out["cpu"], out["cuda"]
+    assert a.rnr_drops > 0 and a.rounds and a_ag.recovered
+    assert launched[0] == 0 and launched[1] == launched[2] == launched[3] > 0
+    assert np.array_equal(a.completion, b.completion) and a.phases == b.phases
+    assert a.rounds == b.rounds and a.rnr_drops == b.rnr_drops
+    for leaf, order in a.delivery_order.items():
+        assert np.array_equal(order, b.delivery_order[leaf])
+    assert a_ag == b_ag
+
+
+@pytest.mark.gpu
 def test_routed_fsdp_step_on_cuda_equals_cpu():
     """The routed FSDP step (64 hosts of an oversubscribed k = 8 fat-tree,
     the split policy with the packet overlay) and two-job contention on the

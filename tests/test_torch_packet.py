@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import dpa as ref_dpa
+from repro.core import dpa_engine as ref_de
 from repro.core import engine as ref_engine
 from repro.core import packet as ref_packet
 from repro.core import protocol as ref_protocol
-from repro_torch.core import engine, packet, protocol
+from repro_torch.core import dpa, dpa_engine, engine, packet, protocol
 from repro_torch.kernels import bitmap
 
 FAB = dict(jitter=0.0)
@@ -29,12 +31,14 @@ def _loss(spec, mod):
         if isinstance(spec, tuple) else spec
 
 
-def run_both(p, n, fab, wk, seed, loss=None, **kw):
-    """(port, reference) results, and both generators afterwards."""
+def run_both(p, n, fab, wk, seed, loss=None, *, dpa_ref=None, **kw):
+    """(port, reference) results, and both generators afterwards; ``dpa=``
+    goes to the port, ``dpa_ref=`` to the reference."""
     rng_t, rng_r = np.random.default_rng(seed), np.random.default_rng(seed)
     got = packet.simulate_packet_broadcast(
         p, n, engine.FabricParams(**fab), engine.WorkerParams(**wk), rng_t,
         loss=_loss(loss, packet), device="cpu", **kw)
+    kw["dpa"] = dpa_ref
     want = ref_packet.simulate_packet_broadcast(
         p, n, ref_engine.FabricParams(**fab), ref_engine.WorkerParams(**wk), rng_r,
         loss=_loss(loss, ref_packet), **kw)
@@ -206,11 +210,84 @@ def test_loss_models_and_flow_times_match_reference():
                 np.testing.assert_array_equal(x, y)
 
 
+def _dpa(spec, pair):
+    """``dpa=`` in one package: None, a DpaConfig or an EventDpaParams."""
+    dpa_mod, de_mod = pair
+    if spec is None:
+        return None
+    if spec[0] == "config":
+        return dpa_mod.DpaConfig(*spec[1:])
+    if spec[0] == "zero":
+        return de_mod.EventDpaParams.zero_cost(spec[1])
+    if spec[0] == "host":
+        return de_mod.EventDpaParams.host_cpu(spec[1])
+    return de_mod.EventDpaParams.from_table1(*spec[1:])
+
+
+# the event-level DPA (dpa_fidelity="event"): i.i.d. and bursty loss, jitter
+# 0 and 1 us, aggregation on and off, the staging ring overflowing (a slow
+# host pool, a small ring), dpa= as a DpaConfig and as EventDpaParams
+EVENT_GRID = [
+    # (p, n_bytes, fab, wk, loss, seed, dpa, aggregate_nacks)
+    (16, 1 << 20, FAB, dict(n_recv_workers=16), 1e-3, 0, None, True),
+    (16, 1 << 18, FABJ, WK, 0.02, 1, ("config", "UD", 16), True),
+    (16, 1 << 18, FAB, WK, GE, 2, ("params", "UC", 4), False),
+    (33, 1 << 18, FABJ, WK1, 0.01, 3, ("params", "UD", 1), True),
+    (8, 1 << 18, FABJ, dict(staging_chunks=16), 0.05, 4, ("host", 1), True),   # RNR
+    (64, 1 << 18, FAB, WK, None, 5, ("config", "UC", 2), True),                  # lossless
+    (12, 1 << 16, FABJ, WK, 0.05, 6, ("zero", 8), False),
+]
+
+
+@pytest.mark.parametrize("p,n,fab,wk,loss,seed,spec,agg", EVENT_GRID)
+def test_event_dpa_broadcast_matches_reference(p, n, fab, wk, loss, seed, spec, agg):
+    kw = dict(collect_delivery=True, aggregate_nacks=agg, dpa_fidelity="event")
+    got, want, rng_t, rng_r = run_both(p, n, fab, wk, seed, loss, **kw,
+                                       dpa=_dpa(spec, (dpa, dpa_engine)),
+                                       dpa_ref=_dpa(spec, (ref_dpa, ref_de)))
+    assert_bcast_equal(got, want, ctx=f"event p={p} loss={loss} dpa={spec}")
+    assert rng_t.random() == rng_r.random()
+    assert got.completed
+    if spec is not None and spec[0] == "zero":
+        # a free progress engine serves every chunk at its arrival: no
+        # slower than the scalar pool
+        scalar, _, _, _ = run_both(p, n, fab, wk, seed, loss, aggregate_nacks=agg)
+        assert got.time <= scalar.time
+    if wk.get("staging_chunks") == 16:
+        assert got.rnr_drops > 0
+
+
+def test_event_dpa_leaves_the_generator_as_the_reference():
+    rngs = [np.random.default_rng(9), np.random.default_rng(9)]
+    packet.simulate_packet_broadcast(16, 1 << 18, engine.FabricParams(), engine.WorkerParams(),
+                                     rngs[0], loss=0.02, dpa_fidelity="event", device="cpu")
+    ref_packet.simulate_packet_broadcast(16, 1 << 18, ref_engine.FabricParams(),
+                                         ref_engine.WorkerParams(), rngs[1], loss=0.02,
+                                         dpa_fidelity="event")
+    assert rngs[0].random() == rngs[1].random()
+
+
 def test_unported_options_raise():
+    """engine="reference" (the reference's per-leaf executor) is not ported;
+    the event DPA is, with the reference's guards on ``dpa=``."""
     args = (8, 1 << 16, engine.FabricParams(), engine.WorkerParams(), np.random.default_rng(0))
-    for kw in (dict(dpa_fidelity="event"), dict(dpa=object()), dict(engine="reference")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            packet.simulate_packet_broadcast(*args, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Not queued"):
+        packet.simulate_packet_broadcast(*args, device="cpu", engine="reference")
+    with pytest.raises(ValueError, match="dpa_fidelity"):
+        packet.simulate_packet_broadcast(*args, device="cpu", dpa=dpa.DpaConfig())
+    with pytest.raises(ValueError, match="dpa_fidelity"):
+        packet.simulate_packet_broadcast(*args, device="cpu", dpa_fidelity="cycle")
+    with pytest.raises(TypeError):
+        packet.simulate_packet_broadcast(*args, device="cpu", dpa_fidelity="event",
+                                         dpa=object())
+    got = packet.simulate_packet_broadcast(8, 1 << 16, engine.FabricParams(),
+                                           engine.WorkerParams(), np.random.default_rng(0),
+                                           loss=0.05, dpa_fidelity="event", device="cpu")
+    want = ref_packet.simulate_packet_broadcast(8, 1 << 16, ref_engine.FabricParams(),
+                                                ref_engine.WorkerParams(),
+                                                np.random.default_rng(0), loss=0.05,
+                                                dpa_fidelity="event")
+    assert_bcast_equal(got, want, ctx="event")
     # topology= and hosts= are ported (the routed packet mode): equal to the
     # reference's; without a topology the hosts only name the ranks
     from repro.core import topology as ref_topo
@@ -229,5 +306,7 @@ def test_unported_options_raise():
     # the fluid fidelity is ported: equal to the reference's
     assert protocol.broadcast_time(8, 1 << 16, fidelity="fluid", device="cpu") == \
         ref_protocol.broadcast_time(8, 1 << 16, fidelity="fluid")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         protocol.broadcast_time(8, 1 << 16, dpa=object(), device="cpu")
+    assert protocol.broadcast_time(8, 1 << 16, dpa=dpa.DpaConfig("UD", 4), device="cpu") == \
+        ref_protocol.broadcast_time(8, 1 << 16, dpa=ref_dpa.DpaConfig("UD", 4))

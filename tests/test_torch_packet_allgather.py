@@ -12,13 +12,16 @@ import dataclasses
 import numpy as np
 import pytest
 
+from repro.core import dpa as ref_dpa
+from repro.core import dpa_engine as ref_de
 from repro.core import engine as ref_engine
 from repro.core import packet as ref_packet
 from repro.core import protocol as ref_protocol
 from repro.core import sched_ir as ref_ir
 from repro.core import schedule as ref_seq
 from repro.core import simulator as ref_sim
-from repro_torch.core import engine, packet, protocol, sched_ir, schedule, simulator
+from repro_torch.core import dpa, dpa_engine, engine, packet, protocol, sched_ir, schedule, \
+    simulator
 from repro_torch.kernels import bitmap, pool
 
 FAB = dict(jitter=0.0)
@@ -34,12 +37,14 @@ def _loss(spec, mod):
         if isinstance(spec, tuple) else spec
 
 
-def run_both(p, n, m, fab, wk, seed, loss=None, **kw):
-    """(port, reference) results, and both generators afterwards."""
+def run_both(p, n, m, fab, wk, seed, loss=None, *, dpa_ref=None, **kw):
+    """(port, reference) results, and both generators afterwards; ``dpa=``
+    goes to the port, ``dpa_ref=`` to the reference."""
     rng_t, rng_r = np.random.default_rng(seed), np.random.default_rng(seed)
     got = packet.simulate_packet_allgather(
         p, n, engine.FabricParams(**fab), engine.WorkerParams(**wk), rng_t, m,
         loss=_loss(loss, packet), device="cpu", **kw)
+    kw["dpa"] = dpa_ref
     want = ref_packet.simulate_packet_allgather(
         p, n, ref_engine.FabricParams(**fab), ref_engine.WorkerParams(**wk), rng_r, m,
         loss=_loss(loss, ref_packet), **kw)
@@ -93,6 +98,50 @@ def test_allgather_matches_reference(p, n, m, fab, wk, loss, seed):
     assert _launches() == before          # CPU tensors take the plain versions
     assert_ag_equal(got, want, ctx=f"p={p} m={m} loss={loss}")
     assert rng_t.random() == rng_r.random()     # the generators end in one state
+
+
+def _dpa(spec, pair):
+    """``dpa=`` in one package: None, a DpaConfig or an EventDpaParams."""
+    dpa_mod, de_mod = pair
+    if spec is None:
+        return None
+    if spec[0] == "config":
+        return dpa_mod.DpaConfig(*spec[1:])
+    if spec[0] == "host":
+        return de_mod.EventDpaParams.host_cpu(spec[1])
+    return de_mod.EventDpaParams.from_table1(*spec[1:])
+
+
+# the event-level DPA (dpa_fidelity="event"): a persistent pool a host, the
+# chain roots' NACK service and retransmit posting on the pools that receive
+# the other chains; n_chains 1, 3 and P, i.i.d. and bursty loss, jitter 0
+# and 1 us, aggregation on and off, the staging ring overflowing
+EVENT_AG_GRID = [
+    # (p, n_bytes, m, fab, wk, loss, seed, dpa, aggregate_nacks)
+    (16, 1 << 18, 4, FABJ, dict(n_recv_workers=16), 1e-3, 0, None, True),
+    (12, 1 << 16, 3, FAB, WK, 0.05, 1, ("config", "UD", 16), True),
+    (9, 1 << 16, 1, FABJ, WK1, 0.05, 2, ("params", "UC", 4), False),
+    (8, 1 << 16, 8, FABJ, WK, GE, 3, ("params", "UD", 8), True),          # M = P
+    (10, 1 << 17, 4, FAB, WKS, 0.02, 4, ("host", 2), True),               # RNR, jitter 0
+    (16, 1 << 17, 16, FABJ, WKS, 0.01, 5, ("params", "UD", 2), False),    # M = P, RNR
+    (16, 1 << 17, 3, FAB, WK, None, 6, ("config", "UC", 8), True),        # lossless
+]
+
+
+@pytest.mark.parametrize("p,n,m,fab,wk,loss,seed,spec,agg", EVENT_AG_GRID)
+def test_event_dpa_allgather_matches_reference(p, n, m, fab, wk, loss, seed, spec, agg):
+    before = _launches()
+    got, want, rng_t, rng_r = run_both(p, n, m, fab, wk, seed, loss, aggregate_nacks=agg,
+                                       dpa_fidelity="event", dpa=_dpa(spec, (dpa, dpa_engine)),
+                                       dpa_ref=_dpa(spec, (ref_dpa, ref_de)))
+    assert _launches() == before
+    assert_ag_equal(got, want, ctx=f"event p={p} m={m} loss={loss} dpa={spec}")
+    assert rng_t.random() == rng_r.random()
+    assert got.completed
+    if wk is WKS:
+        assert got.rnr_drops > 0
+    if loss is not None:
+        assert got.recovered > 0
 
 
 def test_grid_exercises_recovery_and_the_staging_ring():
@@ -280,11 +329,17 @@ def test_staggered_flows_share_one_link_like_the_reference():
 
 
 def test_unported_options_raise():
+    """engine="reference" is not ported; the event DPA is, with the
+    reference's guards on ``dpa=``."""
     args = (8, 1 << 16, engine.FabricParams(), engine.WorkerParams(), np.random.default_rng(0),
             2)
-    for kw in (dict(dpa_fidelity="event"), dict(dpa=object()), dict(engine="reference")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            packet.simulate_packet_allgather(*args, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Not queued"):
+        packet.simulate_packet_allgather(*args, device="cpu", engine="reference")
+    with pytest.raises(ValueError, match="dpa_fidelity"):
+        packet.simulate_packet_allgather(*args, device="cpu", dpa=dpa.DpaConfig())
+    with pytest.raises(TypeError):
+        packet.simulate_packet_allgather(*args, device="cpu", dpa_fidelity="event",
+                                         dpa=object())
     with pytest.raises(ValueError, match="engine"):
         packet.simulate_packet_allgather(*args, device="cpu", engine="fast")
     # topology= and hosts= are ported (the routed packet mode): equal to the
@@ -310,8 +365,12 @@ def test_unported_options_raise():
         (want.time, dataclasses.astuple(want.phases))
     assert protocol.allgather_time(8, 1 << 16, fidelity="fluid", device="cpu") == \
         ref_protocol.allgather_time(8, 1 << 16, fidelity="fluid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError):
         protocol.allgather_time(8, 1 << 16, dpa=object(), device="cpu")
+    assert protocol.allgather_time(8, 1 << 16, n_chains=2, dpa=dpa.DpaConfig("UC", 2),
+                                   loss=0.05, device="cpu") == \
+        ref_protocol.allgather_time(8, 1 << 16, n_chains=2, dpa=ref_dpa.DpaConfig("UC", 2),
+                                    loss=0.05)
     # the ring kinds at packet fidelity are ported: equal to the reference's
     ring = sched_ir.Schedule("ring_allgather", 2, 8, (sched_ir.Unicast(0, 1, 8),))
     ref_ring = ref_ir.Schedule("ring_allgather", 2, 8, (ref_ir.Unicast(0, 1, 8),))

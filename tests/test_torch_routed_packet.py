@@ -13,13 +13,16 @@ import dataclasses
 import numpy as np
 import pytest
 
+from repro.core import dpa as ref_dpa
+from repro.core import dpa_engine as ref_de
 from repro.core import engine as ref_engine
 from repro.core import packet as ref_packet
 from repro.core import protocol as ref_protocol
 from repro.core import sched_ir as ref_ir
 from repro.core import simulator as ref_sim
 from repro.core import topology as ref_topo
-from repro_torch.core import engine, packet, protocol, sched_ir, simulator, topology
+from repro_torch.core import dpa, dpa_engine, engine, packet, protocol, sched_ir, simulator, \
+    topology
 
 WK = dict(n_recv_workers=8)
 GE = ("ge", 0.01, 8.0)                    # GilbertElliottLoss.from_rate(0.01, mean_burst=8)
@@ -200,6 +203,46 @@ def test_routed_allgather_with_attached_loss_and_placed_hosts_matches():
     assert rng_t.random() == rng_r.random()
 
 
+# the event-level DPA on a routed fabric (dpa_fidelity="event")
+EVENT_ROUTED = [
+    # (kind, p, m, jitter, loss, seed, dpa, aggregate_nacks)
+    ("bcast", 32, None, 0.0, 0.02, 0, "config", True),
+    ("bcast", 16, None, 1e-6, GE, 1, "params", False),
+    ("allgather", 16, 4, 1e-6, 0.005, 2, "config", True),
+    ("allgather", 16, 16, 0.0, GE, 3, "params", False),
+    ("allgather", 12, 1, 1e-6, 0.01, 4, None, True),
+]
+
+
+@pytest.mark.parametrize("kind,p,m,jitter,loss,seed,spec,agg", EVENT_ROUTED)
+def test_routed_event_dpa_matches_reference(kind, p, m, jitter, loss, seed, spec, agg):
+    topos = _fabrics("FatTree", 8, n_hosts=p, b_host=25e9)
+    mine = {"config": dpa.DpaConfig("UD", 8), "params":
+            dpa_engine.EventDpaParams.from_table1("UC", 3), None: None}[spec]
+    ref = {"config": ref_dpa.DpaConfig("UD", 8), "params":
+           ref_de.EventDpaParams.from_table1("UC", 3), None: None}[spec]
+    rng_t, rng_r = np.random.default_rng(seed), np.random.default_rng(seed)
+    kw = dict(aggregate_nacks=agg, dpa_fidelity="event")
+    args_t = (p, 1 << 16, engine.FabricParams(jitter=jitter), engine.WorkerParams(**WK), rng_t)
+    args_r = (p, 1 << 16, ref_engine.FabricParams(jitter=jitter),
+              ref_engine.WorkerParams(**WK), rng_r)
+    if kind == "bcast":
+        got = packet.simulate_packet_broadcast(*args_t, topology=topos[0], dpa=mine,
+                                               loss=_loss(loss, packet), device="cpu",
+                                               collect_delivery=True, **kw)
+        want = ref_packet.simulate_packet_broadcast(*args_r, topology=topos[1], dpa=ref,
+                                                    loss=_loss(loss, ref_packet),
+                                                    collect_delivery=True, **kw)
+    else:
+        got = packet.simulate_packet_allgather(*args_t, m, topology=topos[0], dpa=mine,
+                                               loss=_loss(loss, packet), device="cpu", **kw)
+        want = ref_packet.simulate_packet_allgather(*args_r, m, topology=topos[1], dpa=ref,
+                                                    loss=_loss(loss, ref_packet), **kw)
+    assert_same(got, want, ctx=f"event {kind} p={p} m={m} loss={loss}")
+    assert got.recovered and got.completed and got.link_bytes
+    assert rng_t.random() == rng_r.random()
+
+
 def test_protocol_facades_match_reference_on_a_topology():
     topos = _fabrics("FatTree", 8, n_hosts=16, b_host=25e9)
     assert protocol.broadcast_time(16, 1 << 18, topology=topos[0], loss=0.01, seed=3,
@@ -312,12 +355,14 @@ def test_recovery_overlay_matches_reference(aggregate):
 def test_what_is_still_queued_raises():
     args = (8, 1 << 16, engine.FabricParams(), engine.WorkerParams(), np.random.default_rng(0))
     topo = topology.FatTree(k=4)
-    for kw in (dict(dpa_fidelity="event"), dict(dpa=object())):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            packet.simulate_packet_broadcast(*args, topology=topo, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            packet.simulate_packet_allgather(*args, 2, topology=topo, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the event DPA is ported; a dpa= without it is refused, as the reference refuses it
+    with pytest.raises(ValueError, match="dpa_fidelity"):
+        packet.simulate_packet_broadcast(*args, topology=topo, dpa=dpa.DpaConfig(),
+                                         device="cpu")
+    with pytest.raises(ValueError, match="dpa_fidelity"):
+        packet.simulate_packet_allgather(*args, 2, topology=topo, dpa=dpa.DpaConfig(),
+                                         device="cpu")
+    with pytest.raises(NotImplementedError, match="Not queued"):
         packet.simulate_packet_broadcast(*args, topology=topo, engine="reference",
                                          device="cpu")
     for kind in ("allreduce", "hier_allgather"):

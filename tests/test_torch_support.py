@@ -176,6 +176,53 @@ def test_bridge_keeps_norm_scales_f32():
     assert params["final_ln"].local.dtype == torch.float32
 
 
+def test_gelu_dense_config_gets_the_reference_mlp():
+    """A dense config whose act is not swiglu gets the reference's plain
+    two-layer MLP (``layers.mlp_init``: w_in (d, f) and w_out (f, d)), not a
+    SwiGLU tree: the leaves and shapes of the reference's ``init_params``,
+    the analytic parameter count, and the forward and prefill logits of the
+    reference on the same numpy weights within the serving tolerance (1e-5),
+    through mcast gathers on 8 ranks."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.models import build_model as ref_build_model
+    from repro.models.model_builder import count_params_analytic as ref_count
+    from repro_torch.models.model_builder import count_params_analytic
+    from repro_torch.sharding.ctx import use_ctx
+
+    cfg = dataclasses.replace(SMALL, act="gelu")
+    ref_cfg = dataclasses.replace(ref_reduced(ref_model_config("smollm-135m")), act="gelu")
+    tree = random_tree(cfg, 0)
+    ref_api = ref_build_model(ref_cfg)
+    ref_tree = flatten(jax.tree_util.tree_map(np.asarray,
+                                              ref_api.init_params(jax.random.PRNGKey(0))))
+    mine = flatten(tree)
+    assert {k: v.shape for k, v in mine.items()} == {k: v.shape for k, v in ref_tree.items()}
+    assert "blocks/mlp/w_in" in mine and "blocks/mlp/w_gate" not in mine
+    # the analytic count leaves out the norm scales
+    weights = sum(v.size for k, v in mine.items()
+                  if k.split("/")[-1] not in ("ln1", "ln2", "final_ln"))
+    assert weights == count_params_analytic(cfg) == ref_count(ref_cfg)
+    for name, scale in (("w_in", 1 / np.sqrt(cfg.d_model)), ("w_out", 1 / np.sqrt(cfg.d_ff))):
+        raw = bridge.random_params(cfg, 0)["blocks"]["mlp"][name]
+        assert abs(raw.std() / scale - 1) < 0.05, name
+    b, seq = 8, 16
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (b, seq)).astype(np.int32)
+    ref_params = jax.tree_util.tree_map(jnp.asarray, tree)
+    want_hidden = np.asarray(ref_api.forward_fn(ref_params, {"tokens": jnp.asarray(tokens)}))
+    want_logits, _ = ref_api.prefill_fn(ref_params, {"tokens": jnp.asarray(tokens)})
+    mesh = StackedMesh(data=8, model=1)
+    params = bridge.to_torch(tree, mesh, MeshConfig(), dtype=torch.float32, device="cpu")
+    api, ctx, prefill = make_prefill_step(serve_run(cfg, "mcast", b, seq), mesh, device="cpu")
+    with use_ctx(ctx):
+        hidden = api.forward_fn(params, {"tokens": torch.from_numpy(tokens).long()})
+    logits, _ = prefill(params, {"tokens": torch.from_numpy(tokens).long()})
+    np.testing.assert_allclose(hidden.numpy(), want_hidden, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), rtol=0, atol=1e-5)
+
+
 def _fake_mesh(shape: dict):
     return SimpleNamespace(shape=shape)
 
