@@ -225,6 +225,37 @@
    one pack, OR and popcount; in scalar mode as 5b; the launches must equal
    what the runs imply. Prints the event pools' share of each run's host
    time and the phase's wall time;
+5f. the composite schedules, the chain autotune, the searcher and the
+   phase profiler (core/sched_ir.py's allreduce and hier_allgather kinds,
+   ``autotune_chains``, core/sched_search.py, core/profiling.py), at
+   benchmarks/paper_figs.py's sizes, each of (a) to (c) on the CPU and on
+   the card, field for field equal (a search's wall clock aside), printed
+   as 5c's: (a) ``schedule_ir_sweep``: 4 MiB Allreduces at P = 16 and 64,
+   the ring AG against M = P, abstract and on FatTree(k = 8) (the
+   multicast's fabric bytes under the ring's), ``autotune_chains`` on the
+   flat fabric (P = 64: best M = 64) and on the 4x oversubscribed k = 8
+   tree (P = 16); (b) ``search_sweep``: the Allreduce at P = 16 of 16 MiB
+   on FatTree(k = 8, oversubscription 4) and Torus2D(4, 4), validated at
+   packet fidelity under 1e-3 loss (certificate ratio >= 1, never worse
+   than the best builder, one strict win), both searches under 30 s, a
+   warm re-search wholly from the cache and 3x faster than the cold sweep,
+   the cache on a temporary file that a second ``EvalCache`` serves
+   wholly from disk with the same winners; (c) ``hier_fabric_sweep``: 1 MiB
+   Allgathers on IslandFatTree(8, 64) and (16, 256), islands of 8: the
+   winner a validated ``hier_allgather`` (certificate >= 1) strictly faster
+   than the flat multicast and the ring, its switched-tier bytes under the
+   flat multicast's. The pool, pack, OR and popcount launches must equal
+   what the cells imply: a pool pass a fluid Allgather generation of every
+   candidate simulated (a pruned or cached one none), and the packet
+   validations' as 5b counts them (their round traces from the same
+   validation on the CPU). (d) the FatTree search with ``n_jobs=2`` (two
+   spawned children on the card) equal to the serial one on the card and
+   the CPU's; (e) one more call each of AG-B, AG-R and Fig. 12 (routed)
+   with ``profiling.enable()``, bitwise the unprofiled call: the profiler's
+   report, each phase's share of the call's host ms, ``engine_solve``'s
+   calls equal to the solves and ``pool_solve``'s to the pool launches
+   plus the 1-D host scans of the call. ``REPRO_EVAL_CACHE`` and
+   ``REPRO_SEARCH_WORKERS`` are cleared for the phase;
 6. the collective layer's remaining entry points, each driven once with the
    launch counts zeroed before and read after: (a) the double-buffered
    drain (csrc/double_buffer_drain.cu) equal to its plain version on every
@@ -263,7 +294,7 @@ way, beside each broadcast),
 each kernel's times beside its bound, a JSON line of kernels, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero if any check
 fails or there is no CUDA device. The launches of the pool, pack, OR and
-popcount in the kernels line include phases 5b to 5e's.
+popcount in the kernels line include phases 5b to 5f's.
 """
 from __future__ import annotations
 
@@ -299,7 +330,10 @@ from repro_torch.core import dpa as DPA  # noqa: E402
 from repro_torch.core import dpa_engine as DE  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import packet as PK  # noqa: E402
+from repro_torch.core import profiling  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
+from repro_torch.core import sched_ir as IR  # noqa: E402
+from repro_torch.core import sched_search as SS  # noqa: E402
 from repro_torch.core import simulator as SIM  # noqa: E402
 from repro_torch.core import topology as TOPO  # noqa: E402
 from repro_torch.data.pipeline import SyntheticPipeline  # noqa: E402
@@ -1540,12 +1574,14 @@ def _bcast(name: str, device: str) -> PK.PacketBcastResult:
                                         collect_delivery=True, device=device)
 
 
-def _same_fields(a, b, what: str) -> None:
+def _same_fields(a, b, what: str, skip: tuple = ()) -> None:
     """Every field of two results (dataclasses, dicts, lists, numbers),
-    exactly: arrays element for element, dicts key for key and in order."""
+    exactly: arrays element for element, dicts key for key and in order;
+    the dataclass fields named in ``skip`` (a search's wall clock) aside."""
     if dataclasses.is_dataclass(a):
         for f in dataclasses.fields(a):
-            _same_fields(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
+            if f.name not in skip:
+                _same_fields(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}", skip)
     elif isinstance(a, np.ndarray):
         if a.dtype != b.dtype or not np.array_equal(a, b):
             raise AssertionError(f"{what}: arrays differ")
@@ -1553,12 +1589,12 @@ def _same_fields(a, b, what: str) -> None:
         if list(a) != list(b):
             raise AssertionError(f"{what}: keys differ")
         for k in a:
-            _same_fields(a[k], b[k], f"{what}[{k!r}]")
+            _same_fields(a[k], b[k], f"{what}[{k!r}]", skip)
     elif isinstance(a, (list, tuple)):
         if len(a) != len(b):
             raise AssertionError(f"{what}: lengths differ")
         for i, (x, y) in enumerate(zip(a, b)):
-            _same_fields(x, y, f"{what}[{i}]")
+            _same_fields(x, y, f"{what}[{i}]", skip)
     elif a != b:
         raise AssertionError(f"{what}: {a!r} != {b!r}")
 
@@ -2172,9 +2208,10 @@ def check_pool_rows() -> int:
     return 3 * len(lens)
 
 
-def _figure(name: str, fn, implied, tag: str = "figures") -> tuple:
+def _figure(name: str, fn, implied, tag: str = "figures", skip: tuple = ()) -> tuple:
     """One figure (or cell) on the CPU, then on the card under the profiler
-    (counts zeroed before, read after), field for field equal. Prints host
+    (counts zeroed before, read after), field for field equal (the fields
+    named in ``skip`` aside). Prints host
     ms on both (the card's with the profiler on), the card's busy ms and
     idle share, the solves and the launches of the receive kernels;
     ``implied(card result)``: the launches the run's generations and
@@ -2190,7 +2227,7 @@ def _figure(name: str, fn, implied, tag: str = "figures") -> tuple:
     dev, card_ms = _device_times(lambda: out.append(fn("cuda")))
     card = out[0]
     counts, launches = dict(E.counts), {k: _counts()[k] for k in AG_KERNELS}
-    _same_fields(card, cpu, f"{name}, card vs CPU")
+    _same_fields(card, cpu, f"{name}, card vs CPU", skip)
     want = {k: implied(card).get(k, 0) for k in AG_KERNELS}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, its generations and rounds "
@@ -2715,6 +2752,433 @@ def dpa_path() -> dict[str, int]:
             raise AssertionError(f"{name} must complete and recover chunks")
     print(f"[dpa] (d) AG-E event over scalar {res['event'].time / res['scalar'].time}",
           flush=True)
+    return total
+
+
+# --------------------- phase 5f: the composite schedules, the searcher, the host split
+
+# (a) schedule_ir_sweep (benchmarks/paper_figs.py:581): 4 MiB Allreduces at
+# P = 16 and 64, the ring AG against M = P, on the abstract fabric and on
+# FatTree(k = 8); autotune_chains on the flat fabric (P = 64, 256 KiB, every
+# divisor) and on the 4x oversubscribed k = 8 tree (P = 16)
+SCHEDIR_P, SCHEDIR_BYTES, AUTOTUNE_BYTES = (16, 64), 1 << 22, 1 << 18
+# (b) search_sweep (:631): the Allreduce at P = 16 of 16 MiB on
+# FatTree(k = 8, oversubscription 4) and Torus2D(4, 4), validated at packet
+# fidelity under 1e-3 loss
+SEARCH = (16, 16 << 20, 1e-3)
+# (c) hier_fabric_sweep (:711): 1 MiB Allgathers on IslandFatTree(k, P),
+# islands of 8
+HIER, HIER_BYTES, HIER_ISLAND = ((8, 64), (16, 256)), 1 << 20, 8
+# the searcher's defaults (sched_search.search): the fabric and workers of
+# every search evaluation and packet validation
+SEARCH_FAB, SEARCH_WK = dict(jitter=0.0), dict(n_recv_workers=8)
+# (e) the host split of one more call each of AG-B, AG-R and Fig. 12
+_CELL_WALL: dict[tuple[str, str], dict[str, float]] = {}
+
+
+def _search_fabrics() -> dict:
+    p = SEARCH[0]
+    return {"fattree_os4": TOPO.FatTree(k=8, n_hosts=p, oversubscription=4.0),
+            "torus4x4": TOPO.Torus2D(4, 4)}
+
+
+def schedir_cell(device: str) -> dict:
+    """(a): the composed Allreduces and both chain sweeps."""
+    fab, wk = E.FabricParams(**SEARCH_FAB), E.WorkerParams(**SEARCH_WK)
+    out = {}
+    for p in SCHEDIR_P:
+        for m in (p, None):
+            sched = IR.build_allreduce(p, SCHEDIR_BYTES, m=m)
+            tag = "mcast" if m else "ring"
+            out[f"P{p}.{tag}"] = IR.execute(sched, fab, wk, np.random.default_rng(0),
+                                            device=device)
+            out[f"P{p}.{tag}.fattree"] = IR.execute(
+                sched, fab, wk, np.random.default_rng(0), device=device,
+                topology=TOPO.FatTree(k=8, n_hosts=p, b_host=fab.b_link))
+    out["autotune_flat"] = IR.autotune_chains(IR.build_allgather, p=64, n_bytes=AUTOTUNE_BYTES,
+                                              fabric=fab, workers=wk, device=device)
+    thin = TOPO.FatTree(k=8, n_hosts=16, b_host=fab.b_link, oversubscription=4.0)
+    out["autotune_oversub4"] = IR.autotune_chains(IR.build_allgather, thin, p=16,
+                                                  n_bytes=AUTOTUNE_BYTES, fabric=fab,
+                                                  workers=wk, device=device)
+    return out
+
+
+def search_cell(device: str) -> dict:
+    """(b): both searches on one cache on a fresh temporary file, timed
+    together; the cold fluid sweep (fresh caches, no validation) against
+    the warm one (the populated cache); then a second cache on the file,
+    which must serve every evaluation from disk. The walls go to
+    ``_CELL_WALL``; the file is removed."""
+    p, n, loss = SEARCH
+    fabrics = _search_fabrics()
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "evals.json")
+        cache = SS.EvalCache(path)
+        t0 = time.perf_counter()
+        found = {label: SS.search("allreduce", p, n, topology=topo, loss=loss, cache=cache,
+                                  device=device) for label, topo in fabrics.items()}
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cold = {label: SS.search("allreduce", p, n, topology=topo, validate_packet=False,
+                                 cache=SS.EvalCache(), device=device)
+                for label, topo in fabrics.items()}
+        wall_cold = time.perf_counter() - t0
+        hits0 = cache.hits
+        t0 = time.perf_counter()
+        warm = {label: SS.search("allreduce", p, n, topology=topo, validate_packet=False,
+                                 cache=cache, device=device) for label, topo in fabrics.items()}
+        wall_warm = time.perf_counter() - t0
+        warm_hits = cache.hits - hits0
+        cache.save()
+        again = SS.EvalCache(path)
+        disk = {label: SS.search("allreduce", p, n, topology=topo, validate_packet=False,
+                                 cache=again, device=device) for label, topo in fabrics.items()}
+    finally:
+        shutil.rmtree(tmp)
+    _CELL_WALL[("search_sweep", device)] = {"wall_s": wall, "cold_s": wall_cold,
+                                            "warm_s": wall_warm}
+    return {"search": found, "cold": cold, "warm": warm, "warm_hits": warm_hits, "disk": disk,
+            "disk_hits": again.hits, "disk_misses": again.misses}
+
+
+def hier_cell(device: str) -> dict:
+    """(c): at each (k, P) the searched Allgather (validated at packet
+    fidelity), then the winner and the flat multicast executed on the fabric
+    for their tiers' bytes; one cache for both fabrics."""
+    fab, wk = E.FabricParams(**SEARCH_FAB), E.WorkerParams(**SEARCH_WK)
+    cache = SS.EvalCache()
+    out = {}
+    t0 = time.perf_counter()
+    for k, p in HIER:
+        topo = TOPO.IslandFatTree(k, p, island_size=HIER_ISLAND)
+        hosts = list(range(p))
+        r = SS.search("allgather", p, HIER_BYTES, topology=topo, hosts=hosts, cache=cache,
+                      device=device)
+        topo.reset()
+        win = IR.execute(r.winner.sched, fab, wk, np.random.default_rng(0), topology=topo,
+                         hosts=hosts, device=device)
+        win_split = topo.tier_split(win.link_bytes)
+        topo.reset()
+        flat = IR.execute(IR.build_allgather(p, HIER_BYTES, p), fab, wk,
+                          np.random.default_rng(0), topology=topo, hosts=hosts, device=device)
+        out[p] = {"search": r, "winner": win, "winner_split": win_split, "flat": flat,
+                  "flat_split": topo.tier_split(flat.link_bytes)}
+    _CELL_WALL[("hier_fabric_sweep", device)] = {"wall_s": time.perf_counter() - t0}
+    return out
+
+
+def _fluid_pools(sched) -> int:
+    """Pool launches of one fluid evaluation of ``sched``: one a fluid
+    Allgather generation (its one-row pass), one a fluid Broadcast, none for
+    a ring; an Allreduce's AG legs; a hierarchical Allgather's stripe leg
+    (one engine for every stripe)."""
+    if sched.kind == "allgather":
+        return sched.n_rounds
+    if sched.kind == "broadcast":
+        return 1
+    if sched.kind in ("ring_allgather", "reduce_scatter"):
+        return 0
+    if sched.kind == "allreduce":
+        legs = sched.meta.get("segments") or ((sched.meta["rs"], sched.meta["ag"]),)
+        return sum(_fluid_pools(ag) for _, ag in legs)
+    if sched.kind == "hier_allgather":
+        return _fluid_pools(sched.meta["stripe_ag"])
+    raise AssertionError(f"no fluid launch count for {sched.kind}")
+
+
+def _packet_launches(sched, res, routed: bool) -> dict[str, int]:
+    """Launches of one packet run of ``sched`` with result ``res``: each
+    packet Allgather leg as phase 5b counts it (a pool pass a generation and
+    a recovery round, one pack, OR and popcount a round; one block of pool
+    rows each, which is checked); a ring leg none; on a fabric, a
+    hierarchical multicast stripe's contention factor runs the stripe twice
+    at fluid fidelity."""
+    if sched.kind == "allgather":
+        width = max(len(g) for g in sched.rounds())
+        if sched.p * width * max(sched.n_bytes // E.FabricParams().mtu, 1) > PK._BLOCK_ELEMS:
+            raise AssertionError("a validation's pool rows take more than one block")
+        rounds = _ag_rounds(res)
+        return _rounds_launches(rounds, sched.n_rounds + rounds)
+    if sched.kind in ("ring_allgather", "reduce_scatter"):
+        return _rounds_launches(0, 0)
+    total = _rounds_launches(0, 0)
+    if sched.kind == "allreduce":
+        legs = (zip(sched.meta["segments"], res.segments) if "segments" in sched.meta
+                else [((sched.meta["rs"], sched.meta["ag"]), (res.rs, res.ag))])
+        for (_, ag), (_, ag_res) in legs:
+            for k, v in _packet_launches(ag, ag_res, routed).items():
+                total[k] += v
+        return total
+    if sched.kind == "hier_allgather":
+        stripe = sched.meta["stripe_ag"]
+        total = _packet_launches(stripe, res.stripe, routed)
+        if routed:
+            total["pool"] += 2 * _fluid_pools(stripe)
+        return total
+    raise AssertionError(f"no packet launch count for {sched.kind}")
+
+
+def _search_implied(r, topo, hosts, loss, seen: set, validated: bool) -> dict[str, int]:
+    """Launches of one ``search`` on a fabric like ``topo``: every candidate
+    it simulated (a table row with a time whose schedule the cache had not
+    seen: ``seen`` holds the cache's keys and grows; a pruned or cached one
+    launches nothing) at fluid fidelity, and the winner's packet validation,
+    whose round traces come from the same validation run again on the
+    CPU."""
+    by_name = {c.name: c.sched for c in SS.candidates(r.collective, r.p, r.n_bytes, topo)}
+    total = _rounds_launches(0, 0)
+    for row in r.table:
+        key = IR.canonical_key(by_name[row.name])
+        if row.time is not None and key not in seen:
+            seen.add(key)
+            total["pool"] += _fluid_pools(by_name[row.name])
+    if validated:
+        topo.reset()
+        res = IR.execute(r.winner.sched, E.FabricParams(**SEARCH_FAB),
+                         E.WorkerParams(**SEARCH_WK), np.random.default_rng(0),
+                         fidelity="packet", topology=topo, hosts=hosts, loss=loss, device="cpu")
+        for k, v in _packet_launches(r.winner.sched, res, True).items():
+            total[k] += v
+    return total
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def schedir_implied(out: dict) -> dict[str, int]:
+    pools = sum(2 * _fluid_pools(IR.build_allreduce(p, SCHEDIR_BYTES, m=m))
+                for p in SCHEDIR_P for m in (p, None))
+    pools += sum(_fluid_pools(IR.build_allgather(64, AUTOTUNE_BYTES, m))
+                 for m in out["autotune_flat"][1])
+    pools += sum(_fluid_pools(IR.build_allgather(16, AUTOTUNE_BYTES, m))
+                 for m in out["autotune_oversub4"][1])
+    return {"pool": pools}
+
+
+def search_implied(out: dict) -> dict[str, int]:
+    """(b): the first searches on one cache, each cold sweep on its own; the
+    warm and disk searches are served wholly from the cache (checked)."""
+    total, seen = {}, {label: set() for label in _search_fabrics()}
+    for label, topo in _search_fabrics().items():
+        _add(total, _search_implied(out["search"][label], topo, None, SEARCH[2], seen[label],
+                                    True))
+    for label, topo in _search_fabrics().items():
+        _add(total, _search_implied(out["cold"][label], topo, None, None, set(), False))
+    for label, topo in _search_fabrics().items():
+        _add(total, _search_implied(out["warm"][label], topo, None, None, seen[label], False))
+    return total
+
+
+def hier_implied(out: dict) -> dict[str, int]:
+    total = {}
+    for k, p in HIER:
+        topo = TOPO.IslandFatTree(k, p, island_size=HIER_ISLAND)
+        r = out[p]["search"]
+        _add(total, _search_implied(r, topo, list(range(p)), None, set(), True))
+        total["pool"] += _fluid_pools(r.winner.sched) + 1
+    return total
+
+
+def _walls(name: str) -> str:
+    return json.dumps({("card" if d == "cuda" else "cpu"): w for (n, d), w in _CELL_WALL.items()
+                       if n == name})
+
+
+def parallel_search() -> dict[str, int]:
+    """(d): the FatTree search of (b), fluid only, serial and with
+    ``n_jobs=2`` (two spawned children on the card) on the card, and serial
+    on the CPU: all equal field for field. Returns the parent's launches of
+    serial and parallel card searches (the children launch in their own
+    processes)."""
+    p, n, _ = SEARCH
+    got = {}
+    prefetched = []
+    real = SS._prefetch_parallel
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        prefetched.append(len(out))
+        return out
+
+    pools = 0
+    for name, device, jobs in (("cpu", "cpu", 1), ("card", "cuda", 1), ("card_jobs2", "cuda", 2)):
+        if jobs > 1:
+            SS._prefetch_parallel = spy
+        torch.cuda.synchronize()
+        before = _counts()
+        t0 = time.perf_counter()
+        try:
+            got[name] = SS.search("allreduce", p, n, validate_packet=False, n_jobs=jobs,
+                                  topology=_search_fabrics()["fattree_os4"], device=device)
+        finally:
+            SS._prefetch_parallel = real
+        torch.cuda.synchronize()
+        launched = _counts()["pool"] - before["pool"]
+        pools += launched
+        print(f"[search] (d) {name}: {got[name].evaluations} evaluations, "
+              f"{(time.perf_counter() - t0) * 1e3} host ms, {launched} pool launches in this "
+              "process", flush=True)
+    _same_fields(got["card"], got["cpu"], "(d) card serial vs CPU", skip=("wall_s",))
+    _same_fields(got["card_jobs2"], got["card"], "(d) n_jobs=2 vs serial", skip=("wall_s",))
+    if prefetched != [prefetched[0]] or not prefetched[0]:
+        raise AssertionError(f"(d): the children prefetched {prefetched} evaluations")
+    print(f"[search] (d) n_jobs=2 on the card equals the serial search field for field; the "
+          f"children evaluated {prefetched[0]} candidates", flush=True)
+    return {"pool": pools}
+
+
+def host_split() -> None:
+    """(e): one more call each of AG-B (5b), AG-R (5d (b)) and Fig. 12 (5c)
+    on the card, unprofiled and then with ``profiling.enable()``: the same
+    result bitwise; ``engine_solve``'s calls equal to the engine's solves in
+    the call, ``pool_solve``'s to its pool launches plus its 1-D host scans
+    (``engine.worker_pool_completion``, counted apart); each phase's host
+    seconds and share of the call's host time."""
+    calls = {"AG-B": lambda: _ag("AG-B", "cuda"), "AG-R": lambda: ag_routed("cuda"),
+             "fig12_routed": lambda: fig12_routed("cuda")}
+    scans = [0]
+    one_d = E._pool_1d
+
+    def counted(*args, **kw):
+        scans[0] += 1
+        return one_d(*args, **kw)
+
+    for name, call in calls.items():
+        plain = call()
+        torch.cuda.synchronize()
+        solves0, pools0, scans[0] = E.counts["solves"], PL.launches, 0
+        profiling.reset()
+        profiling.enable()
+        E._pool_1d = counted
+        t0 = time.perf_counter()
+        try:
+            res = call()
+            torch.cuda.synchronize()
+        finally:
+            host_s = time.perf_counter() - t0
+            profiling.disable()
+            E._pool_1d = one_d
+        _same_fields(res, plain, f"(e) {name}, profiled vs not")
+        rep = profiling.report()
+        solves, launches = E.counts["solves"] - solves0, PL.launches - pools0
+        if rep.get("engine_solve", {}).get("calls", 0) != solves:
+            raise AssertionError(f"(e) {name}: engine_solve {rep.get('engine_solve')}, "
+                                 f"{solves} solves")
+        if rep.get("pool_solve", {}).get("calls", 0) != launches + scans[0]:
+            raise AssertionError(f"(e) {name}: pool_solve {rep.get('pool_solve')}, {launches} "
+                                 f"pool launches + {scans[0]} host scans")
+        spent = {k: profiling._acc[k] for k in sorted(profiling._acc)}
+        print("[split] " + json.dumps({
+            "call": name, "host_ms": host_s * 1e3, "report": rep,
+            "phase_host_ms": {k: v * 1e3 for k, v in spent.items()},
+            "phase_share": {k: v / host_s for k, v in spent.items()},
+            "unattributed_share": 1 - sum(spent.values()) / host_s,
+            "solves": solves, "pool_launches": launches, "host_pool_scans": scans[0]}),
+            flush=True)
+    profiling.reset()
+
+
+def search_path() -> dict[str, int]:
+    """Phase 5f: the composite schedules, the chain autotune, the searcher
+    and the phase profiler. (a) to (c) each run on the CPU and then on the
+    card (counts zeroed before, read after), field for field equal (the
+    search's wall clock aside), with benchmarks/paper_figs.py's asserts and
+    the receive kernels' launches equal to what the cells imply; (d) the
+    parallel tier on the card; (e) the host split. ``REPRO_EVAL_CACHE`` and
+    ``REPRO_SEARCH_WORKERS`` are cleared for the phase. Returns the phase's
+    launches of #6, #6b, #7 and #8/#9 ((a) to (d))."""
+    saved = {k: os.environ.pop(k) for k in ("REPRO_EVAL_CACHE", "REPRO_SEARCH_WORKERS")
+             if k in os.environ}
+    total = dict.fromkeys(AG_KERNELS, 0)
+    try:
+        out, n, _ = _figure("schedule_ir_sweep", schedir_cell, schedir_implied, tag="search")
+        _add(total, n)
+        for p in SCHEDIR_P:
+            mc, ring = out[f"P{p}.mcast"], out[f"P{p}.ring"]
+            mc_b = sum(out[f"P{p}.mcast.fattree"].link_bytes.values())
+            ring_b = sum(out[f"P{p}.ring.fattree"].link_bytes.values())
+            print(f"[search] (a) P={p}: ring over multicast time {ring.time / mc.time} "
+                  f"({ring.time * 1e6} vs {mc.time * 1e6} us); multicast over ring fabric "
+                  f"bytes {mc_b / ring_b} ({mc_b} vs {ring_b})", flush=True)
+            if not mc_b < ring_b:
+                raise AssertionError(f"(a) P={p}: multicast fabric bytes {mc_b} not under the "
+                                     f"ring's {ring_b}")
+        best, times = out["autotune_flat"]
+        best_thin, thin = out["autotune_oversub4"]
+        print(f"[search] (a) autotune: flat best M {best} of {json.dumps(times)}; 4x "
+              f"oversubscribed best M {best_thin} of {json.dumps(thin)}", flush=True)
+        if best != 64:
+            raise AssertionError(f"(a) the flat fabric's best M is {best}, not 64")
+
+        out, n, _ = _figure("search_sweep", search_cell, search_implied, tag="search",
+                            skip=("wall_s",))
+        _add(total, n)
+        for device in ("cpu", "cuda"):
+            w = _CELL_WALL[("search_sweep", device)]
+            warm_x = w["cold_s"] / max(w["warm_s"], 1e-9)
+            print(f"[search] (b) on the {'card' if device == 'cuda' else 'CPU'}: both "
+                  f"searches {w['wall_s']} s, cold sweep {w['cold_s']} s, warm {w['warm_s']} "
+                  f"s ({warm_x}x)", flush=True)
+            if not w["wall_s"] < 30.0:
+                raise AssertionError(f"(b) the search sweep took {w['wall_s']} s, not < 30")
+            if not warm_x >= 3.0:
+                raise AssertionError(f"(b) the warm cache is {warm_x}x the cold sweep, not 3x")
+        ratios = []
+        for label, r in out["search"].items():
+            ratios.append(r.searched_vs_best_builder)
+            print(f"[search] (b) {label}: {r.winner.name} over {r.best_builder.name} "
+                  f"{r.searched_vs_best_builder}, certificate {r.certificate.ratio} "
+                  f"({r.certificate.binding}), fabric bytes "
+                  f"{r.winner_fabric_bytes / r.best_builder_fabric_bytes}; {r.evaluations} "
+                  f"evaluations, {r.pruned} pruned, packet validated {r.packet_validated}",
+                  flush=True)
+            if not (r.packet_validated and r.certificate.ratio >= 1.0 - 1e-9):
+                raise AssertionError(f"(b) {label}: validation {r.packet_validated}, "
+                                     f"certificate {r.certificate.ratio}")
+            if out["warm"][label].cache_hits != out["warm"][label].evaluations:
+                raise AssertionError(f"(b) {label}: the warm search was not served wholly "
+                                     "from the cache")
+            if out["disk"][label].winner.name != r.winner.name:
+                raise AssertionError(f"(b) {label}: the disk cache's winner differs")
+        if not (all(x <= 1.0 + 1e-9 for x in ratios) and min(ratios) < 1.0):
+            raise AssertionError(f"(b) searched over best builder {ratios}")
+        if out["disk_misses"] or out["disk_hits"] != sum(r.evaluations
+                                                         for r in out["disk"].values()):
+            raise AssertionError(f"(b) the second cache on the file missed "
+                                 f"{out['disk_misses']} evaluations")
+
+        out, n, _ = _figure("hier_fabric_sweep", hier_cell, hier_implied, tag="search",
+                            skip=("wall_s",))
+        _add(total, n)
+        print(f"[search] (c) walls {_walls('hier_fabric_sweep')}", flush=True)
+        for _, p in HIER:
+            r, ws, fs = out[p]["search"], out[p]["winner_split"], out[p]["flat_split"]
+            flat_t = min(row.time for row in r.table
+                         if row.name.startswith("builder:mcast") and row.time is not None)
+            ring_t = next(row.time for row in r.table if row.name == "builder:ring")
+            print(f"[search] (c) P={p}: {r.winner.name} over the flat multicast "
+                  f"{r.winner_time / flat_t}, over the island ring {r.winner_time / ring_t}, "
+                  f"certificate {r.certificate.ratio} ({r.certificate.binding}); switched bytes "
+                  f"over the flat multicast's {ws['switched'] / fs['switched']} (island "
+                  f"{ws.get('island', 0.0)}); {r.evaluations} evaluations, {r.pruned} pruned",
+                  flush=True)
+            if not (r.winner.sched.kind == "hier_allgather" and r.packet_validated
+                    and r.certificate.ratio >= 1.0 - 1e-9):
+                raise AssertionError(f"(c) P={p}: winner {r.winner.name}, validated "
+                                     f"{r.packet_validated}, certificate {r.certificate.ratio}")
+            if not (r.winner_time < flat_t and r.winner_time < ring_t):
+                raise AssertionError(f"(c) P={p}: {r.winner_time} not under {flat_t}, {ring_t}")
+            if not (ws["switched"] < fs["switched"] and fs.get("island", 0.0) == 0.0):
+                raise AssertionError(f"(c) P={p}: switched bytes {ws} vs {fs}")
+
+        _add(total, parallel_search())
+        host_split()
+    finally:
+        os.environ.update(saved)
     return total
 
 
@@ -3604,6 +4068,12 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in AG_KERNELS:
         launches[name] += offload[name]
+    t0 = time.perf_counter()
+    searched = search_path()   # zeroes the counts before each cell's card run
+    print(f"[search] phase 5f passed: launches {json.dumps(searched)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name in AG_KERNELS:
+        launches[name] += searched[name]
     t0 = time.perf_counter()
     drain_cases, drain_err = check_drain()
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dpa as dpa_model
+from repro_torch.core import profiling
 from repro_torch.device import device_of
 from repro_torch.kernels import pool
 
@@ -395,7 +396,13 @@ class Engine:
         counts["flows_solved"] += len(flows)
         if n_members >= _NUMPY_RATES_MIN_MEMBERS:
             counts["device_solves"] += 1
+            if profiling.ENABLED:
+                with profiling.phase("engine_solve"):
+                    return _max_min_rates_vec(flows, self.device)
             return _max_min_rates_vec(flows, self.device)
+        if profiling.ENABLED:
+            with profiling.phase("engine_solve"):
+                return _max_min_rates_py(flows)
         return _max_min_rates_py(flows)
 
     def _rates(self) -> dict[Flow, float]:
@@ -569,6 +576,14 @@ def worker_pool_completion(arrivals: np.ndarray, n_workers: int,
     """1-D sorted arrivals through a W-worker deterministic-service pool:
     per residue class mod W, ``done_i = (i+1)s + max_{j<=i}(a_j - j*s)``.
     Returns (done, number of staging-ring drops)."""
+    if profiling.ENABLED:
+        with profiling.phase("pool_solve"):
+            return _pool_1d(arrivals, n_workers, service, staging)
+    return _pool_1d(arrivals, n_workers, service, staging)
+
+
+def _pool_1d(arrivals: np.ndarray, n_workers: int, service: float,
+             staging: int) -> tuple[np.ndarray, int]:
     n = arrivals.shape[0]
     if n == 0:
         return np.empty(0), 0
@@ -591,7 +606,11 @@ def worker_pool_completion_rows(arrivals: torch.Tensor, n_workers: int, service:
     come back +inf and False. Bitwise the 1-D functions on each row's real
     prefix (a chunk's worker is its position mod W, which padding at the
     end does not move). One launch of the pool kernel for a CUDA tensor,
-    the plain version for a CPU one."""
+    the plain version for a CPU one; every pool pass of the port goes
+    through here (the profiler's ``pool_solve``)."""
+    if profiling.ENABLED:
+        with profiling.phase("pool_solve"):
+            return pool.pool_completion_rows(arrivals, n_workers, service, staging)
     return pool.pool_completion_rows(arrivals, n_workers, service, staging)
 
 

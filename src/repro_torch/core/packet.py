@@ -72,13 +72,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import protocol
+from repro_torch.core import profiling, protocol
 from repro_torch.core.dpa_engine import DpaEventPool, resolve_event_params
-from repro_torch.core.engine import Engine, FabricParams, WorkerParams
+from repro_torch.core.engine import (Engine, FabricParams, WorkerParams,
+                                     worker_pool_completion_rows)
 from repro_torch.core.sched_ir import (PhaseBreakdown, _check_packet_options, _chunking,
                                       _event_rows, _rnr_barrier, _serve_nacks)
 from repro_torch.device import device_of
-from repro_torch.kernels import bitmap, pool
+from repro_torch.kernels import bitmap
 
 DEFAULT_MAX_ROUNDS = 64
 
@@ -284,6 +285,11 @@ def _sample_link_round(link_models: dict[int, LossModel | None],
     """One drop mask per distinct link for the round's n packets, in the
     dict's order: drawn once per link, not per leaf, so that a drop upstream
     is shared by every leaf below it."""
+    if profiling.ENABLED:
+        with profiling.phase("rng"):
+            zeros = np.zeros(n, dtype=bool)
+            return {lid: (m.sample(n) if m is not None else zeros)
+                    for lid, m in link_models.items()}
     zeros = np.zeros(n, dtype=bool)
     return {lid: (m.sample(n) if m is not None else zeros) for lid, m in link_models.items()}
 
@@ -313,7 +319,11 @@ def _jitter_on(rng: np.random.Generator, jitter: float, n: int,
     consumed."""
     buf = torch.empty(n, dtype=torch.float64, pin_memory=device.type == "cuda")
     view = buf.numpy()
-    rng.random(out=view)
+    if profiling.ENABLED:
+        with profiling.phase("rng"):
+            rng.random(out=view)
+    else:
+        rng.random(out=view)
     view *= jitter
     return buf.to(device, non_blocking=True)
 
@@ -553,8 +563,8 @@ class _BroadcastRun:
         order = torch.sort(key, dim=1, stable=True).indices
         arr = arr.gather(1, order)
         if self.pools is None:
-            done, rnr = pool.pool_completion_rows(arr, self.workers.n_recv_workers,
-                                                  self.service, self.workers.staging_chunks)
+            done, rnr = worker_pool_completion_rows(arr, self.workers.n_recv_workers,
+                                                    self.service, self.workers.staging_chunks)
             last = (counts - 1).clamp(min=0)
             t_last = torch.where(counts > 0, done.gather(1, last[:, None])[:, 0], math.nan)
         else:
@@ -597,7 +607,7 @@ class _BroadcastRun:
             # latency sees the same arrival row, so one pool pass a distinct
             # latency serves all
             hops, group = np.unique(self.hop, return_inverse=True)
-            done, rnr = pool.pool_completion_rows(
+            done, rnr = worker_pool_completion_rows(
                 inject[None, :] + torch.from_numpy(hops).to(self.dev)[:, None],
                 self.workers.n_recv_workers, self.service, self.workers.staging_chunks)
             grp = torch.from_numpy(group).to(self.dev)
@@ -643,7 +653,11 @@ class _BroadcastRun:
         flags = torch.zeros((nackers.numel(), n + (-n) % 32), dtype=torch.bool,
                             device=self.dev)
         flags[:, :n] = self.missing[nackers]
-        agg = bitmap.bitmap_or_rows(bitmap.bitmap_pack(flags))
+        if profiling.ENABLED:
+            with profiling.phase("packing"):
+                agg = bitmap.bitmap_or_rows(bitmap.bitmap_pack(flags))
+        else:
+            agg = bitmap.bitmap_or_rows(bitmap.bitmap_pack(flags))
         n_union = int(bitmap.bitmap_popcount(agg))
         union = bitmap.bitmap_unpack(agg, n).nonzero()[:, 0]
         # NACK ascent: a leaf declares loss at the cutoff timer (or when its

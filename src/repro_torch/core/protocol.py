@@ -14,15 +14,15 @@ Port of ``src/repro/core/protocol.py``:
   receive datapath through the event-level DPA (``core/dpa_engine.py``);
 - the closed-form oracle: ``analytic_rnr_barrier``, ``analytic_bcast_time``,
   ``analytic_allgather_time``, ``analytic_ring_allgather_time``,
-  ``analytic_ring_reduce_scatter_time`` (:216-299), and
-  ``analytic_expected_rounds``, ``analytic_recovery_time``,
+  ``analytic_ring_reduce_scatter_time``, the composite collectives'
+  ``analytic_hier_allgather_time``, ``analytic_allreduce_time``,
+  ``pipeline_schedule_time``, ``analytic_pipelined_allreduce_time``
+  (:216-366), and ``analytic_expected_rounds``, ``analytic_recovery_time``,
   ``analytic_ring_pipeline_bcast_time`` (:390-446);
+- ``BoundCertificate`` (:369), the searcher's certificate;
 - ``memory_footprint`` and ``communicators_in_llc`` (:448-467);
 - ``reassemble``: a leaf's receive datapath replayed on the chunk
   reassembly kernel in the order a Broadcast delivered the chunks.
-
-The closed forms of the composite collectives and ``BoundCertificate`` are
-queued in ROADMAP.md (§1, items 6b and 6e).
 """
 from __future__ import annotations
 
@@ -305,6 +305,113 @@ def analytic_ring_reduce_scatter_time(p: int, n_bytes: int, b_link: float,
     """Closed form of the ring Reduce-Scatter of an N-byte buffer a rank:
     P-1 generations of the N/P shard (reduction at line rate)."""
     return (p - 1) * (n_bytes / p / b_link + latency)
+
+
+def analytic_hier_allgather_time(p: int, n_bytes: int, b_link: float, latency: float, *,
+                                 island_size: int, m: int | None = None,
+                                 stripe_mode: str = "mcast", pool_rate: float | None = None,
+                                 rnr_hop: float = 1.5e-6,
+                                 b_island: float | None = None) -> float:
+    """Closed form (a lower bound) of the hierarchical island Allgather
+    (``sched_ir.build_hierarchical_allgather``): phase B an I-member
+    Allgather over the switched tier at ``b_link`` (I = P/g islands; the
+    M-chain form, or the ring form for the unicast stripe), phase C g-1
+    island-ring generations, each rotating an I*N bundle at ``b_island``
+    (default ``b_link``). Every phase-C hop crosses one link of at most
+    ``b_island``, so the ring term at the island capacity bounds either
+    redistribution transport from below (the searcher's pruning bound)."""
+    g = island_size
+    if not (g >= 2 and p % g == 0 and p // g >= 2):
+        raise ValueError(f"islands of {g} must tile {p} ranks into at least two")
+    n_islands = p // g
+    if stripe_mode == "mcast":
+        stripe = analytic_allgather_time(n_islands, n_bytes, b_link, latency, n_chains=m or 1,
+                                         pool_rate=pool_rate, rnr_hop=rnr_hop)
+    else:
+        stripe = analytic_ring_allgather_time(n_islands, n_bytes, b_link, latency)
+    b_isl = b_island if b_island is not None else b_link
+    return stripe + (g - 1) * (n_islands * n_bytes / b_isl + latency)
+
+
+def analytic_allreduce_time(p: int, n_bytes: int, b_link: float, latency: float, *,
+                            m: int | None = None, pool_rate: float | None = None,
+                            rnr_hop: float = 1.5e-6) -> float:
+    """Closed form of Allreduce = RS o AG (``sched_ir.build_allreduce``):
+    the ring Reduce-Scatter of the buffer, then an Allgather of the reduced
+    N/P shards, the ring's (``m`` None) or the M-chain multicast's."""
+    rs = analytic_ring_reduce_scatter_time(p, n_bytes, b_link, latency)
+    shard = max(n_bytes // p, 1)
+    if m:
+        ag = analytic_allgather_time(p, shard, b_link, latency, n_chains=m,
+                                     pool_rate=pool_rate, rnr_hop=rnr_hop)
+    else:
+        ag = analytic_ring_allgather_time(p, shard, b_link, latency)
+    return rs + ag
+
+
+def pipeline_schedule_time(rs_times: list[float], ag_times: list[float]) -> float:
+    """The two-stage pipeline's completion time: segment s's AG starts once
+    its own RS finished and segment s-1's AG drained; segment s+1's RS
+    follows segment s's. One definition for the pipelined executor
+    (``sched_ir._exec_pipelined_allreduce``) and the closed form below; it
+    is monotone in every stage time, so per-segment lower bounds give a
+    lower bound of the executed schedule."""
+    if len(rs_times) != len(ag_times) or not rs_times:
+        raise ValueError(f"need as many RS as AG stages, at least one: {len(rs_times)}, "
+                         f"{len(ag_times)}")
+    t_rs = t_ag = 0.0
+    for rs, ag in zip(rs_times, ag_times):
+        t_rs = t_rs + rs
+        t_ag = max(t_rs, t_ag) + ag
+    return t_ag
+
+
+def analytic_pipelined_allreduce_time(p: int, n_bytes: int, b_link: float, latency: float, *,
+                                      m: int | None = None, n_segments: int = 1,
+                                      pool_rate: float | None = None,
+                                      rnr_hop: float = 1.5e-6) -> float:
+    """Closed form of the segment-pipelined Allreduce
+    (``sched_ir.build_pipelined_allreduce``): ``n_segments`` equal-ish
+    segments, each an RS o AG pair, segment s+1's Reduce-Scatter under
+    segment s's Allgather. One segment is ``analytic_allreduce_time``."""
+    if n_segments < 1:
+        raise ValueError(f"n_segments must be >= 1, got {n_segments}")
+    q, rem = divmod(n_bytes, n_segments)
+    segs = [q + (1 if i < rem else 0) for i in range(n_segments)]
+    rs_times, ag_times = [], []
+    for seg in segs:
+        rs_times.append(analytic_ring_reduce_scatter_time(p, seg, b_link, latency))
+        shard = max(seg // p, 1)
+        if m:
+            ag_times.append(analytic_allgather_time(p, shard, b_link, latency, n_chains=m,
+                                                    pool_rate=pool_rate, rnr_hop=rnr_hop))
+        else:
+            ag_times.append(analytic_ring_allgather_time(p, shard, b_link, latency))
+    return pipeline_schedule_time(rs_times, ag_times)
+
+
+# ----------------------------------------------- lower-bound certificates
+
+
+@dataclass(frozen=True)
+class BoundCertificate:
+    """The optimality certificate of a searched schedule
+    (``core/sched_search.py``): the admissible lower bound the winner was
+    pruned against, the term of it that binds (the closed form or a fabric
+    cut), and the winner's time over the bound (1.0: nothing is left on the
+    table at this fidelity)."""
+
+    kind: str
+    p: int
+    n_bytes: int
+    bound: float                     # admissible lower bound (s)
+    winner_time: float               # simulated time of the winner (s)
+    binding: str                     # the binding term ("analytic", "cut")
+
+    @property
+    def ratio(self) -> float:
+        """winner_time / bound: >= 1.0 wherever the bound is admissible."""
+        return self.winner_time / self.bound if self.bound > 0 else math.inf
 
 
 def analytic_expected_rounds(path_loss: float, n_chunks: int, target: float = 0.5) -> float:

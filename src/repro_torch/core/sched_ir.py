@@ -9,7 +9,9 @@ Port of ``src/repro/core/sched_ir.py``:
   activation DAG, ``rounds()`` and ``n_rounds`` (:136-243);
 - ``payload_bytes``, ``canonical_key``, ``validate`` (:246-336);
 - the builders ``build_broadcast_tree``, ``build_allgather``,
-  ``build_ring_allgather``, ``build_ring_reduce_scatter`` and
+  ``build_ring_allgather``, ``build_hierarchical_allgather`` (:380),
+  ``build_ring_reduce_scatter``, ``build_allreduce`` (:483),
+  ``segment_bytes`` (:505), ``build_pipelined_allreduce`` (:515) and
   ``build_fsdp_step`` (:557);
 - the fluid lowerings ``_fluid_broadcast``, ``_fluid_allgather`` and
   ``_fluid_ring`` (:622-908), on the abstract fabric or a routed
@@ -22,40 +24,47 @@ Port of ``src/repro/core/sched_ir.py``:
   reference's ``_PacketChainRun``) and the link masks of a pass OR-ed
   along the chains' paths on ``device``; ``_packet_ring`` (:911), RC
   goodput inflation over the fluid ring;
+- the composite executors (:953-1150): ``AllreduceResult``,
+  ``_exec_allreduce`` and ``_exec_pipelined_allreduce`` (RS o AG, barrier
+  or segment-pipelined), ``HierAllgatherResult``,
+  ``_stripe_contention_factor`` and ``_exec_hier_allgather`` (the striped
+  switched Allgather, then the island ring), at the fluid and packet
+  fidelities, each leg through ``execute`` on ``device``;
 - ``fsdp_submitters`` (:1882), the FSDP step's per-layer flows, abstract
   or routed;
 - the analytic lowering ``_exec_analytic`` (:2012), the closed forms of
   ``core/protocol.py``;
-- ``execute`` (:2051) for the kinds ``broadcast``, ``allgather``,
-  ``ring_allgather``, ``reduce_scatter`` (every fidelity) and
-  ``fsdp_step`` (fluid and packet, ``core/engine.simulate_fsdp_step``).
+- ``execute`` (:2051) for every kind: ``fsdp_step`` at the fluid and
+  packet fidelities (``core/engine.simulate_fsdp_step``), the others at
+  every fidelity;
+- ``autotune_chains`` (:2149), the chain-count sweep, which delegates to
+  ``core/sched_search.sweep_chains``.
 
 A Schedule is a DAG of typed ops joined by activation edges, the §IV-A
 chain signal ("when I finish multicasting I activate my chain
-successor"); "round r" is the r-th topological generation of the DAG. The
-hierarchical and all-reduce builders and their composite executors are
-queued in ROADMAP.md (§1, item 6b): ``execute`` raises
-``NotImplementedError`` for the kinds ``allreduce`` and
-``hier_allgather``, naming the item.
+successor"); "round r" is the r-th topological generation of the DAG.
+The host phases (the draws, the NACK rows' pack and OR, the merged rows'
+sort) are timed by ``core/profiling.py`` when it is enabled.
 """
 from __future__ import annotations
 
 import hashlib
 import math
+import time
 from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from repro_torch.core import protocol
+from repro_torch.core import profiling, protocol
 from repro_torch.core import schedule as seq
 from repro_torch.core.dpa_engine import DPA_FIDELITIES, DpaEventPool, resolve_event_params
 from repro_torch.core.engine import (FSDP_POLICIES, Engine, FabricParams, WorkerParams,
                                      staging_rnr_mask, worker_pool_completion,
                                      worker_pool_completion_rows)
 from repro_torch.device import device_of
-from repro_torch.kernels import bitmap, pool
+from repro_torch.kernels import bitmap
 
 FIDELITIES = ("analytic", "fluid", "packet")
 KINDS = ("broadcast", "allgather", "ring_allgather", "reduce_scatter",
@@ -63,8 +72,6 @@ KINDS = ("broadcast", "allgather", "ring_allgather", "reduce_scatter",
 #: per-op transport tags (None: let the fabric route); multicast is
 #: switched-only, islands have no switch replication
 TRANSPORTS = (None, "intra_host", "island", "switched")
-_QUEUED = ("ROADMAP.md §1, item 6b: the hierarchical and all-reduce builders and their "
-           "composite executors")
 
 
 # -------------------------------------------------------------- shared pieces
@@ -351,6 +358,85 @@ def build_ring_allgather(p: int, n_bytes: int) -> Schedule:
     return Schedule("ring_allgather", p, n_bytes, tuple(ops), tuple(act))
 
 
+def build_hierarchical_allgather(p: int, n_bytes: int, island_size: int, m: int = 1, *,
+                                 stripe_mode: str = "mcast",
+                                 redistribute_transport: str = "island") -> Schedule:
+    """The tiered Allgather of island fabrics (``topology.IslandFatTree``;
+    reference sched_ir.py:380): ranks in islands of ``island_size`` (g),
+    I = P/g islands, stripe r the ranks {j*g + r}, one of each island.
+
+      B (switched tier): each stripe runs the M-chain multicast Allgather of
+        its I members over the fat-tree, so a NIC ingests (I-1)*N, not
+        (P-1)*N; ``stripe_mode="ring"`` makes the stripe legs routed
+        unicast rings.
+      C (island tier): once its stripe is done a rank holds the stripe's
+        I*N bundle; g-1 island-ring generations rotate the g bundles of
+        each island on ``redistribute_transport`` ("island": the island's
+        ring; "switched": back over the fat-tree).
+
+    ``meta`` carries the two phases' sub-schedules the composite executor
+    runs: ``stripe_ag`` (one stripe's template) and ``island_ring`` (phase
+    C over all P ranks)."""
+    if stripe_mode not in ("mcast", "ring"):
+        raise ValueError(f"stripe_mode must be 'mcast' or 'ring', got {stripe_mode!r}")
+    if redistribute_transport not in ("island", "switched"):
+        raise ValueError(f"redistribute_transport must be 'island' or 'switched', got "
+                         f"{redistribute_transport!r}")
+    g = island_size
+    if not (g >= 2 and p % g == 0):
+        raise ValueError(f"islands of {g} must tile {p} ranks")
+    n_islands = p // g
+    if n_islands < 2:
+        raise ValueError(f"islands of {g} of {p} ranks: need at least two islands")
+    if stripe_mode == "mcast":
+        stripe_tpl = build_allgather(n_islands, n_bytes, m)
+    else:
+        stripe_tpl = build_ring_allgather(n_islands, n_bytes)
+        m = None
+    tpl_rounds = stripe_tpl.rounds()
+    ops: list[Op] = []
+    act: list[tuple[int, int]] = []
+    stripe_last: list[list[int]] = []     # per stripe: its last generation's ops
+    for r in range(g):
+        members = tuple(j * g + r for j in range(n_islands))
+        off = len(ops)
+        for op in stripe_tpl.ops:
+            if isinstance(op, Multicast):
+                ops.append(Multicast(members[op.root], tuple(members[x] for x in op.group),
+                                     op.nbytes, transport="switched"))
+            else:
+                ops.append(Unicast(members[op.src], members[op.dst], op.nbytes,
+                                   transport="switched"))
+        act += [(a + off, b + off) for a, b in stripe_tpl.activation]
+        stripe_last.append([i + off for i in tpl_rounds[-1]])
+    bundle = n_islands * n_bytes
+    ring_ops: list[Op] = []
+    ring_act: list[tuple[int, int]] = []
+    off = len(ops)
+    idx: dict[tuple[int, int], int] = {}
+    for s in range(g - 1):
+        for i in range(p):
+            base = (i // g) * g
+            idx[(s, i)] = len(ring_ops)
+            ring_ops.append(Unicast(i, base + (i - base + 1) % g, bundle,
+                                    transport=redistribute_transport))
+        if s:
+            ring_act += [(idx[(s - 1, (i // g) * g + (i % g - 1) % g)], idx[(s, i)])
+                         for i in range(p)]
+    ops += ring_ops
+    act += [(a + off, b + off) for a, b in ring_act]
+    # the phase barrier a stripe: rank i's redistribution starts once its own
+    # stripe's (i % g) last generation delivered
+    for i in range(p):
+        act += [(a, off + idx[(0, i)]) for a in stripe_last[i % g]]
+    island_ring = Schedule("ring_allgather", p, bundle, tuple(ring_ops), tuple(ring_act))
+    return Schedule("hier_allgather", p, n_bytes, tuple(ops), tuple(act),
+                    meta={"island_size": g, "m": m, "stripe_mode": stripe_mode,
+                          "redistribute_transport": redistribute_transport,
+                          "bundle_bytes": bundle, "stripe_ag": stripe_tpl,
+                          "island_ring": island_ring})
+
+
 def build_ring_reduce_scatter(p: int, n_bytes: int) -> Schedule:
     """Ring Reduce-Scatter of an ``n_bytes`` buffer a rank (reference
     sched_ir.py:464): P-1 generations of single-source Reduce edges, each
@@ -367,6 +453,76 @@ def build_ring_reduce_scatter(p: int, n_bytes: int) -> Schedule:
             act += [(idx[(s - 1, (i - 1) % p)], idx[(s, i)]) for i in range(p)]
     return Schedule("reduce_scatter", p, n_bytes, tuple(ops), tuple(act),
                     meta={"shard_bytes": shard})
+
+
+def build_allreduce(p: int, n_bytes: int, m: int | None = None) -> Schedule:
+    """Allreduce = RS o AG (reference sched_ir.py:483): the ring
+    Reduce-Scatter of the ``n_bytes`` buffer, then an Allgather of the
+    reduced N/P shards, the ring's (``m`` None) or the paper's M-chain
+    multicast (``m >= 1``), joined by a full activation barrier. The shard
+    is rounded to whole bytes for the packet-granular AG leg."""
+    if p < 2:
+        raise ValueError(f"allreduce needs at least 2 ranks, got p={p}")
+    shard_int = max(n_bytes // p, 1)
+    rs = build_ring_reduce_scatter(p, n_bytes)
+    ag = build_allgather(p, shard_int, m) if m else build_ring_allgather(p, shard_int)
+    off = len(rs.ops)
+    act = list(rs.activation) + [(a + off, b + off) for a, b in ag.activation]
+    rs_last = rs.rounds()[-1]
+    ag_first = [i + off for i in ag.rounds()[0]]
+    act += [(a, b) for a in rs_last for b in ag_first]   # the phase barrier
+    return Schedule("allreduce", p, n_bytes, rs.ops + ag.ops, tuple(act),
+                    meta={"m": m, "shard_bytes": shard_int, "n_rs_ops": off, "rs": rs,
+                          "ag": ag})
+
+
+def segment_bytes(n_bytes: int, n_segments: int) -> tuple[int, ...]:
+    """The buffer's split for pipelining (reference sched_ir.py:505):
+    ``n_segments`` contiguous segments, the first ``n_bytes % n_segments``
+    one byte longer."""
+    if n_segments < 1:
+        raise ValueError(f"n_segments must be >= 1, got {n_segments}")
+    q, rem = divmod(n_bytes, n_segments)
+    return tuple(q + (1 if i < rem else 0) for i in range(n_segments))
+
+
+def build_pipelined_allreduce(p: int, n_bytes: int, m: int | None = None,
+                              n_segments: int = 2) -> Schedule:
+    """The segment-pipelined Allreduce (reference sched_ir.py:515): the
+    buffer in ``n_segments`` segments, each an RS o AG pair, wired as a
+    two-stage pipeline: segment s's AG activated by its own RS, segment
+    s+1's RS by segment s's RS (not its AG), so the next Reduce-Scatter
+    runs under the previous Allgather. One segment is ``build_allreduce``'s
+    barrier composition."""
+    if p < 2:
+        raise ValueError(f"allreduce needs at least 2 ranks, got p={p}")
+    if not 1 <= n_segments <= max(n_bytes, 1):
+        raise ValueError(f"n_segments must be in [1, {max(n_bytes, 1)}], got {n_segments}")
+    segments: list[tuple[Schedule, Schedule]] = []
+    ops: list[Op] = []
+    act: list[tuple[int, int]] = []
+    prev_rs_last: list[int] = []
+    for seg in segment_bytes(n_bytes, n_segments):
+        shard_int = max(seg // p, 1)
+        rs = build_ring_reduce_scatter(p, seg)
+        ag = build_allgather(p, shard_int, m) if m else build_ring_allgather(p, shard_int)
+        segments.append((rs, ag))
+        rs_off = len(ops)
+        ops += rs.ops
+        act += [(a + rs_off, b + rs_off) for a, b in rs.activation]
+        rs_first = [i + rs_off for i in rs.rounds()[0]]
+        rs_last = [i + rs_off for i in rs.rounds()[-1]]
+        ag_off = len(ops)
+        ops += ag.ops
+        act += [(a + ag_off, b + ag_off) for a, b in ag.activation]
+        ag_first = [i + ag_off for i in ag.rounds()[0]]
+        # the pipeline's wiring: RS_s -> AG_s and RS_s -> RS_{s+1}
+        act += [(a, b) for a in prev_rs_last for b in rs_first]
+        act += [(a, b) for a in rs_last for b in ag_first]
+        prev_rs_last = rs_last
+    return Schedule("allreduce", p, n_bytes, tuple(ops), tuple(act),
+                    meta={"m": m, "n_segments": n_segments, "segments": tuple(segments),
+                          "shard_bytes": max(n_bytes // p, 1)})
 
 
 def build_fsdp_step(*, p: int, n_layers: int = 32, layer_bytes: float = 256e6,
@@ -482,15 +638,22 @@ def _fluid_broadcast(sched: Schedule, fabric: FabricParams, workers: WorkerParam
     leaves = [leaf for leaf in range(p) if leaf != root]
     jit = np.empty((len(leaves), n_chunks))
     dropped = np.empty((len(leaves), n_chunks), dtype=bool)
+    t0 = time.perf_counter() if profiling.ENABLED else 0.0
     for k in range(len(leaves)):
         jit[k] = rng.uniform(0.0, fabric.jitter, size=n_chunks)
         dropped[k] = rng.random(n_chunks) < fabric.p_drop
+    if t0:
+        profiling.record("rng", time.perf_counter() - t0)
     n_drop = dropped.sum(1)
     hop = torch.tensor([hop_lat[leaf] for leaf in leaves], dtype=torch.float64, device=dev)
     delay = hop[:, None] + torch.from_numpy(jit).to(dev)
     arr = torch.from_numpy(inject).to(dev)[None, :] + delay
     arr = torch.where(torch.from_numpy(dropped).to(dev), math.inf, arr)
-    rows = torch.sort(arr, dim=1).values
+    if profiling.ENABLED:
+        with profiling.phase("packing"):
+            rows = torch.sort(arr, dim=1).values
+    else:
+        rows = torch.sort(arr, dim=1).values
     counts = torch.from_numpy(n_chunks - n_drop).to(dev)
     done, rnr = worker_pool_completion_rows(rows, workers.n_recv_workers, service,
                                             workers.staging_chunks)
@@ -587,8 +750,11 @@ def _fluid_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerParam
         eng.run()
         arrive_spacing = np.sort(np.concatenate([f.chunk_times(n_chunks, chunk)
                                                  for f in flows]))
+        t0 = time.perf_counter() if profiling.ENABLED else 0.0
         delay = fabric.latency + rng.uniform(0.0, fabric.jitter, size=total_chunks)
         dropped = rng.random(total_chunks) < fabric.p_drop
+        if t0:
+            profiling.record("rng", time.perf_counter() - t0)
         arrivals = np.sort((arrive_spacing + delay)[~dropped])
         t_fast, rnr = t, 0
         if arrivals.size:
@@ -596,7 +762,10 @@ def _fluid_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerParam
                 torch.from_numpy(arrivals)[None].to(dev), workers.n_recv_workers, service,
                 workers.staging_chunks)
             t_fast, rnr = torch.stack([done[0, -1], mask.sum().to(torch.float64)]).tolist()
-            rnr = int(rnr)
+            # a numpy scalar, as the reference's done[-1]: the composite
+            # executors' sums (Python's sum is compensated only over exact
+            # floats) then round as the reference's do
+            t_fast, rnr = np.float64(t_fast), int(rnr)
         missing = int(dropped.sum()) + rnr
         cutoff = t + protocol.cutoff_time(m * n_bytes, fabric.b_link, fabric.alpha)
         t_round_end = t_fast
@@ -744,6 +913,197 @@ def _packet_ring(sched: Schedule, fabric: FabricParams, workers: WorkerParams,
     return base
 
 
+# ------------------------------------------------------------------ allreduce
+
+
+@dataclass
+class AllreduceResult:
+    """Allreduce = RS o AG (reference sched_ir.py:953), the phases back to
+    back (``build_allreduce``'s barrier) or segment-pipelined
+    (``build_pipelined_allreduce``: ``segments`` holds every (rs, ag) pair
+    of results, ``rs`` and ``ag`` the first segment's)."""
+    time: float
+    rs_time: float                     # total RS stage busy time
+    ag_time: float                     # total AG stage busy time
+    bytes_total: float
+    rs: RingCollectiveResult
+    ag: object                         # AllgatherResult | RingCollectiveResult
+    link_bytes: dict[str, float] = field(default_factory=dict)
+    segments: tuple = ()               # pipelined: ((rs, ag) result, ...)
+
+
+def _merge_bytes(into: dict[str, float], more: dict[str, float]) -> None:
+    for k, v in more.items():
+        into[k] = into.get(k, 0.0) + v
+
+
+def _exec_allreduce(sched: Schedule, fabric, workers, rng, *, fidelity, topology, hosts, loss,
+                    kw, device) -> AllreduceResult:
+    """The barrier Allreduce (reference sched_ir.py:972): the RS and AG
+    sub-schedules that ``build_allreduce`` keeps in ``meta``, each through
+    ``execute`` on ``device`` with the one generator, back to back; the
+    packet options go to the AG leg."""
+    if "segments" in sched.meta:
+        return _exec_pipelined_allreduce(sched, fabric, workers, rng, fidelity=fidelity,
+                                         topology=topology, hosts=hosts, loss=loss, kw=kw,
+                                         device=device)
+    rs = execute(sched.meta["rs"], fabric, workers, rng, fidelity=fidelity, topology=topology,
+                 hosts=hosts, loss=loss, device=device)
+    merged = dict(rs.link_bytes)
+    ag = execute(sched.meta["ag"], fabric, workers, rng, fidelity=fidelity, topology=topology,
+                 hosts=hosts, loss=loss, device=device, **kw)
+    _merge_bytes(merged, ag.link_bytes)
+    return AllreduceResult(time=rs.time + ag.time, rs_time=rs.time, ag_time=ag.time,
+                           bytes_total=rs.bytes_total + ag.bytes_total, rs=rs, ag=ag,
+                           link_bytes=merged)
+
+
+def _exec_pipelined_allreduce(sched: Schedule, fabric, workers, rng, *, fidelity, topology,
+                              hosts, loss, kw, device) -> AllreduceResult:
+    """The segment-pipelined Allreduce (reference sched_ir.py:998): each
+    segment's RS and AG run on their own (the RS on the neighbour ring, the
+    AG on the multicast trees or the receive path: disjoint stage resources
+    at this model's grain), then ``protocol.pipeline_schedule_time``
+    composes them, segment s+1's RS under segment s's AG. The same
+    recurrence over per-segment closed forms is the admissible bound, so
+    analytic <= fluid <= packet carries over segment by segment."""
+    results = []
+    merged: dict[str, float] = {}
+    for rs_sched, ag_sched in sched.meta["segments"]:
+        rs = execute(rs_sched, fabric, workers, rng, fidelity=fidelity, topology=topology,
+                     hosts=hosts, loss=loss, device=device)
+        rs_links = dict(rs.link_bytes)
+        ag = execute(ag_sched, fabric, workers, rng, fidelity=fidelity, topology=topology,
+                     hosts=hosts, loss=loss, device=device, **kw)
+        results.append((rs, ag))
+        _merge_bytes(merged, rs_links)
+        _merge_bytes(merged, ag.link_bytes)
+    rs_times = [rs.time for rs, _ in results]
+    ag_times = [ag.time for _, ag in results]
+    return AllreduceResult(
+        time=protocol.pipeline_schedule_time(rs_times, ag_times),
+        rs_time=sum(rs_times),
+        ag_time=sum(ag_times),
+        bytes_total=sum(rs.bytes_total + ag.bytes_total for rs, ag in results),
+        rs=results[0][0],
+        ag=results[0][1],
+        link_bytes=merged,
+        segments=tuple(results),
+    )
+
+
+# ----------------------------------------------------- hierarchical Allgather
+
+
+@dataclass
+class HierAllgatherResult:
+    """The hierarchical Allgather: striped switched Allgather, then the
+    island-ring redistribution (reference sched_ir.py:1038). ``stripe`` is
+    stripe 0's phase-B result: the stripes are disjoint and alike, so one
+    times them all; at fluid fidelity on a topology every stripe's flows
+    share its engine (stripe 0 feels the siblings' uplink contention, every
+    stripe's bytes are counted), at packet fidelity stripe 0's time carries
+    the fluid-measured contention factor."""
+    time: float
+    stripe: object                   # AllgatherResult | RingCollectiveResult
+    ring: RingCollectiveResult       # phase C (the island redistribution)
+    bytes_total: float
+    per_rank_recv_tput: float
+    phases: PhaseBreakdown
+    link_bytes: dict[str, float] = field(default_factory=dict)
+    completed: bool = True           # packet: phase B converged (C is RC)
+
+
+def _stripe_contention_factor(stripe_sched: Schedule, fabric, workers, topology, stripe_hosts,
+                              co_stripes, device=None) -> float:
+    """The stripes' uplink contention as a fluid slowdown (reference
+    sched_ir.py:1062): the stripe template alone and with every sibling
+    stripe's flows on one engine, each from a fresh ``default_rng(0)`` (so
+    the pair's draws are the same), on ``device``. At least 1 (max-min is
+    monotone); the packet stripe leg is scaled by it."""
+    if not co_stripes:
+        return 1.0
+    lower = _fluid_allgather if stripe_sched.kind == "allgather" else _fluid_ring
+    solo = lower(stripe_sched, fabric, workers, np.random.default_rng(0), topology=topology,
+                 hosts=stripe_hosts, device=device)
+    full = lower(stripe_sched, fabric, workers, np.random.default_rng(0), topology=topology,
+                 hosts=stripe_hosts, co_hosts=co_stripes, device=device)
+    return max(full.time / solo.time, 1.0)
+
+
+def _exec_hier_allgather(sched: Schedule, fabric, workers, rng, *, fidelity, topology, hosts,
+                         loss, kw, device) -> HierAllgatherResult:
+    """The hierarchical Allgather's lowering (reference sched_ir.py:1081):
+    phase B, the stripe template on stripe 0's members with the sibling
+    stripes' flows beside it (fluid on a topology: on one engine; packet:
+    stripe 0's packet run scaled by the fluid contention factor, the
+    siblings' fabric bytes counted statically), then phase C, the island
+    ring over every rank (its ops' transports route it onto the island
+    tier). A phase C all on the island tier runs lossless at packet
+    fidelity (the island's links are reliable); the switched redistribution
+    keeps the caller's loss. The packet options in ``kw`` go to a multicast
+    stripe leg only (a ring stripe is RC transport)."""
+    p, g = sched.p, sched.meta["island_size"]
+    n_islands = p // g
+    stripe_sched: Schedule = sched.meta["stripe_ag"]
+    ring_sched: Schedule = sched.meta["island_ring"]
+    host_list = list(hosts) if hosts is not None else list(range(p))
+    if len(host_list) != p:
+        raise ValueError(f"{len(host_list)} hosts for {p} ranks")
+    stripe_hosts = [host_list[j * g] for j in range(n_islands)] if topology is not None else None
+    co_stripes = ([[host_list[j * g + r] for j in range(n_islands)] for r in range(1, g)]
+                  if topology is not None else [])
+    if fidelity == "fluid" and topology is not None:
+        lower = _fluid_allgather if stripe_sched.kind == "allgather" else _fluid_ring
+        stripe_res = lower(stripe_sched, fabric, workers, rng, topology=topology,
+                           hosts=stripe_hosts, co_hosts=co_stripes, device=device)
+        link_bytes = dict(stripe_res.link_bytes)
+    else:
+        stripe_kw = kw if stripe_sched.kind == "allgather" else {}
+        stripe_res = execute(stripe_sched, fabric, workers, rng, fidelity=fidelity,
+                             topology=topology, hosts=stripe_hosts, loss=loss, device=device,
+                             **stripe_kw)
+        link_bytes = dict(stripe_res.link_bytes)
+        if topology is not None:
+            factor = _stripe_contention_factor(stripe_sched, fabric, workers, topology,
+                                               stripe_hosts, co_stripes, device=device)
+            if factor > 1.0:
+                extra = stripe_res.time * (factor - 1.0)
+                stripe_res.time += extra
+                stripe_res.phases.multicast += extra
+            topology.reset()
+            for r in range(1, g):
+                members = [host_list[j * g + r] for j in range(n_islands)]
+                for op in stripe_sched.ops:
+                    if isinstance(op, Multicast):
+                        topology.multicast(members[op.root], members, op.nbytes)
+                    else:
+                        topology.unicast(members[op.src], members[op.dst], op.nbytes)
+            for (a, b), v in topology.counters.bytes_by_link.items():
+                link_bytes[f"{a}->{b}"] = link_bytes.get(f"{a}->{b}", 0.0) + v
+    ring_loss = loss
+    if all(op.transport == "island" for op in ring_sched.ops):
+        ring_loss = 0.0               # packet.resolve_loss: lossless
+    ring_res = execute(ring_sched, fabric, workers, rng, fidelity=fidelity, topology=topology,
+                       hosts=host_list, loss=ring_loss if fidelity == "packet" else None,
+                       device=device)
+    _merge_bytes(link_bytes, ring_res.link_bytes)
+    total_time = stripe_res.time + ring_res.time
+    sp, rp = stripe_res.phases, ring_res.phases
+    return HierAllgatherResult(
+        time=total_time,
+        stripe=stripe_res,
+        ring=ring_res,
+        bytes_total=payload_bytes(sched),
+        per_rank_recv_tput=(p - 1) * sched.n_bytes / total_time,
+        phases=PhaseBreakdown(rnr_sync=sp.rnr_sync, multicast=sp.multicast + rp.multicast,
+                              reliability=sp.reliability + rp.reliability,
+                              handshake=sp.handshake + rp.handshake),
+        link_bytes=link_bytes,
+        completed=bool(getattr(stripe_res, "completed", True)),
+    )
+
+
 # ----------------------------------------------------------- FSDP lowering
 
 
@@ -876,10 +1236,20 @@ def _exec_analytic(sched: Schedule, fabric: FabricParams, workers: WorkerParams)
                                                 pool_rate=pool_rate, rnr_hop=hop)
     if sched.kind == "ring_allgather":
         return protocol.analytic_ring_allgather_time(p, n, b, lat)
+    if sched.kind == "hier_allgather":
+        return protocol.analytic_hier_allgather_time(
+            p, n, b, lat, island_size=sched.meta["island_size"], m=sched.meta.get("m"),
+            stripe_mode=sched.meta["stripe_mode"], pool_rate=pool_rate, rnr_hop=hop)
     if sched.kind == "reduce_scatter":
         return protocol.analytic_ring_reduce_scatter_time(p, n, b, lat)
-    raise NotImplementedError(f"kind {sched.kind!r} at fidelity='analytic' is not ported "
-                              f"yet ({_QUEUED})")
+    if sched.kind == "allreduce":
+        if sched.meta.get("n_segments", 1) > 1:
+            return protocol.analytic_pipelined_allreduce_time(
+                p, n, b, lat, m=sched.meta["m"], n_segments=sched.meta["n_segments"],
+                pool_rate=pool_rate, rnr_hop=hop)
+        return protocol.analytic_allreduce_time(p, n, b, lat, m=sched.meta["m"],
+                                                pool_rate=pool_rate, rnr_hop=hop)
+    raise NotImplementedError(f"no analytic form for kind={sched.kind}")
 
 
 # --------------------------------------------------- packet-fidelity Allgather
@@ -1016,12 +1386,15 @@ def _chain_losses(chains: list[_Chain], sampled: list[dict], sizes: list[int],
     zero = int(offsets[-1])
     mat = pk._mask_rows(zero, width, dev)
     view = mat.numpy()
+    t0 = time.perf_counter() if profiling.ENABLED else 0.0
     for model, runs in groups.values():
         drops = model.sample_runs([s for _, s in runs])
         at = 0
         for r, s in runs:
             view[r, :s] = drops[at:at + s]
             at += s
+    if t0:
+        profiling.record("rng", time.perf_counter() - t0)
     depth = max(ch.idx.shape[1] for ch in chains)
     idx = np.full((leaves.size, len(chains), depth), zero, dtype=np.int64)
     for c, ch in enumerate(chains):
@@ -1057,10 +1430,14 @@ def _merged_pool(arr: torch.Tensor, counts: torch.Tensor, t_floor: torch.Tensor,
     pos = torch.arange(m * w, device=arr.device)
     for b0 in range(0, b, blk):
         b1 = min(b0 + blk, b)
-        vals, order = torch.sort(rows[b0:b1], dim=1, stable=True)
+        if profiling.ENABLED:
+            with profiling.phase("packing"):
+                vals, order = torch.sort(rows[b0:b1], dim=1, stable=True)
+        else:
+            vals, order = torch.sort(rows[b0:b1], dim=1, stable=True)
         if pools is None:
-            done, drop = pool.pool_completion_rows(vals, workers.n_recv_workers, service,
-                                                   workers.staging_chunks)
+            done, drop = worker_pool_completion_rows(vals, workers.n_recv_workers, service,
+                                                     workers.staging_chunks)
             real = pos[None, :] < counts[b0:b1, None]
             last = torch.where(real, done, -math.inf).amax(1)
         else:
@@ -1210,7 +1587,11 @@ def _packet_allgather(sched: Schedule, fabric: FabricParams, workers: WorkerPara
             flags = torch.zeros((rl.size, live.size, n + (-n) % 32), dtype=torch.bool,
                                 device=dev)
             flags[:, :, :n] = miss
-            agg = bitmap.bitmap_or_rows(bitmap.bitmap_pack(flags.view(rl.size, -1)))
+            if profiling.ENABLED:
+                with profiling.phase("packing"):
+                    agg = bitmap.bitmap_or_rows(bitmap.bitmap_pack(flags.view(rl.size, -1)))
+            else:
+                agg = bitmap.bitmap_or_rows(bitmap.bitmap_pack(flags.view(rl.size, -1)))
             agg = agg.view(live.size, -1)
             u = bitmap.bitmap_popcount_rows(agg).cpu().numpy()         # (L,)
             union = bitmap.bitmap_unpack(agg, n)                       # (L, chunks)
@@ -1327,18 +1708,18 @@ def execute(sched: Schedule, fabric: FabricParams | None = None,
     (``core/packet.simulate_packet_broadcast``), ``allgather``
     (``_packet_allgather``) and the ring kinds (``_packet_ring``), with the
     packet keywords (``max_rounds``, ``aggregate_nacks``, ``engine``, ...)
-    in ``kw``; and ``fsdp_step`` at the fluid and packet fidelities
+    in ``kw``; the composite kinds ``allreduce`` (barrier and pipelined)
+    and ``hier_allgather`` at every fidelity, their legs through
+    ``execute`` (the packet keywords to the multicast Allgather leg); and
+    ``fsdp_step`` at the fluid and packet fidelities
     (``core/engine.simulate_fsdp_step`` over the schedule, its compute
     keywords in ``kw``). The engine's vectorized solve and the leaves'
-    receive datapath run on ``device`` (default ``cuda``). The kinds
-    ``allreduce`` and ``hier_allgather`` raise ``NotImplementedError``."""
+    receive datapath run on ``device`` (default ``cuda``)."""
     if fidelity not in FIDELITIES:
         raise ValueError(f"fidelity must be one of {FIDELITIES}, got {fidelity!r}")
     fabric = fabric or FabricParams()
     workers = workers or WorkerParams()
     rng = rng if rng is not None else np.random.default_rng(0)
-    if sched.kind in ("allreduce", "hier_allgather"):
-        raise NotImplementedError(f"kind {sched.kind!r} is not ported yet ({_QUEUED})")
 
     if sched.kind == "fsdp_step":
         from repro_torch.core import engine as engine_mod   # deferred: engine imports us
@@ -1364,6 +1745,12 @@ def execute(sched: Schedule, fabric: FabricParams | None = None,
             raise ValueError("loss models require fidelity='packet'")
         if kw:
             raise ValueError(f"{sorted(kw)} require fidelity='packet'")
+    composite = {"hier_allgather": _exec_hier_allgather, "allreduce": _exec_allreduce}
+    if sched.kind in composite:
+        return composite[sched.kind](sched, fabric, workers, rng, fidelity=fidelity,
+                                     topology=topology, hosts=hosts, loss=loss, kw=kw,
+                                     device=device)
+    if fidelity == "fluid":
         lower = {"broadcast": _fluid_broadcast, "allgather": _fluid_allgather,
                  "ring_allgather": _fluid_ring, "reduce_scatter": _fluid_ring}[sched.kind]
         return lower(sched, fabric, workers, rng, topology=topology, hosts=hosts,
@@ -1382,3 +1769,28 @@ def execute(sched: Schedule, fabric: FabricParams | None = None,
         raise ValueError(f"{sorted(kw)} not supported for ring schedules (RC transport)")
     return _packet_ring(sched, fabric, workers, rng, topology=topology, hosts=hosts, loss=loss,
                         device=device)
+
+
+# ------------------------------------------------------------------ autotune
+
+
+def autotune_chains(schedule_builder, topology=None, *, p: int, n_bytes: int,
+                    fabric: FabricParams | None = None, workers: WorkerParams | None = None,
+                    candidates=None, fidelity: str = "fluid", seed: int = 0, cache=None,
+                    device=None) -> tuple[int, dict[int, float]]:
+    """Sweep the chain count M of ``schedule_builder(p, n_bytes, m)`` on a
+    fabric and pick the fastest (reference sched_ir.py:2149): the §IV-A
+    incast knob, full parallelism on flat fabrics, fewer chains where the
+    fabric or the leaf pool is the bottleneck. Returns (best M, {M: time}).
+    Candidates default to the divisors of P. The 1-D case of
+    ``core/sched_search.py``: it delegates to ``sweep_chains`` with its
+    memoized ``cache=`` (an ``EvalCache``), evaluating on ``device``."""
+    from repro_torch.core import sched_search   # deferred: sched_search imports this module
+
+    fabric = fabric or FabricParams(jitter=0.0)
+    workers = workers or WorkerParams(n_recv_workers=8)
+    if candidates is None:
+        candidates = [m for m in range(1, p + 1) if p % m == 0]
+    return sched_search.sweep_chains(schedule_builder, topology, p=p, n_bytes=n_bytes,
+                                     fabric=fabric, workers=workers, candidates=candidates,
+                                     fidelity=fidelity, seed=seed, cache=cache, device=device)

@@ -530,12 +530,14 @@ def test_guards_raise_like_the_reference():
         assert (got.step_time, got.bubble_fraction) == (want.step_time, want.bubble_fraction)
     with pytest.raises(ValueError, match="fidelities"):
         sched_ir.execute(fsdp, fidelity="analytic", device="cpu")
-    # what is not ported yet raises, naming its ROADMAP item
-    for kind in ("allreduce", "hier_allgather"):
-        other = sched_ir.Schedule(kind, 2, 8, (sched_ir.Unicast(0, 1, 8),))
+    # the composite kinds compute at every fidelity, equal to the reference's
+    for build, args in (("build_allreduce", (4, 1 << 12, 2)),
+                        ("build_hierarchical_allgather", (4, 1 << 12, 2))):
         for fidelity in sched_ir.FIDELITIES:
-            with pytest.raises(NotImplementedError, match="item 6b"):
-                sched_ir.execute(other, fidelity=fidelity, device="cpu")
+            got = sched_ir.execute(getattr(sched_ir, build)(*args), fidelity=fidelity,
+                                   device="cpu")
+            want = ref_ir.execute(getattr(ref_ir, build)(*args), fidelity=fidelity)
+            assert getattr(got, "time", got) == getattr(want, "time", want), (build, fidelity)
     bad = sched_ir.Schedule("ring_allgather", 2, 8, (sched_ir.Reduce(0, (0, 1), 8),))
     with pytest.raises(ValueError, match="single-source"):
         sched_ir.execute(bad, device="cpu")

@@ -1185,3 +1185,113 @@ def test_matmul_past_2_31_bytes():
     want = M.matmul_plain(x, w)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item()
+
+
+def _same_result(a, b, ctx="") -> None:
+    """Two results (dataclasses, recursively) equal exactly, the search's
+    wall clock aside."""
+    import dataclasses
+    if dataclasses.is_dataclass(b) and not isinstance(b, type):
+        assert type(a) is type(b), ctx
+        for f in dataclasses.fields(b):
+            if f.name != "wall_s":
+                _same_result(getattr(a, f.name), getattr(b, f.name), f"{ctx}.{f.name}")
+    elif isinstance(b, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b), ctx
+    elif isinstance(b, dict):
+        assert list(a) == list(b), ctx
+        for k in b:
+            _same_result(a[k], b[k], f"{ctx}[{k!r}]")
+    elif isinstance(b, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), ctx
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_result(x, y, f"{ctx}[{i}]")
+    else:
+        assert a == b and type(a) is type(b), (ctx, a, b)
+
+
+@pytest.mark.gpu
+def test_allreduce_search_on_cuda_equals_cpu():
+    """A P = 8 Allreduce search on the 4x oversubscribed k = 8 fat-tree,
+    validated at packet fidelity under 1e-3 loss: on the card equal to the
+    CPU's field for field, the fluid Allgathers' and the validation's pool
+    passes on the pool kernel."""
+    _need_cuda()
+    from repro_torch.core import sched_search
+
+    def run(device):
+        return sched_search.search("allreduce", 8, 1 << 20, loss=1e-3, device=device,
+                                   topology=T.FatTree(k=8, n_hosts=8, oversubscription=4.0))
+
+    cpu = run("cpu")
+    before = PL.launches
+    card = run("cuda")
+    assert PL.launches > before
+    _same_result(card, cpu)
+    assert card.packet_validated and card.certificate.ratio >= 1.0 - 1e-9
+
+
+@pytest.mark.gpu
+def test_hier_allgather_on_cuda_equals_cpu():
+    """A P = 16 hierarchical Allgather on IslandFatTree(4, 16, islands of 4),
+    both stripe modes, at the fluid fidelity and at packet fidelity under
+    1e-2 loss: on the card equal to the CPU's field for field, the
+    generators left in one state."""
+    _need_cuda()
+    from repro_torch.core import sched_ir
+
+    for mode in ("mcast", "ring"):
+        sched = sched_ir.build_hierarchical_allgather(16, 1 << 18, 4, 2, stripe_mode=mode)
+        for fidelity, loss in (("fluid", None), ("packet", 1e-2)):
+            out = {}
+            for device in ("cpu", "cuda"):
+                rng = np.random.default_rng(1)
+                res = sched_ir.execute(sched, E.FabricParams(), E.WorkerParams(n_recv_workers=8),
+                                       rng, fidelity=fidelity, loss=loss, device=device,
+                                       topology=T.IslandFatTree(4, 16, island_size=4))
+                out[device] = (res, rng.random())
+            _same_result(out["cuda"], out["cpu"], f"{mode} {fidelity}")
+
+
+@pytest.mark.gpu
+def test_profiling_adds_no_device_sync():
+    """A lossy routed packet Allgather and a fluid one make no more
+    synchronisations with the profiler on than off (``set_sync_debug_mode``
+    warns at each): the profiled run's count is one of the unprofiled runs'
+    on either side of it (the first runs of a process may make one more),
+    and the results are the same."""
+    _need_cuda()
+    import warnings
+    from repro_torch.core import profiling
+
+    def run():
+        ag = S.simulate_allgather(16, 1 << 16, E.FabricParams(), E.WorkerParams(n_recv_workers=8),
+                                  np.random.default_rng(0), 4, topology=T.FatTree(k=8, n_hosts=16),
+                                  fidelity="packet", loss=0.005, device="cuda")
+        fl = S.simulate_allgather(64, 1 << 16, E.FabricParams(), E.WorkerParams(n_recv_workers=16),
+                                  np.random.default_rng(0), n_chains=64,
+                                  topology=T.FatTree(k=8, n_hosts=64), device="cuda")
+        return ag, fl
+
+    run()                                   # build and warm up outside the count
+    syncs, results = [], []
+    try:
+        for enabled in (False, True, False):
+            profiling.reset()
+            (profiling.enable if enabled else profiling.disable)()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    results.append(run())
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            if enabled:
+                assert profiling.report()["pool_solve"]["calls"] > 0
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert syncs[1] in (syncs[0], syncs[2]) and syncs[1] > 0, syncs
+    _same_result(results[1], results[0])
+    _same_result(results[2], results[0])

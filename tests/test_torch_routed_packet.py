@@ -365,8 +365,12 @@ def test_what_is_still_queued_raises():
     with pytest.raises(NotImplementedError, match="Not queued"):
         packet.simulate_packet_broadcast(*args, topology=topo, engine="reference",
                                          device="cpu")
-    for kind in ("allreduce", "hier_allgather"):
-        other = sched_ir.Schedule(kind, 2, 8, (sched_ir.Unicast(0, 1, 8),))
-        for fidelity in sched_ir.FIDELITIES:
-            with pytest.raises(NotImplementedError, match="item 6b"):
-                sched_ir.execute(other, fidelity=fidelity, device="cpu")
+    # the composite kinds run routed at packet fidelity, equal to the reference's
+    ref_t = ref_topo.FatTree(k=4)
+    for build, args in (("build_allreduce", (8, 1 << 16, 4)),
+                        ("build_hierarchical_allgather", (8, 1 << 16, 2))):
+        got = sched_ir.execute(getattr(sched_ir, build)(*args), fidelity="packet", loss=0.01,
+                               topology=topo, device="cpu")
+        want = ref_ir.execute(getattr(ref_ir, build)(*args), fidelity="packet", loss=0.01,
+                              topology=ref_t)
+        assert (got.time, got.link_bytes) == (want.time, want.link_bytes) and got.link_bytes
