@@ -24,10 +24,13 @@
    view, max(1, ceil(k / 128)) launches a call; the
    matmul kernel (csrc/matmul.cu) against its plain version at every shape
    the training and serving paths give it, deepseek-moe-16b's (phases 3d
-   and 4d) included (forward and both backward
-   products, bf16 and f32, the tied head's embed^T view included): f32
+   and 4d) and yi-9b's, granite-3-8b's and granite-34b's (phases 3e and
+   4e) included (forward and both backward products, bf16 and f32, the
+   head as every rank's (D, V) copy with V of unit stride): f32
    within 1e-5 x max|plain|, bf16 within 1e-2 x max|plain|, every bf16
-   product on the wgmma + TMA path; then that path's edge cases (the four
+   product on the wgmma + TMA path but the head products of granite-3-8b's
+   odd vocab (49,155), whose rows TMA cannot describe, on the wmma path
+   (``expected_path``); then that path's edge cases (the four
    operand layouts at one 128 x 192 tile, ragged M, N and K, operands
    expanded over the ranks, out= views) and the wmma path's (K = 33, N = 7,
    a base off 16 bytes), on integer inputs, bitwise; the receive
@@ -46,13 +49,13 @@
    wrappers under ``torch.cuda.set_sync_debug_mode("error")``: none may
    synchronise with the host;
 2. the stacked allgathers (ring, bidi, bcast) against the plain gather;
-3. serving smollm-135m at full width and depth (30 layers, bf16, seeded
+3. serving smollm-135m at full width and 8 of its 30 layers (bf16, seeded
    random weights) on a (data=8, model=1) stacked mesh: prefill of a
    128-token prompt for batch 8, then greedy generation of 32 tokens, in
    every fsdp_mode. All modes must give identical logits and tokens; each
-   gather of the mcast modes is one ring-allgather launch (210 per prefill)
-   that runs its mode's schedule (bidi, ring, broadcasts: 1,470 / 1,470 /
-   5,880 entries), no ring step is launched, and no product may reach the
+   gather of the mcast modes is one ring-allgather launch (56 per prefill)
+   that runs its mode's schedule (bidi, ring, broadcasts: 392 / 392 /
+   1,568 entries), no ring step is launched, and no product may reach the
    wmma or f32 kernel. A
    reduced f32 model is also held against a single-rank run;
 4. training smollm-135m at full width (30 layers, bf16, batch 16 x 512,
@@ -131,6 +134,28 @@
    and 8 f32 matmuls. Then #1 and #1b at one expert leaf (2.95 GB of
    gathered copies, past 2^31 bytes) in each mcast schedule, bitwise
    their plain versions, and #3 at the MoE step's shapes, timed;
+3e. serving yi-9b (48 layers, d_model 4,096, 32 / 4 heads, SwiGLU d_ff
+   11,008, untied vocab 64,000: 8.83 B parameters), granite-3-8b (40
+   layers, 32 / 8 heads, d_ff 12,800, tied odd vocab 49,155: 8.17 B) and
+   granite-34b at full width and 40 of its 88 layers (d_model 6,144, 48
+   query heads on one kv head, GELU d_ff 24,576, untied vocab 49,152: 15.77
+   B), bf16, weights drawn on the card by ``bridge.device_params`` (their
+   count the analytic one), on (data=8, model=1): a prefill of a 128-token
+   prompt for batch 8, then greedy generation of 8 tokens, in every mode,
+   logits and tokens bitwise ``xla``'s, the cache (L, 8, KV, 128, 128); a
+   prefill launches a gather per sharded leaf and layer in each mcast mode
+   (336 / 280 / 240; the embedding and the head by the plain gather), no
+   transpose and no ring step, a matmul per projection and layer and the
+   head's, which at granite-3-8b's odd vocab is the wmma kernel's (one a
+   prefill and one a decode step); prefills timed 3 times (the median), the
+   mcast one profiled, decode timed once, peak memory;
+4e. training each of the three at full width and 2 layers (batch 16 x
+   512, remat="full", AdamW) on the same mesh in every mode: a warm-up, 2
+   timed steps and a profiled step each, every step launching exactly
+   what phase 4's count gives at their leaves (granite-34b's GELU MLP has
+   6 a layer) and, at granite-3-8b's odd vocab, 4 wmma launches (the head's
+   forward, recompute, dx and dW); the first-step loss bitwise equal in
+   every mode. Then #3 timed at yi-9b's train shapes;
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
    receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
    Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
@@ -256,6 +281,16 @@
    calls equal to the solves and ``pool_solve``'s to the pool launches
    plus the 1-D host scans of the call. ``REPRO_EVAL_CACHE`` and
    ``REPRO_SEARCH_WORKERS`` are cleared for the phase;
+5g. the training-run co-simulation (core/train_sim.py): the runs of
+   benchmarks/paper_figs.py's ``training_run_sweep`` (smollm-135m, yi-9b and
+   granite-34b at 16, 64 and 256 hosts, split, abstract fabric; naive and
+   split on a 4x oversubscribed k = 8 fat-tree; fluid, analytic, packet at
+   0.1 and 1 % loss; granite-34b at 64 hosts, pp = 4, grad_accum = 8),
+   then the three at 64 hosts priced at the H100's own figures
+   (``train_sim.H100``), each on the CPU and on the card, field for field
+   equal, with the sweep's assertions (step time falling with the hosts,
+   MFU in (0, 1], split over naive, analytic <= fluid <= packet, the 1F1B
+   bubble);
 6. the collective layer's remaining entry points, each driven once with the
    launch counts zeroed before and read after: (a) the double-buffered
    drain (csrc/double_buffer_drain.cu) equal to its plain version on every
@@ -323,7 +358,7 @@ from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
 from repro_torch.checkpoint.ckpt import host_arrays  # noqa: E402
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig,  # noqa: E402
                                  ShapeConfig, TrainConfig, get_model_config, reduced,
-                                 replace)
+                                 replace, training_sweep_archs)
 from repro_torch.core import collectives as C  # noqa: E402
 from repro_torch.core import cost_model as CM  # noqa: E402
 from repro_torch.core import dpa as DPA  # noqa: E402
@@ -336,6 +371,7 @@ from repro_torch.core import sched_ir as IR  # noqa: E402
 from repro_torch.core import sched_search as SS  # noqa: E402
 from repro_torch.core import simulator as SIM  # noqa: E402
 from repro_torch.core import topology as TOPO  # noqa: E402
+from repro_torch.core import train_sim as TS  # noqa: E402
 from repro_torch.data.pipeline import SyntheticPipeline  # noqa: E402
 from repro_torch.kernels import bitmap as BM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -350,6 +386,7 @@ from repro_torch.runtime.serve_loop import (ServeState, greedy_generate,  # noqa
                                             make_decode_step, make_prefill_step)
 from repro_torch.runtime.train_loop import init_state, make_train_step  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model_builder import XENT_CHUNK  # noqa: E402
 from repro_torch.sharding.ctx import use_ctx  # noqa: E402
 from repro_torch.sharding.fsdp import flatten_bucket  # noqa: E402
 from repro_torch.sharding.specs import is_sharded, tree_leaves  # noqa: E402
@@ -534,9 +571,15 @@ def check_small_reference() -> float:
     return err
 
 
+# phase 3 serves smollm-135m at full width and SERVE_LAYERS of its 30 layers:
+# its decode is host-bound (a launch per layer and step), and at 30 layers
+# the phase took about 160 s on the card
+SERVE_LAYERS = 8
+
+
 def serve() -> None:
     """Phase 3: the serving path in every mode."""
-    cfg = get_model_config("smollm-135m")
+    cfg = replace(get_model_config("smollm-135m"), num_layers=SERVE_LAYERS)
     mesh = StackedMesh(data=8, model=1)
     t0 = time.perf_counter()
     params = bridge.to_torch(bridge.random_params(cfg, seed=0), mesh,
@@ -792,11 +835,13 @@ def _time(fn, target_s: float = 0.05) -> float:
 
 
 def _layer_leaves(cfg) -> dict[str, tuple[int, int]]:
-    """(fan-in, fan-out) of each projection of one dense layer."""
+    """(fan-in, fan-out) of each projection of one dense layer: the SwiGLU
+    MLP's three, or the plain MLP's two (``act="gelu"``, granite-34b)."""
     d, f = cfg.d_model, cfg.d_ff
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
-            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    mlp = ({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)} if cfg.act == "swiglu"
+           else {"w_in": (d, f), "w_out": (f, d)})
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d), **mlp}
 
 
 def _steps(x: torch.Tensor, sched: tuple) -> torch.Tensor:
@@ -918,7 +963,9 @@ def matmul_cases(cfg, r: int, m: int, dtype, *, train: bool,
     (default ``m``; a prefill's last position). With ``train`` (remat="full"), each
     layer's forward products run twice (the checkpointed recompute), then
     dY W^T and X^T dY; the head's forward runs twice (the checkpointed
-    cross-entropy chunk), then its two backward products."""
+    cross-entropy chunk), then its two backward products. Every rank's copy
+    of the head is (D, V) with V of unit stride, tied (the embedding's
+    gather lays it out so) or not."""
     cases: dict = {}
 
     def add(key, count):
@@ -931,27 +978,50 @@ def matmul_cases(cfg, r: int, m: int, dtype, *, train: bool,
             add((r, k, m, n, True, False, dtype), cfg.num_layers)    # X^T dY
     d, v = cfg.d_model, cfg.vocab_size
     m = m if head_m is None else head_m
-    add((r, m, d, v, False, True, dtype), 2 if train else 1)         # x embed^T
+    add((r, m, d, v, False, False, dtype), 2 if train else 1)        # x head
     if train:
-        add((r, m, v, d, False, False, dtype), 1)                    # dY embed
+        add((r, m, v, d, False, True, dtype), 1)                     # dY head^T
         add((r, d, m, v, True, False, dtype), 1)                     # x^T dY
     return cases
 
 
+def _tma_ok(r: int, rows: int, cols: int, transposed: bool) -> bool:
+    """Whether TMA can describe a fresh bf16 operand (r, rows, cols) made as
+    ``_operand`` makes it (``collective_matmul.tma_layout``): its rows, of
+    the unit-stride extent, 16 bytes apart, or one row; so the rank stride."""
+    inner, outer = (rows, cols) if transposed else (cols, rows)
+    return (outer == 1 or inner % 8 == 0) and (r == 1 or rows * cols % 8 == 0)
+
+
+def expected_path(r: int, m: int, k: int, n: int, a_t: bool, b_t: bool, dtype) -> str:
+    """The matmul kernel a case of ``matmul_cases`` takes: f32 the FMA
+    kernel; bf16 wgmma where TMA can describe both operands, else wmma (a
+    unit-stride extent of granite-3-8b's odd vocab, 49,155)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if _tma_ok(r, m, k, a_t) and _tma_ok(r, k, n, b_t) else "wmma"
+
+
 def check_matmul(cases) -> float:
-    """Phase 1: the kernel vs its plain version at every case, every bf16
-    product on the wgmma path (one launch each). Returns the max abs error."""
+    """Phase 1: the kernel vs its plain version at every case, each product
+    on the path ``expected_path`` names (one launch each): every bf16 one on
+    wgmma but the head products of an odd vocab, on wmma. Returns the max
+    abs error."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     max_err = 0.0
-    for (r, m, k, n, a_t, b_t, dtype) in cases:
+    counter = {"wgmma": "launches", "wmma": "launches_wmma", "f32": "launches_f32"}
+    for case in cases:
+        r, m, k, n, a_t, b_t, dtype = case
         a = _operand(r, m, k, a_t, dtype, gen)
         b = _operand(r, k, n, b_t, dtype, gen)
         want = M.matmul_plain(a, b)
-        kind, before = M.path(a, b), M.launches
+        kind, expect = M.path(a, b), expected_path(*case)
+        before = getattr(M, counter[expect])
         got = M.matmul(a, b)
         torch.cuda.synchronize()
-        if dtype == torch.bfloat16 and (kind != "wgmma" or M.launches != before + 1):
-            raise AssertionError(f"bf16 matmul {(r, m, k, n, a_t, b_t)} took the {kind} path")
+        if kind != expect or getattr(M, counter[expect]) != before + 1:
+            raise AssertionError(f"matmul {(r, m, k, n, a_t, b_t, dtype)} took the {kind} path, "
+                                 f"expected {expect}")
         err = (got.float() - want.float()).abs().max().item()
         tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
         if not err <= tol or got.dtype != dtype:
@@ -1073,13 +1143,26 @@ def _train_launches(cfg, mesh: StackedMesh, mode: str, *, prefetch: bool = False
     matmul = sum(matmul_cases(cfg, mesh.n_ranks, TRAIN_SHAPE.global_batch // mesh.n_ranks
                               * TRAIN_SHAPE.seq_len, torch.bfloat16, train=True).values())
     matmul -= leaves * (layers - (bodies if remat == "full" else 0))
+    wmma = head_wmma(cfg, train=True)
     p = mesh.n_ranks
     return {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + OFF_PATH},
             "ring_allgather": gathers,
             **_want_entries(mode, gathers * (p - 1), p),
             "ring_step": 0, "ring_allgather_transpose": transposes,
             **_want_entries(mode, transposes * (p - 1), p, "transpose_entries"),
-            "matmul": matmul}
+            "matmul": matmul - wmma, "matmul_wmma": wmma}
+
+
+def head_wmma(cfg, *, train: bool, seq: int = TRAIN_SHAPE.seq_len) -> int:
+    """The head's launches of the wmma kernel at an odd vocab (granite-3-8b's
+    49,155: every rank's copy of the head, (D, V) with V of unit stride,
+    and the logits' cotangent have rows 2V bytes apart, which TMA cannot
+    take): one a prefill or a decode step; in a train step four a
+    cross-entropy chunk (the forward, its checkpointed recompute, dx and
+    dW). None at an even vocab."""
+    if cfg.vocab_size % 8 == 0:
+        return 0
+    return 4 * -(-seq // XENT_CHUNK) if train else 1
 
 
 def check_train_reference(batch: int = 8) -> float:
@@ -3182,6 +3265,99 @@ def search_path() -> dict[str, int]:
     return total
 
 
+# ----------------------------- phase 5g: the training-run co-simulation
+
+# benchmarks/paper_figs.py:800 (training_run_sweep): every sweep model at
+# these host counts, the split policy, the abstract fabric without jitter
+TRAIN_SIM_HOSTS = (16, 64, 256)
+TRAIN_SIM_H100_HOSTS = 64
+
+
+def training_sweep(device: str) -> dict:
+    """``training_run_sweep``'s runs on ``device``: the sweep models at
+    TRAIN_SIM_HOSTS; smollm-135m on P = 16 naive and split on a 4x
+    oversubscribed k = 8 fat-tree; split fluid, analytic and packet at 0.1 %
+    and 1 % loss; granite-34b at 64 hosts, pp = 4, grad_accum = 8."""
+    fab = E.FabricParams(jitter=0.0)
+    out = {f"{arch}.h{n}": TS.simulate_training_run(arch, n_hosts=n, policy="split",
+                                                     fabric=fab, device=device)
+           for arch in training_sweep_archs() for n in TRAIN_SIM_HOSTS}
+    for pol in ("naive", "split"):
+        out[f"oversub4.{pol}"] = TS.simulate_training_run(
+            "smollm-135m", n_hosts=16, policy=pol, fabric=fab, device=device,
+            topology=TOPO.FatTree(k=8, n_hosts=16, oversubscription=4.0))
+    out["fluid"] = TS.simulate_training_run("smollm-135m", n_hosts=16, policy="split",
+                                            fabric=fab, device=device)
+    out["analytic"] = TS.simulate_training_run("smollm-135m", n_hosts=16, policy="split",
+                                               fabric=fab, fidelity="analytic", device=device)
+    for q in (0.001, 0.01):
+        out[f"packet.{q}"] = TS.simulate_training_run(
+            "smollm-135m", n_hosts=16, policy="split", fabric=fab, fidelity="packet", loss=q,
+            rng=np.random.default_rng(0), device=device)
+    out["pp4ga8"] = TS.simulate_training_run("granite-34b", n_hosts=64, pp=4, grad_accum=8,
+                                             policy="split", fabric=fab, device=device)
+    return out
+
+
+def h100_runs(device: str) -> dict:
+    """The sweep models at TRAIN_SIM_H100_HOSTS hosts, split, priced at the
+    card's own figures (``train_sim.H100``)."""
+    return {arch: TS.simulate_training_run(arch, n_hosts=TRAIN_SIM_H100_HOSTS, policy="split",
+                                           fabric=E.FabricParams(jitter=0.0), chip=TS.H100,
+                                           device=device)
+            for arch in training_sweep_archs()}
+
+
+def _train_row(r) -> dict:
+    return {"step_s": r.step_time, "micro_s": r.micro_time, "compute_s": r.compute_time,
+            "bubble_fraction": r.bubble_fraction, "mfu": r.mfu, "dp": r.dp, "pp": r.pp,
+            "n_devices": r.n_devices}
+
+
+def train_sim_path() -> None:
+    """Phase 5g: ``training_run_sweep``'s runs and the sweep models at 64
+    hosts priced at the H100, each on the CPU and on the card, field for
+    field equal (``_figure``; no receive kernel runs), with
+    ``training_run_sweep``'s assertions."""
+    runs, _, counts = _figure("training_run_sweep", training_sweep, lambda _: {},
+                              tag="train-sim")
+    for arch in training_sweep_archs():
+        steps = {n: runs[f"{arch}.h{n}"].step_time for n in TRAIN_SIM_HOSTS}
+        if not all(0.0 < runs[f"{arch}.h{n}"].mfu <= 1.0 for n in TRAIN_SIM_HOSTS):
+            raise AssertionError(f"{arch}: an MFU outside (0, 1]")
+        if not steps[16] > steps[64] > steps[256]:
+            raise AssertionError(f"{arch}: step times {steps} do not fall with the hosts")
+        print(f"[train-sim] {arch}: step s by hosts {json.dumps(steps)}; 16 over 256 hosts "
+              f"{steps[16] / steps[256]}", flush=True)
+    naive, split = runs["oversub4.naive"], runs["oversub4.split"]
+    if not (split.mfu > naive.mfu and split.step_time < naive.step_time
+            and split.bubble_fraction < naive.bubble_fraction):
+        raise AssertionError("split does not beat naive on the oversubscribed fat-tree")
+    fl, an, p1, p2 = runs["fluid"], runs["analytic"], runs["packet.0.001"], runs["packet.0.01"]
+    if not (an.step_time <= fl.step_time + 1e-12
+            and fl.step_time <= p1.step_time <= p2.step_time + 1e-9
+            and p2.mfu <= p1.mfu <= fl.mfu):
+        raise AssertionError("the fidelities are out of order: analytic <= fluid <= packet")
+    pp = runs["pp4ga8"]
+    if pp.pipeline_bubble_fraction != (4 - 1) / (8 + 4 - 1):
+        raise AssertionError(f"pipeline bubble {pp.pipeline_bubble_fraction}")
+    print("[train-sim] " + json.dumps({
+        "split_vs_naive_mfu_x": split.mfu / naive.mfu,
+        "bubble_naive": naive.bubble_fraction, "bubble_split": split.bubble_fraction,
+        "loss1pct_step_x": p2.step_time / fl.step_time,
+        "analytic_vs_fluid_x": an.step_time / fl.step_time,
+        "granite34b_pp4ga8": _train_row(pp)}), flush=True)
+    h100, _, _ = _figure("h100_64_hosts", h100_runs, lambda _: {}, tag="train-sim")
+    for arch, r in h100.items():
+        v5e = runs[f"{arch}.h{TRAIN_SIM_H100_HOSTS}"]
+        if not (0.0 < r.mfu <= 1.0 and r.compute_time < v5e.compute_time):
+            raise AssertionError(f"{arch} at the H100's figures: mfu {r.mfu}, compute "
+                                 f"{r.compute_time} s against {v5e.compute_time} at the "
+                                 "reference's chip")
+        print(f"[train-sim] {arch} at {TRAIN_SIM_H100_HOSTS} hosts, chip {TS.H100.name}: "
+              + json.dumps(_train_row(r)), flush=True)
+
+
 # ------------------------------------------------------- the collective layer
 
 AGMM_ROWS = (BATCH * PROMPT // 8, TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len // 8)
@@ -3617,25 +3793,27 @@ def moe_matmul_cases(cfg, r: int, m: int, cap: int, dtype, *, train: bool,
             add((rr, k, mm, n, True, False, dt), cfg.num_layers)    # X^T dY
     v = cfg.vocab_size
     hm = m if head_m is None else head_m
-    head_t = cfg.tie_embeddings   # the tied head is embed^T, a transposed view
-    add((r, hm, d, v, False, head_t, dtype), 2 if train else 1)
+    add((r, hm, d, v, False, False, dtype), 2 if train else 1)   # the head (D, V), as dense
     if train:
-        add((r, hm, v, d, False, not head_t, dtype), 1)
+        add((r, hm, v, d, False, True, dtype), 1)
         add((r, d, hm, v, True, False, dtype), 1)
     return cases
 
 
-def _moe_want(cfg, mesh: StackedMesh, mode: str, *, gathers: int, transposes: int,
-              matmuls: tuple[int, int]) -> dict[str, int]:
-    """Every count of ``_counts`` that an MoE call must show."""
+def _path_want(mesh: StackedMesh, mode: str, *, gathers: int, transposes: int, matmul: int,
+               wmma: int = 0, f32: int = 0) -> dict[str, int]:
+    """Every count of ``_counts`` that a model call (MoE, or a dense config
+    of phases 3e and 4e) must show: in the mcast modes ``gathers`` and
+    ``transposes`` with their schedule entries, none in xla; ``matmul``,
+    ``wmma`` and ``f32`` launches of the matmul's three kernels."""
     p = mesh.n_ranks
     g = 0 if mode == "xla" else gathers
     t = 0 if mode == "xla" else transposes
-    return {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + ("matmul_wmma", "ring_step")},
+    return {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + ("ring_step",)},
             "ring_allgather": g, **_want_entries(mode, g * (p - 1), p),
             "ring_allgather_transpose": t,
             **_want_entries(mode, t * (p - 1), p, "transpose_entries"),
-            "matmul": matmuls[0], "matmul_f32": matmuls[1]}
+            "matmul": matmul, "matmul_wmma": wmma, "matmul_f32": f32}
 
 
 def check_moe_small_reference() -> tuple[float, float]:
@@ -3755,7 +3933,7 @@ def moe_serve() -> None:
         do_prefill()   # warm-up
         (logits, pre), _, counts = _run(do_prefill)
         out, _, gen_counts = _run(do_generate)
-        want = _moe_want(cfg, mesh, mode, gathers=gathers, transposes=0, matmuls=mm)
+        want = _path_want(mesh, mode, gathers=gathers, transposes=0, matmul=mm[0], f32=mm[1])
         want_gen = dict(want, matmul=mm[0] * MOE_NEW, matmul_f32=mm[1] * MOE_NEW)
         if counts != want or gen_counts != want_gen:
             raise AssertionError(f"{mode}: MoE prefill launched {counts}, expected {want}; "
@@ -3824,7 +4002,8 @@ def moe_train() -> None:
     first = {}
     for mode in MODES:
         torch.cuda.reset_peak_memory_stats()
-        want = _moe_want(cfg, mesh, mode, gathers=gathers, transposes=transposes, matmuls=mm)
+        want = _path_want(mesh, mode, gathers=gathers, transposes=transposes, matmul=mm[0],
+                          f32=mm[1])
         row, _ = _train_steps(cfg, mesh, tree, batches, mode, MOE_TRAIN_TIMED, want)
         row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
         print("[moe-train] " + json.dumps(row), flush=True)
@@ -3873,6 +4052,192 @@ def time_moe_kernels() -> dict:
     print(f"[moe-kernels] one expert leaf, P={p} n={n} bf16: " + json.dumps(rows), flush=True)
     print("[moe-kernels] means over the schedules: " + json.dumps(out), flush=True)
     return out
+
+
+# ------------------------- phases 3e and 4e: the registry's other dense configs
+
+DENSE_ARCHS = ("yi-9b", "granite-3-8b", "granite-34b")
+# granite-34b in full is 66.7 GB of bf16 weights on the card, and a prefill
+# adds 8 gathered copies of a layer (6.1 GB) and of the head (4.8 GB): no
+# margin on 80 GB. It is served at its full width and 40 of its 88 layers
+DENSE_SERVE_LAYERS = {"granite-34b": 40}
+DENSE_PROMPT, DENSE_NEW = 128, 8   # batch BATCH
+DENSE_REPEATS = 3                  # host-clock samples per timed prefill; the median is reported
+DENSE_TRAIN_LAYERS = 2
+DENSE_TRAIN_TIMED = 2
+
+
+def _dense_cfg(arch: str, *, train: bool = False):
+    cfg = get_model_config(arch)
+    layers = DENSE_TRAIN_LAYERS if train else DENSE_SERVE_LAYERS.get(arch, cfg.num_layers)
+    return replace(cfg, num_layers=layers)
+
+
+def _held_params(cfg, params) -> int:
+    """The parameters a stacked tree holds: a sharded leaf's shards, a
+    replicated leaf once."""
+    n = sum(leaf.local.numel() if is_sharded(leaf.spec, ("data",)) else leaf.local[0].numel()
+            for leaf in tree_leaves(params))
+    norms = cfg.num_layers * 2 * cfg.d_model + cfg.d_model
+    if n != cfg.n_params() + norms:
+        raise AssertionError(f"{cfg.name}: {n} parameters on the card, the analytic count "
+                             f"{cfg.n_params()} and {norms} norm scales")
+    return n
+
+
+def dense_serve() -> None:
+    """Phase 3e: yi-9b (48 layers) and granite-3-8b (40) at full size and
+    granite-34b at full width and DENSE_SERVE_LAYERS' depth, bf16, weights
+    drawn on the card by ``bridge.device_params`` (their count the analytic
+    one), on (data=8, model=1): a prefill of BATCH x DENSE_PROMPT tokens,
+    then greedy generation of DENSE_NEW tokens, in every mode; logits and
+    tokens bitwise xla's. A prefill launches a gather per sharded leaf and
+    layer in the mcast modes (the embedding and the head go by the plain
+    gather, as every weight used outside the layer loop), no transpose, no
+    ring step, a matmul per projection and layer and the head's, which at
+    granite-3-8b's odd vocab is the wmma kernel's; a decode step the same
+    matmuls and no gather kernel. A mode's first prefill is the counted one
+    (and its warm-up); then its generation, and DENSE_REPEATS timed
+    prefills (the median reported); the mcast prefill profiled. Decode is
+    timed once, in the first mode (every mode decodes through the plain
+    gather): the generation's wall less the prefills' median."""
+    mesh = StackedMesh(data=8, model=1)
+    for arch in DENSE_ARCHS:
+        cfg = _dense_cfg(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = _held_params(cfg, params)
+        print(f"[dense-serve] {cfg.name}: {cfg.num_layers} layers d_model {cfg.d_model}, "
+              f"{cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff} ({cfg.act}), vocab "
+              f"{cfg.vocab_size} ({'tied' if cfg.tie_embeddings else 'untied'} head), "
+              f"{n_params:,} parameters drawn on the card in {time.perf_counter() - t0:.3f} s; "
+              f"resident {torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (BATCH, DENSE_PROMPT))).cuda()
+        leaves = _layer_leaves(cfg)
+        n_sharded = sum(1 for leaf in tree_leaves(params["blocks"])
+                        if is_sharded(leaf.spec, ("data",)))
+        if n_sharded != len(leaves):
+            raise AssertionError(f"{n_sharded} sharded leaves a layer, expected {len(leaves)}")
+        gathers = cfg.num_layers * n_sharded
+        wmma = head_wmma(cfg, train=False)
+        mm = cfg.num_layers * len(leaves) + 1 - wmma
+        print(f"[dense-serve] {cfg.name} launches a prefill: {gathers} ring_allgather (mcast "
+              f"modes: {n_sharded} sharded leaves x {cfg.num_layers} layers; the embedding and "
+              f"the {'tied head (the embedding again)' if cfg.tie_embeddings else 'lm_head'} "
+              f"by the plain gather), 0 transposes, {mm} wgmma matmul and {wmma} wmma (the "
+              "head at an odd vocab); a decode step the same matmuls and the plain gather",
+              flush=True)
+        ref = decode_row = None
+        for mode in MODES:
+            run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", DENSE_PROMPT, BATCH),
+                            collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+            _, _, prefill = make_prefill_step(run, mesh)
+            _, _, decode = make_decode_step(run, mesh)
+
+            def do_prefill():
+                return prefill(params, {"tokens": tokens})
+
+            def do_generate():
+                return greedy_generate(prefill, decode, params, tokens, DENSE_NEW,
+                                       DENSE_PROMPT + DENSE_NEW)
+
+            (logits, pre), _, counts = _run(do_prefill)
+            out, gen_s, gen_counts = _run(do_generate)
+            want = _path_want(mesh, mode, gathers=gathers, transposes=0, matmul=mm, wmma=wmma)
+            want_gen = dict(want, matmul=mm * DENSE_NEW, matmul_wmma=wmma * DENSE_NEW)
+            if counts != want or gen_counts != want_gen:
+                raise AssertionError(f"{cfg.name} {mode}: prefill launched {counts}, expected "
+                                     f"{want}; generation {gen_counts}, expected {want_gen}")
+            prefill_s = _wall(do_prefill, DENSE_REPEATS)
+            if decode_row is None:
+                decode_s = gen_s - statistics.median(prefill_s)
+                decode_row = {"decode_steps": DENSE_NEW - 1, "decode_ms": decode_s * 1e3,
+                              "decode_tok_s": BATCH * (DENSE_NEW - 1) / decode_s,
+                              "generation_ms": gen_s * 1e3}
+            prof = {}
+            if mode == "mcast":
+                dev_prefill, prefill_prof_ms = _device_times(do_prefill)
+                busy_ms = sum(dev_prefill.values())
+                prof = {"prefill_device_busy_ms": busy_ms,
+                        "prefill_profiled_wall_ms": prefill_prof_ms,
+                        "prefill_device_idle_share": 1 - busy_ms / prefill_prof_ms,
+                        "prefill_ring_allgather_device_ms": sum(
+                            t for k, t in dev_prefill.items() if "ring_allgather_kernel" in k),
+                        "prefill_matmul_device_ms": sum(t for k, t in dev_prefill.items()
+                                                        if "matmul_" in k)}
+                top = sorted(dev_prefill.items(), key=lambda kv: -kv[1])[:5]
+                print(f"[dense-serve] {cfg.name} {mode} prefill, top device time (ms): "
+                      + json.dumps({k[:60]: t for k, t in top}), flush=True)
+            if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+                raise AssertionError(f"{cfg.name} {mode}: bad logits {tuple(logits.shape)}")
+            if (out.shape != (BATCH, DENSE_PROMPT + DENSE_NEW)
+                    or not torch.equal(out[:, :DENSE_PROMPT], tokens)):
+                raise AssertionError(f"{cfg.name} {mode}: bad tokens {tuple(out.shape)}")
+            want_cache = (cfg.num_layers, BATCH, cfg.num_kv_heads, DENSE_PROMPT, cfg.head_dim)
+            if tuple(pre["k"].shape) != want_cache:
+                raise AssertionError(f"{cfg.name}: cache {tuple(pre['k'].shape)}, expected "
+                                     f"{want_cache}")
+            if ref is None:
+                ref = (logits, out)
+            diff = (logits.float() - ref[0].float()).abs().max().item()
+            if diff != 0 or not torch.equal(out, ref[1]):
+                raise AssertionError(f"{cfg.name} {mode} differs from xla: logits max diff "
+                                     f"{diff}")
+            row = {"arch": cfg.name, "mode": mode,
+                   "prefill_ms_median": statistics.median(prefill_s) * 1e3,
+                   "prefill_ms_samples": [t * 1e3 for t in prefill_s],
+                   "launches_per_prefill": {k: v for k, v in counts.items() if v},
+                   **prof, **(decode_row if mode == MODES[0] else {}),
+                   "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "max_abs_logit_diff_vs_xla": diff,
+                   "sample_tokens": out[0, DENSE_PROMPT:].tolist()}
+            print("[dense-serve] " + json.dumps(row), flush=True)
+        print(f"[dense-serve] {cfg.name}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+        del params, pre, logits, out, ref
+        torch.cuda.empty_cache()
+
+
+def dense_train() -> None:
+    """Phase 4e: each of DENSE_ARCHS at full width and DENSE_TRAIN_LAYERS
+    layers, batch TRAIN_SHAPE (16 x 512), remat="full", AdamW, on (data=8,
+    model=1), weights from ``bridge.device_params``, in every mode: a
+    warm-up, DENSE_TRAIN_TIMED timed steps and a profiled step each, every
+    step launching exactly ``_train_launches`` (granite-3-8b's odd head:
+    ``head_wmma`` wmma launches a step); the first-step loss bitwise equal in
+    every mode."""
+    mesh = StackedMesh(data=8, model=1)
+    for arch in DENSE_ARCHS:
+        cfg = _dense_cfg(arch, train=True)
+        torch.cuda.reset_peak_memory_stats()
+        tree = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
+        n_params = _held_params(cfg, tree)
+        pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
+        batches = [pipe.next_batch(i) for i in range(DENSE_TRAIN_TIMED + 2)]
+        want = _train_launches(cfg, mesh, "mcast")
+        print(f"[dense-train] {cfg.name} at {cfg.num_layers} layers ({n_params:,} parameters), "
+              f"batch {TRAIN_SHAPE.global_batch} x {TRAIN_SHAPE.seq_len}: a step launches "
+              f"{want['ring_allgather']} ring_allgather, {want['ring_allgather_transpose']} "
+              f"transposes, {want['matmul']} wgmma matmul and {want['matmul_wmma']} wmma (the "
+              "head's forward, recompute, dx and dW at an odd vocab)", flush=True)
+        first = {}
+        for mode in MODES:
+            torch.cuda.reset_peak_memory_stats()
+            row, _ = _train_steps(cfg, mesh, tree, batches, mode, DENSE_TRAIN_TIMED,
+                                  _train_launches(cfg, mesh, mode))
+            row["arch"] = cfg.name
+            row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            print("[dense-train] " + json.dumps(row), flush=True)
+            first[mode] = row["losses"][0]
+        if len(set(first.values())) != 1:
+            raise AssertionError(f"{cfg.name}: first-step losses differ between modes: {first}")
+        print(f"[dense-train] {cfg.name}: first-step loss bitwise equal in every mode: "
+              f"{first['xla']!r}; wmma launches a step {want['matmul_wmma']}", flush=True)
+        del tree
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3946,10 +4311,24 @@ def main() -> int:
                            torch.float32, train=False, head_m=8),
         **moe_matmul_cases(moe_small, 8, 1, 8, torch.float32, train=False),
         **moe_matmul_cases(moe_small, 1, 8, 8, torch.float32, train=False)})
+    # phases 3e and 4e: the dense configs' prefill (one row a rank), decode
+    # and 2-layer training, forward and both backward products
+    dense_train_cases = {arch: matmul_cases(_dense_cfg(arch, train=True), 8,
+                                            TRAIN_SHAPE.global_batch // 8 * TRAIN_SHAPE.seq_len,
+                                            torch.bfloat16, train=True)
+                         for arch in DENSE_ARCHS}
+    for arch in DENSE_ARCHS:
+        path_cases.update({
+            **dense_train_cases[arch],
+            **matmul_cases(_dense_cfg(arch), 8, BATCH // 8 * DENSE_PROMPT, torch.bfloat16,
+                           train=False, head_m=BATCH // 8),
+            **matmul_cases(_dense_cfg(arch), 8, BATCH // 8, torch.bfloat16, train=False)})
     t0 = time.perf_counter()
     mm_err = check_matmul(path_cases)
+    odd = [case for case in path_cases if expected_path(*case) == "wmma"]
     print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, every "
-          f"bf16 one on the wgmma path, max abs err {mm_err} "
+          f"bf16 one on the wgmma path but the {len(odd)} head products of granite-3-8b's odd "
+          f"vocab on the wmma path ({json.dumps([c[:6] for c in odd])}), max abs err {mm_err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     edge_cases = check_matmul_edges()
     print(f"[kernel] matmul == plain (integer inputs, exact) on {edge_cases} edge cases of the "
@@ -4020,15 +4399,36 @@ def main() -> int:
     print(f"[moe-train] phase 4d: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
           f"{json.dumps(moe_train_counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()   # counts from here to the read are the dense configs' serving paths'
+    dense_serve()
+    dense_serve_counts = _counts()
+    print(f"[dense-serve] phase 3e: launches {json.dumps(dense_serve_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()   # counts from here to the read are the dense configs' training paths'
+    dense_train()
+    dense_train_counts = _counts()
+    print(f"[dense-train] phase 4e: launches {json.dumps(dense_train_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in MODEL_KERNELS:
         launches[name] = (serve_counts[name] + train_counts[name] + option_counts[name]
-                          + ckpt_counts[name] + moe_serve_counts[name] + moe_train_counts[name])
+                          + ckpt_counts[name] + moe_serve_counts[name] + moe_train_counts[name]
+                          + dense_serve_counts[name] + dense_train_counts[name])
         if train_counts[name] == 0 or option_counts[name] == 0 or ckpt_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
         if moe_train_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the MoE training path")
-    # the MoE router's products run on the matmul kernel's f32 path
-    launches["matmul"] += moe_serve_counts["matmul_f32"] + moe_train_counts["matmul_f32"]
+        if dense_train_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the dense configs' training path")
+    # the MoE router's products run on the matmul kernel's f32 path, the
+    # odd vocab's head products (granite-3-8b) on its wmma path
+    launches["matmul"] += (moe_serve_counts["matmul_f32"] + moe_train_counts["matmul_f32"]
+                           + dense_serve_counts["matmul_wmma"] + dense_train_counts["matmul_wmma"])
+    if any(dense_serve_counts[k] == 0 for k in ("ring_allgather", "matmul", "matmul_wmma")):
+        raise AssertionError(f"a kernel was not launched on the dense serving paths: "
+                             f"{dense_serve_counts}")
     if any(moe_serve_counts[k] == 0 for k in ("ring_allgather", "matmul", "matmul_f32")):
         raise AssertionError(f"a kernel was not launched on the MoE serving path: "
                              f"{moe_serve_counts}")
@@ -4075,6 +4475,9 @@ def main() -> int:
     for name in AG_KERNELS:
         launches[name] += searched[name]
     t0 = time.perf_counter()
+    train_sim_path()   # zeroes the counts before each cell's card run
+    print(f"[train-sim] phase 5g passed ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     drain_cases, drain_err = check_drain()
     print(f"[kernel] double_buffer_drain == plain (exact) on {drain_cases} cases", flush=True)
     layer_counts, layer = layer_path()   # zeroes the counts before driving the path
@@ -4096,6 +4499,9 @@ def main() -> int:
     moe_mm = time_matmul(moe_train_cases)
     print(f"[moe-matmul] one MoE train step's {moe_mm['launches']} launches: "
           f"{json.dumps(moe_mm)}", flush=True)
+    yi_mm = time_matmul(dense_train_cases["yi-9b"])
+    print(f"[dense-matmul] one yi-9b train step's {yi_mm['launches']} launches (2 layers): "
+          f"{json.dumps(yi_mm)}", flush=True)
     time_moe_kernels()
     rx_t = time_rx_kernels(card)
     t0 = time.perf_counter()

@@ -131,6 +131,18 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
 
+    def n_params(self) -> int:
+        """Total parameter count (used for MODEL_FLOPS = 6*N*D roofline term)."""
+        from repro_torch.models.model_builder import count_params_analytic
+
+        return count_params_analytic(self)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: shared + top_k routed experts only)."""
+        from repro_torch.models.model_builder import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -31,11 +31,13 @@ XENT_CHUNK = 512
 FAMILIES = ("dense", "moe")
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """The parameter count from the config alone, the reference's
     arithmetic (``repro.models.model_builder.count_params_analytic``) for
     the families the port has; the others raise, queued in ROADMAP.md §1,
-    item 12."""
+    item 12. With ``active_only`` an MoE layer counts its ``top_k`` routed
+    experts in place of all of them, its shared experts and its full router
+    (the reference's ``moe.moe_param_count``); a dense count is the same."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md §1, "
                                   f"item 12); only {FAMILIES}")
@@ -46,7 +48,8 @@ def count_params_analytic(cfg: ModelConfig) -> int:
         per = attn + d * cfg.d_ff * (3 if cfg.act == "swiglu" else 2)
     else:
         m = cfg.moe
-        per = (attn + m.n_routed_experts * 3 * d * m.d_ff_expert
+        n_routed = m.top_k if active_only else m.n_routed_experts
+        per = (attn + n_routed * 3 * d * m.d_ff_expert
                + 3 * d * m.d_ff_expert * m.n_shared_experts + d * m.n_routed_experts)
     return cfg.num_layers * per + embed
 
@@ -142,3 +145,24 @@ def batch_dims(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
     if shape.kind == "prefill":
         return {"tokens": (b, s)}
     return {"token": (b,), "pos": (b,)}
+
+
+def make_dummy_batch(cfg: ModelConfig, shape: ShapeConfig, gen: torch.Generator, *,
+                     device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Random inputs of every name of ``batch_dims``: token ids uniform in
+    [0, vocab) (int64), decode positions 0. Drawn in name order from the
+    ``torch.Generator`` ``gen`` on its own device, then moved to ``device``.
+    The ids are not those of the reference's ``make_dummy_batch``, which
+    draws from ``jax.random`` keys; only their shapes, range and dtype
+    class (integer ids) agree."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported; only {FAMILIES}")
+    dev = device_of(device)
+    out = {}
+    for name, shp in batch_dims(cfg, shape).items():
+        if name == "pos":
+            out[name] = torch.zeros(shp, dtype=torch.long, device=dev)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, shp, generator=gen,
+                                      device=gen.device).to(dev)
+    return out

@@ -1295,3 +1295,115 @@ def test_profiling_adds_no_device_sync():
     assert syncs[1] in (syncs[0], syncs[2]) and syncs[1] > 0, syncs
     _same_result(results[1], results[0])
     _same_result(results[2], results[0])
+
+
+# the registry's dense configs at reduced width: granite-3-8b at its full odd
+# tied vocab (49,155) and granite-34b (MQA, one kv head; the GELU MLP; an
+# untied head)
+_DENSE_CASES = {"granite-3-8b-v49155": ("granite-3-8b", 49155),
+                "granite-34b": ("granite-34b", None)}
+
+
+def _dense_case(name: str, **kw):
+    from repro_torch.configs import replace
+    arch, vocab = _DENSE_CASES[name]
+    cfg = reduced(get_model_config(arch), **kw)
+    return cfg if vocab is None else replace(cfg, vocab_size=vocab)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_DENSE_CASES))
+def test_dense_config_served_and_trained_on_cuda_equals_cpu(name):
+    """f32, the same numpy weights on both devices: a prefill of batch 8 x 16
+    and greedy generation of 4 tokens on (data=8) in mcast (logits within
+    1e-4, the same tokens), then 2 train steps on (data=2, model=4) in
+    mcast_bcast (loss within 1e-5 and grad_norm within 1e-4, relative)."""
+    _need_cuda()
+    from repro_torch.configs import MeshConfig
+    from repro_torch.runtime.serve_loop import (greedy_generate, make_decode_step,
+                                                make_prefill_step)
+    cfg = _dense_case(name)
+    tree = bridge.random_params(cfg, 3)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (8, 16)))
+    shape = ShapeConfig("t", "train", 32, 4)
+    batches = [SyntheticPipeline(cfg, shape, device="cpu").next_batch(i) for i in range(2)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = StackedMesh(data=8, model=1)
+        run = RunConfig(model=cfg, shape=ShapeConfig("p", "prefill", 16, 8),
+                        collective=CollectiveConfig(fsdp_mode="mcast"))
+        params = bridge.to_torch(tree, mesh, MeshConfig(), dtype=torch.float32, device=dev)
+        _, _, prefill = make_prefill_step(run, mesh, device=dev)
+        _, _, decode = make_decode_step(run, mesh, device=dev)
+        logits, cache = prefill(params, {"tokens": tokens.to(dev)})
+        toks = greedy_generate(prefill, decode, params, tokens.to(dev), 4, 20)
+        mesh = StackedMesh(data=2, model=4)
+        run = RunConfig(model=cfg, shape=shape, train=TrainConfig(steps=5),
+                        collective=CollectiveConfig(fsdp_mode="mcast_bcast", n_chains=2))
+        _, _, step = make_train_step(run, mesh, device=dev)
+        state = init_state(run, mesh, tree, device=dev)
+        metrics = []
+        for b in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[dev] = (logits.cpu(), cache["k"].cpu(), toks.cpu(), metrics)
+    assert out["cuda"][1].shape == (cfg.num_layers, 8, cfg.num_kv_heads, 16, cfg.head_dim)
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-4
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-4
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    for (loss, gn), (l0, g0) in zip(out["cuda"][3], out["cpu"][3]):
+        assert abs(loss - l0) <= 1e-5 * abs(l0) and abs(gn - g0) <= 1e-4 * abs(g0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,wmma", [("granite-3-8b-v49155", True), ("granite-34b", False)])
+def test_odd_vocab_head_takes_the_wmma_kernel_on_cuda(name, wmma):
+    """bf16, one layer: at the odd vocab every head product launches the
+    wmma kernel, which TMA's 16-byte row strides force: 4 a train step of
+    one cross-entropy chunk (forward, recompute, dx, dW), one a prefill and
+    one a decode step; every other product the wgmma kernel. The train
+    step's loss within 1e-2 relative of its CPU run (bf16 sums in another
+    order). granite-34b's even vocab launches none."""
+    _need_cuda()
+    from repro_torch.configs import MeshConfig, replace
+    from repro_torch.runtime.serve_loop import (greedy_generate, make_decode_step,
+                                                make_prefill_step)
+    cfg = replace(_dense_case(name, layers=1), param_dtype="bfloat16",
+                  compute_dtype="bfloat16")
+    tree = bridge.random_params(cfg, 4)
+    shape = ShapeConfig("t", "train", 64, 4)
+    batch = SyntheticPipeline(cfg, shape, device="cpu").next_batch(0)
+    mesh = StackedMesh(data=2, model=1)
+    run = RunConfig(model=cfg, shape=shape, collective=CollectiveConfig(fsdp_mode="mcast"))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        _, _, step = make_train_step(run, mesh, device=dev)
+        state = init_state(run, mesh, tree, device=dev)
+        before = (M.launches, M.launches_wmma, M.launches_f32)
+        _, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        losses[dev] = float(m["loss"])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = len(layers_of(cfg))
+            assert (M.launches - before[0], M.launches_wmma - before[1],
+                    M.launches_f32 - before[2]) == (4 * n + 4 - 4 * wmma, 4 * wmma, 0)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-2 * abs(losses["cpu"])
+    srun = RunConfig(model=cfg, shape=ShapeConfig("p", "prefill", 8, 2),
+                     collective=CollectiveConfig(fsdp_mode="mcast"))
+    params = bridge.to_torch(tree, mesh, MeshConfig(), dtype=torch.bfloat16, device="cuda")
+    _, _, prefill = make_prefill_step(srun, mesh, device="cuda")
+    _, _, decode = make_decode_step(srun, mesh, device="cuda")
+    before = (M.launches, M.launches_wmma)
+    greedy_generate(prefill, decode, params, torch.zeros(2, 8, dtype=torch.long, device="cuda"),
+                    2, 10)
+    torch.cuda.synchronize()
+    n = len(layers_of(cfg))
+    assert (M.launches - before[0], M.launches_wmma - before[1]) == \
+        (2 * (n + 1 - wmma), 2 * wmma)
+
+
+def layers_of(cfg) -> list[str]:
+    """The projections of one dense layer (the SwiGLU MLP's three or the
+    plain MLP's two); each is one matmul launch a pass."""
+    mlp = ["w_gate", "w_up", "w_down"] if cfg.act == "swiglu" else ["w_in", "w_out"]
+    return ["wq", "wk", "wv", "wo", *mlp]
