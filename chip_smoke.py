@@ -383,7 +383,8 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
 from repro_torch.runtime.fault import FailureInjector, TrainSupervisor  # noqa: E402
 from repro_torch.runtime.serve_loop import (ServeState, greedy_generate,  # noqa: E402
-                                            make_decode_step, make_prefill_step)
+                                            make_decode_step, make_prefill_step,
+                                            serving_params)
 from repro_torch.runtime.train_loop import init_state, make_train_step  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model_builder import XENT_CHUNK  # noqa: E402
@@ -1151,6 +1152,54 @@ def _train_launches(cfg, mesh: StackedMesh, mode: str, *, prefetch: bool = False
             "ring_step": 0, "ring_allgather_transpose": transposes,
             **_want_entries(mode, transposes * (p - 1), p, "transpose_entries"),
             "matmul": matmul - wmma, "matmul_wmma": wmma}
+
+
+def tp_launches(cfg, mesh: StackedMesh, mode: str, kind: str, *,
+                replicated: bool = False) -> dict[str, int]:
+    """#1 (``ring_allgather``), #1b (``ring_allgather_transpose``) and #3
+    (``matmul``) launches of one prefill or decode step of a dense config on
+    a mesh with a physical ``model`` axis (tp > 1), the prompt and the
+    cache splitting over it, as the model code places them
+    (``sharding/tp.py``):
+
+    - a layer's dp gathers: one #1 a dp-split leaf in the mcast modes, in
+      prefill only (decode gathers with the plain gather; with
+      ``serve_params_replicated`` nothing is gathered over dp);
+    - its ``model`` collectives: in prefill the two sequence gathers (#1)
+      and a reduce-scatter (#1b) after each row-parallel product (``wo``
+      where heads split, the down projection where d_ff splits); in decode
+      q's and, where kv heads split, k's and v's head gathers (#1) and an
+      all-reduce (#1b then #1) after each row-parallel product; an
+      attention weight that the rules split over ``model`` off whole heads
+      gathered over it (#1) at every step, unless the serving layout holds
+      it whole;
+    - its products: one #3 a projection;
+    - outside the layers: the embedding's sum over the vocabulary shards
+      (a reduce-scatter in prefill, an all-reduce in decode) where the
+      vocabulary splits, the head product (#3), and in prefill the final
+      sequence gather (#1), and the logits' vocabulary gather (#1) where
+      it splits."""
+    t, layers_ = mesh.tp, cfg.num_layers
+    leaves = _layer_leaves(cfg)
+    heads = cfg.num_heads % t == 0
+    kv_heads = heads and cfg.num_kv_heads % t == 0
+    vocab = cfg.vocab_size % t == 0
+    mlp = cfg.d_ff % t == 0
+    off_heads = 0 if replicated else sum(
+        1 for name, (fan_in, fan_out) in leaves.items()
+        if name in ("wq", "wk", "wv", "wo")
+        and not (kv_heads if name in ("wk", "wv") else heads)
+        and (fan_in if name == "wo" else fan_out) % t == 0)
+    rows = int(heads) + int(mlp)   # row-parallel products a layer
+    if kind == "prefill":
+        dp = 0 if mode == "xla" or replicated else len(leaves)
+        ag = layers_ * (dp + 2 + off_heads) + 1 + int(vocab)
+        rs = layers_ * rows + int(vocab)
+    else:
+        ag = layers_ * (int(heads) + 2 * int(kv_heads) + off_heads + rows) + 2 * int(vocab)
+        rs = layers_ * rows + int(vocab)
+    return {"ring_allgather": ag, "ring_allgather_transpose": rs,
+            "matmul": layers_ * len(leaves) + 1}
 
 
 def head_wmma(cfg, *, train: bool, seq: int = TRAIN_SHAPE.seq_len) -> int:
@@ -4240,6 +4289,372 @@ def dense_train() -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------- phases 3f and 4f: a physical model axis
+
+TP_MESH = StackedMesh(data=2, model=4)
+TP_BASE = StackedMesh(data=8, model=1)   # the same run with model layout only
+TP_ARCH = "yi-9b"
+TP_PROMPT, TP_NEW = 128, 8               # batch BATCH
+TP_REPEATS = 2                           # timed prefills a variant; the median is reported
+TP_TRAIN_LAYERS = 2
+TP_TRAIN_TIMED = 1
+# (mode, kv_cache_dtype, serve_params_replicated): every mode with the bf16
+# cache, then mcast with the int8 cache and mcast with the weights replicated
+TP_SERVE_VARIANTS = tuple((mode, "bf16", False) for mode in MODES) + (
+    ("mcast", "int8", False), ("mcast", "bf16", True))
+PROD_MESH = StackedMesh(data=16, model=16)
+PROD_ARCH = "smollm-135m"
+PROD_TRAIN_SHAPE = ShapeConfig("train", "train", 512, 16)
+PROD_PROMPT = 128                        # batch 16
+
+
+class _CallShapes:
+    """The call shapes of the ring kernels on a path: while installed, every
+    ``ring_allgather`` and ``ring_allgather_transpose`` call that
+    ``core/collectives.py`` makes is recorded by (shape, strides, dtype,
+    schedule) before it runs, for ``check_call_shapes``."""
+
+    def __init__(self):
+        self.shapes: dict[str, dict] = {"ring_allgather": {}, "ring_allgather_transpose": {}}
+
+    def __enter__(self):
+        self.saved = (C.ring_allgather, C.ring_allgather_transpose)
+
+        def gather(x, schedule, out=None):
+            self.shapes["ring_allgather"][(tuple(x.shape), tuple(x.stride()), x.dtype,
+                                           tuple(schedule))] = None
+            return self.saved[0](x, schedule, out)
+
+        def transpose(g, schedule):
+            self.shapes["ring_allgather_transpose"][(tuple(g.shape), tuple(g.stride()), g.dtype,
+                                                     tuple(schedule))] = None
+            return self.saved[1](g, schedule)
+
+        C.ring_allgather, C.ring_allgather_transpose = gather, transpose
+        return self
+
+    def __exit__(self, *exc):
+        C.ring_allgather, C.ring_allgather_transpose = self.saved
+
+
+def check_call_shapes(shapes: _CallShapes) -> tuple[int, float]:
+    """#1 and #1b at every call shape that phases 3f and 4f gave them (the
+    dp rings of tp groups strided by tp, the sequence and vocabulary
+    gathers, the reduce-scatters and their backwards): random values laid
+    out with the call's own strides, the kernel against its plain version,
+    bitwise; the gather's output laid out where the stacked ranks lie.
+    Returns (calls, max abs err)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases, max_err = 0, 0.0
+    for name, seen in shapes.shapes.items():
+        for shape, stride, dtype, schedule in seen:
+            size = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+            base = torch.randn(size, generator=gen, device="cuda").to(dtype)
+            x = torch.as_strided(base, shape, stride)
+            if name == "ring_allgather":
+                got, want = K.ring_allgather(x, schedule), K.ring_allgather_plain(x, schedule)
+            else:
+                got = K.ring_allgather_transpose(x, schedule)
+                want = K.ring_allgather_transpose_plain(x, schedule)
+            torch.cuda.synchronize()
+            max_err = max(max_err, _exact(name, (got,), (want,), (shape, stride, dtype)))
+            cases += 1
+    return cases, max_err
+
+
+def check_strided_layouts() -> tuple[int, float]:
+    """Phase 1: #1 and #1b on a tp group's layout, before any model runs:
+    shards (A, B, P, n) viewed from a stacked (A, P, B, n) (the ranks of the
+    ring axis B rows apart, as ``over_axis`` views a middle mesh axis), and
+    a cotangent (A, B, P, P, n) viewed from (A, P, B, P, n): every schedule
+    kind, P on the narrow and the wide kernel, vector and element paths,
+    against the plain version, bitwise; the outputs laid out as (A, P, B,
+    ...), where the stacked ranks lie. Returns (calls, max abs err)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases, max_err = 0, 0.0
+    for p in (2, 4, 16, 33):
+        for dtype in (torch.bfloat16, torch.float32):
+            for n in (7, 24, 4096):
+                scheds = {"ring": C._ring_schedule(p), "bidi": C._bidi_schedule(p, n)}
+                if p in (4, 16):
+                    scheds["bcast"] = C._bcast_schedule(p, 2)
+                for sched in scheds.values():
+                    x = torch.randn((2, p, 3, n), generator=gen, device="cuda").to(dtype)
+                    x = x.transpose(1, 2)
+                    got = K.ring_allgather(x, sched)
+                    want = K.ring_allgather_plain(x, sched)
+                    g = torch.randn((2, p, 3, p, n), generator=gen, device="cuda").to(dtype)
+                    g = g.transpose(1, 2)
+                    got_t = K.ring_allgather_transpose(g, sched)
+                    want_t = K.ring_allgather_transpose_plain(g, sched)
+                    torch.cuda.synchronize()
+                    if not (got.transpose(1, 2).is_contiguous()
+                            and got_t.transpose(1, 2).is_contiguous()):
+                        raise AssertionError(f"strided layout at P={p}: outputs not laid out "
+                                             "where the ranks lie")
+                    max_err = max(max_err, _exact("ring_allgather", (got,), (want,), (p, n)),
+                                  _exact("ring_allgather_transpose", (got_t,), (want_t,),
+                                         (p, n)))
+                    cases += 2
+    return cases, max_err
+
+
+def _remesh(params, mesh: StackedMesh):
+    """A tree of ``Stacked`` leaves moved to ``mesh``: each leaf's global
+    tensor split as ``param_pspecs`` splits it there, leaf by leaf (the
+    source tree emptied as it goes), so that both meshes run the same
+    weights."""
+    from repro_torch.sharding.fsdp import expand_ranks, global_tensor, split_global, unique_shards
+    from repro_torch.sharding.specs import _leaf_spec
+
+    def move(tree, path=()):
+        out = {}
+        for key in list(tree):
+            leaf = tree.pop(key)
+            if isinstance(leaf, dict):
+                out[key] = move(leaf, path + (key,))
+                continue
+            full = global_tensor(leaf._replace(local=unique_shards(leaf)))
+            spec = _leaf_spec(path + (key,), full, mesh, ("data",))
+            out[key] = type(leaf)(expand_ranks(split_global(full, spec, mesh), spec, mesh,
+                                               mesh.n_ranks), spec, mesh)
+            del full
+        return out
+
+    return move(params)
+
+
+def _unique_params(params) -> int:
+    from repro_torch.sharding.fsdp import unique_shards
+    return sum(unique_shards(leaf).numel() for leaf in tree_leaves(params))
+
+
+def _want_tp(cfg, mesh: StackedMesh, mode: str, *, replicated: bool = False,
+             steps: int = 0) -> dict[str, int]:
+    """Every count of ``_counts`` for a prefill and ``steps`` decode steps on
+    a mesh with a physical model axis (``tp_launches``), with the schedule
+    entries: (dp - 1) of the mode's kind a dp gather (the composition of
+    broadcasts at dp = N_CHAINS is the ring), (tp - 1) ring entries a
+    ``model`` gather and a ``model`` reduce-scatter."""
+    pre = tp_launches(cfg, mesh, mode, "prefill", replicated=replicated)
+    dec = tp_launches(cfg, mesh, mode, "decode", replicated=replicated)
+    n = {k: pre[k] + steps * dec[k] for k in pre}
+    dp, tp = mesh.shape["data"], mesh.tp
+    dp_gathers = 0 if mode == "xla" or replicated else cfg.num_layers * len(_layer_leaves(cfg))
+    entries = {f"entries_{kind}": 0 for kind in K.entries}
+    if dp_gathers:
+        rounds = dp // min(N_CHAINS, dp) if mode == "mcast_bcast" else 1
+        kind = ("bcast" if rounds > 1 else "ring") if mode == "mcast_bcast" else ENTRY_KIND[mode]
+        entries[f"entries_{kind}"] += dp_gathers * rounds * (dp - 1)
+    entries["entries_ring"] += (n["ring_allgather"] - dp_gathers) * (tp - 1)
+    transposes = {f"transpose_entries_{kind}": 0 for kind in K.transpose_entries}
+    transposes["transpose_entries_ring"] = n["ring_allgather_transpose"] * (tp - 1)
+    return {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + OFF_PATH + ("ring_step",)},
+            **n, **entries, **transposes}
+
+
+def tp_serve() -> dict:
+    """Phase 3f: yi-9b as registered (48 layers, d_model 4096, 32 / 4 heads)
+    on (data=2, model=4): 8 stacked ranks, tensor- and sequence-parallel
+    over ``model``. The weights are drawn by ``bridge.device_params`` on
+    (data=8, model=1), where the same batch (BATCH x TP_PROMPT, TP_NEW new
+    tokens, mcast) runs first, then moved to (2, 4) (``_remesh``). Every mode
+    with the bf16 cache, then mcast with the int8 cache, and mcast with
+    ``serve_params_replicated`` (its layout made once, ``serving_params``,
+    the sharded tree dropped): a counted prefill (``tp_launches``) and
+    generation, TP_REPEATS timed prefills, the decode steps' time from the
+    generation's wall less the prefills' median; the mcast prefill and a
+    decode step profiled. Logits and tokens bitwise equal across the modes
+    (bf16); against (8, 1) the largest logit difference and the share of
+    equal greedy tokens, with no limit (bf16 partial sums added in another
+    order). Returns the rows."""
+    cfg = get_model_config(TP_ARCH)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, TP_PROMPT))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params = bridge.device_params(cfg, TP_BASE, MeshConfig(), seed=0, dtype=torch.bfloat16)
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", TP_PROMPT, BATCH),
+                    collective=CollectiveConfig(fsdp_mode="mcast", n_chains=N_CHAINS))
+    _, _, prefill = make_prefill_step(run, TP_BASE)
+    _, _, decode = make_decode_step(run, TP_BASE)
+    base_logits, _ = prefill(params, {"tokens": tokens})
+    base_out = greedy_generate(prefill, decode, params, tokens, TP_NEW, TP_PROMPT + TP_NEW)
+    t0 = time.perf_counter()
+    params = _remesh(params, TP_MESH)
+    torch.cuda.synchronize()
+    n_params = _unique_params(params)
+    norms = cfg.num_layers * 2 * cfg.d_model + cfg.d_model
+    if n_params != cfg.n_params() + norms:
+        raise AssertionError(f"{n_params} parameters on {TP_MESH}, expected "
+                             f"{cfg.n_params() + norms}")
+    print(f"[tp-serve] {cfg.name} on {TP_MESH}: {n_params:,} parameters moved from {TP_BASE} in "
+          f"{time.perf_counter() - t0:.3f} s; resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; predicted launches a prefill / "
+          f"decode step (mcast): {json.dumps(tp_launches(cfg, TP_MESH, 'mcast', 'prefill'))} / "
+          f"{json.dumps(tp_launches(cfg, TP_MESH, 'mcast', 'decode'))}", flush=True)
+    rows, ref = [], None
+    for mode, kv, repl in TP_SERVE_VARIANTS:
+        if repl:   # the replicated layout, made once for both steps (the last variant)
+            t0 = time.perf_counter()
+            params = serving_params(params, RunConfig(model=cfg, shape=ShapeConfig(
+                "serve", "prefill", TP_PROMPT, BATCH)), TP_MESH)
+            torch.cuda.synchronize()
+            print(f"[tp-serve] the dp-replicated layout made in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        vcfg = replace(cfg, kv_cache_dtype=kv)
+        run = RunConfig(model=vcfg, shape=ShapeConfig("serve", "prefill", TP_PROMPT, BATCH),
+                        collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS,
+                                                    serve_params_replicated=repl))
+        _, _, prefill = make_prefill_step(run, TP_MESH)
+        _, _, decode = make_decode_step(run, TP_MESH)
+
+        def do_prefill():
+            return prefill(params, {"tokens": tokens})
+
+        def do_generate():
+            return greedy_generate(prefill, decode, params, tokens, TP_NEW, TP_PROMPT + TP_NEW)
+
+        (logits, pre), _, counts = _run(do_prefill)
+        out, gen_s, gen_counts = _run(do_generate)
+        want = _want_tp(vcfg, TP_MESH, mode, replicated=repl)
+        want_gen = _want_tp(vcfg, TP_MESH, mode, replicated=repl, steps=TP_NEW - 1)
+        if counts != want or gen_counts != want_gen:
+            raise AssertionError(f"{TP_ARCH} {mode} {kv} repl={repl}: prefill launched "
+                                 f"{counts}, expected {want}; generation {gen_counts}, "
+                                 f"expected {want_gen}")
+        prefill_s = _wall(do_prefill, TP_REPEATS)
+        decode_s = gen_s - statistics.median(prefill_s)
+        cache = {n: F.pad(c, (0, 0, 0, TP_NEW)) for n, c in pre.items()}
+        state = ServeState(cache, torch.full((BATCH,), TP_PROMPT, dtype=torch.long,
+                                             device="cuda"))
+        prof = {}
+        if mode == "mcast" and kv == "bf16":
+            for what, fn in (("prefill", do_prefill),
+                             ("decode", lambda: decode(params, state, out[:, TP_PROMPT]))):
+                dev, wall_ms = _device_times(fn)
+                busy = sum(dev.values())
+                prof.update({f"{what}_device_busy_ms": busy, f"{what}_profiled_wall_ms": wall_ms,
+                             f"{what}_device_idle_share": 1 - busy / wall_ms,
+                             f"{what}_ring_allgather_device_ms": sum(
+                                 t for k, t in dev.items() if "ring_allgather_kernel" in k),
+                             f"{what}_transpose_device_ms": sum(
+                                 t for k, t in dev.items() if "transpose_kernel" in k),
+                             f"{what}_matmul_device_ms": sum(t for k, t in dev.items()
+                                                             if "matmul_" in k)})
+                top = sorted(dev.items(), key=lambda kv_: -kv_[1])[:5]
+                print(f"[tp-serve] {mode}{' repl' if repl else ''} {what}, top device time "
+                      "(ms): " + json.dumps({k[:60]: t for k, t in top}), flush=True)
+        if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{TP_ARCH} {mode}: bad logits {tuple(logits.shape)}")
+        if (out.shape != (BATCH, TP_PROMPT + TP_NEW)
+                or not torch.equal(out[:, :TP_PROMPT], tokens)):
+            raise AssertionError(f"{TP_ARCH} {mode}: bad tokens {tuple(out.shape)}")
+        if kv == "int8" and pre["k"].dtype != torch.int8:
+            raise AssertionError(f"the int8 cache is {pre['k'].dtype}")
+        if ref is None:
+            ref = (logits, out)
+        diff = (logits.float() - ref[0].float()).abs().max().item()
+        if kv == "bf16" and not repl and (diff != 0 or not torch.equal(out, ref[1])):
+            raise AssertionError(f"{TP_ARCH} {mode} on {TP_MESH} differs from xla: logits "
+                                 f"max diff {diff}")
+        new = out[:, TP_PROMPT:]
+        row = {"arch": cfg.name, "mesh": repr(TP_MESH), "mode": mode, "kv_cache": kv,
+               "serve_params_replicated": repl,
+               "prefill_ms_median": statistics.median(prefill_s) * 1e3,
+               "prefill_ms_samples": [t * 1e3 for t in prefill_s],
+               "decode_steps": TP_NEW - 1, "decode_ms": decode_s * 1e3,
+               "decode_tok_s": BATCH * (TP_NEW - 1) / decode_s,
+               "launches_per_prefill": {k: v for k, v in counts.items() if v},
+               "launches_per_decode_step": {k: (gen_counts[k] - counts[k]) // (TP_NEW - 1)
+                                            for k in MODEL_KERNELS},
+               **prof, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "max_abs_logit_diff_vs_xla_bf16": diff,
+               "max_abs_logit_diff_vs_8x1": (logits.float() - base_logits.float()).abs()
+               .max().item(),
+               "greedy_tokens_equal_share_vs_8x1":
+                   (new == base_out[:, TP_PROMPT:]).float().mean().item(),
+               "greedy_tokens_equal_share_vs_xla_bf16":
+                   (new == ref[1][:, TP_PROMPT:]).float().mean().item(),
+               "sample_tokens": new[0].tolist()}
+        rows.append(row)
+        print("[tp-serve] " + json.dumps(row), flush=True)
+        del pre, logits, out, cache, state
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_train() -> None:
+    """Phase 4f: yi-9b at full width and TP_TRAIN_LAYERS layers on (data=2,
+    model=4), batch TRAIN_SHAPE (16 x 512), remat="full", in every mode (a
+    warm-up, TP_TRAIN_TIMED timed steps, a profiled step); then smollm-135m
+    at full depth on the production mesh (data=16, model=16), 256 ranks: one
+    training step (16 x 512) and one prefill (16 x PROD_PROMPT) in every
+    mode. The first-step losses and the prefill logits bitwise equal across
+    the modes at each mesh."""
+    for cfg, mesh, shape, timed in (
+            (replace(get_model_config(TP_ARCH), num_layers=TP_TRAIN_LAYERS), TP_MESH,
+             TRAIN_SHAPE, TP_TRAIN_TIMED),
+            (get_model_config(PROD_ARCH), PROD_MESH, PROD_TRAIN_SHAPE, 0)):
+        tree = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
+        n_params = _unique_params(tree)
+        pipe = SyntheticPipeline(cfg, shape)
+        batches = [pipe.next_batch(i) for i in range(timed + 2)]
+        first, logits0 = {}, None
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (shape.global_batch, PROD_PROMPT))).cuda()
+        for mode in MODES:
+            torch.cuda.reset_peak_memory_stats()
+            run = _train_run(cfg, shape, mode)
+            _, _, step = make_train_step(run, mesh)
+            state = init_state(run, mesh, tree)
+            (state, m), warm_s, counts = _run(lambda: step(state, batches[0]))
+            losses, norms, samples = [float(m["loss"])], [float(m["grad_norm"])], []
+            for b in batches[1:timed + 1]:
+                (state, m), dt, _ = _run(lambda b=b: step(state, b))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                samples.append(dt)
+            _check_losses(cfg, mode, losses, norms)
+            row = {"arch": cfg.name, "layers": cfg.num_layers, "mesh": repr(mesh),
+                   "mode": mode, "parameters": n_params, "losses": losses, "grad_norms": norms,
+                   "first_step_ms": warm_s * 1e3,
+                   "launches_first_step": {k: v for k, v in counts.items() if v}}
+            if samples:
+                row.update(_step_times(samples, shape))
+                row.update(_profiled_step(step, state, batches[timed + 1], f"{mode} step"))
+            del state, m
+            torch.cuda.empty_cache()
+            if mesh is PROD_MESH:
+                prun = RunConfig(model=cfg,
+                                 shape=ShapeConfig("serve", "prefill", PROD_PROMPT,
+                                                   shape.global_batch),
+                                 collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+                _, _, prefill = make_prefill_step(prun, mesh)
+                (logits, _), pre_s, pre_counts = _run(lambda: prefill(tree, {"tokens": tokens}))
+                if not torch.isfinite(logits).all():
+                    raise AssertionError(f"{cfg.name} on {mesh}: non-finite logits")
+                logits0 = logits if logits0 is None else logits0
+                if not torch.equal(logits, logits0):
+                    raise AssertionError(f"{cfg.name} on {mesh} {mode}: prefill logits differ "
+                                         "from xla's")
+                row.update(prefill_ms=pre_s * 1e3,
+                           launches_prefill={k: v for k, v in pre_counts.items() if v})
+                del logits
+            row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            print("[tp-train] " + json.dumps(row), flush=True)
+            first[mode] = losses[0]
+        if len(set(first.values())) != 1:
+            raise AssertionError(f"{cfg.name} on {mesh}: first-step losses differ between "
+                                 f"modes: {first}")
+        print(f"[tp-train] {cfg.name} on {mesh}: first-step loss bitwise equal in every mode: "
+              f"{first['xla']!r}", flush=True)
+        del tree
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4268,6 +4683,13 @@ def main() -> int:
     agt_cases, agt_err = check_allgather_transpose()
     print(f"[kernel] ring_allgather_transpose == plain on every prefix: {agt_cases} launches, "
           f"max abs err {agt_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    st_cases, st_err = check_strided_layouts()
+    agt_err = max(agt_err, st_err)
+    ag_err = max(ag_err, st_err)
+    print(f"[kernel] ring_allgather and its transpose == plain on a tp group's strided layout: "
+          f"{st_cases} calls, max abs err {st_err} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     train_cases = matmul_cases(cfg, 8, TRAIN_SHAPE.global_batch // 8 * TRAIN_SHAPE.seq_len,
                                torch.bfloat16, train=True)
     path_cases = {**train_cases,                                    # full-width serving:
@@ -4412,10 +4834,36 @@ def main() -> int:
     dense_train_counts = _counts()
     print(f"[dense-train] phase 4e: launches {json.dumps(dense_train_counts)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    shapes = _CallShapes()
+    _zero_counts()   # counts from here to the read are the model axis's serving path's
+    with shapes:
+        tp_serve()
+    tp_serve_counts = _counts()
+    print(f"[tp-serve] phase 3f: launches {json.dumps(tp_serve_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()   # counts from here to the read are the model axis's training paths'
+    with shapes:
+        tp_train()
+    tp_train_counts = _counts()
+    print(f"[tp-train] phase 4f: launches {json.dumps(tp_train_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    shape_cases, shape_err = check_call_shapes(shapes)
+    ag_err, agt_err = max(ag_err, shape_err), max(agt_err, shape_err)
+    print(f"[kernel] ring_allgather and its transpose == plain at every call shape of phases "
+          f"3f and 4f: {len(shapes.shapes['ring_allgather'])} gather and "
+          f"{len(shapes.shapes['ring_allgather_transpose'])} transpose shapes, {shape_cases} "
+          f"calls, max abs err {shape_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name in MODEL_KERNELS:
+        if tp_serve_counts[name] == 0 or tp_train_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the model axis's paths")
     for name in MODEL_KERNELS:
         launches[name] = (serve_counts[name] + train_counts[name] + option_counts[name]
                           + ckpt_counts[name] + moe_serve_counts[name] + moe_train_counts[name]
-                          + dense_serve_counts[name] + dense_train_counts[name])
+                          + dense_serve_counts[name] + dense_train_counts[name]
+                          + tp_serve_counts[name] + tp_train_counts[name])
         if train_counts[name] == 0 or option_counts[name] == 0 or ckpt_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
         if moe_train_counts[name] == 0:

@@ -2,9 +2,11 @@
 
 ``to_torch`` takes the JAX package's dense or MoE parameter tree as numpy
 arrays, ``{"embed", "final_ln", "blocks": {...stacked on L}}``, and returns the port's
-tree of ``Stacked`` leaves: every leaf that ``param_pspecs`` shards over dp
-is split into the stacked (R, *local) layout, rank r's shard at index r; a
-leaf replicated over dp is one tensor expanded over the rank dim.
+tree of ``Stacked`` leaves: every leaf is split as ``param_pspecs`` splits
+it over the mesh's physical axes (dp, and ``model`` where it is above 1)
+into the stacked (R, *local) layout, rank r's shard at index r (a shard
+held once per rank of the axes that do not split it); a leaf that no axis
+splits is one tensor expanded over the rank dim.
 
 ``to_numpy`` is the inverse: stacked leaves back to the global numpy tree,
 so that tests can compare parameters and optimizer moments after steps.
@@ -17,6 +19,7 @@ for models too large for a host draw.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -25,8 +28,9 @@ import torch
 from repro_torch.configs.base import MeshConfig, ModelConfig
 from repro_torch.device import device_of
 from repro_torch.launch.mesh import StackedMesh
-from repro_torch.sharding.fsdp import _rank_dim, global_tensor, split_global
-from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, is_sharded, tree_map,
+from repro_torch.sharding.fsdp import (_local_shape, expand_ranks, global_tensor,
+                                       split_global, unique_shards)
+from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, shard_axes, tree_map,
                                        tree_map_with_path)
 
 # norm scales and the MoE router stay float32 whatever the weights' dtype,
@@ -40,18 +44,18 @@ def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
     cast to ``dtype``; the norm scales stay float32."""
     dev = device_of(device)
     dp = dp_axes(mesh_cfg)
-    if mesh is not None and mesh.rank_axes != dp:
+    if mesh is not None and mesh.dp_rank_axes != dp:
         raise ValueError(f"{mesh} must stack exactly the dp axes {dp}")
     n = 1 if mesh is None else mesh.n_ranks
 
     def leaf(path, a):
         a = np.asarray(a)
-        spec = () if mesh is None else _leaf_spec(path, a, mesh, dp)
         dt = torch.float32 if path[-1] in _F32_LEAVES else dtype
         full = torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt)
-        if is_sharded(spec, dp):
-            return Stacked(split_global(full, spec, n), spec)
-        return Stacked(full.expand(n, *full.shape), spec)
+        if mesh is None:
+            return Stacked(full.expand(1, *full.shape), ())
+        spec = _leaf_spec(path, a, mesh, dp)
+        return Stacked(expand_ranks(split_global(full, spec, mesh), spec, mesh, n), spec, mesh)
 
     return tree_map_with_path(leaf, tree)
 
@@ -59,14 +63,13 @@ def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
 def to_numpy(params, mesh: StackedMesh | None, mesh_cfg: MeshConfig) -> dict:
     """The inverse of ``to_torch``: a tree of ``Stacked`` leaves (R, ...) ->
     the global numpy tree, float32 for floating leaves (numpy has no
-    bfloat16). A replicated leaf is read from rank 0."""
-    dp = dp_axes(mesh_cfg)
-
+    bfloat16). A shard held by several ranks is read from the first."""
     def leaf(s: Stacked) -> np.ndarray:
-        if mesh is None or not is_sharded(s.spec, dp):
+        if mesh is None or not shard_axes(s.spec, mesh):
             t = s.local.detach()[0]
         else:
-            t = global_tensor(s)
+            s = s._replace(mesh=mesh)
+            t = global_tensor(s._replace(local=unique_shards(s)))
         return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
     return tree_map(leaf, params)
@@ -150,7 +153,7 @@ def device_params(cfg: ModelConfig, mesh: StackedMesh | None, mesh_cfg: MeshConf
     would take 67.6 GB of float32."""
     dev = device_of(device)
     dp = dp_axes(mesh_cfg)
-    if mesh is not None and mesh.rank_axes != dp:
+    if mesh is not None and mesh.dp_rank_axes != dp:
         raise ValueError(f"{mesh} must stack exactly the dp axes {dp}")
     n = 1 if mesh is None else mesh.n_ranks
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -158,15 +161,17 @@ def device_params(cfg: ModelConfig, mesh: StackedMesh | None, mesh_cfg: MeshConf
     def leaf(path, spec_leaf: _Leaf) -> Stacked:
         spec = () if mesh is None else _leaf_spec(path, spec_leaf, mesh, dp)
         dt = torch.float32 if path[-1] in _F32_LEAVES else dtype
+        axes = shard_axes(spec, mesh)
         shape = list(spec_leaf.shape)
-        split = is_sharded(spec, dp)
-        if split:
-            shape[_rank_dim(spec)] //= n
-        t = torch.empty((n, *shape) if split else shape, dtype=dt, device=dev)
+        if axes:
+            shape = [math.prod(mesh.shape[a] for a in axes), *_local_shape(shape, spec, mesh)]
+        t = torch.empty(shape, dtype=dt, device=dev)
         if spec_leaf.scale:
             t.normal_(0.0, float(spec_leaf.scale), generator=gen)
         else:
             t.zero_()
-        return Stacked(t if split else t.expand(n, *shape), spec)
+        if mesh is None:
+            return Stacked(t.expand(n, *shape), spec)
+        return Stacked(expand_ranks(t, spec, mesh, n), spec, mesh)
 
     return tree_map_with_path(leaf, _param_table(cfg))

@@ -12,7 +12,8 @@ that either package writes restores in the other:
 Leaves are named as the reference's ``_tree_paths`` names them: a dict's keys
 sorted, a NamedTuple's fields in order, joined by "/" (``params/embed``,
 ``opt/m/blocks/attn/wq``, ``opt/step``). A leaf is a ``Stacked`` of the
-trainable layout (``sharding.fsdp.trainable``: a split leaf (R, *local), a
+trainable layout (``sharding.fsdp.trainable``: a split leaf its distinct
+shards (N, *local) over the dp and ``model`` axes that split it, a
 replicated one its global tensor), a tensor, or an int. The
 optimizer's step, a Python int in the port and a 0-d int32 array in the
 reference, is saved as a 0-d int32 and restored as an int.
@@ -157,7 +158,7 @@ def place(arrays: dict[str, torch.Tensor], like, *, mesh: StackedMesh | None = N
     dp = None
     if mesh is not None:
         dp = dp_axes(mesh_cfg or MeshConfig())
-        if mesh.rank_axes != dp:
+        if mesh.dp_rank_axes != dp:
             raise ValueError(f"{mesh} must stack exactly the dp axes {dp}")
     leaves = {}
     for path, leaf in _tree_paths(like):
@@ -172,11 +173,11 @@ def place(arrays: dict[str, torch.Tensor], like, *, mesh: StackedMesh | None = N
             leaves[path] = int(arr)
         elif isinstance(leaf, Stacked):
             t = arr.to(device=leaf.local.device, dtype=leaf.local.dtype)
-            spec, n = leaf.spec, leaf.local.shape[0]
+            spec, on = leaf.spec, leaf.mesh
             if mesh is not None:
-                spec, n = _leaf_spec(path, arr, mesh, dp), mesh.n_ranks
-            t = split_global(t, spec, n)
-            leaves[path] = Stacked(t.requires_grad_(leaf.local.requires_grad), spec)
+                spec, on = _leaf_spec(path, arr, mesh, dp), mesh
+            t = split_global(t, spec, on if on is not None else leaf.local.shape[0])
+            leaves[path] = Stacked(t.requires_grad_(leaf.local.requires_grad), spec, on)
         else:
             t = arr.to(device=leaf.device, dtype=leaf.dtype)
             leaves[path] = t.requires_grad_(leaf.requires_grad)

@@ -39,12 +39,14 @@ applied to each rank's own full contribution.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable
 
 import torch
 
 from repro_torch.device import SideStream
-from repro_torch.kernels.ring_allgather import ring_allgather, ring_allgather_transpose
+from repro_torch.kernels.ring_allgather import (readable, ring_allgather,
+                                                ring_allgather_transpose)
 from repro_torch.launch.mesh import StackedMesh
 
 # ((step, direction, split, rounds, active_round), ...) in launch order; split
@@ -77,7 +79,7 @@ class _RingGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, schedule: Schedule) -> torch.Tensor:
         ctx.schedule = schedule
-        return _flat(ring_allgather(x.contiguous(), schedule))
+        return _flat(ring_allgather(readable(x), schedule))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -97,7 +99,7 @@ class _RingReduceScatter(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
-        return _flat(ring_allgather(g.contiguous(), ctx.schedule)), None
+        return _flat(ring_allgather(readable(g), ctx.schedule)), None
 
 
 def _ring_schedule(p: int, direction: int = +1) -> Schedule:
@@ -244,12 +246,28 @@ def _concurrent_ag_rs(ag: torch.Tensor, rs: torch.Tensor,
 
 def over_axis(x: torch.Tensor, mesh: StackedMesh, axis: str,
               gather: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-    """Run ``gather`` over mesh axis ``axis`` of a stacked (R, n) tensor,
-    R = mesh.n_ranks; the other dp axes are its groups. Returns (R, P * n)."""
-    sizes = [mesh.shape[a] for a in mesh.rank_axes]
-    i = mesh.rank_axes.index(axis)
-    y = x.reshape(*sizes, x.shape[-1]).movedim(i, -2)
-    return gather(y).movedim(-2, i).reshape(x.shape[0], -1)
+    """Run ``gather`` over mesh axis ``axis`` of a stacked (R, *inner, n)
+    tensor, R = mesh.n_ranks (or a stack of the axis's ranks alone, R = P);
+    the other rank axes and the inner dims are its groups. Returns (R,
+    *inner, m), m what ``gather`` makes of n (P * n for a gather, n / P for
+    a reduce-scatter).
+
+    The ranks are numbered row-major over the mesh's physical axes, so the
+    P ranks of one group lie at a stride of B = (the ranks of the axes after
+    ``axis``) x (the inner dims) rows: ``gather`` sees the (A, B, P, n) view
+    of x, and the ring kernels address it, and write their output, where
+    the ranks lie (``kernels/ring_allgather.py`` ``_groups``), so that on the
+    card neither side is copied to make a group contiguous."""
+    if x.shape[0] == mesh.shape[axis] and x.shape[0] != mesh.n_ranks:
+        sizes, i = [x.shape[0]], 0
+    else:
+        sizes = [mesh.shape[a] for a in mesh.rank_axes]
+        i = mesh.rank_axes.index(axis)
+    a, p = math.prod(sizes[:i]), sizes[i]
+    b = math.prod(sizes[i + 1:]) * math.prod(x.shape[1:-1])
+    y = x.reshape(a, p, b, x.shape[-1]).transpose(1, 2)
+    out = gather(y)
+    return out.transpose(1, 2).reshape(*x.shape[:-1], out.shape[-1])
 
 
 def local_allgather(mode: str, n_chains: int) -> Callable[[torch.Tensor], torch.Tensor]:

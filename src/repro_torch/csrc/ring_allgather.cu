@@ -8,7 +8,10 @@
 //
 //     x (G, P_rank, n),  buf (G, P_rank, P_slot, n),
 //
-// and one launch first installs each rank's own shard in its own slot,
+// (a group of P ranks may also lie at a stride: see Layout below, for the
+// rings over a middle mesh axis of a stacked tensor, e.g. the dp ring of
+// one tp group when ranks are numbered d * tp + m), and one launch first
+// installs each rank's own shard in its own slot,
 // buf[g, d, d] <- x[g, d] (the TPU kernel's `out_ref[my_id] = x_ref[...]`),
 // then runs every entry of a schedule, in order. Entry k is one ring step
 // for every rank at once:
@@ -79,6 +82,18 @@ struct Schedule {
   Entry e[kMaxEntries];
 };
 
+// Where a group's ranks and slots lie, in bytes: group (a, b) of G0 x G1
+// (blockIdx.y = a * G1 + b) reads rank d's shard at a * xa + b * xb + d * xd
+// of x and keeps rank d's slot s at a * ba + b * bb + d * bd + s * slot of
+// buf, element j of a shard or slot j elements further. The contiguous
+// (G, P, n) / (G, P, P, n) is G1 = 1, xd = slot, xa = P * slot, bd = P *
+// slot, ba = P * bd; a ring over a middle mesh axis of a stacked tensor
+// (ranks numbered row-major, the axes after it the inner groups) reads its
+// shards where they lie, at a rank stride of G1 shards.
+struct Layout {
+  long long g1, xa, xb, xd, ba, bb, bd;
+};
+
 // x in (-p, 2p) -> x mod p, without a division.
 __device__ __forceinline__ int wrap(int x, int p) { return x < 0 ? x + p : x >= p ? x - p : x; }
 
@@ -108,13 +123,13 @@ __device__ __forceinline__ T shfl(T x, int lane, int width) {
 // Rank d's move of one entry on the column at byte `col`: its slot src to
 // rank d + dir's slot src, if the round mask moves it.
 template <typename V>
-__device__ __forceinline__ void move_one(char* base, int d, int p, long long slot_bytes,
-                                         long long col, int step, int dir, int rounds,
-                                         int active) {
+__device__ __forceinline__ void move_one(char* base, int d, int p, long long rank_bytes,
+                                         long long slot_bytes, long long col, int step, int dir,
+                                         int rounds, int active) {
   int src;
   if (moves(d, p, step, dir, rounds, active, &src))
-    *reinterpret_cast<V*>(base + (wrap(d + dir, p) * p + src) * slot_bytes + col) =
-        *reinterpret_cast<const V*>(base + (d * p + src) * slot_bytes + col);
+    *reinterpret_cast<V*>(base + wrap(d + dir, p) * rank_bytes + src * slot_bytes + col) =
+        *reinterpret_cast<const V*>(base + d * rank_bytes + src * slot_bytes + col);
 }
 
 // The entries, staged in shared memory with whether each continues the one
@@ -133,7 +148,7 @@ __device__ __forceinline__ void stage(const Schedule& s, Entry* entries, bool* c
 template <typename T, typename V>
 __global__ void __launch_bounds__(kThreads)
     ring_allgather_kernel(const T* __restrict__ x, T* buf, int p, int width, long long n,
-                          const __grid_constant__ Schedule s) {
+                          const Layout lay, const __grid_constant__ Schedule s) {
   __shared__ Entry entries[kMaxEntries];
   __shared__ bool chained[kMaxEntries];
   stage(s, entries, chained);
@@ -143,13 +158,13 @@ __global__ void __launch_bounds__(kThreads)
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / width * kVec;
   const bool live = d < p && c < n;  // the other lanes only shuffle
   const long long slot_bytes = n * static_cast<long long>(sizeof(T));
-  char* base =
-      reinterpret_cast<char*>(buf) + static_cast<long long>(blockIdx.y) * p * p * slot_bytes;
+  const long long ga = blockIdx.y / lay.g1, gb = blockIdx.y % lay.g1;
+  char* base = reinterpret_cast<char*>(buf) + ga * lay.ba + gb * lay.bb;
   const long long col = c * static_cast<long long>(sizeof(T));
   if (x != nullptr && live)  // rank d's own shard into its own slot
-    *reinterpret_cast<V*>(base + (d * p + d) * slot_bytes + col) = *reinterpret_cast<const V*>(
-        reinterpret_cast<const char*>(x) + (static_cast<long long>(blockIdx.y) * p + d) *
-                                                slot_bytes + col);
+    *reinterpret_cast<V*>(base + d * lay.bd + d * slot_bytes + col) =
+        *reinterpret_cast<const V*>(reinterpret_cast<const char*>(x) + ga * lay.xa +
+                                    gb * lay.xb + d * lay.xd + col);
   V held{};  // what rank d stored at the previous entry
   for (int k = 0; k < s.count; ++k) {
     const Entry en = entries[k];
@@ -160,15 +175,15 @@ __global__ void __launch_bounds__(kThreads)
         int src;
         if (moves(d, p, en.step, dir, en.rounds, en.active, &src)) {
           const V v = chained[k] ? from_prev
-                                 : *reinterpret_cast<const V*>(base + (d * p + src) *
-                                                                          slot_bytes + col);
-          *reinterpret_cast<V*>(base + (wrap(d + dir, p) * p + src) * slot_bytes + col) = v;
+                                 : *reinterpret_cast<const V*>(base + d * lay.bd +
+                                                               src * slot_bytes + col);
+          *reinterpret_cast<V*>(base + wrap(d + dir, p) * lay.bd + src * slot_bytes + col) = v;
           held = v;
         }
       } else {  // the split falls inside this vector; every entry chained to
                 // this one has the same split, so `held` is not read
         for (int j = 0; j < kVec; ++j)
-          move_one<T>(base, d, p, slot_bytes, col + j * static_cast<long long>(sizeof(T)),
+          move_one<T>(base, d, p, lay.bd, slot_bytes, col + j * static_cast<long long>(sizeof(T)),
                       en.step, c + j < en.split ? en.dir : -en.dir, en.rounds, en.active);
       }
     }
@@ -182,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename V>
 __global__ void __launch_bounds__(kThreads)
     ring_allgather_wide_kernel(const T* __restrict__ x, T* buf, int p, long long n,
-                               const __grid_constant__ Schedule s) {
+                               const Layout lay, const __grid_constant__ Schedule s) {
   __shared__ Entry entries[kMaxEntries];
   __shared__ bool chained[kMaxEntries];
   stage(s, entries, chained);
@@ -190,15 +205,14 @@ __global__ void __launch_bounds__(kThreads)
   const long long c = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kVec;
   if (c >= n) return;
   const long long slot_bytes = n * static_cast<long long>(sizeof(T));
-  char* base =
-      reinterpret_cast<char*>(buf) + static_cast<long long>(blockIdx.y) * p * p * slot_bytes;
+  const long long ga = blockIdx.y / lay.g1, gb = blockIdx.y % lay.g1;
+  char* base = reinterpret_cast<char*>(buf) + ga * lay.ba + gb * lay.bb;
   const long long col = c * static_cast<long long>(sizeof(T));
   if (x != nullptr) {
-    const char* xg =
-        reinterpret_cast<const char*>(x) + static_cast<long long>(blockIdx.y) * p * slot_bytes;
+    const char* xg = reinterpret_cast<const char*>(x) + ga * lay.xa + gb * lay.xb;
     for (int d = 0; d < p; ++d)
-      *reinterpret_cast<V*>(base + (d * p + d) * slot_bytes + col) =
-          *reinterpret_cast<const V*>(xg + d * slot_bytes + col);
+      *reinterpret_cast<V*>(base + d * lay.bd + d * slot_bytes + col) =
+          *reinterpret_cast<const V*>(xg + d * lay.xd + col);
   }
   for (int k = 0; k < s.count; ++k) {
     const Entry en = entries[k];
@@ -213,8 +227,8 @@ __global__ void __launch_bounds__(kThreads)
           int src;
           dst[j] = -1;
           if (d < p && moves(d, p, en.step, dir, en.rounds, en.active, &src)) {
-            v[j] = *reinterpret_cast<const V*>(base + (d * p + src) * slot_bytes + col);
-            dst[j] = (wrap(d + dir, p) * p + src) * slot_bytes + col;
+            v[j] = *reinterpret_cast<const V*>(base + d * lay.bd + src * slot_bytes + col);
+            dst[j] = wrap(d + dir, p) * lay.bd + src * slot_bytes + col;
           }
         }
 #pragma unroll
@@ -224,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
     } else {  // the split falls inside this vector: element by element
       for (int j = 0; j < kVec; ++j)
         for (int d = 0; d < p; ++d)
-          move_one<T>(base, d, p, slot_bytes, col + j * static_cast<long long>(sizeof(T)),
+          move_one<T>(base, d, p, lay.bd, slot_bytes, col + j * static_cast<long long>(sizeof(T)),
                       en.step, c + j < en.split ? en.dir : -en.dir, en.rounds, en.active);
     }
   }
@@ -232,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, typename V>
 void launch_kernel(const void* x, void* buf, long long groups, int p, long long n,
-                   const Schedule& s, cudaStream_t stream) {
+                   const Layout& lay, const Schedule& s, cudaStream_t stream) {
   const long long columns = (n + sizeof(V) / sizeof(T) - 1) / (sizeof(V) / sizeof(T));
   if (p <= kMaxLanes) {
     int width = 1;
@@ -241,39 +255,44 @@ void launch_kernel(const void* x, void* buf, long long groups, int p, long long 
     const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
                     static_cast<unsigned>(groups));
     ring_allgather_kernel<T, V><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(buf), p, width, n, s);
+        static_cast<const T*>(x), static_cast<T*>(buf), p, width, n, lay, s);
   } else {
     const dim3 grid(static_cast<unsigned>((columns + kThreads - 1) / kThreads),
                     static_cast<unsigned>(groups));
     ring_allgather_wide_kernel<T, V><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(buf), p, n, s);
+        static_cast<const T*>(x), static_cast<T*>(buf), p, n, lay, s);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, void* buf, long long groups, int p, long long n,
-                   const Schedule& s, cudaStream_t stream) {
+                   const Layout& lay, const Schedule& s, cudaStream_t stream) {
+  const long long strides = lay.xa | lay.xb | lay.xd | lay.ba | lay.bb | lay.bd;
   if (((reinterpret_cast<uintptr_t>(buf) | reinterpret_cast<uintptr_t>(x)) & 15) == 0 &&
-      (n * static_cast<long long>(sizeof(T))) % 16 == 0)
-    launch_kernel<T, uint4>(x, buf, groups, p, n, s, stream);
+      (n * static_cast<long long>(sizeof(T))) % 16 == 0 && strides % 16 == 0)
+    launch_kernel<T, uint4>(x, buf, groups, p, n, lay, s, stream);
   else
-    launch_kernel<T, T>(x, buf, groups, p, n, s, stream);
+    launch_kernel<T, T>(x, buf, groups, p, n, lay, s, stream);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Installs x (G, P, n) in buf's diagonal, unless x is null, then runs
-// `count` schedule entries on buf (G, P, P, n), in order, in one launch.
-// `entries` is host memory, five values per entry: step, dir, split,
-// rounds, active_round. Returns cudaGetLastError() after the launch (0 on
-// success). The caller checks arguments: dtype 0 (f32), 1 (bf16) or 2
-// (f16), groups <= 65535, 0 <= count <= 128 (1 or more when x is null),
-// and per entry 0 <= step < p - 1, dir = +-1, 0 <= split <= n,
-// p % rounds == 0, 0 <= active_round < rounds.
-extern "C" int ring_allgather(const void* x, void* buf, int dtype, long long groups, int p,
-                              long long n, const long long* entries, int count, void* stream) {
-  if (count < (x == nullptr ? 1 : 0) || count > kMaxEntries)
+// Installs x's shards in buf's diagonal, unless x is null, then runs
+// `count` schedule entries on buf, in order, in one launch, for g0 x g1
+// groups of p ranks. `strides` is host memory, six element strides: x's
+// (a, b, rank), then buf's (a, b, rank); a slot of buf is n contiguous
+// elements, its P slots at a stride of n (see Layout). `entries` is host
+// memory, five values per entry: step, dir, split, rounds, active_round.
+// Returns cudaGetLastError() after the launch (0 on success). The caller
+// checks arguments: dtype 0 (f32), 1 (bf16) or 2 (f16), g0 * g1 <= 65535,
+// 0 <= count <= 128 (1 or more when x is null), and per entry
+// 0 <= step < p - 1, dir = +-1, 0 <= split <= n, p % rounds == 0,
+// 0 <= active_round < rounds.
+extern "C" int ring_allgather(const void* x, void* buf, int dtype, long long g0, long long g1,
+                              int p, long long n, const long long* strides,
+                              const long long* entries, int count, void* stream) {
+  if (count < (x == nullptr ? 1 : 0) || count > kMaxEntries || g1 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Schedule s;
   s.count = count;
@@ -282,11 +301,14 @@ extern "C" int ring_allgather(const void* x, void* buf, int dtype, long long gro
     s.e[k] = Entry{static_cast<int>(e[0]), static_cast<int>(e[1]), static_cast<int>(e[3]),
                    static_cast<int>(e[4]), e[2]};
   }
+  const long long elt = dtype == 0 ? 4 : 2;
+  const Layout lay{g1, strides[0] * elt, strides[1] * elt, strides[2] * elt,
+                   strides[3] * elt, strides[4] * elt, strides[5] * elt};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1 || dtype == 2)
-    err = launch<uint16_t>(x, buf, groups, p, n, s, st);
+    err = launch<uint16_t>(x, buf, g0 * g1, p, n, lay, s, st);
   else if (dtype == 0)
-    err = launch<uint32_t>(x, buf, groups, p, n, s, st);
+    err = launch<uint32_t>(x, buf, g0 * g1, p, n, lay, s, st);
   return static_cast<int>(err);
 }

@@ -20,6 +20,9 @@
 // (src/repro/core/collectives.py:79). The host passes the entries in the
 // order the kernel runs them, the schedule's reverse.
 //
+// The groups, their ranks and the slots lie where Layout says (ring_allgather.cu's,
+// for rings over a middle mesh axis): g and out are addressed by strides.
+//
 // Design: ring_allgather.cu's, mirrored. A column (a 16-byte vector of every
 // slot where g, out, n and every split allow it, else one element) belongs to
 // W lanes of one warp, W the power of two at or above P (P <= 32), lane d
@@ -79,6 +82,14 @@ struct Entry {
 struct Schedule {
   int count;
   Entry e[kMaxEntries];
+};
+
+// Where a group's ranks and slots lie, in bytes (ring_allgather.cu's
+// Layout): group (a, b) of G0 x G1 (blockIdx.y = a * G1 + b) keeps rank d's
+// slot s of g at a * ga + b * gb + d * gd + s * slot, and rank d's result
+// at a * oa + b * ob + d * od of out.
+struct Layout {
+  long long g1, ga, gb, gd, oa, ob, od;
 };
 
 // Element types by their carrier: the kernel moves raw bits and converts
@@ -167,7 +178,8 @@ __device__ __forceinline__ V add(V a, V b) {
 template <typename E, typename V, bool kStore>
 __global__ void __launch_bounds__(kThreads)
     ring_allgather_transpose_kernel(typename E::C* g, typename E::C* out, int p, int width,
-                                    long long n, const __grid_constant__ Schedule s) {
+                                    long long n, const Layout lay,
+                                    const __grid_constant__ Schedule s) {
   using C = typename E::C;
   __shared__ Entry entries[kMaxEntries];
   __shared__ bool chained[kMaxEntries];
@@ -179,8 +191,8 @@ __global__ void __launch_bounds__(kThreads)
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / width * kVec;
   const bool live = d < p && c < n;  // the other lanes only shuffle
   const long long slot_bytes = n * static_cast<long long>(sizeof(C));
-  char* base =
-      reinterpret_cast<char*>(g) + static_cast<long long>(blockIdx.y) * p * p * slot_bytes;
+  const long long ga = blockIdx.y / lay.g1, gb = blockIdx.y % lay.g1;
+  char* base = reinterpret_cast<char*>(g) + ga * lay.ga + gb * lay.gb;
   const long long col = c * static_cast<long long>(sizeof(C));
   V held{};  // the sum rank d wrote at the previous entry
   V diag{};  // the sum rank d wrote to its own diagonal slot
@@ -198,8 +210,9 @@ __global__ void __launch_bounds__(kThreads)
         const int dir = c < en.split ? en.dir : -en.dir;
         mv[j] = moves(d, p, en.step, dir, en.rounds, en.active, &src[j]);
         if (mv[j]) {
-          own[j] = load<V>(base + (d * p + src[j]) * slot_bytes + col);
-          if (!chained[k]) nb[j] = load<V>(base + (wrap(d + dir, p) * p + src[j]) * slot_bytes + col);
+          own[j] = load<V>(base + d * lay.gd + src[j] * slot_bytes + col);
+          if (!chained[k])
+            nb[j] = load<V>(base + wrap(d + dir, p) * lay.gd + src[j] * slot_bytes + col);
         }
       }
     }
@@ -212,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
       const V from_next = shfl(held, wrap(d + dir, p), width);
       if (mv[j]) {
         const V v = add<E>(own[j], chained[k] ? from_next : nb[j]);
-        if (kStore) store(base + (d * p + src[j]) * slot_bytes + col, v);
+        if (kStore) store(base + d * lay.gd + src[j] * slot_bytes + col, v);
         held = v;
         if (src[j] == d) {
           diag = v;
@@ -223,10 +236,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (out != nullptr && live) {
-    if (!diag_set) diag = load<V>(base + (d * p + d) * slot_bytes + col);
-    store(reinterpret_cast<char*>(out) + (static_cast<long long>(blockIdx.y) * p + d) * slot_bytes +
-              col,
-          diag);
+    if (!diag_set) diag = load<V>(base + d * lay.gd + d * slot_bytes + col);
+    store(reinterpret_cast<char*>(out) + ga * lay.oa + gb * lay.ob + d * lay.od + col, diag);
   }
 }
 
@@ -235,7 +246,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename E, typename V>
 __global__ void __launch_bounds__(kThreads)
     ring_allgather_transpose_wide_kernel(typename E::C* g, typename E::C* out, int p,
-                                         long long n, const __grid_constant__ Schedule s) {
+                                         long long n, const Layout lay,
+                                         const __grid_constant__ Schedule s) {
   using C = typename E::C;
   __shared__ Entry entries[kMaxEntries];
   __shared__ bool chained[kMaxEntries];
@@ -244,8 +256,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long c = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kVec;
   if (c >= n) return;
   const long long slot_bytes = n * static_cast<long long>(sizeof(C));
-  char* base =
-      reinterpret_cast<char*>(g) + static_cast<long long>(blockIdx.y) * p * p * slot_bytes;
+  const long long ga = blockIdx.y / lay.g1, gb = blockIdx.y % lay.g1;
+  char* base = reinterpret_cast<char*>(g) + ga * lay.ga + gb * lay.gb;
   const long long col = c * static_cast<long long>(sizeof(C));
   for (int k = 0; k < s.count; ++k) {
     const Entry en = entries[k];
@@ -259,9 +271,9 @@ __global__ void __launch_bounds__(kThreads)
         int src;
         dst[j] = -1;
         if (d < p && moves(d, p, en.step, dir, en.rounds, en.active, &src)) {
-          dst[j] = (d * p + src) * slot_bytes + col;
+          dst[j] = d * lay.gd + src * slot_bytes + col;
           v[j] = add<E>(load<V>(base + dst[j]),
-                        load<V>(base + (wrap(d + dir, p) * p + src) * slot_bytes + col));
+                        load<V>(base + wrap(d + dir, p) * lay.gd + src * slot_bytes + col));
         }
       }
 #pragma unroll
@@ -270,15 +282,15 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (out != nullptr) {
-    char* o = reinterpret_cast<char*>(out) + static_cast<long long>(blockIdx.y) * p * slot_bytes;
+    char* o = reinterpret_cast<char*>(out) + ga * lay.oa + gb * lay.ob;
     for (int d = 0; d < p; ++d)
-      store(o + d * slot_bytes + col, load<V>(base + (d * p + d) * slot_bytes + col));
+      store(o + d * lay.od + col, load<V>(base + d * lay.gd + d * slot_bytes + col));
   }
 }
 
 template <typename E, typename V>
-void launch_kernel(void* g, void* out, long long groups, int p, long long n, const Schedule& s,
-                   bool in_place, cudaStream_t stream) {
+void launch_kernel(void* g, void* out, long long groups, int p, long long n, const Layout& lay,
+                   const Schedule& s, bool in_place, cudaStream_t stream) {
   using C = typename E::C;
   const long long columns = (n + sizeof(V) / sizeof(C) - 1) / (sizeof(V) / sizeof(C));
   C* gc = static_cast<C*>(g);
@@ -291,47 +303,53 @@ void launch_kernel(void* g, void* out, long long groups, int p, long long n, con
                     static_cast<unsigned>(groups));
     if (in_place)
       ring_allgather_transpose_kernel<E, V, true><<<grid, kThreads, 0, stream>>>(gc, oc, p, width,
-                                                                                 n, s);
+                                                                                 n, lay, s);
     else
       ring_allgather_transpose_kernel<E, V, false><<<grid, kThreads, 0, stream>>>(gc, oc, p,
-                                                                                  width, n, s);
+                                                                                  width, n, lay,
+                                                                                  s);
   } else {
     const dim3 grid(static_cast<unsigned>((columns + kThreads - 1) / kThreads),
                     static_cast<unsigned>(groups));
-    ring_allgather_transpose_wide_kernel<E, V><<<grid, kThreads, 0, stream>>>(gc, oc, p, n, s);
+    ring_allgather_transpose_wide_kernel<E, V><<<grid, kThreads, 0, stream>>>(gc, oc, p, n, lay,
+                                                                             s);
   }
 }
 
 template <typename E>
-cudaError_t launch(void* g, void* out, long long groups, int p, long long n, const Schedule& s,
-                   bool in_place, cudaStream_t stream) {
+cudaError_t launch(void* g, void* out, long long groups, int p, long long n, const Layout& lay,
+                   const Schedule& s, bool in_place, cudaStream_t stream) {
   constexpr long long kVec = 16 / sizeof(typename E::C);
+  const long long strides = lay.ga | lay.gb | lay.gd | lay.oa | lay.ob | lay.od;
   bool vec = ((reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(out)) & 15) == 0 &&
-             n % kVec == 0;
+             n % kVec == 0 && strides % 16 == 0;
   for (int k = 0; k < s.count; ++k) vec = vec && s.e[k].split % kVec == 0;  // no vector cut
   if (vec)
-    launch_kernel<E, uint4>(g, out, groups, p, n, s, in_place, stream);
+    launch_kernel<E, uint4>(g, out, groups, p, n, lay, s, in_place, stream);
   else
-    launch_kernel<E, typename E::C>(g, out, groups, p, n, s, in_place, stream);
+    launch_kernel<E, typename E::C>(g, out, groups, p, n, lay, s, in_place, stream);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Runs `count` entries on the cotangent g (G, P, P, n), in the order given
-// (the schedule's reverse), in one launch, and writes the diagonal's sums to
-// out (G, P, n) unless out is null. in_place 0: g is only read (P <= 32, and
-// the caller has checked the entries, see above); 1: the sums are stored
-// into g. `entries` is host memory, five values per entry: step, dir,
-// split, rounds, active_round. Returns cudaGetLastError() after the launch
-// (0 on success). The caller checks arguments: dtype 0 (f32), 1 (bf16) or 2
-// (f16), groups <= 65535, 0 <= count <= 128, and per entry
-// 0 <= step < p - 1, dir = +-1, 0 <= split <= n, p % rounds == 0,
-// 0 <= active_round < rounds.
-extern "C" int ring_allgather_transpose(void* g, void* out, int dtype, long long groups, int p,
-                                        long long n, const long long* entries, int count,
-                                        int in_place, void* stream) {
-  if (count < 0 || count > kMaxEntries || (!in_place && p > kMaxLanes))
+// Runs `count` entries on the cotangent g, in the order given (the
+// schedule's reverse), in one launch, for g0 x g1 groups of p ranks, and
+// writes the diagonal's sums to out unless out is null. `strides` is host
+// memory, six element strides: g's (a, b, rank), then out's (a, b, rank);
+// a slot of g is n contiguous elements, its P slots at a stride of n (see
+// Layout). in_place 0: g is only read (P <= 32, and the caller has checked
+// the entries, see above); 1: the sums are stored into g. `entries` is host
+// memory, five values per entry: step, dir, split, rounds, active_round.
+// Returns cudaGetLastError() after the launch (0 on success). The caller
+// checks arguments: dtype 0 (f32), 1 (bf16) or 2 (f16), g0 * g1 <= 65535,
+// 0 <= count <= 128, and per entry 0 <= step < p - 1, dir = +-1,
+// 0 <= split <= n, p % rounds == 0, 0 <= active_round < rounds.
+extern "C" int ring_allgather_transpose(void* g, void* out, int dtype, long long g0,
+                                        long long g1, int p, long long n,
+                                        const long long* strides, const long long* entries,
+                                        int count, int in_place, void* stream) {
+  if (count < 0 || count > kMaxEntries || g1 < 1 || (!in_place && p > kMaxLanes))
     return static_cast<int>(cudaErrorInvalidValue);
   Schedule s;
   s.count = count;
@@ -340,13 +358,16 @@ extern "C" int ring_allgather_transpose(void* g, void* out, int dtype, long long
     s.e[k] = Entry{static_cast<int>(e[0]), static_cast<int>(e[1]), static_cast<int>(e[3]),
                    static_cast<int>(e[4]), e[2]};
   }
+  const long long elt = dtype == 0 ? 4 : 2;
+  const Layout lay{g1, strides[0] * elt, strides[1] * elt, strides[2] * elt,
+                   strides[3] * elt, strides[4] * elt, strides[5] * elt};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
-    err = launch<F32>(g, out, groups, p, n, s, in_place != 0, st);
+    err = launch<F32>(g, out, g0 * g1, p, n, lay, s, in_place != 0, st);
   else if (dtype == 1)
-    err = launch<BF16>(g, out, groups, p, n, s, in_place != 0, st);
+    err = launch<BF16>(g, out, g0 * g1, p, n, lay, s, in_place != 0, st);
   else if (dtype == 2)
-    err = launch<F16>(g, out, groups, p, n, s, in_place != 0, st);
+    err = launch<F16>(g, out, g0 * g1, p, n, lay, s, in_place != 0, st);
   return static_cast<int>(err);
 }

@@ -10,7 +10,12 @@ P_rank, n)`` and of a buffer ``(G, P_rank, P_slot, n)``, and one launch of
 ``csrc/ring_allgather.cu`` installs each rank's own shard in its own slot,
 as the TPU kernel does, then runs every entry of a schedule, in order, each
 entry one ring step for every rank at once (a schedule longer than the
-128 entries a launch carries takes one launch per 128). A schedule is a tuple of entries ``(step, direction,
+128 entries a launch carries takes one launch per 128). The groups may also
+be two dims, (G0, G1, P_rank, n), whose ranks lie at any stride (``_groups``:
+the ranks of a middle mesh axis of a stacked tensor, strided by the axes
+after it); the output then lies as the input's ranks do, (G0, P_rank, G1,
+P_slot, n) in memory, so a gather over any mesh axis copies nothing to make
+a group contiguous. A schedule is a tuple of entries ``(step, direction,
 split, rounds, active_round)`` (``split`` None: the whole slot), as
 ``core/collectives.py`` builds them for the ring, the bidirectional ring
 and the composition of broadcasts; any prefix of one is a schedule too.
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -80,7 +86,8 @@ _MAX_ROWS = 65535  # gridDim.y
 _MAX_ENTRIES = 128  # kMaxEntries of csrc/ring_allgather{,_transpose}.cu: entries per launch
 _MAX_LANES = 32     # kMaxLanes: the most ranks whose column one warp holds
 _ALLGATHER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
                        ctypes.c_int, ctypes.c_void_p]
 _TRANSPOSE_ARGTYPES = _ALLGATHER_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]   # + in_place
 
@@ -99,6 +106,12 @@ def ring_schedule(n_devices: int) -> list[list[tuple[int, int, int]]]:
 
 def _check_buf(buf: torch.Tensor) -> tuple[int, int]:
     """(P, n) of a ring buffer (..., P, P, n) that the kernels take."""
+    return _buf_layout(buf)[:2]
+
+
+def _buf_layout(buf: torch.Tensor) -> tuple[int, int, tuple[int, int, int, int, int]]:
+    """(P, n, its layout (``_groups``)) of a ring buffer (..., P, P, n) that
+    the kernels take, after checking that they take it."""
     if buf.dim() < 3:
         raise ValueError(f"ring buffer must be (..., P, P, n), got {tuple(buf.shape)}")
     p, p2, n = buf.shape[-3:]
@@ -106,11 +119,73 @@ def _check_buf(buf: torch.Tensor) -> tuple[int, int]:
         raise ValueError(f"ring buffer needs P ranks x P slots, got {tuple(buf.shape)}")
     if buf.dtype not in _DTYPES:
         raise TypeError(f"ring kernels support {_DTYPES}, got {buf.dtype}")
-    if not buf.is_contiguous():
-        raise ValueError("ring buffer must be contiguous")
+    lay = _groups(buf, 2)
+    if lay is None:
+        raise ValueError("ring buffer must be contiguous, or (G0, G1, P, P, n) with each "
+                         "rank's P slots contiguous")
     if n < 1:
         raise ValueError("ring buffer slots are empty")
-    return p, n
+    return p, n, lay
+
+
+def _check_rows(lay: tuple) -> None:
+    if lay[0] * lay[1] > _MAX_ROWS:
+        raise ValueError(f"{lay[0] * lay[1]} groups exceed {_MAX_ROWS} block rows")
+
+
+def _groups(t: torch.Tensor, k: int) -> tuple[int, int, int, int, int] | None:
+    """How the kernels address ``t`` (..., P, <k dims>), a gather's shards
+    (k = 1: (..., P, n)) or a ring buffer (k = 2: (..., P, P, n)): (G0,
+    G1, stride of a, stride of b, rank stride), in elements, for group (a,
+    b) of G0 x G1; None where they cannot. They can where t has at most two
+    leading dims and each rank's k trailing dims are contiguous (a stacked
+    tensor's ranks over one middle mesh axis, as ``core.collectives.over_axis``
+    views them, strided by the axes after it), and where t is contiguous
+    (its leading dims one run of groups)."""
+    shape, stride = t.shape, t.stride()
+    lead = len(shape) - k - 1
+    if (lead <= 2 and (shape[-1] == 1 or stride[-1] == 1)
+            and (k == 1 or shape[-2] == 1 or stride[-2] == shape[-1])):
+        if lead == 2:
+            return shape[0], shape[1], stride[0], stride[1], stride[-k - 1]
+        if lead == 1:
+            return shape[0], 1, stride[0], 0, stride[-k - 1]
+        return 1, 1, 0, 0, stride[-k - 1]
+    if t.is_contiguous():
+        inner = math.prod(shape[-k:])
+        return math.prod(shape[:lead]), 1, shape[-k - 1] * inner, 0, inner
+    return None
+
+
+def readable(x: torch.Tensor) -> torch.Tensor:
+    """Shards x (..., P, n) as ``ring_allgather`` reads them on the card:
+    x itself where the kernel can address it (``_groups``), else a
+    contiguous copy."""
+    return x if _groups(x, 1) is not None else x.contiguous()
+
+
+def _new_like_ranks(t: torch.Tensor, k: int, shape: tuple[int, ...]) -> torch.Tensor:
+    """A new tensor of ``shape`` (*t's leading dims, P, <trailing>), its
+    leading and rank dims laid out in the order of t's strides, so that a
+    gather over a middle mesh axis writes every rank's copy where the
+    stacked tensor keeps its ranks, and its trailing dims contiguous."""
+    if t.is_contiguous():
+        return t.new_empty(shape)
+    lead, stride = t.dim() - k, t.stride()
+    order = sorted(range(lead), key=lambda i: -stride[i])
+    if order == list(range(lead)):
+        return t.new_empty(shape)
+    base = t.new_empty([shape[i] for i in order] + list(shape[lead:]))
+    inverse = [order.index(i) for i in range(lead)]
+    return base.permute(*inverse, *range(lead, len(shape)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _strides(src: tuple[int, ...], dst: tuple[int, ...]) -> ctypes.Array:
+    """The six element strides the kernels take, of two ``_groups``
+    layouts; cached, as a gather passes the same few layouts again and
+    again (the kernels only read the array)."""
+    return (ctypes.c_longlong * 6)(*src[2:], *dst[2:])
 
 
 def _check_entry(p: int, n: int, step: int, direction: int, split: int | None,
@@ -195,9 +270,9 @@ def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
                                rounds=rounds, active_round=active_round)
     if not buf.is_cuda:
         raise ValueError(f"ring_step runs on cuda or cpu tensors, got {buf.device}")
-    p, n = _check_buf(buf)
+    p, n, lay = _buf_layout(buf)
     chunks, _ = _packed(((step, direction, split, rounds, active_round),), p, n)
-    launches += _gather_launches(None, buf, p, n, chunks)
+    launches += _gather_launches(None, None, buf, lay, chunks)
     return buf
 
 
@@ -211,7 +286,7 @@ def _gather_out(x: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
         raise ValueError(f"shards must be (..., P, n), got {tuple(x.shape)}")
     shape = (*x.shape[:-2], x.shape[-2], *x.shape[-2:])
     if out is None:
-        return x.new_empty(shape)
+        return _new_like_ranks(x, 1, shape) if x.is_cuda else x.new_empty(shape)
     if tuple(out.shape) != shape or out.dtype != x.dtype or out.device != x.device:
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} is not "
                          f"{shape} {x.dtype} on {x.device}")
@@ -285,30 +360,37 @@ def ring_allgather(x: torch.Tensor, schedule: tuple,
         return ring_allgather_plain(x, schedule, out)
     if not x.is_cuda:
         raise ValueError(f"ring_allgather runs on cuda or cpu tensors, got {x.device}")
+    xlay = _groups(x, 1)
+    if xlay is None:
+        raise ValueError("shards must be contiguous, or (G0, G1, P, n) with each shard "
+                         "contiguous (``readable``)")
     out = _gather_out(x, out)
-    p, n = _check_buf(out)
-    if not x.is_contiguous():
-        raise ValueError("shards must be contiguous")
+    p, n, lay = _buf_layout(out)
     chunks, kinds = _packed(tuple(schedule), p, n)
-    allgather_launches += _gather_launches(x.data_ptr(), out, p, n, chunks)
+    allgather_launches += _gather_launches(x, xlay, out, lay, chunks)
     for kind, count in kinds:
         entries[kind] += count
     return out
 
 
-def _gather_launches(src: int | None, out: torch.Tensor, p: int, n: int,
-                     chunks: tuple[tuple[ctypes.Array, int], ...]) -> int:
+def _gather_launches(x: torch.Tensor | None, xlay: tuple | None, out: torch.Tensor,
+                     lay: tuple, chunks: tuple[tuple[ctypes.Array, int], ...]) -> int:
     """The launches of ``csrc/ring_allgather.cu`` that run ``chunks`` (from
-    ``_packed``) in order on ``out`` (..., P, P, n), the first installing
-    the shards at data pointer ``src`` (None: no install). Returns how many
+    ``_packed``) in order on ``out`` (..., P, P, n) of layout ``lay``, the
+    first installing the shards x (..., P, n) of layout ``xlay`` (None: no
+    install), each addressed where it lies (``_groups``). Returns how many
     it made."""
-    groups = out.numel() // (p * p * n)
-    if groups > _MAX_ROWS:
-        raise ValueError(f"{groups} groups exceed {_MAX_ROWS} block rows")
+    _check_rows(lay)
+    p, n = out.shape[-2:]
+    src, xlay = (None, (0, 0, 0, 0, 0)) if x is None else (x.data_ptr(), xlay)
+    if x is not None and xlay[:2] != lay[:2]:   # ``out`` given, split otherwise: x row-major
+        x = x.contiguous()
+        src, xlay = x.data_ptr(), (lay[0], lay[1], lay[1] * p * n, p * n, n)
+    strides = _strides(xlay, lay)
     fn = build.function("ring_allgather", "ring_allgather", _ALLGATHER_ARGTYPES)
     for packed, count in chunks:   # only the first launch installs the shards
-        build.launch(fn, out, src, out.data_ptr(), _DTYPE_CODES[out.dtype], groups, p, n,
-                     packed, count)
+        build.launch(fn, out, src, out.data_ptr(), _DTYPE_CODES[out.dtype], lay[0], lay[1], p,
+                     n, strides, packed, count)
         src = None
     return len(chunks)
 
@@ -386,20 +468,24 @@ def ring_allgather_transpose(g: torch.Tensor, schedule: tuple) -> torch.Tensor:
         return ring_allgather_transpose_plain(g, schedule)
     if not g.is_cuda:
         raise ValueError(f"ring_allgather_transpose runs on cuda or cpu tensors, got {g.device}")
-    buf = g.contiguous()
-    p, n = _check_buf(buf)
+    buf = g if _groups(g, 2) is not None else g.contiguous()
+    p, n, lay = _buf_layout(buf)
     chunks, kinds, in_place = _packed_transpose(tuple(schedule), p, n)
-    if in_place and g.is_contiguous():   # the launches write: never into autograd's g
-        buf = g.clone()
-    groups = buf.numel() // (p * p * n)
-    if groups > _MAX_ROWS:
-        raise ValueError(f"{groups} groups exceed {_MAX_ROWS} block rows")
-    out = buf.new_empty(*buf.shape[:-3], p, n)
+    if in_place and buf is g:   # the launches write: never into autograd's g
+        buf = torch.empty_like(g).copy_(g)
+        p, n, lay = _buf_layout(buf)
+    _check_rows(lay)
+    out = _new_like_ranks(buf, 2, (*buf.shape[:-3], p, n))
+    olay = _groups(out, 1)
+    if olay[:2] != lay[:2]:   # one split of the groups on both sides, or no launch
+        raise ValueError(f"groups {lay[:2]} of the cotangent, {olay[:2]} of the result")
+    strides = _strides(lay, olay)
     fn = build.function("ring_allgather_transpose", "ring_allgather_transpose",
                         _TRANSPOSE_ARGTYPES)
     for i, (packed, count) in enumerate(chunks):   # only the last launch writes out
         build.launch(fn, buf, buf.data_ptr(), out.data_ptr() if i == len(chunks) - 1 else None,
-                     _DTYPE_CODES[buf.dtype], groups, p, n, packed, count, int(in_place))
+                     _DTYPE_CODES[buf.dtype], lay[0], lay[1], p, n, strides, packed, count,
+                     int(in_place))
         allgather_transpose_launches += 1
     for kind, count in kinds:
         transpose_entries[kind] += count

@@ -17,11 +17,12 @@ on the card on a side stream; the mcast modes only, as in the reference),
 and --remat picks what the backward recomputes: "full" (each layer's gather
 and block), "dots" (all of it but the products' outputs) or "none".
 
---mesh picks the stacked dp ranks: "local" is ``(data=8, model=1)`` (with
+--mesh picks the stacked ranks: "local" is ``(data=8, model=1)`` (with
 --multi-pod ``(pod=2, data=4, model=1)``), "production" the reference's
-``(data=16, model=16)`` (with --multi-pod ``(pod=2, data=16, model=16)``);
-``model`` is layout only. A global batch that does not split over the dp
-ranks is replicated on each.
+``(data=16, model=16)`` (with --multi-pod ``(pod=2, data=16, model=16)``):
+256 or 512 ranks, the dense model tensor- and sequence-parallel over
+``model`` (MoE runs with model=1 only). A global batch that does not split
+over the dp ranks is replicated on each.
 
 --smoke runs the reduced config of the arch (f32, two layers); --layers cuts
 the depth of the full-width one. Weights are drawn from ``TrainConfig.seed``

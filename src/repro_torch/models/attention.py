@@ -1,10 +1,14 @@
-"""Attention: chunked online-softmax for prefill, plain single-token decode.
+"""Attention: chunked online-softmax for prefill, plain and flash-decoding
+single-token decode, the int8 KV quantisation.
 
 Counterpart of ``repro.models.attention``, which is plain jnp there, so
 plain torch here. The layouts are the reference's: q/k/v (B, S, H, hd) and
 caches (B, KV, S, hd); the softmax runs in f32. The chunked path never
 materialises (S x S) scores: it walks KV blocks carrying the online-softmax
-state (m, l, acc).
+state (m, l, acc). Flash-decoding takes the caches sequence-sharded over
+``model``: each shard's partial softmax state, merged over the shards by
+max and sum (the reference's ``pmax``/``psum``, here plain reductions over
+the stacked shard dim: no Pallas kernel computes them there either).
 """
 from __future__ import annotations
 
@@ -146,12 +150,62 @@ def plain_decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = 
     return out.reshape(b, h, hd).to(q.dtype)
 
 
+def flash_decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """Sequence-parallel decode (reference ``attention.py:237``) on stacked
+    shards: q (G, P, B, H, hd), every shard the same queries; caches (G, P,
+    B, KV, S_local, hd), shard p holding positions [p S_local, (p + 1)
+    S_local); pos (G, P, B). Each shard's scores and partial softmax state
+    over its slice, merged over the P shards (dim 1) by max and sum.
+    Returns (G, P, B, H, hd), every shard the merged output."""
+    g, p_, b, h, hd = q.shape
+    kvh, s_local = k_cache.shape[3], k_cache.shape[4]
+    qq = q.reshape(g, p_, b, kvh, h // kvh, hd).float()
+    scores = torch.einsum("gpbkqh,gpbksh->gpbkqs", qq, k_cache.float()) * hd ** -0.5
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    idx = (torch.arange(p_, device=q.device)[:, None] * s_local
+           + torch.arange(s_local, device=q.device))                # (P, S_local)
+    mask = idx[None, :, None, :] <= pos[..., None]
+    if window is not None:
+        mask &= idx[None, :, None, :] > pos[..., None] - window
+    scores = scores.masked_fill(~mask[:, :, :, None, None, :], NEG_INF)
+    m_glob = torch.amax(torch.amax(scores, dim=-1), dim=1, keepdim=True)
+    prob = torch.exp(scores - m_glob[..., None])
+    l_glob = torch.sum(torch.sum(prob, dim=-1), dim=1, keepdim=True)
+    acc = torch.einsum("gpbkqs,gpbksh->gpbkqh", prob, v_cache.float())
+    acc_glob = torch.sum(acc, dim=1, keepdim=True)
+    out = acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
+    return out.reshape(g, 1, b, h, hd).expand(g, p_, b, h, hd).to(q.dtype)
+
+
 def cache_scatter_update(cache: torch.Tensor, new: torch.Tensor,
                          pos: torch.Tensor) -> torch.Tensor:
-    """Write ``new`` (B, KV, hd) at cache[b, :, pos[b], :] of a (B, KV, S, hd)
-    cache, dropping out-of-range positions. Updates the cache in place (the
-    reference's scatter is in place under donation) and returns it."""
-    keep = (pos >= 0) & (pos < cache.shape[2])
-    rows = torch.arange(cache.shape[0], device=cache.device)[keep]
-    cache[rows, :, pos[keep], :] = new[keep].to(cache.dtype)
+    """Write ``new`` (..., KV, hd) at cache[..., :, pos, :] of a (..., KV, S,
+    hd) cache, dropping out-of-range positions: on a cache split over the
+    sequence, pos relative to each shard's first position, so that only
+    the shard that owns it writes. Updates the cache in place (the
+    reference's scatter is in place under donation; the cache may be a
+    view of a larger one) and returns it."""
+    keep = (pos >= 0) & (pos < cache.shape[-2])
+    lead = keep.nonzero(as_tuple=True)
+    cache[(*lead, slice(None), pos[keep])] = new[keep].to(cache.dtype)
     return cache
+
+
+# ------------------------------------------------------- int8 KV quantization
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-vector int8 (reference ``attention.py:337``): x (...,
+    hd) -> (q int8, scale (..., 1) f32)."""
+    x32 = x.float()
+    scale = torch.amax(torch.abs(x32), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import device_of
 from repro_torch.models import layers, transformer
+from repro_torch.sharding import tp as TP
 
 XENT_CHUNK = 512
 FAMILIES = ("dense", "moe")
@@ -54,31 +55,52 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     return cfg.num_layers * per + embed
 
 
-def _xent_chunk(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor):
-    """h (R, b, c, D), t (R, b, c), head (R, D, V) -> (sum of NLL, count)."""
+def _xent_chunk(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor, vocab: int):
+    """h (R, b, c, D), t (R, b, c), head (R, D, V) -> (sum of NLL, count).
+    On a physical ``model`` axis head is each tp rank's (R, D, V / tp) where
+    the vocabulary splits: the log-sum-exp is combined over ``model`` from
+    each rank's, and the target's logit taken from the rank whose range
+    holds it; where it does not split, tp rank 0's. Summed over the dp
+    ranks only (each tp group holds its rows once)."""
     logits = layers.rank_matmul(h, head).float()
     mask = (t >= 0).float()
     tt = t.clamp(min=0)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, tt[..., None], dim=-1)[..., 0]
+    if TP.size() == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, tt[..., None], dim=-1)[..., 0]
+        return torch.sum((lse - gold) * mask), torch.sum(mask)
+    vl = logits.shape[-1]
+    lse = TP.groups(torch.logsumexp(logits, dim=-1))
+    if vl == vocab:
+        gold = torch.take_along_dim(logits, tt[..., None], dim=-1)[..., 0]
+        lse, gold = lse[:, 0], TP.groups(gold)[:, 0]
+    else:
+        local = tt - (TP.rank_index(t.shape[0], t.device) * vl).view(-1, 1, 1)
+        inside = (local >= 0) & (local < vl)
+        gold = torch.take_along_dim(logits, local.clamp(0, vl - 1)[..., None], dim=-1)[..., 0]
+        lse = torch.logsumexp(lse, dim=1)
+        gold = TP.groups(torch.where(inside, gold, 0.0)).sum(1)
+    mask = TP.groups(mask)[:, 0]
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
 def chunked_xent(hidden: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
-                 chunk: int = XENT_CHUNK) -> torch.Tensor:
+                 chunk: int = XENT_CHUNK, vocab: int | None = None) -> torch.Tensor:
     """Token-mean cross-entropy over the global batch without materialising
-    full-sequence f32 logits. hidden (R, B/R, S, D); head (R, D, V), every
-    rank's copy; targets (R, B/R, S), -1 = masked out. Every rank's NLL is
-    summed and divided by the count of unmasked tokens over every rank. With
-    a replicated batch (R, B, S) that is the mean over the R copies: each
-    copy's gradient is 1/R of the batch's, and the gathers' transposes sum
-    the R of them into the shards."""
+    full-sequence f32 logits. hidden (R, B/dp, S, D); head (R, D, V), every
+    rank's copy (on a physical ``model`` axis its vocabulary split, of the
+    ``vocab`` ids); targets (R, B/dp, S), -1 = masked out. Every dp rank's
+    NLL is summed and divided by the count of unmasked tokens over every dp
+    rank. With a replicated batch (R, B, S) that is the mean over the dp
+    copies: each copy's gradient is 1/dp of the batch's, and the gathers'
+    transposes sum them into the shards."""
+    vocab = vocab or head.shape[-1]
     s = hidden.shape[2]
     tot = hidden.new_zeros((), dtype=torch.float32)
     cnt = hidden.new_zeros((), dtype=torch.float32)
     for lo in range(0, s, min(chunk, s)):
         hi = min(lo + chunk, s)
-        nll, n = checkpoint(_xent_chunk, hidden[:, :, lo:hi], targets[:, :, lo:hi], head,
+        nll, n = checkpoint(_xent_chunk, hidden[:, :, lo:hi], targets[:, :, lo:hi], head, vocab,
                             use_reentrant=False, preserve_rng_state=False)
         tot, cnt = tot + nll, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
@@ -107,6 +129,7 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
 
     def forward_fn(params, batch):
         x, _, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
+        x = transformer.whole_sequence(x, batch["tokens"].shape[1])
         return transformer.from_ranks(transformer.final_hidden(params, cfg, x))
 
     def loss_fn(params, batch):
@@ -114,8 +137,10 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
         the three ``moe_*`` metrics (reference ``model_builder.py:166``)."""
         x, aux, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
         x = transformer.final_hidden(params, cfg, x)
+        x = transformer.whole_sequence(x, batch["tokens"].shape[1])
         targets = transformer.to_ranks(batch["targets"], transformer.n_ranks(params))
-        loss = chunked_xent(x, transformer.head_matrix(params, cfg), targets)
+        loss = chunked_xent(x, transformer.head_matrix(params, cfg), targets,
+                            vocab=cfg.vocab_size)
         metrics = {"xent": loss}
         if cfg.family == "moe":
             loss = loss + aux["moe_aux"] + aux["moe_zloss"]
@@ -125,8 +150,9 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
     def prefill_fn(params, batch):
         x, _, cache = transformer.dense_forward(params, cfg, batch, want_cache=True,
                                                 remat=remat)
+        x = transformer.whole_sequence(x, batch["tokens"].shape[1])
         logits = transformer.lm_logits(params, cfg, x[:, :, -1:])[:, :, 0]
-        return transformer.from_ranks(logits), cache
+        return transformer.from_ranks(transformer.whole_logits(logits, cfg)), cache
 
     def decode_fn(params, cache, token, pos):
         return transformer.dense_decode_step(params, cfg, cache, token, pos)

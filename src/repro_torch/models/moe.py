@@ -23,6 +23,9 @@ routing are plain torch ops, as the reference computes them in ``jnp``
 outside any Pallas kernel. The dispatch and the combine are gathers whose
 backwards are gathers too (``_Gather``): nothing is summed by atomics, so a
 forward and a backward give the same bits on every run.
+
+On a physical ``model`` axis (tp > 1) the reference splits the experts over
+``model`` (EP); the port does not yet, and raises (``check_tp``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,16 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.sharding import tp as TP
 from repro_torch.sharding.ctx import from_ranks, to_ranks
+
+
+def check_tp() -> None:
+    """MoE runs at tp = 1 only: EP over a physical ``model`` axis is queued."""
+    if TP.size() > 1:
+        raise NotImplementedError(
+            f"MoE on a physical model axis (tp = {TP.size()}) is not ported: EP over a "
+            "real `model` axis is ROADMAP.md §1 item 12; run MoE with model=1")
 
 
 def expert_owners(n_experts: int, n_ranks: int, device) -> torch.Tensor:
@@ -123,6 +135,7 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *, no_drop: bool = False):
 
     ``no_drop=True`` (decode path): capacity = T so routing never drops —
     single-token decode must be exact, not capacity-truncated."""
+    check_tp()
     m = cfg.moe
     r, d = x.shape[0], x.shape[-1]
     e, k = m.n_routed_experts, m.top_k

@@ -13,6 +13,18 @@ reference's GSPMD replicates it (``ShardCtx.shard_batch`` False): every rank
 holds the whole batch (B rows) and computes it with its own copy of the
 weights. The outputs and the KV cache are then rank 0's, B rows once; in
 decode the R ranks share that cache.
+
+On a physical ``model`` axis (tp > 1) the block is tensor- and
+sequence-parallel as the reference's GSPMD places it: the residual stream
+holds each tp rank's chunk of the sequence where it divides; before
+attention and before the MLP the normed stream is gathered over ``model``
+(#1), the projections run column- and row-parallel on the tp-split weights,
+and the row-parallel partial sums are reduce-scattered back to the
+sequence chunks (#1b), or all-reduced where the sequence does not split
+(decode). The embedding and the head are split over the vocabulary. Decode
+with the cache's sequence split over ``model`` goes through
+flash-decoding; the cache stays the global tensor, each rank reading and
+writing its view (``cache_view``).
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import SideStream
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe
+from repro_torch.sharding import tp as TP
 from repro_torch.sharding.ctx import (from_ranks, get_ctx, maybe_gather_params, shard,
                                      to_ranks, use_ctx)
 from repro_torch.sharding.fsdp import gather_leaf
@@ -43,21 +56,48 @@ def plain_gather(leaf: Stacked) -> torch.Tensor:
 
 
 def n_ranks(params: Params) -> int:
-    return params["embed"].local.shape[0]
+    mesh = get_ctx().mesh
+    return mesh.n_ranks if mesh is not None else params["embed"].local.shape[0]
 
 
 def layer_slice(blocks: Params, i: int) -> Params:
     """Layer i of the L-stacked block tree, still stacked over ranks."""
-    return tree_map(lambda s: Stacked(s.local[:, i], s.spec[1:]), blocks)
+    return tree_map(lambda s: s._replace(local=s.local[:, i], spec=s.spec[1:]), blocks)
+
+
+def keeps_tp(cfg: ModelConfig, path: tuple) -> bool:
+    """Whether the model code uses the leaf at ``path`` as its ``model``
+    split: every leaf but an attention weight whose split does not fall on
+    whole heads (``layers.head_plan``), which it gathers over ``model``."""
+    plan = layers.head_plan(cfg)
+    if path[-1] in ("wq", "wo"):
+        return plan.q_split
+    if path[-1] in ("wk", "wv"):
+        return plan.kv_split
+    return True
+
+
+def to_residual(y: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
+    """A block's output (R, B, S, D) -> the residual stream's placement on
+    ``model``: partial sums reduce-scattered to each rank's sequence chunk
+    (``sp``) or all-reduced; a whole value chunked or kept."""
+    if partial:
+        return TP.reduce_scatter(y, 2) if sp else TP.all_reduce(y)
+    return TP.chunk(y, 2) if sp else y
 
 
 # ------------------------------------------------------------------ dense block
 
 
 def dense_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_kv: bool):
-    """Train/prefill path. x (R, B, S, D); p one layer's gathered weights.
-    Returns (x, aux metrics ({} but for MoE), (k, v) each (R*B, KV, S, hd) |
-    None). Reference: ``transformer.py:53``."""
+    """Train/prefill path. x (R, B, S, D), on a physical ``model`` axis (R,
+    B, S / tp, D) where the sequence splits; p one layer's gathered
+    weights. Returns (x, aux metrics ({} but for MoE), (k, v) | None): at
+    tp = 1 each (R*B, KV, S, hd), at tp > 1 each (R, B, KV', S, hd), every
+    rank its kv heads (``layers.qkv_split``). Reference:
+    ``transformer.py:53``."""
+    if TP.size() > 1:
+        return _dense_block_tp(p, x, cfg, positions=positions, want_kv=want_kv)
     r, b = x.shape[:2]
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.qkv_split(p["attn"], h, cfg)
@@ -84,6 +124,38 @@ def dense_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_k
     return x, aux, kv
 
 
+def _dense_block_tp(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_kv: bool):
+    """``dense_block_apply`` tensor- and sequence-parallel over ``model``."""
+    if cfg.family == "moe":
+        moe.check_tp()
+    r, b = x.shape[:2]
+    sp = x.shape[2] != positions.shape[-1]   # the stream holds its sequence chunk
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if sp:
+        h = TP.gather(h, 2)
+    q, k, v = layers.qkv_split(p["attn"], h, cfg)
+    q = apply_positions(q, positions, cfg)
+    k = apply_positions(k, positions, cfg)
+    o = attn.blockwise_attention(
+        q.flatten(0, 1), layers.local_kv(k, cfg).flatten(0, 1),
+        layers.local_kv(v, cfg).flatten(0, 1),
+        causal=True,
+        window=cfg.attn_window,
+        q_block=cfg.attn_q_block,
+        kv_block=cfg.attn_kv_block,
+        softcap=cfg.attn_logit_softcap,
+    )
+    y = layers.out_proj(p["attn"], o.unflatten(0, (r, b)), cfg)
+    x = x + to_residual(y, layers.head_plan(cfg).q_split, sp)
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if sp:
+        h2 = TP.gather(h2, 2)
+    ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))
+    x = x + to_residual(ff, layers.mlp_partial(p["mlp"], cfg), sp)
+    kv = (k.transpose(2, 3), v.transpose(2, 3)) if want_kv else None  # (R,B,KV',S,hd)
+    return x, {}, kv
+
+
 def _mlp_act(cfg: ModelConfig) -> str:
     return "swiglu" if cfg.act == "swiglu" else cfg.act
 
@@ -107,40 +179,135 @@ def _decode_attention(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torch.T
     return o.expand(q.shape[0], *o.shape)
 
 
-def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kc, vc, pos):
-    """Decode path. x (R, B, D); kc/vc (global batch, KV, S, hd), updated in
-    place; pos (R, B). Returns x. MoE routes without drops (reference
-    ``transformer.py:132``)."""
+def seq_shards(cache_len: int) -> int:
+    """How many sequence shards a decode cache of ``cache_len`` positions
+    has: tp where it divides and tp > 1 (flash-decoding), else 1 (the
+    reference's ``cache_pspecs`` and its condition in
+    ``dense_block_decode``)."""
+    t = TP.size()
+    return t if t > 1 and cache_len % t == 0 else 1
+
+
+def cache_view(c: torch.Tensor, r: int) -> torch.Tensor:
+    """One layer's cache (B, KV, S, hd|1) -> its per-rank view (G, P, B / G,
+    KV, S / P, hd|1): dp rank g's rows (G = 1 where the batch is
+    replicated) and sequence shard p's positions (``seq_shards``), a view
+    of the global tensor."""
+    t = TP.size()
+    g = r // t if get_ctx().shard_batch else 1
+    p = seq_shards(c.shape[2])
+    v = c.view(g, c.shape[0] // g, c.shape[1], p, c.shape[2] // p, c.shape[3])
+    return v.permute(0, 3, 1, 2, 4, 5)
+
+
+def _write_cache(cache: dict, k1: torch.Tensor, v1: torch.Tensor, pos: torch.Tensor):
+    """Write the new rows k1/v1 (R, B, KV, hd), every kv head on every tp
+    rank, at pos (R, B) into one layer's cache, quantised where it is int8,
+    each row only on the shard that owns its position. Returns the cache
+    to attend, (k, v) (B, KV, S, hd) (dequantised)."""
+    r = k1.shape[0]
+    new = {"k": k1, "v": v1}
+    if "ks" in cache:
+        (new["k"], new["ks"]), (new["v"], new["vs"]) = attn.quantize_kv(k1), attn.quantize_kv(v1)
+    for name, rows in new.items():
+        view = cache_view(cache[name], r)
+        g, p = view.shape[:2]
+        local = TP.groups(pos)[:g, :p] - (torch.arange(p, device=pos.device)[:, None]
+                                          * view.shape[4])
+        attn.cache_scatter_update(view, TP.groups(rows)[:g, :p], local)
+    if "ks" in cache:
+        return (attn.dequantize_kv(cache["k"], cache["ks"], k1.dtype),
+                attn.dequantize_kv(cache["v"], cache["vs"], v1.dtype))
+    return cache["k"], cache["v"]
+
+
+def _decode_attention_tp(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torch.Tensor:
+    """q (R, B, H, hd), every head on every tp rank, against the caches (B,
+    KV, S, hd): flash-decoding over the sequence shards where the cache's
+    sequence splits over ``model``, the plain decode (tp rank 0's, expanded
+    over ``model``) where it does not."""
+    kw = dict(window=cfg.attn_window, softcap=cfg.attn_logit_softcap)
+    r = q.shape[0]
+    if seq_shards(kc.shape[2]) == 1:
+        o = _decode_attention(TP.groups(q)[:, 0], kc, vc, TP.groups(pos)[:, 0], cfg)
+        return o.unsqueeze(1).expand(o.shape[0], TP.size(), *o.shape[1:]).reshape(q.shape)
+    qg, pg = TP.groups(q), TP.groups(pos)
+    kv = [cache_view(c, r).expand(qg.shape[0], -1, -1, -1, -1, -1) for c in (kc, vc)]
+    return attn.flash_decode_attention(qg, *kv, pg, **kw).reshape(q.shape)
+
+
+def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos):
+    """Decode path. x (R, B, D); ``cache`` one layer's {"k", "v"} (global
+    batch, KV, S, hd), with {"ks", "vs"} (.., S, 1) f32 scales where it is
+    int8, updated in place; pos (R, B). Returns x. MoE routes without drops
+    (reference ``transformer.py:97``)."""
     h = layers.rms_norm(x[:, :, None], p["ln1"], cfg.norm_eps)   # (R,B,1,D)
     q, k, v = layers.qkv_split(p["attn"], h, cfg)
     q = apply_positions(q, pos[..., None], cfg)
     k = apply_positions(k, pos[..., None], cfg)
-    attn.cache_scatter_update(kc, from_ranks(k[:, :, 0]), from_ranks(pos))
-    attn.cache_scatter_update(vc, from_ranks(v[:, :, 0]), from_ranks(pos))
-    o = _decode_attention(q[:, :, 0], kc, vc, pos, cfg)
-    x = x + layers.out_proj(p["attn"], o[:, :, None])[:, :, 0]
+    q1, k1, v1 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+    if TP.size() == 1:
+        if "ks" in cache:
+            kc, vc = _write_cache(cache, k1, v1, pos)
+        else:
+            kc, vc = cache["k"], cache["v"]
+            attn.cache_scatter_update(kc, from_ranks(k1), from_ranks(pos))
+            attn.cache_scatter_update(vc, from_ranks(v1), from_ranks(pos))
+        o = _decode_attention(q1, kc, vc, pos, cfg)
+        x = x + layers.out_proj(p["attn"], o[:, :, None])[:, :, 0]
+    else:
+        if cfg.family == "moe":
+            moe.check_tp()
+        plan = layers.head_plan(cfg)
+        if plan.q_split:
+            q1 = TP.gather(q1, 2)
+        if plan.kv_split:
+            k1, v1 = TP.gather(k1, 2), TP.gather(v1, 2)
+        kc, vc = _write_cache(cache, k1, v1, pos)
+        o = _decode_attention_tp(q1, kc, vc, pos, cfg)
+        if plan.q_split:
+            o = TP.chunk(o, 2)   # each tp rank's heads into wo's rows
+        y = layers.out_proj(p["attn"], o[:, :, None], cfg)[:, :, 0]
+        x = x + to_residual(y, plan.q_split, False)
     h2 = layers.rms_norm(x[:, :, None], p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         ff, _ = moe.moe_apply(p["moe"], h2, cfg, no_drop=True)
-    else:
-        ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))
-    return x + ff[:, :, 0]
+        return x + ff[:, :, 0]
+    ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))[:, :, 0]
+    if TP.size() > 1:
+        ff = to_residual(ff, layers.mlp_partial(p["mlp"], cfg), False)
+    return x + ff
 
 
 # ----------------------------------------------------------------- LM skeleton
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (R, B, S) -> (R, B, S, D), each rank from its copy."""
-    emb = plain_gather(params["embed"])                      # (R, V, D)
-    ranks = torch.arange(emb.shape[0], device=emb.device)
-    x = emb[ranks.view(-1, *([1] * (tokens.dim() - 1))), tokens]
-    return shard(x, "dp", "sp", None)
+    """tokens (R, B, S) -> (R, B, S, D), each rank from its copy; on a
+    physical ``model`` axis (R, B, S / tp, D) where the context runs the
+    sequence in parallel. The table split over the vocabulary: each tp
+    rank looks up the ids in its range (zeros elsewhere), summed over
+    ``model`` by the reduce-scatter to the sequence chunks, or all-reduced."""
+    emb = plain_gather(params["embed"])                      # (W, V, D)
+    ranks = torch.arange(tokens.shape[0], device=emb.device) % emb.shape[0]
+    ranks = ranks.view(-1, *([1] * (tokens.dim() - 1)))
+    if TP.size() == 1:
+        return shard(emb[ranks, tokens], "dp", "sp", None)
+    vl = emb.shape[1]
+    sp = TP.seq_split(tokens.shape[2])
+    if vl == cfg.vocab_size:
+        return to_residual(emb[ranks, tokens], False, sp)
+    lo = TP.rank_index(tokens.shape[0], tokens.device).view(ranks.shape) * vl
+    local = tokens - lo
+    inside = (local >= 0) & (local < vl)
+    x = torch.where(inside[..., None], emb[ranks, local.clamp(0, vl - 1)], 0.0)
+    return to_residual(x, True, sp)
 
 
 def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     """Every rank's copy of the output head (R, D, V): the tied embedding's
-    transpose (a view) or the untied head."""
+    transpose (a view) or the untied head; on a physical ``model`` axis
+    (R, D, V / tp) where the rules split the vocabulary."""
     if cfg.tie_embeddings:
         return plain_gather(params["embed"]).transpose(1, 2)
     return plain_gather(params["lm_head"])
@@ -151,8 +318,23 @@ def final_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x (R, ..., D) -> (R, ..., V)."""
+    """x (R, ..., D) -> (R, ..., V), or each tp rank's (R, ..., V / tp)
+    where the head splits the vocabulary over ``model``."""
     return layers.rank_matmul(final_hidden(params, cfg, x), head_matrix(params, cfg))
+
+
+def whole_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``lm_logits``' output with the vocabulary gathered over ``model``
+    where it is split: the serving output."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return TP.gather(logits, logits.dim() - 1)
+
+
+def whole_sequence(x: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """The residual stream (R, B, S', D) with every position: gathered over
+    ``model`` where it holds its sequence chunk."""
+    return TP.gather(x, 2) if x.shape[2] != seq_len else x
 
 
 # --------------------------------------------------------------- dense forward
@@ -281,18 +463,40 @@ def _scan_blocks_prefetch(params, cfg, x, positions, *, remat: str = "none"):
 
 
 def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
-    """batch: tokens (B, S). Returns (hidden (R, B/R, S, D) or, replicated,
-    (R, B, S, D); aux metrics ({} but for MoE); cache | None); the cache is
-    {"k", "v"} of (L, B, KV, S, hd)."""
+    """batch: tokens (B, S). Returns (hidden (R, B/dp, S', D) or, replicated,
+    (R, B, S', D), S' = S / tp where the sequence runs in parallel; aux
+    metrics ({} but for MoE); cache | None); the cache is {"k", "v"} of
+    (L, B, KV, S, hd), int8 with {"ks", "vs"} (L, B, KV, S, 1) f32 scales
+    where ``kv_cache_dtype`` is "int8"."""
     tokens = to_ranks(batch["tokens"], n_ranks(params))
     x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(x.shape[2], device=x.device)[None, :]
+    positions = torch.arange(tokens.shape[2], device=x.device)[None, :]
     x, aux, kvs = _scan_blocks(params, cfg, x, positions, want_kv=want_cache, remat=remat)
     cache = None
     if want_cache:
-        cache = {name: torch.stack([from_ranks(kv[j].unflatten(0, x.shape[:2])) for kv in kvs])
+        cache = {name: torch.stack([_global_kv(kv[j], cfg, x.shape[:2]) for kv in kvs])
                  for j, name in enumerate(("k", "v"))}
+        if cfg.kv_cache_dtype == "int8":
+            (cache["k"], cache["ks"]), (cache["v"], cache["vs"]) = (
+                attn.quantize_kv(cache["k"]), attn.quantize_kv(cache["v"]))
     return x, aux, cache
+
+
+def _global_kv(kv: torch.Tensor, cfg: ModelConfig, rb: tuple[int, int]) -> torch.Tensor:
+    """A layer's k or v from ``dense_block_apply`` -> (B, KV, S, hd) of the
+    global batch: at tp > 1 each tp rank's kv heads joined (where they
+    split over ``model``; else tp rank 0's, every head), the head-split
+    layout of prefill made the cache's global one, which decode reads by
+    sequence shards (``cache_view``)."""
+    if TP.size() == 1:
+        return from_ranks(kv.unflatten(0, rb))
+    if kv.shape[2] == cfg.num_kv_heads:
+        return from_ranks(kv)
+    g = TP.groups(kv)                                        # (dp, tp, B, KV/tp, S, hd)
+    if not get_ctx().shard_batch:
+        g = g[:1]
+    g = g.permute(0, 2, 1, 3, 4, 5)
+    return g.reshape(g.shape[0] * g.shape[1], -1, *g.shape[4:])
 
 
 def dense_decode_step(params, cfg: ModelConfig, cache, token, pos):
@@ -302,14 +506,20 @@ def dense_decode_step(params, cfg: ModelConfig, cache, token, pos):
     pos_r = to_ranks(pos, r)
     for i in range(cfg.num_layers):
         bp = maybe_gather_params(layer_slice(params["blocks"], i))
-        x = dense_block_decode(bp, x, cfg, cache["k"][i], cache["v"][i], pos_r)
+        x = dense_block_decode(bp, x, cfg, {n: c[i] for n, c in cache.items()}, pos_r)
     logits = lm_logits(params, cfg, x[:, :, None])[:, :, 0]
-    return from_ranks(logits), cache
+    return from_ranks(whole_logits(logits, cfg)), cache
 
 
 def dense_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
+    shp = (cfg.num_layers, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sshp = shp[:-1] + (1,)
+        return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
+                "v": torch.zeros(shp, dtype=torch.int8, device=device),
+                "ks": torch.zeros(sshp, dtype=torch.float32, device=device),
+                "vs": torch.zeros(sshp, dtype=torch.float32, device=device)}
     if cfg.kv_cache_dtype != "bf16":
         raise NotImplementedError(f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported")
-    shp = (cfg.num_layers, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}

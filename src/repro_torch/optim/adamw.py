@@ -2,11 +2,15 @@
 (counterpart of ``repro.optim.adamw``).
 
 The trees are the train state's trees of ``Stacked`` leaves
-(``sharding.fsdp.trainable``): a dp-sharded leaf is its stacked shards
-(R, *local), a replicated leaf its one tensor. The moments live beside the
-shards in the same layout, in f32 (ZeRO: no collective beyond the gathers'
-backward). So the global norm counts every shard and every replicated
-tensor once, as the reference's norm over its global arrays does. The step
+(``sharding.fsdp.trainable``): a split leaf is its distinct shards (N,
+*local), over the dp axes and ``model``, each once (a shard that several
+ranks hold, e.g. a leaf split over dp but replicated over ``model``, once:
+its gradient already summed over those ranks), a replicated leaf its one
+tensor (its gradient summed over every rank, the sequence shards of
+``model`` too). The moments live beside the shards in the same layout, in
+f32 (ZeRO: no collective beyond the gathers' backward). So the global norm
+counts every element of every leaf once, as the reference's norm over its
+global arrays does, and no tp copy of a leaf can drift from another. The step
 updates parameters and moments in place.
 """
 from __future__ import annotations
@@ -28,7 +32,7 @@ class OptState(NamedTuple):
 
 def init(params, dtype: torch.dtype = torch.float32) -> OptState:
     def zeros(s: Stacked) -> Stacked:
-        return Stacked(torch.zeros(s.local.shape, dtype=dtype, device=s.local.device), s.spec)
+        return s._replace(local=torch.zeros(s.local.shape, dtype=dtype, device=s.local.device))
 
     return OptState(m=tree_map(zeros, params), v=tree_map(zeros, params), step=0)
 
@@ -51,7 +55,7 @@ def global_norm(tree) -> torch.Tensor:
 def clip_by_global_norm(grads, max_norm: float):
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda s: Stacked(s.local * scale.to(s.local.dtype), s.spec), grads), gn
+    return tree_map(lambda s: s._replace(local=s.local * scale.to(s.local.dtype)), grads), gn
 
 
 @torch.no_grad()

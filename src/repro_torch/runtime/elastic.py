@@ -2,8 +2,10 @@
 (counterpart of ``repro.runtime.elastic``).
 
 The sharding rules (``sharding/specs.py``) are pure functions of (leaf name,
-shape, mesh), so moving to a grown or shrunk mesh is: every leaf's global
-array on the host (what a checkpoint holds), then split for the new mesh.
+shape, mesh), so moving to a grown or shrunk mesh, or to another split
+between dp and ``model`` (``(data=2, model=4)`` to ``(data=4, model=2)`` or
+``(data=8, model=1)``), is: every leaf's global array on the host (what a
+checkpoint holds), then split for the new mesh.
 The same placement restores a checkpoint written on one mesh into another
 (``checkpoint.restore(..., mesh=, mesh_cfg=)``).
 """

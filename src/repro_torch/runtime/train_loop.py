@@ -42,12 +42,14 @@ def make_ctx(run: RunConfig, mesh: StackedMesh | None, *,
              for_decode: bool = False) -> ShardCtx:
     """Prefill and training gather per layer with ``run.collective.fsdp_mode``;
     decode uses the plain gather, as the reference leaves decode to GSPMD.
+    ``mesh`` stacks the dp axes and ``model`` where it is above 1: the
+    model code then runs tensor- and sequence-parallel over it.
     ``run.collective.prefetch`` takes effect where the reference's does: in
     the mcast modes (the reference installs no gather of its own for
     ``xla``, nor for decode), and only on the training path."""
     if mesh is None:
         return ShardCtx(mesh=None)
-    if tuple(dp_axes(run.mesh)) != mesh.rank_axes:
+    if tuple(dp_axes(run.mesh)) != mesh.dp_rank_axes:
         raise ValueError(f"{mesh} must stack exactly the dp axes {dp_axes(run.mesh)}")
     coll = run.collective
     if for_decode:
@@ -79,7 +81,7 @@ def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
         grads = torch.autograd.grad(loss, [s.local for s in leaves])
         it = iter(grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, tree_map(lambda s: Stacked(next(it), s.spec),
+        return loss.detach(), metrics, tree_map(lambda s: s._replace(local=next(it)),
                                                 state.params)
 
     def train_step(state: TrainState, batch):
@@ -88,15 +90,15 @@ def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
                 a = tc.grad_accum
                 micro = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])
                          for k, v in batch.items()}
-                grads = tree_map(lambda s: Stacked(torch.zeros_like(s.local, dtype=torch.float32),
-                                                   s.spec), state.params)
+                grads = tree_map(lambda s: s._replace(
+                    local=torch.zeros_like(s.local, dtype=torch.float32)), state.params)
                 loss = 0.0
                 for i in range(a):
                     mb_loss, _, g = value_and_grad(state, {k: v[i] for k, v in micro.items()})
                     for acc, gg in zip(tree_leaves(grads), tree_leaves(g)):
                         acc.local.add_(gg.local.float())
                     loss = loss + mb_loss
-                grads = tree_map(lambda s: Stacked(s.local / a, s.spec), grads)
+                grads = tree_map(lambda s: s._replace(local=s.local / a), grads)
                 loss = loss / a
                 metrics = {"xent": loss}
             else:

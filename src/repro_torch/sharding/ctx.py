@@ -1,9 +1,10 @@
 """Sharding context of the port (counterpart of ``repro.sharding.ctx``).
 
 Model code consults ``get_ctx()`` for the mesh and for the per-layer
-parameter gather. On the stacked backend only the dp axes are physical, so
-``shard`` (a sharding constraint in the reference) is a no-op and ``spec``
-only names the layout.
+parameter gather. On the stacked backend the dp axes and ``model`` are
+physical, and placement is explicit in the model code (``sharding/tp.py``
+for the ``model`` axis), so ``shard`` (a sharding constraint in the
+reference) is a no-op and ``spec`` only names the layout.
 
 ``dims`` vocabulary (resolved against the active context):
     "dp"    -> the data-parallel axes ("data",) or ("pod", "data")
@@ -30,7 +31,8 @@ class ShardCtx:
     tp_axis: str | None = "model"
     # batch sharding disabled when global batch < |dp| (e.g. long_500k B=1)
     shard_batch: bool = True
-    # sequence-parallel residual stream (layout only on the stacked backend)
+    # sequence-parallel residual stream: the sequence split over ``model``
+    # between the blocks' gathers and reduce-scatters (sharding/tp.py)
     seq_parallel: bool = True
     # per-layer parameter gather (sharding/fsdp.make_param_gather): the
     # paper's allgathers in the mcast modes, the plain gather otherwise
@@ -87,23 +89,42 @@ def maybe_gather_params(tree):
     return c.gather_params(tree)
 
 
+def _tp() -> int:
+    c = get_ctx()
+    return c.mesh.tp if c.mesh is not None and c.tp_axis else 1
+
+
 def to_ranks(t: torch.Tensor, r: int) -> torch.Tensor:
-    """Global batch (B, ...) -> (R, B/R, ...): rank r's rows; where the
-    context replicates the batch, (R, B, ...): every rank the whole batch (a
-    view)."""
+    """Global batch (B, ...) -> (R, B/dp, ...): each dp rank's rows, the same
+    on each of its tp ranks (the batch is replicated over ``model``; the
+    model code splits the sequence where it runs sequence-parallel); where
+    the context replicates the batch, (R, B, ...): every rank the whole
+    batch (a view)."""
     if not get_ctx().shard_batch:
         return t.expand(r, *t.shape)
-    if t.shape[0] % r:
+    tp = _tp()
+    dp = r // tp
+    if t.shape[0] % dp:
         raise ValueError(
-            f"global batch {t.shape[0]} does not split over {r} dp ranks, yet the "
+            f"global batch {t.shape[0]} does not split over {dp} dp ranks, yet the "
             "context shards the batch over dp")
-    return t.reshape(r, t.shape[0] // r, *t.shape[1:])
+    rows = t.reshape(dp, t.shape[0] // dp, *t.shape[1:])
+    if tp == 1:
+        return rows
+    return rows.unsqueeze(1).expand(dp, tp, *rows.shape[1:]).reshape(r, *rows.shape[1:])
 
 
 def from_ranks(t: torch.Tensor) -> torch.Tensor:
-    """The inverse of ``to_ranks``: (R, B/R, ...) -> (B, ...), rank-major; a
-    replicated batch's rank 0 copy, (B, ...) (every rank computes the same)."""
-    return t.flatten(0, 1) if get_ctx().shard_batch else t[0]
+    """The inverse of ``to_ranks`` for a value that every tp rank holds
+    whole: (R, B/dp, ...) -> (B, ...), rank-major, from tp rank 0 of each dp
+    rank; a replicated batch's rank 0 copy, (B, ...) (every rank computes
+    the same)."""
+    if not get_ctx().shard_batch:
+        return t[0]
+    tp = _tp()
+    if tp > 1:
+        t = t.view(t.shape[0] // tp, tp, *t.shape[1:])[:, 0]
+    return t.flatten(0, 1)
 
 
 def shard(x: torch.Tensor, *dims) -> torch.Tensor:

@@ -7,9 +7,11 @@ axis name, or a tuple of axis names (the reference's ``PartitionSpec``
 entries).
 
 A parameter leaf of the port is a ``Stacked``: rank r's shard of the global
-tensor at ``local[r]``, with the global tensor's spec beside it. Only the dp
-axes are physical; a leaf replicated over them is one tensor expanded over
-the rank dim.
+tensor at ``local[r]``, with the global tensor's spec and the mesh beside
+it. Every physical axis of the mesh (the dp axes, and ``model`` where it is
+above 1) splits the dims the rules give it; a leaf replicated over every
+axis is one tensor expanded over the rank dim, and a leaf split over some
+axes only holds its shard once per rank of the others.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ Spec = tuple  # one Axes entry per dim
 class Stacked(NamedTuple):
     local: torch.Tensor  # (R, *local shape): rank r's shard at local[r]
     spec: Spec           # spec of the global tensor
+    # the mesh the spec splits over; None where no leaf is split over more
+    # than one axis (a leaf made before the model axis was physical)
+    mesh: StackedMesh | None = None
 
 
 def tree_map(fn: Callable, tree):
@@ -134,7 +139,8 @@ def param_pspecs(params, mesh: StackedMesh | None, mesh_cfg: MeshConfig):
 
 def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh: StackedMesh,
                  mesh_cfg: MeshConfig):
-    """Input batch specs: batch dim over dp (when divisible), rest replicated."""
+    """Input batch specs: batch dim over dp (when divisible), rest replicated
+    (over ``model`` too: every tp rank of a dp rank holds its rows)."""
     from repro_torch.models.model_builder import batch_dims
 
     dp = dp_axes(mesh_cfg)
@@ -147,15 +153,19 @@ def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh: StackedMesh,
 
 
 def cache_pspecs(cfg: ModelConfig, cache, mesh: StackedMesh, mesh_cfg: MeshConfig):
-    """Dense decode caches (L, B, KV, S, hd): batch over dp, KV sequence over
-    ``model`` (flash-decoding layout). The stacked backend keeps the cache in
-    global batch order, rank-major, which is this layout at tp = 1."""
+    """Dense decode caches (L, B, KV, S, hd|1), the int8 cache's scales
+    ``ks``/``vs`` too: batch over dp, the sequence over ``model`` where it
+    divides (the flash-decoding layout), else whole on every tp rank. The
+    stacked backend keeps the cache as the global tensor, batch rank-major
+    and sequence shard-major, and rank (d, m) reads and writes its view of
+    rows d and positions m (``models.transformer.cache_view``): the shards
+    are where the spec puts them, with no copy per rank."""
     dp = dp_axes(mesh_cfg)
     ndp = _axes_size(mesh, dp)
     tp = mesh.shape[TP_AXIS]
 
     def spec_for(path, leaf):
-        if path[-1] not in ("k", "v"):
+        if path[-1] not in ("k", "v", "ks", "vs"):
             return ()
         bspec = dp if leaf.shape[1] % ndp == 0 else None
         sspec = TP_AXIS if leaf.shape[3] % tp == 0 else None
@@ -164,10 +174,35 @@ def cache_pspecs(cfg: ModelConfig, cache, mesh: StackedMesh, mesh_cfg: MeshConfi
     return tree_map_with_path(spec_for, cache)
 
 
+def entry_axes(entry: Axes) -> tuple[str, ...]:
+    """The axis names of one spec entry, major first."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
 def is_sharded(spec: Spec, dp: tuple[str, ...]) -> bool:
     """Whether any dim of ``spec`` is split over a dp axis."""
-    for entry in spec:
-        axes = (entry,) if isinstance(entry, str) else (entry or ())
-        if any(a in dp for a in axes):
-            return True
-    return False
+    return any(a in dp for entry in spec for a in entry_axes(entry))
+
+
+def is_tp_sharded(spec: Spec, mesh: StackedMesh | None) -> bool:
+    """Whether a dim of ``spec`` is split over a physical ``model`` axis."""
+    return (mesh is not None and mesh.tp > 1
+            and any(a == TP_AXIS for entry in spec for a in entry_axes(entry)))
+
+
+def shard_axes(spec: Spec, mesh: StackedMesh | None) -> tuple[str, ...]:
+    """The physical axes that split a leaf of ``spec``, in mesh order."""
+    if mesh is None:
+        return ()
+    used = {a for entry in spec for a in entry_axes(entry)}
+    return tuple(a for a in mesh.rank_axes if a in used)
+
+
+def strip_dp(spec: Spec, dp: tuple[str, ...]) -> Spec:
+    """``spec`` with the dp axes removed: the leaf replicated over dp, still
+    split over ``model`` (the reference's ``serve_loop._strip_dp``)."""
+    def strip(entry):
+        rest = tuple(a for a in entry_axes(entry) if a not in dp)
+        return rest if len(rest) > 1 else (rest[0] if rest else None)
+
+    return tuple(strip(e) for e in spec)

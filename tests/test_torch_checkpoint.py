@@ -464,7 +464,7 @@ def test_train_launcher_checkpoints(tmp_path, capsys):
 
 
 def test_train_launcher_production_mesh(tmp_path, capsys):
-    """--mesh production --multi-pod stacks 32 ranks; batch 2 is replicated."""
+    """--mesh production --multi-pod stacks 512 ranks; batch 2 is replicated."""
     from repro_torch.launch import train
     train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1",
                 "--mesh", "production", "--multi-pod", "--batch", "2", "--seq", "8",
@@ -475,10 +475,11 @@ def test_train_launcher_production_mesh(tmp_path, capsys):
 
 
 def test_production_mesh_ranks():
-    assert make_production_mesh().n_ranks == 16
+    assert make_production_mesh().n_ranks == 256
     assert make_production_mesh().shape == {"data": 16, "model": 16}
-    assert make_production_mesh(multi_pod=True).n_ranks == 32
-    assert make_production_mesh(multi_pod=True).rank_axes == ("pod", "data")
+    assert make_production_mesh(multi_pod=True).n_ranks == 512
+    assert make_production_mesh(multi_pod=True).rank_axes == ("pod", "data", "model")
+    assert make_production_mesh(multi_pod=True).dp_rank_axes == ("pod", "data")
 
 
 def test_serve_launcher_default_batch(capsys):

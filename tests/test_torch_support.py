@@ -35,7 +35,7 @@ from repro_torch.data.pipeline import SyntheticPipeline
 from repro_torch.runtime.serve_loop import make_decode_step, make_prefill_step
 from repro_torch.runtime.train_loop import init_state, make_train_step
 from repro_torch.sharding import specs
-from repro_torch.sharding.fsdp import gather_leaf
+from repro_torch.sharding.fsdp import gather_dim, gather_leaf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
@@ -143,8 +143,9 @@ def one_torch_thread():
     ({"pod": 2, "data": 4, "model": 1}, True),
 ])
 def test_bridge_round_trip(axes, multi_pod):
-    """Every rank's plain-gathered copy of every leaf is the global leaf, and
-    sharded leaves hold 1/R of it."""
+    """Every rank's plain-gathered copy of every leaf, gathered over
+    ``model`` too where it is split there, is the global leaf, and sharded
+    leaves hold 1/R of it."""
     mesh, mesh_cfg = StackedMesh(**axes), MeshConfig(multi_pod=multi_pod)
     tree = random_tree(SMALL, 0)
     params = bridge.to_torch(tree, mesh, mesh_cfg, dtype=torch.float32, device="cpu")
@@ -157,6 +158,9 @@ def test_bridge_round_trip(axes, multi_pod):
         if specs.is_sharded(leaf.spec, dp):
             assert leaf.local.numel() == a.size, key
         full = gather_leaf(leaf.local, leaf.spec, mesh, dp, "xla", 1)
+        if specs.is_tp_sharded(leaf.spec, mesh):
+            dim = [i for i, e in enumerate(leaf.spec) if "model" in specs.entry_axes(e)][0]
+            full, _ = gather_dim(full, leaf.spec, "model", dim, mesh, "ring", 1)
         for r in range(mesh.n_ranks):
             np.testing.assert_array_equal(full[r].numpy(), a, err_msg=key)
 
@@ -347,7 +351,7 @@ def test_port_imports_neither_jax_nor_repro():
         "                  mesh_cfg=MeshConfig())\n"
         "moved = reshard_state(state, run, StackedMesh(data=2, model=4))\n"
         "assert scale_plan(2, 4, 8)['new_per_replica'] == 2\n"
-        "assert make_production_mesh(multi_pod=True).n_ranks == 32\n"
+        "assert make_production_mesh(multi_pod=True).n_ranks == 512\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n"

@@ -5,8 +5,8 @@ remat, the trainable layout) and ports of the reference's own training
 tests.
 
 The reference runs ``jit_train_step`` in a subprocess with 8 fake CPU
-devices on an Auto ``(data=2, model=4)`` mesh; the port stacks the two dp
-ranks (``model`` is layout only). Tolerances: loss within 1e-5 and
+devices on an Auto ``(data=2, model=4)`` mesh; the port stacks its 8 ranks,
+tensor- and sequence-parallel over ``model``. Tolerances: loss within 1e-5 and
 grad_norm within 1e-4 relative of the reference over 3 steps, parameters
 after them within 1e-5 and each moment leaf within 1e-5 of its largest
 value (f32 sums in another order; about 1e-6 is seen); the four modes within
@@ -182,20 +182,22 @@ def test_sharded_step_matches_one_rank(case):
 
 
 def test_trainable_layout():
-    """Sharded leaves are (R, *local) leaf tensors; a replicated leaf is one
-    tensor, expanded at use, and its gradient is the sum over ranks."""
+    """Sharded leaves are (R, *local) leaf tensors, R = 8 ranks of (data=2,
+    model=4); a replicated leaf is one tensor, expanded at use, and its
+    gradient is the sum over ranks."""
     mesh = StackedMesh(data=2, model=4)
     params = bridge.to_torch(random_tree(SMALL, 0), mesh, MeshConfig(), dtype=torch.float32,
                              device="cpu")
     train = trainable(params, ("data",))
     wq, ln1 = train["blocks"]["attn"]["wq"], train["blocks"]["ln1"]
-    assert wq.local.is_leaf and wq.local.requires_grad and wq.local.shape[0] == 2
+    assert wq.local.is_leaf and wq.local.requires_grad and wq.local.shape[0] == mesh.n_ranks
     assert ln1.local.is_leaf and ln1.local.shape == (SMALL.num_layers, SMALL.d_model)
-    used = at_use(train, 2, ("data",))["blocks"]["ln1"].local
-    assert used.shape == (2, SMALL.num_layers, SMALL.d_model) and used.stride(0) == 0
-    (g,) = torch.autograd.grad((used * torch.tensor([1.0, 2.0])[:, None, None]).sum(),
-                               ln1.local)
-    assert torch.equal(g, torch.full_like(g, 3.0))
+    used = at_use(train, mesh.n_ranks, ("data",))["blocks"]["ln1"].local
+    assert used.shape == (mesh.n_ranks, SMALL.num_layers, SMALL.d_model)
+    assert used.stride(0) == 0
+    weights = torch.arange(1.0, mesh.n_ranks + 1)[:, None, None]
+    (g,) = torch.autograd.grad((used * weights).sum(), ln1.local)
+    assert torch.equal(g, torch.full_like(g, float(weights.sum())))
 
 
 @pytest.mark.parametrize("axes,multi_pod", [
