@@ -1,7 +1,9 @@
 """Carries a parameter tree into the port.
 
-``to_torch`` takes the JAX package's dense or MoE parameter tree as numpy
-arrays, ``{"embed", "final_ln", "blocks": {...stacked on L}}``, and returns the port's
+``to_torch`` takes the JAX package's parameter tree as numpy arrays (dense,
+MoE and RWKV ``{"embed", "final_ln", "blocks": {...stacked on L}}``; the
+hybrid's blocks in ``grp_rec_a``, ``grp_rec_b``, ``grp_attn`` and
+``tail_rec``), and returns the port's
 tree of ``Stacked`` leaves: every leaf is split as ``param_pspecs`` splits
 it over the mesh's physical axes (dp, and ``model`` where it is above 1)
 into the stacked (R, *local) layout, rank r's shard at index r (a shard
@@ -12,7 +14,8 @@ splits is one tensor expanded over the rank dim.
 so that tests can compare parameters and optimizer moments after steps.
 
 ``random_params`` draws such a tree from a seed with numpy, in the
-reference's init scales (``repro.models.layers``, ``repro.models.moe``), for
+reference's init distributions (``repro.models.layers``, ``moe``, ``rwkv``,
+``rglru``), for
 runs without a checkpoint. ``device_params`` draws a tree of the same
 shapes, scales and layout directly into each rank's shards on the device,
 for models too large for a host draw.
@@ -33,9 +36,11 @@ from repro_torch.sharding.fsdp import (_local_shape, expand_ranks, global_tensor
 from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, shard_axes, tree_map,
                                        tree_map_with_path)
 
-# norm scales and the MoE router stay float32 whatever the weights' dtype,
-# as the reference initialises them
-_F32_LEAVES = ("ln1", "ln2", "final_ln", "router")
+# norm scales, the MoE router and the rwkv and rg-lru vectors stay float32
+# whatever the weights' dtype, as the reference initialises them
+_F32_LEAVES = ("ln1", "ln2", "final_ln", "router",
+               "mu", "decay_base", "bonus", "ln_x_scale", "ln_x_bias", "cm_mu_k", "cm_mu_r",
+               "ln", "conv_b", "lru_a_bias", "lru_x_bias", "lru_lam")
 
 
 def to_torch(tree, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
@@ -77,26 +82,91 @@ def to_numpy(params, mesh: StackedMesh | None, mesh_cfg: MeshConfig) -> dict:
 
 class _Leaf(NamedTuple):
     shape: tuple[int, ...]
-    scale: float   # std of the normal draw; 0 for a leaf of zeros (norm scales)
+    scale: float   # std of the normal draw, or the uniform's width; 0: zeros
+    dist: str = "normal"   # "normal" N(0, 1) * scale, "uniform" U[0, 1) * scale + shift,
+    shift: float = 0.0     # "ones"
+
+
+def _attn_table(n_l: int, cfg: ModelConfig) -> dict:
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {"wq": _Leaf((n_l, d, h * hd), 1 / np.sqrt(d)),
+            "wk": _Leaf((n_l, d, kvh * hd), 1 / np.sqrt(d)),
+            "wv": _Leaf((n_l, d, kvh * hd), 1 / np.sqrt(d)),
+            "wo": _Leaf((n_l, h * hd, d), 1 / np.sqrt(h * hd))}
+
+
+def _rwkv_table(cfg: ModelConfig) -> dict:
+    """An RWKV6 block's leaves stacked on L (``rwkv.rwkv_block_init``)."""
+    d, f, n_l, r = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.rwkv
+    ts, dl = r.tokenshift_lora, r.decay_lora
+
+    def mat(*shape):
+        return _Leaf((n_l, *shape), 1 / np.sqrt(shape[-2]))
+
+    half = _Leaf((n_l, d), 0.5, "uniform")
+    return {"ln1": _Leaf((n_l, d), 0.0), "ln2": _Leaf((n_l, d), 0.0),
+            "mu": _Leaf((n_l, 5, d), 0.5, "uniform"),
+            "ts_w1": mat(d, 5 * ts), "ts_w2": mat(5, ts, d),
+            "wr": mat(d, d), "wk": mat(d, d), "wv": mat(d, d), "wg": mat(d, d), "wo": mat(d, d),
+            "decay_base": _Leaf((n_l, d), 2.0, "uniform", -4.0),
+            "decay_w1": mat(d, dl), "decay_w2": mat(dl, d),
+            "bonus": _Leaf((n_l, cfg.num_heads, cfg.head_dim), 0.5),
+            "ln_x_scale": _Leaf((n_l, d), 1.0, "ones"), "ln_x_bias": _Leaf((n_l, d), 0.0),
+            "cm_mu_k": half, "cm_mu_r": half,
+            "cm_wk": mat(d, f), "cm_wv": mat(f, d), "cm_wr": mat(d, d)}
+
+
+def _hybrid_table(cfg: ModelConfig) -> dict:
+    """The hybrid's groups and trailing rec layers (``transformer._hybrid_init``):
+    SwiGLU MLPs whatever ``cfg.act`` is; ``tail_rec`` stacks max(trailing, 1)
+    layers."""
+    d, f, g = cfg.d_model, cfg.d_ff, cfg.rglru
+    w, kw = g.lru_width, g.conv_width
+    n_g, n_t = cfg.num_layers // len(g.pattern), cfg.num_layers % len(g.pattern)
+
+    def rec_layer(n: int) -> dict:
+        vec = _Leaf((n, w), 0.0)
+        return {"rec": {"ln": _Leaf((n, d), 0.0),
+                        "w_gate_in": _Leaf((n, d, w), 1 / np.sqrt(d)),
+                        "w_rec_in": _Leaf((n, d, w), 1 / np.sqrt(d)),
+                        "conv_w": _Leaf((n, kw, w), 1 / np.sqrt(w)), "conv_b": vec,
+                        "lru_a_gate": _Leaf((n, w, w), 1 / np.sqrt(w)), "lru_a_bias": vec,
+                        "lru_x_gate": _Leaf((n, w, w), 1 / np.sqrt(w)), "lru_x_bias": vec,
+                        "lru_lam": _Leaf((n, w), 2.0, "uniform", 2.0),
+                        "w_out": _Leaf((n, w, d), 1 / np.sqrt(w))},
+                "ln2": _Leaf((n, d), 0.0), "mlp": _swiglu_table(n, d, f)}
+
+    return {"grp_rec_a": rec_layer(n_g), "grp_rec_b": rec_layer(n_g),
+            "grp_attn": {"ln1": _Leaf((n_g, d), 0.0), "attn": _attn_table(n_g, cfg),
+                         "ln2": _Leaf((n_g, d), 0.0), "mlp": _swiglu_table(n_g, d, f)},
+            "tail_rec": rec_layer(max(n_t, 1))}
 
 
 def _param_table(cfg: ModelConfig) -> dict:
-    """The parameter tree's leaves as (global shape, init scale), in the
-    reference's init scales (``layers.mlp_init``, ``moe.moe_init``) and in
-    the order in which ``random_params`` draws them."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported; only dense and moe")
-    d, h, kvh, hd, n_l = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
-    blocks = {
-        "ln1": _Leaf((n_l, d), 0.0),
-        "attn": {
-            "wq": _Leaf((n_l, d, h * hd), 1 / np.sqrt(d)),
-            "wk": _Leaf((n_l, d, kvh * hd), 1 / np.sqrt(d)),
-            "wv": _Leaf((n_l, d, kvh * hd), 1 / np.sqrt(d)),
-            "wo": _Leaf((n_l, h * hd, d), 1 / np.sqrt(h * hd)),
-        },
-        "ln2": _Leaf((n_l, d), 0.0),
-    }
+    """The parameter tree's leaves as ``_Leaf`` (global shape and init
+    distribution), in the reference's init distributions (``layers``,
+    ``moe``, ``rwkv``, ``rglru``) and in the order in which
+    ``random_params`` draws them."""
+    if cfg.family not in ("dense", "moe", "rwkv", "hybrid"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md §1, "
+                                  "item 12); only dense, moe, rwkv and hybrid")
+    d = cfg.d_model
+    table = {"embed": _Leaf((cfg.vocab_size, d), 0.02), "final_ln": _Leaf((d,), 0.0)}
+    if cfg.family == "rwkv":
+        table["blocks"] = _rwkv_table(cfg)
+    elif cfg.family == "hybrid":
+        table.update(_hybrid_table(cfg))
+    else:
+        table["blocks"] = _dense_table(cfg)
+    if not cfg.tie_embeddings:
+        table["lm_head"] = _Leaf((d, cfg.vocab_size), 1 / np.sqrt(d))
+    return table
+
+
+def _dense_table(cfg: ModelConfig) -> dict:
+    d, n_l = cfg.d_model, cfg.num_layers
+    blocks = {"ln1": _Leaf((n_l, d), 0.0), "attn": _attn_table(n_l, cfg),
+              "ln2": _Leaf((n_l, d), 0.0)}
     if cfg.family == "moe":
         m = cfg.moe
         e, fe = m.n_routed_experts, m.d_ff_expert
@@ -114,11 +184,7 @@ def _param_table(cfg: ModelConfig) -> dict:
         # any other activation: the plain two-layer MLP (layers.mlp_init)
         blocks["mlp"] = {"w_in": _Leaf((n_l, d, cfg.d_ff), 1 / np.sqrt(d)),
                          "w_out": _Leaf((n_l, cfg.d_ff, d), 1 / np.sqrt(cfg.d_ff))}
-    table = {"embed": _Leaf((cfg.vocab_size, d), 0.02), "final_ln": _Leaf((d,), 0.0),
-             "blocks": blocks}
-    if not cfg.tie_embeddings:
-        table["lm_head"] = _Leaf((d, cfg.vocab_size), 1 / np.sqrt(d))
-    return table
+    return blocks
 
 
 def _swiglu_table(n_l: int, d: int, f: int) -> dict:
@@ -128,13 +194,18 @@ def _swiglu_table(n_l: int, d: int, f: int) -> dict:
 
 
 def random_params(cfg: ModelConfig, seed: int) -> dict:
-    """Dense or MoE parameter tree drawn with numpy from ``seed``, float32,
-    in the reference's init scales (norm scales zero, as initialised there)."""
+    """A parameter tree drawn with numpy from ``seed``, float32, in the
+    reference's init distributions (norm scales zero, as initialised there)."""
     rng = np.random.default_rng(seed)
 
     def draw(leaf: _Leaf) -> np.ndarray:
+        if leaf.dist == "ones":
+            return np.ones(leaf.shape, np.float32)
         if not leaf.scale:
             return np.zeros(leaf.shape, np.float32)
+        if leaf.dist == "uniform":
+            return (rng.random(leaf.shape, dtype=np.float32) * np.float32(leaf.scale)
+                    + np.float32(leaf.shift))
         return rng.standard_normal(leaf.shape, dtype=np.float32) * np.float32(leaf.scale)
 
     return tree_map(draw, _param_table(cfg))
@@ -166,10 +237,14 @@ def device_params(cfg: ModelConfig, mesh: StackedMesh | None, mesh_cfg: MeshConf
         if axes:
             shape = [math.prod(mesh.shape[a] for a in axes), *_local_shape(shape, spec, mesh)]
         t = torch.empty(shape, dtype=dt, device=dev)
-        if spec_leaf.scale:
-            t.normal_(0.0, float(spec_leaf.scale), generator=gen)
-        else:
+        if spec_leaf.dist == "ones":
+            t.fill_(1.0)
+        elif not spec_leaf.scale:
             t.zero_()
+        elif spec_leaf.dist == "uniform":
+            t.uniform_(spec_leaf.shift, spec_leaf.shift + spec_leaf.scale, generator=gen)
+        else:
+            t.normal_(0.0, float(spec_leaf.scale), generator=gen)
         if mesh is None:
             return Stacked(t.expand(n, *shape), spec)
         return Stacked(expand_ranks(t, spec, mesh, n), spec, mesh)

@@ -24,6 +24,8 @@ def _ensure_loaded() -> None:
         deepseek_moe_16b,
         granite_3_8b,
         granite_34b,
+        recurrentgemma_9b,
+        rwkv6_7b,
         smollm_135m,
         yi_9b,
     )

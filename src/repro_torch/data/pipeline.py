@@ -1,6 +1,6 @@
 """Deterministic synthetic data pipeline (counterpart of
-``repro.data.pipeline`` for the dense and moe families, whose batches are
-the same).
+``repro.data.pipeline`` for the dense, moe, rwkv and hybrid families, whose
+batches are the same: tokens and targets).
 
 A reproducible token stream per (seed, step): the reference's numpy stream,
 so the batches hold the same token ids as the reference's. The step index

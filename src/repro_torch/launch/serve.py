@@ -4,6 +4,8 @@ allgathers, then greedy decoding, on one GPU.
     python -m repro_torch.launch.serve --arch smollm-135m
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --batch 8 --prompt-len 128
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-7b --batch 8 --prompt-len 128
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
 
 Weights are drawn from ``TrainConfig.seed`` in the reference's init scales (no
 checkpoint is read): with --smoke by numpy on the host (``bridge.random_params``),

@@ -11,6 +11,8 @@ supervisor.
     python -m repro_torch.launch.train --arch deepseek-moe-16b --layers 2 --batch 16 \
         --seq 512 --fsdp-mode mcast --steps 5
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu
+    python -m repro_torch.launch.train --arch rwkv6-7b --layers 2 --batch 16 --seq 512
+    python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke --device cpu
 
 --prefetch gathers layer i + 1 during layer i (``CollectiveConfig.prefetch``;
 on the card on a side stream; the mcast modes only, as in the reference),
@@ -21,7 +23,7 @@ and block), "dots" (all of it but the products' outputs) or "none".
 --multi-pod ``(pod=2, data=4, model=1)``), "production" the reference's
 ``(data=16, model=16)`` (with --multi-pod ``(pod=2, data=16, model=16)``):
 256 or 512 ranks, the dense model tensor- and sequence-parallel over
-``model`` (MoE runs with model=1 only). A global batch that does not split
+``model`` (MoE, rwkv and hybrid run with model=1 only). A global batch that does not split
 over the dp ranks is replicated on each.
 
 --smoke runs the reduced config of the arch (f32, two layers); --layers cuts

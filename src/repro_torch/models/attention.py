@@ -1,5 +1,5 @@
-"""Attention: chunked online-softmax for prefill, plain and flash-decoding
-single-token decode, the int8 KV quantisation.
+"""Attention: chunked online-softmax for prefill, plain, ring-buffer and
+flash-decoding single-token decode, the int8 KV quantisation.
 
 Counterpart of ``repro.models.attention``, which is plain jnp there, so
 plain torch here. The layouts are the reference's: q/k/v (B, S, H, hd) and
@@ -177,6 +177,23 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = 
     acc_glob = torch.sum(acc, dim=1, keepdim=True)
     out = acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
     return out.reshape(g, 1, b, h, hd).expand(g, p_, b, h, hd).to(q.dtype)
+
+
+def ring_decode_attention(q, k_cache, v_cache, abs_pos, pos, window: int) -> torch.Tensor:
+    """Single-token decode over a ring buffer of W slots (reference
+    ``attention.py:298``). q (B, H, hd); caches (B, KV, W, hd), position p
+    in slot p % W; abs_pos (B, W) the absolute position each slot holds;
+    pos (B,). A slot is attended where its position is in (pos - window,
+    pos] and not negative; the softmax in f32."""
+    b, h, hd = q.shape
+    kvh = k_cache.shape[1]
+    qq = q.reshape(b, kvh, h // kvh, hd).float()
+    scores = torch.einsum("bkgh,bksh->bkgs", qq, k_cache.float()) * hd ** -0.5
+    mask = (abs_pos <= pos[:, None]) & (abs_pos > pos[:, None] - window) & (abs_pos >= 0)
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bksh->bkgh", p, v_cache.float())
+    return out.reshape(b, h, hd).to(q.dtype)
 
 
 def cache_scatter_update(cache: torch.Tensor, new: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Model API of the port (dense and moe families), counterpart of
-``repro.models.model_builder``:
+"""Model API of the port (dense, moe, rwkv and hybrid families), counterpart
+of ``repro.models.model_builder``:
 
     api = build_model(cfg, remat="full", device="cuda")
     loss, metrics = api.loss_fn(params, batch)             # train shapes
@@ -25,11 +25,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import device_of
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, rglru, rwkv, transformer
 from repro_torch.sharding import tp as TP
 
 XENT_CHUNK = 512
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "rwkv", "hybrid")
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -38,13 +38,24 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     the families the port has; the others raise, queued in ROADMAP.md §1,
     item 12. With ``active_only`` an MoE layer counts its ``top_k`` routed
     experts in place of all of them, its shared experts and its full router
-    (the reference's ``moe.moe_param_count``); a dense count is the same."""
+    (the reference's ``moe.moe_param_count``); any other count is the same.
+    As the reference's, the rwkv count holds each block's norms and not the
+    final one; the hybrid's counts no norm outside the rec block, five
+    vectors of lru_width a rec block (the block has four) and no unused
+    ``tail_rec`` layer."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md §1, "
                                   f"item 12); only {FAMILIES}")
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = d * h * hd * 2 + d * kvh * hd * 2
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.family == "rwkv":
+        return cfg.num_layers * rwkv.rwkv_block_param_count(cfg) + embed
+    if cfg.family == "hybrid":
+        ng, nt = transformer.hybrid_layout(cfg)
+        mlp = 3 * d * cfg.d_ff
+        rec = rglru.rec_block_param_count(cfg) + mlp
+        return ng * (2 * rec + attn + mlp) + nt * rec + embed
     if cfg.family == "dense":
         per = attn + d * cfg.d_ff * (3 if cfg.act == "swiglu" else 2)
     else:
@@ -119,23 +130,35 @@ class ModelApi:
 def build_model(cfg: ModelConfig, remat: str = "none", *,
                 device: str | torch.device = "cuda") -> ModelApi:
     """remat: "none", "full" (checkpoint each layer's gather and block) or
-    "dots" (the same, keeping every product's output); any other raises
-    ValueError."""
+    "dots" (the same, keeping every product's output; the rwkv and hybrid
+    stacks run it as "none", as the reference does); any other raises
+    ValueError. The forward, decode and cache functions are the family's
+    (reference ``model_builder.py:131``)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported; only {FAMILIES}")
     transformer.check_remat(remat)
     dev = device_of(device)
     dt = layers.dtype_of(cfg.param_dtype)
+    fwd, dec, cache_init = {
+        "dense": (transformer.dense_forward, transformer.dense_decode_step,
+                  transformer.dense_init_cache),
+        "moe": (transformer.dense_forward, transformer.dense_decode_step,
+                transformer.dense_init_cache),
+        "rwkv": (transformer.rwkv_forward, transformer.rwkv_decode_step,
+                 transformer.rwkv_init_cache),
+        "hybrid": (transformer.hybrid_forward, transformer.hybrid_decode_step,
+                   transformer.hybrid_init_cache),
+    }[cfg.family]
 
     def forward_fn(params, batch):
-        x, _, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
+        x, _, _ = fwd(params, cfg, batch, remat=remat)
         x = transformer.whole_sequence(x, batch["tokens"].shape[1])
         return transformer.from_ranks(transformer.final_hidden(params, cfg, x))
 
     def loss_fn(params, batch):
         """Token-mean cross-entropy; MoE adds its router losses and reports
         the three ``moe_*`` metrics (reference ``model_builder.py:166``)."""
-        x, aux, _ = transformer.dense_forward(params, cfg, batch, remat=remat)
+        x, aux, _ = fwd(params, cfg, batch, remat=remat)
         x = transformer.final_hidden(params, cfg, x)
         x = transformer.whole_sequence(x, batch["tokens"].shape[1])
         targets = transformer.to_ranks(batch["targets"], transformer.n_ranks(params))
@@ -148,23 +171,23 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
         return loss, metrics
 
     def prefill_fn(params, batch):
-        x, _, cache = transformer.dense_forward(params, cfg, batch, want_cache=True,
-                                                remat=remat)
+        x, _, cache = fwd(params, cfg, batch, want_cache=True, remat=remat)
         x = transformer.whole_sequence(x, batch["tokens"].shape[1])
         logits = transformer.lm_logits(params, cfg, x[:, :, -1:])[:, :, 0]
         return transformer.from_ranks(transformer.whole_logits(logits, cfg)), cache
 
     def decode_fn(params, cache, token, pos):
-        return transformer.dense_decode_step(params, cfg, cache, token, pos)
+        return dec(params, cfg, cache, token, pos)
 
     def init_cache(batch, seq):
-        return transformer.dense_init_cache(cfg, batch, seq, dt, dev)
+        return cache_init(cfg, batch, seq, dt, dev)
 
     return ModelApi(cfg, loss_fn, forward_fn, prefill_fn, decode_fn, init_cache)
 
 
 def batch_dims(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
-    """Shapes (no data) of every input of a (dense or moe cfg, shape) cell."""
+    """Shapes (no data) of every input of a (cfg, shape) cell of a family
+    the port has: tokens, targets, or a decode step's token and position."""
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         return {"tokens": (b, s), "targets": (b, s)}

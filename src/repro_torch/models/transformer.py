@@ -1,5 +1,5 @@
-"""Dense and MoE decoder stack (counterpart of the dense and moe paths of
-``repro.models.transformer``).
+"""Decoder stacks of the dense, MoE, RWKV and hybrid (RecurrentGemma)
+families (counterpart of ``repro.models.transformer``).
 
 Every dp rank is real: activations carry a leading rank dim R, rank r holds
 batch rows [r * B/R, (r + 1) * B/R) of the global batch, and each layer's
@@ -29,6 +29,7 @@ writing its view (``cache_view``).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any
 
 import torch
@@ -38,7 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import SideStream
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, rglru, rwkv
 from repro_torch.sharding import tp as TP
 from repro_torch.sharding.ctx import (from_ranks, get_ctx, maybe_gather_params, shard,
                                      to_ranks, use_ctx)
@@ -287,10 +288,14 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     physical ``model`` axis (R, B, S / tp, D) where the context runs the
     sequence in parallel. The table split over the vocabulary: each tp
     rank looks up the ids in its range (zeros elsewhere), summed over
-    ``model`` by the reduce-scatter to the sequence chunks, or all-reduced."""
+    ``model`` by the reduce-scatter to the sequence chunks, or all-reduced.
+    The hybrid family scales the rows by sqrt(d_model), as gemma does."""
     emb = plain_gather(params["embed"])                      # (W, V, D)
     ranks = torch.arange(tokens.shape[0], device=emb.device) % emb.shape[0]
     ranks = ranks.view(-1, *([1] * (tokens.dim() - 1)))
+    if cfg.family == "hybrid":   # at tp = 1 (``check_tp``)
+        # gemma's embedding scale, in the activations' dtype (reference :175)
+        return emb[ranks, tokens] * torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype)
     if TP.size() == 1:
         return shard(emb[ranks, tokens], "dp", "sp", None)
     vl = emb.shape[1]
@@ -523,3 +528,279 @@ def dense_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
         raise NotImplementedError(f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported")
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+# ------------------------------------------------- rwkv and hybrid families
+
+
+def check_tp(cfg: ModelConfig) -> None:
+    """The rwkv and hybrid families run at tp = 1: their tensor parallelism
+    over a physical ``model`` axis is queued."""
+    if TP.size() > 1:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a physical model axis (tp = {TP.size()}) is not "
+            "ported: tensor parallelism for rwkv and hybrid is ROADMAP.md §1 item 12; run "
+            "it with model=1")
+
+
+def _remat_full(body, remat: str):
+    """The reference checkpoints an rwkv or hybrid layer only for
+    remat="full"; every other policy ("dots" too) runs the plain body
+    (reference ``transformer.py:338``, ``:446``, ``:456``)."""
+    check_remat(remat)
+    return _remat(body, "full") if remat == "full" else body
+
+
+def _stack_states(states: list[dict]) -> dict:
+    """Per-layer states {name: (R, B, ...)} -> {name: (L, B, ...)} of the
+    global batch."""
+    return {name: torch.stack([from_ranks(st[name]) for st in states]) for name in states[0]}
+
+
+def rwkv_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
+    """RWKV6 stack: each layer gathered, then the block with the chunked WKV
+    (reference ``transformer.py:330``). Returns (hidden (R, B/dp, S, D),
+    {}, cache | None); the cache {wkv (L, B, H, K, V) f32, tm_x (L, B, D),
+    cm_x (L, B, D)} holds no sequence. No prefetch: the reference's
+    ``prefetch_params`` reaches only the dense stack."""
+    check_tp(cfg)
+    tokens = to_ranks(batch["tokens"], n_ranks(params))
+    x = embed_tokens(params, cfg, tokens)
+    ctx = get_ctx()
+
+    def body(x, layer):
+        with use_ctx(ctx):
+            bp = maybe_gather_params(layer)
+            return rwkv.rwkv_block_apply(bp, x, cfg, state=None, chunked=True)
+
+    fn = _remat_full(body, remat)
+    states = []
+    for i in range(cfg.num_layers):
+        x, st = fn(x, layer_slice(params["blocks"], i))
+        if want_cache:
+            states.append(st)
+    return x, {}, (_stack_states(states) if want_cache else None)
+
+
+def rwkv_decode_step(params, cfg: ModelConfig, cache, token, pos):
+    """token (B,), pos (B,). Returns (logits (B, V), cache updated in place):
+    the recurrent WKV step a layer, each layer by the context's gather."""
+    check_tp(cfg)
+    r = n_ranks(params)
+    x = embed_tokens(params, cfg, to_ranks(token[:, None], r))          # (R,B,1,D)
+    for i in range(cfg.num_layers):
+        bp = maybe_gather_params(layer_slice(params["blocks"], i))
+        st = {name: to_ranks(c[i], r) for name, c in cache.items()}
+        x, new = rwkv.rwkv_block_apply(bp, x, cfg, state=st, chunked=False)
+        for name, c in cache.items():
+            c[i].copy_(from_ranks(new[name]))
+    logits = lm_logits(params, cfg, x)[:, :, 0]
+    return from_ranks(whole_logits(logits, cfg)), cache
+
+
+def rwkv_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
+    h, hd, d = cfg.num_heads, cfg.head_dim, cfg.d_model
+    return {"wkv": torch.zeros((cfg.num_layers, batch, h, hd, hd), dtype=torch.float32,
+                               device=device),
+            "tm_x": torch.zeros((cfg.num_layers, batch, d), dtype=dtype, device=device),
+            "cm_x": torch.zeros((cfg.num_layers, batch, d), dtype=dtype, device=device)}
+
+
+HYBRID_GROUP = ("grp_rec_a", "grp_rec_b", "grp_attn")
+
+
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups of the repeating pattern, trailing rec layers). The tree's
+    ``tail_rec`` stacks max(trailing, 1) layers: at a depth that is a
+    multiple of the pattern one layer that no pass applies (reference
+    ``transformer.py:406``)."""
+    plen = len(cfg.rglru.pattern)
+    return cfg.num_layers // plen, cfg.num_layers % plen
+
+
+def _hybrid_rec_apply(p, x: torch.Tensor, cfg: ModelConfig, state):
+    """A rec layer: the recurrent block, then the SwiGLU MLP (SwiGLU whatever
+    ``cfg.act`` says, as the reference builds it)."""
+    x, st = rglru.rec_block_apply(p["rec"], x, cfg, state=state)
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.mlp_apply(p["mlp"], h, "swiglu"), st
+
+
+def _hybrid_attn_apply(p, x: torch.Tensor, cfg: ModelConfig, positions, want_kv: bool):
+    """A local-attention layer (window ``cfg.rglru.window``) and its SwiGLU
+    MLP. Returns (x, (k, v) each (R*B, KV, S, hd) | None)."""
+    r, b = x.shape[:2]
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = layers.qkv_split(p["attn"], h, cfg)
+    q = apply_positions(q, positions, cfg)
+    k = apply_positions(k, positions, cfg)
+    k, v = k.flatten(0, 1), v.flatten(0, 1)
+    o = attn.blockwise_attention(q.flatten(0, 1), k, v, causal=True, window=cfg.rglru.window,
+                                 q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
+    x = x + layers.out_proj(p["attn"], o.unflatten(0, (r, b)))
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + layers.mlp_apply(p["mlp"], h2, "swiglu")
+    kv = (k.transpose(1, 2), v.transpose(1, 2)) if want_kv else None
+    return x, kv
+
+
+def _group(params, g: int) -> dict:
+    return {name: layer_slice(params[name], g) for name in HYBRID_GROUP}
+
+
+def hybrid_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
+    """RecurrentGemma stack (reference ``transformer.py:422``): each group
+    (rec, rec, attn) gathered whole, then its three layers; then each
+    trailing rec layer gathered and applied. Returns (hidden, {}, cache |
+    None); the cache {rec_a, rec_b: {h (G, B, W) f32, conv (G, B, K-1, W)},
+    attn_k, attn_v (G, B, KV, min(S, window), hd) (the prompt's last
+    positions in order), tail: the trailing layers' states or None}. No
+    prefetch (dense stack only)."""
+    check_tp(cfg)
+    tokens = to_ranks(batch["tokens"], n_ranks(params))
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[2], device=x.device)[None, :]
+    ng, nt = hybrid_layout(cfg)
+    ctx = get_ctx()
+
+    def body(x, group):
+        with use_ctx(ctx):
+            gp = maybe_gather_params(group)
+            x, st_a = _hybrid_rec_apply(gp["grp_rec_a"], x, cfg, None)
+            x, st_b = _hybrid_rec_apply(gp["grp_rec_b"], x, cfg, None)
+            x, kv = _hybrid_attn_apply(gp["grp_attn"], x, cfg, positions, want_cache)
+            return x, st_a, st_b, kv
+
+    def tail(x, layer):
+        with use_ctx(ctx):
+            return _hybrid_rec_apply(maybe_gather_params(layer), x, cfg, None)
+
+    fn, tfn = _remat_full(body, remat), _remat_full(tail, remat)
+    groups, tails = [], []
+    for g in range(ng):
+        x, st_a, st_b, kv = fn(x, _group(params, g))
+        if want_cache:
+            groups.append((st_a, st_b, kv))
+    for t in range(nt):
+        x, st = tfn(x, layer_slice(params["tail_rec"], t))
+        if want_cache:
+            tails.append(st)
+    cache = None
+    if want_cache:
+        rb = x.shape[:2]
+        kvs = [torch.stack([from_ranks(grp[2][j].unflatten(0, rb)) for grp in groups])
+               for j in range(2)]
+        cache = {"rec_a": _stack_states([grp[0] for grp in groups]),
+                 "rec_b": _stack_states([grp[1] for grp in groups]),
+                 "attn_k": window_clip(kvs[0], cfg), "attn_v": window_clip(kvs[1], cfg),
+                 "tail": _stack_states(tails) if nt else None}
+    return x, {}, cache
+
+
+def window_clip(kv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The last ``cfg.rglru.window`` positions of a prefill's (G, B, KV, S,
+    hd) keys or values (reference ``_window_clip``)."""
+    w, s = cfg.rglru.window, kv.shape[3]
+    return kv[:, :, :, s - w:] if s > w else kv
+
+
+def _ring_attention(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torch.Tensor:
+    """q (R, B, H, hd), pos (R, B) against the ring caches (global batch, KV,
+    W, hd): slot s holds the largest position p' <= pos with p' % W == s.
+    Returns (R, B, H, hd); a replicated batch's rank 0 attended once."""
+    w = kc.shape[2]
+
+    def one(q, pos):
+        idx = torch.arange(w, device=pos.device)
+        abs_pos = pos[:, None] - ((pos[:, None] - idx[None, :]) % w)
+        return attn.ring_decode_attention(q, kc, vc, abs_pos, pos, cfg.rglru.window)
+
+    if get_ctx().shard_batch:
+        return one(q.flatten(0, 1), pos.flatten()).unflatten(0, q.shape[:2])
+    o = one(q[0], pos[0])
+    return o.expand(q.shape[0], *o.shape)
+
+
+def hybrid_decode_step(params, cfg: ModelConfig, cache, token, pos):
+    """token (B,), pos (B,). Returns (logits (B, V), cache updated in place):
+    each group gathered whole by the context's gather, each rec layer one
+    RG-LRU step, each attention layer a write at slot pos % W of its ring
+    and ``ring_decode_attention`` (reference ``transformer.py:475``)."""
+    check_tp(cfg)
+    r = n_ranks(params)
+    x = embed_tokens(params, cfg, to_ranks(token[:, None], r))          # (R,B,1,D)
+    pos_r = to_ranks(pos, r)
+    ng, nt = hybrid_layout(cfg)
+
+    def rec_step(x, p, states: dict, i: int):
+        st = {name: to_ranks(c[i], r) for name, c in states.items()}
+        x, new = _hybrid_rec_apply(p, x, cfg, st)
+        for name, c in states.items():
+            c[i].copy_(from_ranks(new[name]))
+        return x
+
+    def attn_step(x, p, kc, vc):
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = layers.qkv_split(p["attn"], h, cfg)
+        q = apply_positions(q, pos_r[..., None], cfg)
+        k = apply_positions(k, pos_r[..., None], cfg)
+        slot = pos % kc.shape[2]
+        attn.cache_scatter_update(kc, from_ranks(k[:, :, 0]), slot)
+        attn.cache_scatter_update(vc, from_ranks(v[:, :, 0]), slot)
+        o = _ring_attention(q[:, :, 0], kc, vc, pos_r, cfg)
+        x = x + layers.out_proj(p["attn"], o[:, :, None])
+        h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + layers.mlp_apply(p["mlp"], h2, "swiglu")
+
+    for g in range(ng):
+        gp = maybe_gather_params(_group(params, g))
+        x = rec_step(x, gp["grp_rec_a"], cache["rec_a"], g)
+        x = rec_step(x, gp["grp_rec_b"], cache["rec_b"], g)
+        x = attn_step(x, gp["grp_attn"], cache["attn_k"][g], cache["attn_v"][g])
+    for t in range(nt):
+        x = rec_step(x, maybe_gather_params(layer_slice(params["tail_rec"], t)),
+                     cache["tail"], t)
+    logits = lm_logits(params, cfg, x)[:, :, 0]
+    return from_ranks(whole_logits(logits, cfg)), cache
+
+
+def hybrid_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
+    """The decode cache: ring buffers of min(window, seq_len) slots."""
+    ng, nt = hybrid_layout(cfg)
+    w = min(cfg.rglru.window, seq_len)
+    lru, kcw = cfg.rglru.lru_width, cfg.rglru.conv_width - 1
+
+    def rec_state(n):
+        return {"h": torch.zeros((n, batch, lru), dtype=torch.float32, device=device),
+                "conv": torch.zeros((n, batch, kcw, lru), dtype=dtype, device=device)}
+
+    kv = (ng, batch, cfg.num_kv_heads, w, cfg.head_dim)
+    return {"rec_a": rec_state(ng), "rec_b": rec_state(ng),
+            "attn_k": torch.zeros(kv, dtype=dtype, device=device),
+            "attn_v": torch.zeros(kv, dtype=dtype, device=device),
+            "tail": rec_state(max(nt, 1))}
+
+
+def decode_cache(cfg: ModelConfig, pre: dict, prompt_len: int, cache_len: int) -> dict:
+    """The prefill's cache made the decode cache of ``cache_len`` positions.
+    Dense and MoE: every (L, B, KV, S, .) entry padded along the sequence.
+    RWKV: the states as they are. Hybrid: the rec states as they are (zero
+    trailing states where the depth has none), and each attention layer's
+    last min(S, window) prompt positions written into the ring of
+    min(window, cache_len) slots, position p at slot p % slots."""
+    if cfg.family in ("dense", "moe"):
+        return {k: torch.nn.functional.pad(v, (0, 0, 0, cache_len - prompt_len))
+                for k, v in pre.items()}
+    if cfg.family == "rwkv":
+        return pre
+    k = pre["attn_k"]
+    b = k.shape[1]
+    ring = hybrid_init_cache(cfg, b, cache_len, k.dtype, k.device)
+    m, slots = k.shape[3], ring["attn_k"].shape[3]
+    where = torch.arange(prompt_len - m, prompt_len, device=k.device) % slots
+    for name in ("attn_k", "attn_v"):
+        ring[name][:, :, :, where] = pre[name]
+    out = dict(pre, attn_k=ring["attn_k"], attn_v=ring["attn_v"])
+    if out["tail"] is None:
+        out["tail"] = ring["tail"]
+    return out

@@ -17,7 +17,6 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch.mesh import StackedMesh
@@ -72,7 +71,8 @@ def _serving(run: RunConfig, mesh: StackedMesh | None, ctx):
 
 def make_prefill_step(run: RunConfig, mesh: StackedMesh | None, *,
                       device: str | torch.device = "cuda"):
-    """prefill: (params, batch) -> (last-position logits (B, V), cache)."""
+    """prefill: (params, batch) -> (last-position logits (B, V), cache); the
+    function's ``model`` attribute is ``run.model``."""
     api = build_model(run.model, device=device)
     ctx, serving = _serving(run, mesh, make_ctx(run, mesh))
 
@@ -80,6 +80,7 @@ def make_prefill_step(run: RunConfig, mesh: StackedMesh | None, *,
         with use_ctx(ctx):
             return api.prefill_fn(serving(params), batch)
 
+    prefill.model = run.model   # names the cache's handoff to decode (greedy_generate)
     return api, ctx, prefill
 
 
@@ -100,22 +101,25 @@ def make_decode_step(run: RunConfig, mesh: StackedMesh | None, *,
 
 def greedy_generate(prefill, decode, params, prompt_tokens: torch.Tensor,
                     max_new: int, cache_len: int) -> torch.Tensor:
-    """Greedy generation from steps made by ``make_prefill_step`` and
-    ``make_decode_step``. Returns (B, S + max_new) tokens: the prompt, then
-    the new tokens.
+    """Greedy generation from steps made by ``make_prefill_step`` (whose
+    ``model`` attribute names the cache's handoff) and ``make_decode_step``.
+    Returns (B, S + max_new) tokens: the prompt, then the new tokens.
 
     The reference's greedy_generate feeds the prompt through decode one token at a
     time; here the prompt goes through the prefill step, the path that
-    crosses the paper's gather, and decode continues from its cache. For
-    the dense family the tokens are the same: new token 0 is the argmax of
-    the last prompt position's logits either way. For MoE they are the
-    reference's prefill step's and decode step's: the prefill routes with
-    its capacity, which may drop tokens, where decode drops none."""
+    crosses the paper's gather, and decode continues from its cache
+    (``transformer.decode_cache``: the dense cache padded, the rwkv states
+    as they are, the hybrid's window written into its decode rings). For
+    the dense, rwkv and hybrid families the tokens are the same: new token
+    0 is the argmax of the last prompt position's logits either way. For
+    MoE they are the reference's prefill step's and decode step's: the
+    prefill routes with its capacity, which may drop tokens, where decode
+    drops none."""
     b, s = prompt_tokens.shape
     if cache_len < s + max_new - 1:
         raise ValueError(f"cache_len {cache_len} < {s + max_new - 1} positions")
     logits, pre = prefill(params, {"tokens": prompt_tokens})
-    cache = {k: F.pad(v, (0, 0, 0, cache_len - s)) for k, v in pre.items()}
+    cache = transformer.decode_cache(prefill.model, pre, s, cache_len)
     state = ServeState(cache, torch.full((b,), s, dtype=torch.long,
                                          device=prompt_tokens.device))
     tok = logits.argmax(-1)

@@ -78,7 +78,10 @@ def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
         params = at_use(state.params, n_ranks, ctx.dp_axes)
         loss, metrics = api.loss_fn(params, batch)
         leaves = tree_leaves(state.params)
-        grads = torch.autograd.grad(loss, [s.local for s in leaves])
+        # a leaf no pass applies (the hybrid's one-layer ``tail_rec`` at a
+        # depth that is a multiple of its pattern) has a zero gradient
+        grads = torch.autograd.grad(loss, [s.local for s in leaves], allow_unused=True,
+                                    materialize_grads=True)
         it = iter(grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_map(lambda s: s._replace(local=next(it)),

@@ -153,23 +153,37 @@ def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh: StackedMesh,
 
 
 def cache_pspecs(cfg: ModelConfig, cache, mesh: StackedMesh, mesh_cfg: MeshConfig):
-    """Dense decode caches (L, B, KV, S, hd|1), the int8 cache's scales
-    ``ks``/``vs`` too: batch over dp, the sequence over ``model`` where it
-    divides (the flash-decoding layout), else whole on every tp rank. The
-    stacked backend keeps the cache as the global tensor, batch rank-major
-    and sequence shard-major, and rank (d, m) reads and writes its view of
-    rows d and positions m (``models.transformer.cache_view``): the shards
-    are where the spec puts them, with no copy per rank."""
+    """Decode caches, the reference's rules: batch over dp; a dense cache
+    (L, B, KV, S, hd|1), the int8 cache's scales ``ks``/``vs`` too, its
+    sequence over ``model`` where it divides (the flash-decoding layout);
+    the hybrid's window rings (G, B, KV, W, hd) whole over ``model``; the
+    recurrent states' heads or channels over ``model`` where they divide.
+    The stacked backend keeps the cache as the global tensor, batch
+    rank-major and sequence shard-major, and rank (d, m) reads and writes
+    its view of rows d and positions m (``models.transformer.cache_view``):
+    the shards are where the spec puts them, with no copy per rank."""
     dp = dp_axes(mesh_cfg)
     ndp = _axes_size(mesh, dp)
     tp = mesh.shape[TP_AXIS]
 
     def spec_for(path, leaf):
-        if path[-1] not in ("k", "v", "ks", "vs"):
-            return ()
+        name = path[-1]
         bspec = dp if leaf.shape[1] % ndp == 0 else None
-        sspec = TP_AXIS if leaf.shape[3] % tp == 0 else None
-        return (None, bspec, None, sspec, None)
+
+        def over(dim):   # ``model`` on dim where it divides
+            return TP_AXIS if leaf.shape[dim] % tp == 0 else None
+
+        if name in ("k", "v", "ks", "vs"):
+            return (None, bspec, None, over(3), None)
+        if name in ("attn_k", "attn_v"):
+            return (None, bspec, None, None, None)
+        if name == "wkv":
+            return (None, bspec, over(2), None, None)
+        if name in ("tm_x", "cm_x", "h"):
+            return (None, bspec, over(2))
+        if name == "conv":
+            return (None, bspec, None, over(3))
+        return ()
 
     return tree_map_with_path(spec_for, cache)
 

@@ -18,7 +18,7 @@ from repro.core import engine as ref_engine
 from repro.core import sched_ir as ref_ir
 from repro.core import topology as ref_topo
 from repro.models.model_builder import count_params_analytic as ref_count
-from repro_torch.configs.base import RWKVConfig
+from repro_torch.configs.base import EncDecConfig
 from repro_torch.configs.registry import get_model_config
 from repro_torch.core import engine, sched_ir, topology
 from repro_torch.models.model_builder import count_params_analytic
@@ -118,7 +118,8 @@ def test_fsdp_step_with_layers_matches_reference(o, policy):
         assert_same(got, want, ctx=f"layers {o} {policy} {fidelity}")
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b", "rwkv6-7b",
+                                  "recurrentgemma-9b"])
 def test_fsdp_step_from_a_model_config_matches_reference(arch):
     cfg, ref = get_model_config(arch), ref_config(arch)
     assert count_params_analytic(cfg) == ref_count(ref)
@@ -136,8 +137,8 @@ def test_fsdp_step_from_a_model_config_matches_reference(arch):
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(get_model_config("smollm-135m"), family="rwkv",
-                              rwkv=RWKVConfig())
+    cfg = dataclasses.replace(get_model_config("smollm-135m"), family="encdec",
+                              encdec=EncDecConfig())
     with pytest.raises(NotImplementedError, match="item 12"):
         count_params_analytic(cfg)
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -1407,3 +1407,42 @@ def layers_of(cfg) -> list[str]:
     plain MLP's two); each is one matmul launch a pass."""
     mlp = ["w_gate", "w_up", "w_down"] if cfg.act == "swiglu" else ["w_in", "w_out"]
     return ["wq", "wk", "wv", "wo", *mlp]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_subquadratic_prefill_on_cuda_bitwise_across_modes(arch):
+    """The reduced rwkv6-7b and recurrentgemma-9b (5 layers: a group and two
+    trailing rec layers) in bf16 on (data=8): the prefill's logits and cache
+    bitwise equal in every mode on the card, each mcast-mode prefill one #1
+    launch per sharded layer leaf; the f32 prefill within 1e-4 of the CPU's."""
+    _need_cuda()
+    from repro_torch.configs import MeshConfig, replace
+    from repro_torch.runtime.serve_loop import make_prefill_step
+    cfg = reduced(get_model_config(arch), layers=5 if arch == "recurrentgemma-9b" else None)
+    mesh = StackedMesh(data=8, model=1)
+    tree = bridge.random_params(cfg, 4)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (8, 40)))
+    gathers = {"rwkv6-7b": 12 * cfg.num_layers, "recurrentgemma-9b": 2 * 8 + 7 + 2 * 8}[arch]
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        c = replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+        for dev in ("cpu", "cuda") if dtype == "float32" else ("cuda",):
+            params = bridge.to_torch(tree, mesh, MeshConfig(), dtype=getattr(torch, dtype),
+                                     device=dev)
+            for mode in ("xla", "mcast", "mcast_ring", "mcast_bcast"):
+                run = RunConfig(model=c, shape=ShapeConfig("p", "prefill", 40, 8),
+                                collective=CollectiveConfig(fsdp_mode=mode, n_chains=2))
+                _, _, prefill = make_prefill_step(run, mesh, device=dev)
+                before = K.allgather_launches
+                out[dtype, dev, mode] = prefill(params, {"tokens": tokens.to(dev)})
+                if dev == "cuda":
+                    assert K.allgather_launches - before == (0 if mode == "xla" else gathers)
+    for mode in ("mcast", "mcast_ring", "mcast_bcast"):
+        for dtype in ("bfloat16", "float32"):
+            (a, ca), (b, cb) = out[dtype, "cuda", "xla"], out[dtype, "cuda", mode]
+            assert torch.equal(a, b), (dtype, mode)
+            assert all(torch.equal(x, y) for x, y in zip(tree_leaves(ca), tree_leaves(cb)))
+    for mode in ("xla", "mcast"):
+        diff = (out["float32", "cuda", mode][0].cpu() - out["float32", "cpu", mode][0]).abs()
+        assert diff.max().item() <= 1e-4, mode
