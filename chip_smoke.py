@@ -182,6 +182,29 @@
    step each, every step launching what ``subq_launches`` derives (48 / 78
    #1, 24 / 39 #1b, 100 / 128 bf16 and 32 f32 #3); the first-step loss
    bitwise equal in every mode;
+3h. the last three architectures: first reduced phi-3-vision-4.2b and
+   whisper-base in f32 on (data=8) on the card against the same runs on
+   the CPU, logits within 1e-4 and the same 8 greedy tokens in every mode;
+   then phi-3-vision-4.2b (32 layers, d_model 3,072, 1,024 patches of
+   1,024 projected by ``patch_proj`` ahead of the tokens, vocab 32,064:
+   3.82 B) and whisper-base (6 + 6 layers, d_model 512, vocab 51,865: 97 M)
+   as registered and moonshot-v1-16b-a3b at full width and 4 of its 48
+   layers, bf16, ``bridge.device_params``, on (data=8, model=1): batch 8
+   of 1,024 patches + 128 tokens, 512 frames + 512 tokens and 128 tokens,
+   a prefill in every mode, logits bitwise ``xla``'s, launching
+   ``fam_launches`` (224 / 96 / 44 #1; 226 / 96 + 1 wmma, the odd head /
+   41 + 4 f32 #3); greedy generation of 8 tokens once (mcast); prefills
+   timed twice, the mcast one profiled, decode timed, peak memory; then
+   phi-3-vision's mcast prefill on (data=2, model=4), the weights moved
+   there, the 1,152-position stream split over ``model`` (291 #1, 65 #1b,
+   226 #3);
+4h. training phi-3-vision-4.2b at 2 layers (batch 8 x (1,024 patches +
+   512 tokens)), whisper-base whole and moonshot-v1-16b-a3b at 2 layers
+   (16 x 512), full width, remat="full", AdamW, on (data=8) in every mode:
+   a warm-up, a timed and a profiled step each, every step launching what
+   ``fam_launches`` derives (28 / 192 / 44 #1, 14 / 96 / 22 #1b, 70 / 384
+   + 4 wmma / 84 + 8 f32 #3); the first-step loss bitwise equal in every
+   mode;
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
    receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
    Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
@@ -4377,12 +4400,14 @@ class _CallShapes:
 
 
 def check_call_shapes(shapes: _CallShapes) -> tuple[int, float]:
-    """#1 and #1b at every call shape that phases 3f and 4f gave them (the
-    dp rings of tp groups strided by tp, the sequence and vocabulary
-    gathers, the reduce-scatters and their backwards): random values laid
-    out with the call's own strides, the kernel against its plain version,
-    bitwise; the gather's output laid out where the stacked ranks lie.
-    Returns (calls, max abs err)."""
+    """#1 and #1b at every call shape that phases 3h, 3f and 4f gave them
+    (the FSDP gathers of the last three architectures on (data=8); the dp
+    rings of tp groups strided by tp, the sequence and vocabulary gathers,
+    the reduce-scatters and their backwards, phi-3-vision's whole token
+    embedding among them): random values laid out with the call's own
+    strides, the kernel against its plain version, bitwise; the gather's
+    output laid out where the stacked ranks lie. Returns (calls, max abs
+    err)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases, max_err = 0, 0.0
     for name, seen in shapes.shapes.items():
@@ -4789,15 +4814,22 @@ def subq_matmul_cases(cfg, r: int, m: int, *, train: bool, head_m: int | None = 
     return cases
 
 
-def _subq_uncounted(cfg) -> int:
+def _uncounted(cfg) -> int:
     """Weights the tree holds that the reference's analytic count leaves out:
-    the final norm; the hybrid's norms outside the rec block (a rec layer's
-    ln2, an attention layer's ln1 and ln2) and its unused one-layer
-    ``tail_rec`` where the depth has no trailing layer, less the one vector
-    of lru_width a rec layer that the count has and the block has not."""
+    the final norm; the norm scales of the layers (two a layer; the encdec's
+    two an encoder layer, three a decoder layer and ``enc_ln``; none for
+    rwkv, whose count has them); the hybrid's norms outside the rec block
+    (a rec layer's ln2, an attention layer's ln1 and ln2) and its unused
+    one-layer ``tail_rec`` where the depth has no trailing layer, less the
+    one vector of lru_width a rec layer that the count has and the block
+    has not."""
     d = cfg.d_model
     if cfg.family == "rwkv":
         return d
+    if cfg.family == "encdec":
+        return (2 * cfg.encdec.enc_layers + 3 * cfg.encdec.dec_layers + 2) * d
+    if cfg.family != "hybrid":
+        return (2 * cfg.num_layers + 1) * d
     ng, nt = transformer.hybrid_layout(cfg)
     from repro_torch.models import rglru
     rec = rglru.rec_block_param_count(cfg) + 3 * d * cfg.d_ff
@@ -4814,12 +4846,12 @@ def _tree_gathers(cfg, params) -> int:
                if is_sharded(leaf.spec, ("data",)))
 
 
-def _subq_held(cfg, params) -> int:
+def _held(cfg, params) -> int:
     n = sum(leaf.local.numel() if is_sharded(leaf.spec, ("data",)) else leaf.local[0].numel()
             for leaf in tree_leaves(params))
-    if n != cfg.n_params() + _subq_uncounted(cfg):
+    if n != cfg.n_params() + _uncounted(cfg):
         raise AssertionError(f"{cfg.name}: {n} weights on the card, the analytic count "
-                             f"{cfg.n_params()} and {_subq_uncounted(cfg)} it leaves out")
+                             f"{cfg.n_params()} and {_uncounted(cfg)} it leaves out")
     return n
 
 
@@ -4901,108 +4933,186 @@ def _subq_pieces(cfg, b: int, s: int) -> dict[str, float]:
                 q, kc, kc, abs_pos, pos, cfg.rglru.window))}
 
 
+def _cache_shapes(cfg, batch: dict) -> dict[str, tuple]:
+    """The prefill cache's entries a rank, as (B, KV, S, hd) after the layer
+    axis: the attention families' ``k`` over the stream (the encdec's over
+    its tokens, and its cross ``xk`` over the frames); none checked for
+    rwkv's states and the hybrid's rings."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if cfg.family in ("rwkv", "hybrid"):
+        return {}
+    if cfg.family != "encdec":
+        return {"k": (BATCH, kv, transformer.stream_len(cfg, batch), hd)}
+    return {"k": (BATCH, kv, batch["tokens"].shape[1], hd),
+            "xk": (BATCH, kv, batch["frames"].shape[1], hd)}
+
+
+def _serve_model(tag: str, cfg, batch: dict, launches, new: int, repeats: int,
+                 extras=None) -> dict:
+    """One architecture of phases 3g and 3h at full size, bf16, weights
+    drawn on the card by ``bridge.device_params`` (their count ``_held``'s),
+    on (data=8, model=1): a prefill of ``batch`` (BATCH prompts and the
+    frontend's inputs) in every mode, its logits bitwise xla's, its caches
+    ``_cache_shapes``, launching ``launches(cfg, "prefill")``; the mcast
+    mode's greedy generation of ``new`` tokens, a decode step launching
+    ``launches(cfg, "decode")`` (decode gathers with the plain gather in
+    every mode, so once); ``repeats`` timed prefills a mode (the median
+    reported), the mcast prefill profiled; then the entries that
+    ``extras(cfg, params, batch, xla's logits)`` adds to the row. Returns
+    the row."""
+    mesh = StackedMesh(data=8, model=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = _held(cfg, params)
+    print(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.num_layers} layers d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"({'tied' if cfg.tie_embeddings else 'untied'} head), {n_params:,} weights drawn on "
+          f"the card ({cfg.n_params():,} in the analytic count) in "
+          f"{time.perf_counter() - t0:.3f} s; resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    tokens = batch["tokens"]
+    inputs = {k: v for k, v in batch.items() if k != "tokens"}
+    s0, p = transformer.stream_len(cfg, batch), tokens.shape[1]
+    per, dec = launches(cfg, "prefill"), launches(cfg, "decode")
+    if _tree_gathers(cfg, params) != per["ring_allgather"]:
+        raise AssertionError(f"{_tree_gathers(cfg, params)} sharded layer leaves, expected "
+                             f"{per['ring_allgather']}")
+    print(f"[{tag}] {cfg.name} launches derived from the code: a prefill {json.dumps(per)} "
+          f"(#1 in the mcast modes), a decode step {json.dumps(dec)}", flush=True)
+    ref, row = None, {"arch": cfg.name, "n_weights": n_params, "stream": s0, "modes": {}}
+    for mode in MODES:
+        run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", s0, BATCH),
+                        collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+        _, _, prefill = make_prefill_step(run, mesh)
+
+        def do_prefill():
+            return prefill(params, batch)
+
+        (logits, pre), _, counts = _run(do_prefill)
+        want = _path_want(mesh, mode, gathers=per["ring_allgather"], transposes=0,
+                          matmul=per["matmul"], wmma=per.get("matmul_wmma", 0),
+                          f32=per["matmul_f32"])
+        if counts != want:
+            raise AssertionError(f"{cfg.name} {mode}: prefill launched {counts}, "
+                                 f"expected {want}")
+        if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name} {mode}: bad logits {tuple(logits.shape)}")
+        for name, shp in _cache_shapes(cfg, batch).items():
+            if tuple(pre[name].shape[1:]) != shp:
+                raise AssertionError(f"{cfg.name}: cache {name} {tuple(pre[name].shape)}")
+        if ref is None:
+            ref = logits
+        diff = (logits.float() - ref.float()).abs().max().item()
+        if diff != 0:
+            raise AssertionError(f"{cfg.name} {mode} prefill differs from xla: {diff}")
+        prefill_s = _wall(do_prefill, repeats)
+        mrow = {"prefill_ms_median": statistics.median(prefill_s) * 1e3,
+                "prefill_ms_samples": [t * 1e3 for t in prefill_s],
+                "launches_per_prefill": {k: v for k, v in counts.items() if v}}
+        if mode == "mcast":
+            _, _, decode = make_decode_step(run, mesh)
+            out, gen_s, gen_counts = _run(lambda: greedy_generate(
+                prefill, decode, params, tokens, new, s0 + new, inputs))
+            want_gen = dict(want, **{k: want[k] + (new - 1) * dec.get(k, 0)
+                                     for k in ("matmul", "matmul_wmma", "matmul_f32")})
+            if gen_counts != want_gen:
+                raise AssertionError(f"{cfg.name}: generation launched {gen_counts}, "
+                                     f"expected {want_gen}")
+            if (out.shape != (BATCH, p + new) or not torch.equal(out[:, :p], tokens)
+                    or not torch.equal(out[:, p], logits.argmax(-1))):
+                raise AssertionError(f"{cfg.name}: bad tokens {tuple(out.shape)}")
+            decode_s = gen_s - statistics.median(prefill_s)
+            dev, prof_ms = _device_times(do_prefill)
+            busy = sum(dev.values())
+            mrow.update({"decode_steps": new - 1, "decode_ms": decode_s * 1e3,
+                         "decode_tok_s": BATCH * (new - 1) / decode_s,
+                         "generation_ms": gen_s * 1e3,
+                         "prefill_device_busy_ms": busy,
+                         "prefill_profiled_wall_ms": prof_ms,
+                         "prefill_device_idle_share": 1 - busy / prof_ms,
+                         "prefill_ring_allgather_device_ms": sum(
+                             t for k, t in dev.items() if "ring_allgather_kernel" in k),
+                         "prefill_matmul_device_ms": sum(
+                             t for k, t in dev.items() if "matmul_" in k),
+                         "sample_tokens": out[0, p:].tolist()})
+            top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+            print(f"[{tag}] {cfg.name} mcast prefill, top device time (ms): "
+                  + json.dumps({k[:60]: t for k, t in top}), flush=True)
+            del out
+        row["modes"][mode] = mrow
+        print(f"[{tag}] {cfg.name} {mode}: " + json.dumps(mrow), flush=True)
+        del logits, pre
+    row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    more = extras(cfg, params, batch, ref) if extras else {}
+    row.update(more)
+    print(f"[{tag}] {cfg.name}: prefill logits bitwise equal in every mode; peak device "
+          f"memory {row['peak_memory_gib']:.3f} GiB; " + json.dumps(more), flush=True)
+    return row
+
+
+def _train_model(tag: str, cfg, mesh: StackedMesh, shape: ShapeConfig, per: dict,
+                 timed: int, pieces=None) -> dict:
+    """One architecture of phases 4g and 4h at full width, remat="full",
+    AdamW, weights from ``bridge.device_params`` (their count ``_held``'s),
+    batches of ``shape`` from the ``SyntheticPipeline``, on ``mesh``, in
+    every mode: a warm-up, ``timed`` timed steps and a profiled step, each
+    launching exactly ``per`` in the mcast modes (``_path_want``); the
+    first-step loss bitwise equal in every mode; then ``pieces(cfg)``, the
+    row's device ms of plain-torch pieces. Returns the row."""
+    torch.cuda.reset_peak_memory_stats()
+    tree = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
+    n_params = _held(cfg, tree)
+    pipe = SyntheticPipeline(cfg, shape)
+    batches = [pipe.next_batch(i) for i in range(timed + 2)]
+    print(f"[{tag}] {cfg.name} at {cfg.num_layers} layers ({n_params:,} weights) on "
+          f"{mesh.n_ranks} ranks, batch {shape.global_batch} x {shape.seq_len}: a step "
+          f"launches, derived from the code, {json.dumps(per)} (mcast modes)", flush=True)
+    first, row = {}, {"arch": cfg.name, "ranks": mesh.n_ranks, "modes": {}}
+    for mode in MODES:
+        torch.cuda.reset_peak_memory_stats()
+        want = _path_want(mesh, mode, gathers=per["ring_allgather"],
+                          transposes=per["ring_allgather_transpose"], matmul=per["matmul"],
+                          wmma=per.get("matmul_wmma", 0), f32=per["matmul_f32"])
+        mrow, _ = _train_steps(cfg, mesh, tree, batches, mode, timed, want, shape)
+        mrow["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[{tag}] {cfg.name} " + json.dumps(mrow), flush=True)
+        first[mode] = mrow["losses"][0]
+        row["modes"][mode] = mrow
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"{cfg.name}: first-step losses differ between modes: {first}")
+    more = ""
+    if pieces:
+        row["pieces"] = pieces(cfg)
+        more = (f"; one layer's plain-torch pieces at {shape.global_batch} x {shape.seq_len} "
+                f"(device ms, forward): {json.dumps(row['pieces'])}")
+    print(f"[{tag}] {cfg.name}: first-step loss bitwise equal in every mode: "
+          f"{first['xla']!r}{more}", flush=True)
+    return row
+
+
+def _subq_kind(cfg, kind: str) -> dict[str, int]:
+    """``subq_launches`` of a prefill or a decode step (its products, no
+    gather kernel)."""
+    per = subq_launches(cfg, train=False)
+    return dict(per, ring_allgather=0) if kind == "decode" else per
+
+
 def subq_serve() -> dict[str, dict]:
     """Phase 3g: rwkv6-7b (32 layers) and recurrentgemma-9b (38) at full
-    size, bf16, weights drawn on the card by ``bridge.device_params`` (their
-    count the analytic one and what it leaves out), on (data=8, model=1): a
-    prefill of BATCH x SUBQ_PROMPT tokens in every mode, its logits bitwise
-    xla's, launching ``subq_launches``; the mcast mode's first prefill then
-    greedy generation of SUBQ_NEW tokens (decode gathers with the plain
-    gather in every mode, so once); SUBQ_REPEATS timed prefills a mode (the
-    median reported), the mcast prefill profiled; the plain-torch pieces'
-    device ms at the prefill's shapes. Returns each arch's row."""
-    mesh = StackedMesh(data=8, model=1)
+    size through ``_serve_model``: BATCH x SUBQ_PROMPT tokens, launching
+    ``subq_launches``, SUBQ_NEW new tokens, SUBQ_REPEATS timed prefills; the
+    plain-torch pieces' device ms at the prefill's shapes. Returns each
+    arch's row."""
     rows = {}
     for arch in SUBQ_ARCHS:
         cfg = _subq_cfg(arch)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        n_params = _subq_held(cfg, params)
-        print(f"[subq-serve] {cfg.name}: {cfg.num_layers} layers d_model {cfg.d_model}, "
-              f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
-              f"({'tied' if cfg.tie_embeddings else 'untied'} head), {n_params:,} weights "
-              f"drawn on the card ({cfg.n_params():,} in the analytic count) in "
-              f"{time.perf_counter() - t0:.3f} s; resident "
-              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
         tokens = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (BATCH, SUBQ_PROMPT))).cuda()
-        per = subq_launches(cfg, train=False)
-        if _tree_gathers(cfg, params) != per["ring_allgather"]:
-            raise AssertionError(f"{_tree_gathers(cfg, params)} sharded layer leaves, expected "
-                                 f"{per['ring_allgather']}")
-        print(f"[subq-serve] {cfg.name} launches a prefill, derived from the code: "
-              f"{per['ring_allgather']} ring_allgather (mcast modes), {per['matmul']} bf16 "
-              f"and {per['matmul_f32']} f32 matmuls; a decode step the same matmuls and the "
-              "plain gather", flush=True)
-        ref, row = None, {"arch": cfg.name, "n_weights": n_params, "modes": {}}
-        for mode in MODES:
-            run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", SUBQ_PROMPT, BATCH),
-                            collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
-            _, _, prefill = make_prefill_step(run, mesh)
-
-            def do_prefill():
-                return prefill(params, {"tokens": tokens})
-
-            (logits, pre), _, counts = _run(do_prefill)
-            want = _path_want(mesh, mode, gathers=per["ring_allgather"], transposes=0,
-                              matmul=per["matmul"], f32=per["matmul_f32"])
-            if counts != want:
-                raise AssertionError(f"{cfg.name} {mode}: prefill launched {counts}, "
-                                     f"expected {want}")
-            if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
-                raise AssertionError(f"{cfg.name} {mode}: bad logits {tuple(logits.shape)}")
-            if ref is None:
-                ref = logits
-            diff = (logits.float() - ref.float()).abs().max().item()
-            if diff != 0:
-                raise AssertionError(f"{cfg.name} {mode} prefill differs from xla: {diff}")
-            prefill_s = _wall(do_prefill, SUBQ_REPEATS)
-            mrow = {"prefill_ms_median": statistics.median(prefill_s) * 1e3,
-                    "prefill_ms_samples": [t * 1e3 for t in prefill_s],
-                    "launches_per_prefill": {k: v for k, v in counts.items() if v}}
-            if mode == "mcast":
-                _, _, decode = make_decode_step(run, mesh)
-                out, gen_s, gen_counts = _run(lambda: greedy_generate(
-                    prefill, decode, params, tokens, SUBQ_NEW, SUBQ_PROMPT + SUBQ_NEW))
-                want_gen = dict(want, matmul=per["matmul"] * SUBQ_NEW,
-                                matmul_f32=per["matmul_f32"] * SUBQ_NEW)
-                if gen_counts != want_gen:
-                    raise AssertionError(f"{cfg.name}: generation launched {gen_counts}, "
-                                         f"expected {want_gen}")
-                if (out.shape != (BATCH, SUBQ_PROMPT + SUBQ_NEW)
-                        or not torch.equal(out[:, :SUBQ_PROMPT], tokens)
-                        or not torch.equal(out[:, SUBQ_PROMPT], logits.argmax(-1))):
-                    raise AssertionError(f"{cfg.name}: bad tokens {tuple(out.shape)}")
-                decode_s = gen_s - statistics.median(prefill_s)
-                dev, prof_ms = _device_times(do_prefill)
-                busy = sum(dev.values())
-                mrow.update({"decode_steps": SUBQ_NEW - 1, "decode_ms": decode_s * 1e3,
-                             "decode_tok_s": BATCH * (SUBQ_NEW - 1) / decode_s,
-                             "generation_ms": gen_s * 1e3,
-                             "prefill_device_busy_ms": busy,
-                             "prefill_profiled_wall_ms": prof_ms,
-                             "prefill_device_idle_share": 1 - busy / prof_ms,
-                             "prefill_ring_allgather_device_ms": sum(
-                                 t for k, t in dev.items() if "ring_allgather_kernel" in k),
-                             "prefill_matmul_device_ms": sum(
-                                 t for k, t in dev.items() if "matmul_" in k),
-                             "sample_tokens": out[0, SUBQ_PROMPT:].tolist()})
-                top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
-                print(f"[subq-serve] {cfg.name} mcast prefill, top device time (ms): "
-                      + json.dumps({k[:60]: t for k, t in top}), flush=True)
-                del out
-            row["modes"][mode] = mrow
-            print(f"[subq-serve] {cfg.name} {mode}: " + json.dumps(mrow), flush=True)
-            del logits, pre
-        row["pieces"] = _subq_pieces(cfg, BATCH, SUBQ_PROMPT)
-        row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[subq-serve] {cfg.name}: prefill logits bitwise equal in every mode; one "
-              f"layer's plain-torch pieces (device ms): {json.dumps(row['pieces'])}; peak "
-              f"device memory {row['peak_memory_gib']:.3f} GiB", flush=True)
-        rows[arch] = row
-        del params, ref
+        rows[arch] = _serve_model("subq-serve", cfg, {"tokens": tokens}, _subq_kind, SUBQ_NEW,
+                                  SUBQ_REPEATS, lambda cfg, *_: {
+                                      "pieces": _subq_pieces(cfg, BATCH, SUBQ_PROMPT)})
         torch.cuda.empty_cache()
     return rows
 
@@ -5010,43 +5120,329 @@ def subq_serve() -> dict[str, dict]:
 def subq_train() -> dict[str, dict]:
     """Phase 4g: rwkv6-7b at 2 layers on (data=8) and recurrentgemma-9b at 5
     (one group and 2 trailing rec layers) on (data=2, SUBQ_TRAIN_MESH),
-    full width, batch TRAIN_SHAPE (16 x 512), remat="full", AdamW, weights
-    from ``bridge.device_params``, in every mode: a warm-up, a timed step
-    and a profiled step, each launching exactly ``subq_launches``; the
-    first-step loss bitwise equal in every mode."""
+    batch TRAIN_SHAPE (16 x 512), through ``_train_model``, each step
+    launching ``subq_launches``; the plain-torch pieces' device ms at the
+    batch's shapes."""
     rows = {}
     for arch in SUBQ_ARCHS:
-        cfg, mesh = _subq_cfg(arch, train=True), SUBQ_TRAIN_MESH[arch]
-        torch.cuda.reset_peak_memory_stats()
-        tree = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
-        n_params = _subq_held(cfg, tree)
-        pipe = SyntheticPipeline(cfg, TRAIN_SHAPE)
-        batches = [pipe.next_batch(i) for i in range(SUBQ_TRAIN_TIMED + 2)]
-        per = subq_launches(cfg, train=True)
-        print(f"[subq-train] {cfg.name} at {cfg.num_layers} layers ({n_params:,} weights) on "
-              f"{mesh.n_ranks} ranks, batch {TRAIN_SHAPE.global_batch} x {TRAIN_SHAPE.seq_len}: "
-              f"a step launches, derived from the code, {per['ring_allgather']} ring_allgather, "
-              f"{per['ring_allgather_transpose']} transposes, {per['matmul']} bf16 and "
-              f"{per['matmul_f32']} f32 matmuls (mcast modes)", flush=True)
-        first, row = {}, {"arch": cfg.name, "ranks": mesh.n_ranks, "modes": {}}
+        cfg = _subq_cfg(arch, train=True)
+        rows[arch] = _train_model(
+            "subq-train", cfg, SUBQ_TRAIN_MESH[arch], TRAIN_SHAPE,
+            subq_launches(cfg, train=True), SUBQ_TRAIN_TIMED,
+            lambda cfg: _subq_pieces(cfg, TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len))
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------- phases 3h and 4h: the last three architectures
+
+FAM_ARCHS = ("phi-3-vision-4.2b", "whisper-base", "moonshot-v1-16b-a3b")
+# tokens a prompt, batch BATCH: phi-3-vision's after its 1,024 patches,
+# whisper's beside its FAM_FRAMES frames
+FAM_PROMPT = {"phi-3-vision-4.2b": 128, "whisper-base": 512, "moonshot-v1-16b-a3b": 128}
+FAM_FRAMES = 512
+FAM_NEW = 8
+FAM_REPEATS = 2                # timed prefills a mode; the median is reported
+# moonshot-v1-16b-a3b is served at full width and 4 of its 48 layers, for
+# the script's time (phase 3d serves the family's deepseek-moe-16b at 14)
+FAM_SERVE_LAYERS = {"moonshot-v1-16b-a3b": 4}
+# training depth: phi-3-vision and moonshot 2 layers, whisper-base whole
+FAM_TRAIN_LAYERS = {"phi-3-vision-4.2b": 2, "moonshot-v1-16b-a3b": 2}
+FAM_TRAIN_SHAPE = {"phi-3-vision-4.2b": ShapeConfig("train", "train", 1024 + 512, 8),
+                   "whisper-base": TRAIN_SHAPE, "moonshot-v1-16b-a3b": TRAIN_SHAPE}
+FAM_TRAIN_MESH = {arch: StackedMesh(data=8, model=1) for arch in FAM_ARCHS}
+FAM_TRAIN_TIMED = 1
+FAM_TP_MESH = StackedMesh(data=2, model=4)   # phi-3-vision's mcast prefill runs there too
+FAM_SMALL_SEQ = 16                           # the reduced check's prompt tokens
+
+
+def _fam_cfg(arch: str, *, train: bool = False):
+    cfg = get_model_config(arch)
+    layers = (FAM_TRAIN_LAYERS if train else FAM_SERVE_LAYERS).get(arch)
+    return replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _fam_batch(cfg, tokens: int, frames: int, gen: torch.Generator, device: str) -> dict:
+    """BATCH prompts of ``tokens`` tokens and the stub frontend's inputs
+    beside them, N(0, 1) x 0.02 in the compute dtype: the ``vlm``'s
+    ``n_patches`` patches, the ``encdec``'s ``frames`` frames."""
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, tokens), generator=gen,
+                                   device=gen.device).to(device)}
+    shp = None
+    if cfg.family == "vlm":
+        shp = (BATCH, cfg.vision.n_patches, cfg.vision.patch_dim)
+    elif cfg.family == "encdec":
+        shp = (BATCH, frames, cfg.encdec.frame_dim)
+    if shp:
+        name = "patches" if cfg.family == "vlm" else "frames"
+        out[name] = (torch.randn(shp, generator=gen, device=gen.device) * 0.02).to(device, dt)
+    return out
+
+
+def _encdec_products(cfg, *, decode: bool) -> list[tuple[int, int]]:
+    """(fan-in, fan-out) of every product of the encdec's layers, the
+    encoder's first: an encoder layer's q, k, v, o and gelu MLP (6 sharded
+    leaves); a decoder layer's self-attention, cross-attention and MLP (10);
+    in a decode step the decoder's only, without the cross-attention's k
+    and v (frozen in the cache)."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    attn, mlp, e = [(d, q), (d, kv), (d, kv), (q, d)], [(d, f), (f, d)], cfg.encdec
+    if decode:
+        return e.dec_layers * (attn + [(d, q), (q, d)] + mlp)
+    return e.enc_layers * (attn + mlp) + e.dec_layers * (attn + attn + mlp)
+
+
+def fam_launches(cfg, kind: str, seq: int = TRAIN_SHAPE.seq_len) -> dict[str, int]:
+    """#1 gathers (mcast modes), #1b transposes and the matmul kernel's
+    wgmma, wmma and f32 launches of one prefill, decode step or train step
+    (``kind``; remat="full": every gather twice, the checkpointed body's
+    recompute, and one transpose; every product four times: forward,
+    recompute, dx, dW; the head four times a cross-entropy chunk of the
+    ``seq`` positions) on (data=8, model=1). phi-3-vision: the dense
+    layer's 7 sharded leaves and products, the head, and ``patch_proj``
+    (replicated: no gather; in training its forward and dW, the patches
+    needing no gradient). whisper-base: a gather and a product a leaf of
+    ``_encdec_products``, a decode step the decoder's 8 a layer; the head at
+    the odd vocab 51,865 on the wmma kernel (``head_wmma``). moonshot: the
+    MoE counts of phase 3d (``_moe_sharded_leaves``, ``_moe_matmuls``)."""
+    train, chunks = kind == "train", -(-seq // XENT_CHUNK)
+    head = 4 * chunks if train else 1
+    f32 = wmma = 0
+    if cfg.family == "moe":
+        leaves = _moe_sharded_leaves(cfg) * cfg.num_layers
+        bf16, f32 = _moe_matmuls(cfg, train=train)
+    elif cfg.family == "vlm":
+        leaves = len(_layer_leaves(cfg)) * cfg.num_layers
+        bf16 = (4 if train else 1) * leaves + head + {"prefill": 1, "decode": 0, "train": 2}[kind]
+    else:
+        leaves = len(_encdec_products(cfg, decode=False))
+        body = len(_encdec_products(cfg, decode=kind == "decode"))
+        wmma = head_wmma(cfg, train=train, seq=seq)
+        bf16 = (4 if train else 1) * body + (0 if wmma else head)
+    gathers = {"prefill": leaves, "decode": 0, "train": 2 * leaves}[kind]
+    return {"ring_allgather": gathers, "ring_allgather_transpose": leaves if train else 0,
+            "matmul": bf16, "matmul_wmma": wmma, "matmul_f32": f32}
+
+
+def fam_tp_launches(cfg, mode: str) -> dict[str, int]:
+    """A phi-3-vision prefill on FAM_TP_MESH: the dense stack's
+    (``tp_launches``), but the token embedding made whole (where the
+    vocabulary splits over ``model``, its shards' sums all-reduced: one #1b
+    and one #1, in place of the reduce-scatter to the sequence chunks)
+    before the patches join it, and ``patch_proj``'s product."""
+    n = tp_launches(cfg, FAM_TP_MESH, mode, "prefill")
+    vocab = cfg.vocab_size % FAM_TP_MESH.tp == 0
+    return dict(n, ring_allgather=n["ring_allgather"] + int(vocab), matmul=n["matmul"] + 1)
+
+
+def fam_matmul_cases(cfg, r: int, m: int, kind: str, *, head_m: int, chunks: int = 1,
+                     patch_m: int = 0, dtype=torch.bfloat16) -> dict:
+    """Every matmul shape of phases 3h and 4h and their launches, {(batch,
+    m, k, n, a_t, b_t, dtype): launches}, as ``matmul_cases``: ``m`` rows a
+    rank through each layer product (whisper's frames and tokens of one
+    length), ``head_m`` through the head in each of ``chunks`` chunks,
+    ``patch_m`` patches through ``patch_proj``; moonshot's the MoE cases at
+    the capacity of its ``r * m`` tokens (a decode step's: as many as the
+    tokens). Their launches add up to ``fam_launches``'."""
+    train = kind == "train"
+    if cfg.family == "moe":
+        cap = r * m if kind == "decode" else moe_capacity(cfg, r * m)
+        return moe_matmul_cases(cfg, r, m, cap, dtype, train=train, head_m=head_m)
+    cases: dict = {}
+
+    def add(key, count):
+        cases[key] = cases.get(key, 0) + count
+
+    if cfg.family == "vlm":
+        prods = [(cfg.num_layers, k, n) for k, n in _layer_leaves(cfg).values()]
+    else:
+        prods = [(1, k, n) for k, n in _encdec_products(cfg, decode=kind == "decode")]
+    for layers, k, n in prods:
+        add((r, m, k, n, False, False, dtype), layers * (2 if train else 1))
+        if train:
+            add((r, m, n, k, False, True, dtype), layers)     # dY W^T
+            add((r, k, m, n, True, False, dtype), layers)     # X^T dY
+    d, v = cfg.d_model, cfg.vocab_size
+    add((r, head_m, d, v, False, False, dtype), chunks * (2 if train else 1))
+    if train:
+        add((r, head_m, v, d, False, True, dtype), chunks)
+        add((r, d, head_m, v, True, False, dtype), chunks)
+    if patch_m:
+        pd = cfg.vision.patch_dim
+        add((r, patch_m, pd, d, False, False, dtype), 1)
+        if train:
+            add((r, pd, patch_m, d, True, False, dtype), 1)
+    return cases
+
+
+def fam_path_cases() -> dict:
+    """Phase 1's matmul shapes of phases 3h and 4h: each config's prefill
+    (one prompt a rank), decode step and train step at full width, and the
+    reduced f32 check's prefill and decode steps on 8 ranks."""
+    cases: dict = {}
+
+    def add(more: dict) -> None:
+        for case, n in more.items():
+            cases[case] = cases.get(case, 0) + n
+
+    b = BATCH // 8
+    for arch in FAM_ARCHS:
+        cfg, tcfg = _fam_cfg(arch), _fam_cfg(arch, train=True)
+        shape, r = FAM_TRAIN_SHAPE[arch], FAM_TRAIN_MESH[arch].n_ranks
+        np_ = cfg.vision.n_patches if cfg.family == "vlm" else 0
+        tb = shape.global_batch // r
+        add(fam_matmul_cases(cfg, 8, b * (np_ + FAM_PROMPT[arch]), "prefill", head_m=b,
+                             patch_m=b * np_))
+        add(fam_matmul_cases(cfg, 8, b, "decode", head_m=b))
+        add(fam_matmul_cases(tcfg, r, tb * shape.seq_len, "train",
+                             head_m=tb * min(XENT_CHUNK, shape.seq_len),
+                             chunks=-(-shape.seq_len // XENT_CHUNK), patch_m=tb * np_))
+        if cfg.family != "moe":
+            small = reduced(get_model_config(arch))
+            snp = small.vision.n_patches if small.family == "vlm" else 0
+            add(fam_matmul_cases(small, 8, b * (snp + FAM_SMALL_SEQ), "prefill", head_m=b,
+                                 patch_m=b * snp, dtype=torch.float32))
+            add(fam_matmul_cases(small, 8, b, "decode", head_m=b, dtype=torch.float32))
+    return cases
+
+
+def check_fam_small_reference() -> float:
+    """Phase 3h: reduced phi-3-vision-4.2b (8 patches of 32) and whisper-base
+    (2 + 2 layers) in f32 on (data=8), and the reduced phi-3-vision on
+    FAM_TP_MESH (tensor- and sequence-parallel, the token embedding made
+    whole before the patches join it), on the card against the same runs on
+    the host's CPU (the path the CPU tests hold against the JAX package):
+    prefill logits within 1e-4 in every mode and greedy generation of
+    FAM_NEW tokens with the same tokens. The reduced moonshot is the reduced
+    deepseek-moe-16b but for its name (phase 3d's check). Returns the
+    largest logit difference."""
+    worst = 0.0
+    cases = [(arch, StackedMesh(data=8, model=1)) for arch in FAM_ARCHS[:2]]
+    for arch, mesh in cases + [(FAM_ARCHS[0], FAM_TP_MESH)]:
+        cfg = reduced(get_model_config(arch))
+        tree = bridge.random_params(cfg, seed=2)
+        host = _fam_batch(cfg, FAM_SMALL_SEQ, FAM_SMALL_SEQ, torch.Generator().manual_seed(3),
+                          "cpu")
+        s0 = transformer.stream_len(cfg, host)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = bridge.to_torch(tree, mesh, MeshConfig(), dtype=torch.float32, device=dev)
+            batch = {k: v.to(dev) for k, v in host.items()}
+            inputs = {k: v for k, v in batch.items() if k != "tokens"}
+            for mode in MODES:
+                run = RunConfig(model=cfg, shape=ShapeConfig("p", "prefill", s0, BATCH),
+                                collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+                _, _, prefill = make_prefill_step(run, mesh, device=dev)
+                _, _, decode = make_decode_step(run, mesh, device=dev)
+                logits, _ = prefill(params, batch)
+                toks = greedy_generate(prefill, decode, params, batch["tokens"], FAM_NEW,
+                                       s0 + FAM_NEW, inputs)
+                out[dev, mode] = (logits.cpu(), toks.cpu())
         for mode in MODES:
-            torch.cuda.reset_peak_memory_stats()
-            want = _path_want(mesh, mode, gathers=per["ring_allgather"],
-                              transposes=per["ring_allgather_transpose"], matmul=per["matmul"],
-                              f32=per["matmul_f32"])
-            mrow, _ = _train_steps(cfg, mesh, tree, batches, mode, SUBQ_TRAIN_TIMED, want)
-            mrow["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            print(f"[subq-train] {cfg.name} " + json.dumps(mrow), flush=True)
-            first[mode] = mrow["losses"][0]
-            row["modes"][mode] = mrow
-        if len(set(first.values())) != 1:
-            raise AssertionError(f"{cfg.name}: first-step losses differ between modes: {first}")
-        row["pieces"] = _subq_pieces(cfg, TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len)
-        print(f"[subq-train] {cfg.name}: first-step loss bitwise equal in every mode: "
-              f"{first['xla']!r}; one layer's plain-torch pieces at 16 x 512 (device ms, "
-              f"forward): {json.dumps(row['pieces'])}", flush=True)
-        rows[arch] = row
-        del tree
+            (lc, tc), (lg, tg) = out["cpu", mode], out["cuda", mode]
+            diff = (lc - lg).abs().max().item()
+            worst = max(worst, diff)
+            if not (diff <= 1e-4 and torch.equal(tc, tg)):
+                raise AssertionError(f"reduced {arch} on {mesh} {mode}: card vs CPU logits max "
+                                     f"diff {diff}, tokens equal {torch.equal(tc, tg)}")
+    return worst
+
+
+def _fam_tp_prefill(cfg, params, batch, ref_logits) -> dict:
+    """phi-3-vision's mcast prefill on FAM_TP_MESH, the weights moved there
+    (``_remesh``; the (8, 1) tree emptied): its launches ``fam_tp_launches``
+    with their ring entries, the sequence (1,152 positions) split over
+    ``model``; its logits against (8, 1)'s (no limit: bf16 sums in another
+    order)."""
+    tp_params = _remesh(params, FAM_TP_MESH)
+    s0 = transformer.stream_len(cfg, batch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", s0, BATCH),
+                    collective=CollectiveConfig(fsdp_mode="mcast", n_chains=N_CHAINS))
+    _, _, prefill = make_prefill_step(run, FAM_TP_MESH)
+
+    def do_prefill():
+        return prefill(tp_params, batch)
+
+    (logits, _), _, counts = _run(do_prefill)
+    want = _want_tp(cfg, FAM_TP_MESH, "mcast")
+    extra = fam_tp_launches(cfg, "mcast")["ring_allgather"] - want["ring_allgather"]
+    want.update(ring_allgather=want["ring_allgather"] + extra, matmul=want["matmul"] + 1,
+                entries_ring=want["entries_ring"] + extra * (FAM_TP_MESH.tp - 1))
+    if counts != want:
+        raise AssertionError(f"{cfg.name} on {FAM_TP_MESH}: prefill launched {counts}, "
+                             f"expected {want}")
+    if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name} on {FAM_TP_MESH}: bad logits")
+    prefill_s = _wall(do_prefill, FAM_REPEATS)
+    dev, prof_ms = _device_times(do_prefill)
+    busy = sum(dev.values())
+    row = {"mesh": "(data=2, model=4)", "prefill_ms_median": statistics.median(prefill_s) * 1e3,
+           "prefill_ms_samples": [t * 1e3 for t in prefill_s],
+           "launches_per_prefill": {k: v for k, v in counts.items() if v},
+           "prefill_device_busy_ms": busy, "prefill_device_idle_share": 1 - busy / prof_ms,
+           "max_abs_logit_diff_vs_8x1": (logits.float() - ref_logits.float()).abs().max().item(),
+           "argmax_equal_share": (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean().item()}
+    del tp_params
+    return row
+
+
+def _fam_attention_ms(cfg, s: int) -> float | None:
+    """Device ms of one layer's causal ``blockwise_attention`` at (BATCH, s)
+    in bf16, from the profiler (``_busy_ms``): the plain-torch piece of a
+    prefill (its scores in f32, as the reference's)."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn((BATCH, s, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device="cuda").bfloat16()
+    k = torch.randn((BATCH, s, cfg.num_kv_heads, cfg.head_dim), generator=gen,
+                    device="cuda").bfloat16()
+    return _busy_ms(lambda: attention.blockwise_attention(
+        q, k, k, causal=True, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block))
+
+
+def _fam_extras(cfg, params, batch, ref_logits) -> dict:
+    """Phase 3h's entries of a row beside ``_serve_model``'s: one layer's
+    causal attention at the prefill's length timed apart; for phi-3-vision,
+    its mcast prefill on FAM_TP_MESH (``_fam_tp_prefill``, which empties the
+    (8, 1) tree)."""
+    out = {"attention_layer_ms": _fam_attention_ms(cfg, transformer.stream_len(cfg, batch))}
+    if cfg.family == "vlm":
+        out["tp"] = _fam_tp_prefill(cfg, params, batch, ref_logits)
+    return out
+
+
+def fam_serve() -> dict[str, dict]:
+    """Phase 3h: phi-3-vision-4.2b (32 layers, d_model 3,072, 1,024 patches
+    of 1,024, vocab 32,064) and whisper-base (6 + 6 layers, d_model 512,
+    vocab 51,865) as registered and moonshot-v1-16b-a3b at full width and
+    FAM_SERVE_LAYERS' depth, through ``_serve_model``: BATCH prompts
+    (phi-3-vision 1,024 patches + 128 tokens, whisper FAM_FRAMES frames +
+    512 tokens, moonshot 128 tokens), launching ``fam_launches``, FAM_NEW
+    new tokens, FAM_REPEATS timed prefills; then ``_fam_extras``. Returns
+    each arch's row."""
+    rows = {}
+    for arch in FAM_ARCHS:
+        cfg = _fam_cfg(arch)
+        batch = _fam_batch(cfg, FAM_PROMPT[arch], FAM_FRAMES,
+                           torch.Generator(device="cuda").manual_seed(0), "cuda")
+        rows[arch] = _serve_model("fam-serve", cfg, batch, fam_launches, FAM_NEW, FAM_REPEATS,
+                                  _fam_extras)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fam_train() -> dict[str, dict]:
+    """Phase 4h: phi-3-vision-4.2b at 2 layers (batch 8 x (1,024 patches +
+    512 tokens)), whisper-base whole and moonshot-v1-16b-a3b at 2 layers
+    (16 x 512), full width, on FAM_TRAIN_MESH, through ``_train_model``,
+    every step launching ``fam_launches``."""
+    rows = {}
+    for arch in FAM_ARCHS:
+        cfg, shape = _fam_cfg(arch, train=True), FAM_TRAIN_SHAPE[arch]
+        rows[arch] = _train_model("fam-train", cfg, FAM_TRAIN_MESH[arch], shape,
+                                  fam_launches(cfg, "train", shape.seq_len), FAM_TRAIN_TIMED)
         torch.cuda.empty_cache()
     return rows
 
@@ -5157,12 +5553,16 @@ def main() -> int:
         for m, head_m in ((40, 1), (1, None)):
             for case, n in subq_matmul_cases(small, 8, m, train=False, head_m=head_m).items():
                 path_cases[case[:-1] + (torch.float32,)] = n
+    # phases 3h and 4h: phi-3-vision-4.2b, whisper-base and moonshot-v1-16b-a3b
+    for case, n in fam_path_cases().items():
+        path_cases[case] = path_cases.get(case, 0) + n
     t0 = time.perf_counter()
     mm_err = check_matmul(path_cases)
     odd = [case for case in path_cases if expected_path(*case) == "wmma"]
     print(f"[kernel] matmul within limits of plain on {len(path_cases)} path shapes, every "
-          f"bf16 one on the wgmma path but the {len(odd)} head products of granite-3-8b's odd "
-          f"vocab on the wmma path ({json.dumps([c[:6] for c in odd])}), max abs err {mm_err} "
+          f"bf16 one on the wgmma path but the {len(odd)} head products of the odd vocabs "
+          f"(granite-3-8b's 49,155, whisper-base's 51,865) on the wmma path "
+          f"({json.dumps([c[:6] for c in odd])}), max abs err {mm_err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     edge_cases = check_matmul_edges()
     print(f"[kernel] matmul == plain (integer inputs, exact) on {edge_cases} edge cases of the "
@@ -5263,7 +5663,25 @@ def main() -> int:
     print(f"[subq-train] phase 4g: launches {json.dumps(subq_train_counts)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
-    shapes = _CallShapes()
+    err = check_fam_small_reference()
+    print(f"[reference] reduced f32 phi-3-vision and whisper on the card vs the CPU: max abs "
+          f"logit diff {err}, greedy tokens equal ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    shapes = _CallShapes()   # #1 and #1b call shapes of phases 3h, 3f and 4f
+    _zero_counts()   # counts from here to the read are the last three archs' serving paths'
+    with shapes:
+        fam_serve()
+    fam_serve_counts = _counts()
+    print(f"[fam-serve] phase 3h: launches {json.dumps(fam_serve_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()   # counts from here to the read are the last three archs' training paths'
+    fam_train()
+    fam_train_counts = _counts()
+    print(f"[fam-train] phase 4h: launches {json.dumps(fam_train_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     _zero_counts()   # counts from here to the read are the model axis's serving path's
     with shapes:
         tp_serve()
@@ -5281,7 +5699,7 @@ def main() -> int:
     shape_cases, shape_err = check_call_shapes(shapes)
     ag_err, agt_err = max(ag_err, shape_err), max(agt_err, shape_err)
     print(f"[kernel] ring_allgather and its transpose == plain at every call shape of phases "
-          f"3f and 4f: {len(shapes.shapes['ring_allgather'])} gather and "
+          f"3h, 3f and 4f: {len(shapes.shapes['ring_allgather'])} gather and "
           f"{len(shapes.shapes['ring_allgather_transpose'])} transpose shapes, {shape_cases} "
           f"calls, max abs err {shape_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in MODEL_KERNELS:
@@ -5292,7 +5710,8 @@ def main() -> int:
                           + ckpt_counts[name] + moe_serve_counts[name] + moe_train_counts[name]
                           + dense_serve_counts[name] + dense_train_counts[name]
                           + tp_serve_counts[name] + tp_train_counts[name]
-                          + subq_serve_counts[name] + subq_train_counts[name])
+                          + subq_serve_counts[name] + subq_train_counts[name]
+                          + fam_serve_counts[name] + fam_train_counts[name])
         if train_counts[name] == 0 or option_counts[name] == 0 or ckpt_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
         if moe_train_counts[name] == 0:
@@ -5301,11 +5720,20 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the dense configs' training path")
         if subq_train_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the sub-quadratic training path")
+        if fam_train_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the last three archs' training "
+                                 "paths")
     # the MoE router's products run on the matmul kernel's f32 path, the
     # odd vocab's head products (granite-3-8b) on its wmma path
     launches["matmul"] += (moe_serve_counts["matmul_f32"] + moe_train_counts["matmul_f32"]
                            + dense_serve_counts["matmul_wmma"] + dense_train_counts["matmul_wmma"]
-                           + subq_serve_counts["matmul_f32"] + subq_train_counts["matmul_f32"])
+                           + subq_serve_counts["matmul_f32"] + subq_train_counts["matmul_f32"]
+                           + sum(c[k] for c in (fam_serve_counts, fam_train_counts)
+                                 for k in ("matmul_wmma", "matmul_f32")))
+    if any(fam_serve_counts[k] == 0 for k in ("ring_allgather", "ring_allgather_transpose",
+                                              "matmul", "matmul_wmma", "matmul_f32")):
+        raise AssertionError(f"a kernel was not launched on the last three archs' serving "
+                             f"paths: {fam_serve_counts}")
     if any(subq_serve_counts[k] == 0 for k in ("ring_allgather", "matmul", "matmul_f32")):
         raise AssertionError(f"a kernel was not launched on the sub-quadratic serving paths: "
                              f"{subq_serve_counts}")

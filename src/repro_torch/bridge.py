@@ -1,9 +1,11 @@
 """Carries a parameter tree into the port.
 
 ``to_torch`` takes the JAX package's parameter tree as numpy arrays (dense,
-MoE and RWKV ``{"embed", "final_ln", "blocks": {...stacked on L}}``; the
-hybrid's blocks in ``grp_rec_a``, ``grp_rec_b``, ``grp_attn`` and
-``tail_rec``), and returns the port's
+MoE, VLM and RWKV ``{"embed", "final_ln", "blocks": {...stacked on L}}``,
+the VLM's ``patch_proj`` beside them; the hybrid's blocks in
+``grp_rec_a``, ``grp_rec_b``, ``grp_attn`` and ``tail_rec``; the encdec's
+in ``enc_blocks`` and ``dec_blocks``, with ``enc_ln`` and ``lm_head``),
+and returns the port's
 tree of ``Stacked`` leaves: every leaf is split as ``param_pspecs`` splits
 it over the mesh's physical axes (dp, and ``model`` where it is above 1)
 into the stacked (R, *local) layout, rank r's shard at index r (a shard
@@ -15,7 +17,7 @@ so that tests can compare parameters and optimizer moments after steps.
 
 ``random_params`` draws such a tree from a seed with numpy, in the
 reference's init distributions (``repro.models.layers``, ``moe``, ``rwkv``,
-``rglru``), for
+``rglru``, ``encdec``), for
 runs without a checkpoint. ``device_params`` draws a tree of the same
 shapes, scales and layout directly into each rank's shards on the device,
 for models too large for a host draw.
@@ -38,7 +40,7 @@ from repro_torch.sharding.specs import (Stacked, _leaf_spec, dp_axes, shard_axes
 
 # norm scales, the MoE router and the rwkv and rg-lru vectors stay float32
 # whatever the weights' dtype, as the reference initialises them
-_F32_LEAVES = ("ln1", "ln2", "final_ln", "router",
+_F32_LEAVES = ("ln1", "ln2", "final_ln", "router", "ln_x", "enc_ln",
                "mu", "decay_base", "bonus", "ln_x_scale", "ln_x_bias", "cm_mu_k", "cm_mu_r",
                "ln", "conv_b", "lru_a_bias", "lru_x_bias", "lru_lam")
 
@@ -142,14 +144,30 @@ def _hybrid_table(cfg: ModelConfig) -> dict:
             "tail_rec": rec_layer(max(n_t, 1))}
 
 
+def _encdec_table(cfg: ModelConfig) -> dict:
+    """The encoder-decoder's tree (``encdec.encdec_init``): gelu MLPs, the
+    decoder's cross-attention and ``ln_x``, the untied ``lm_head``."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.encdec
+    n, m = e.enc_layers, e.dec_layers
+    return {"embed": _Leaf((cfg.vocab_size, d), 0.02),
+            "enc_blocks": {"ln1": _Leaf((n, d), 0.0), "attn": _attn_table(n, cfg),
+                           "ln2": _Leaf((n, d), 0.0), "mlp": _gelu_table(n, d, f)},
+            "enc_ln": _Leaf((d,), 0.0),
+            "dec_blocks": {"ln1": _Leaf((m, d), 0.0), "self_attn": _attn_table(m, cfg),
+                           "ln_x": _Leaf((m, d), 0.0), "cross_attn": _attn_table(m, cfg),
+                           "ln2": _Leaf((m, d), 0.0), "mlp": _gelu_table(m, d, f)},
+            "final_ln": _Leaf((d,), 0.0),
+            "lm_head": _Leaf((d, cfg.vocab_size), 1 / np.sqrt(d))}
+
+
 def _param_table(cfg: ModelConfig) -> dict:
     """The parameter tree's leaves as ``_Leaf`` (global shape and init
     distribution), in the reference's init distributions (``layers``,
-    ``moe``, ``rwkv``, ``rglru``) and in the order in which
-    ``random_params`` draws them."""
-    if cfg.family not in ("dense", "moe", "rwkv", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md §1, "
-                                  "item 12); only dense, moe, rwkv and hybrid")
+    ``moe``, ``rwkv``, ``rglru``, ``encdec``; the VLM's ``patch_proj``
+    N(0, 1) / sqrt(patch_dim)) and in the order in which ``random_params``
+    draws them."""
+    if cfg.family == "encdec":
+        return _encdec_table(cfg)
     d = cfg.d_model
     table = {"embed": _Leaf((cfg.vocab_size, d), 0.02), "final_ln": _Leaf((d,), 0.0)}
     if cfg.family == "rwkv":
@@ -160,6 +178,9 @@ def _param_table(cfg: ModelConfig) -> dict:
         table["blocks"] = _dense_table(cfg)
     if not cfg.tie_embeddings:
         table["lm_head"] = _Leaf((d, cfg.vocab_size), 1 / np.sqrt(d))
+    if cfg.family == "vlm":
+        pd = cfg.vision.patch_dim
+        table["patch_proj"] = _Leaf((pd, d), 1 / np.sqrt(pd))
     return table
 
 
@@ -182,9 +203,13 @@ def _dense_table(cfg: ModelConfig) -> dict:
         blocks["mlp"] = _swiglu_table(n_l, d, cfg.d_ff)
     else:
         # any other activation: the plain two-layer MLP (layers.mlp_init)
-        blocks["mlp"] = {"w_in": _Leaf((n_l, d, cfg.d_ff), 1 / np.sqrt(d)),
-                         "w_out": _Leaf((n_l, cfg.d_ff, d), 1 / np.sqrt(cfg.d_ff))}
+        blocks["mlp"] = _gelu_table(n_l, d, cfg.d_ff)
     return blocks
+
+
+def _gelu_table(n_l: int, d: int, f: int) -> dict:
+    return {"w_in": _Leaf((n_l, d, f), 1 / np.sqrt(d)),
+            "w_out": _Leaf((n_l, f, d), 1 / np.sqrt(f))}
 
 
 def _swiglu_table(n_l: int, d: int, f: int) -> dict:

@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution and the training
-co-simulation's sweep (copy of the JAX package's registry, holding the
-architectures the port serves so far)."""
+co-simulation's sweep (copy of the JAX package's registry: every
+architecture of the reference)."""
 from __future__ import annotations
 
 from typing import Callable
@@ -24,9 +24,12 @@ def _ensure_loaded() -> None:
         deepseek_moe_16b,
         granite_3_8b,
         granite_34b,
+        moonshot_v1_16b_a3b,
+        phi_3_vision_4_2b,
         recurrentgemma_9b,
         rwkv6_7b,
         smollm_135m,
+        whisper_base,
         yi_9b,
     )
 

@@ -655,8 +655,8 @@ class LayerProfile:
 
 def _layer_bytes_from_model(model, dtype_bytes: int) -> tuple[int, float]:
     """(n_layers, parameter bytes a layer) of a registered config, from the
-    port's copy of the reference's analytic parameter count (dense and moe
-    families; the others raise)."""
+    port's copy of the reference's analytic parameter count (every
+    family)."""
     from repro_torch.models.model_builder import count_params_analytic
 
     n_layers = model.num_layers

@@ -1,10 +1,15 @@
 """Deterministic synthetic data pipeline (counterpart of
-``repro.data.pipeline`` for the dense, moe, rwkv and hybrid families, whose
-batches are the same: tokens and targets).
+``repro.data.pipeline``).
 
 A reproducible token stream per (seed, step): the reference's numpy stream,
-so the batches hold the same token ids as the reference's. The step index
-is the only state. ``next_batch`` returns int64 tensors on the run's device.
+so the batches hold the same token ids as the reference's; the ``vlm``
+targets are -1 over the patches. The stub frontends' frames and patches
+are N(0, 1) x 0.02, drawn in float32 from the reference's key,
+``SeedSequence([seed, step, hash(name) & 0xFFFF])``: Python salts a str's
+hash per process, so they equal the reference's within one process only
+(not across restarts). The step index is the only state. ``next_batch``
+returns int64 ids, and the frames and patches in the compute dtype, on the
+run's device.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import device_of
-from repro_torch.models.model_builder import FAMILIES, batch_dims
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.model_builder import batch_dims
 
 
 @dataclass(frozen=True)
@@ -30,8 +36,6 @@ class SyntheticPipeline:
 
     def __init__(self, model: ModelConfig, shape: ShapeConfig,
                  data: DataConfig = DataConfig(), *, device: str | torch.device = "cuda"):
-        if model.family not in FAMILIES:
-            raise NotImplementedError(f"family {model.family!r} is not ported; only {FAMILIES}")
         self.model = model
         self.shape = shape
         self.data = data
@@ -50,13 +54,29 @@ class SyntheticPipeline:
 
     def _full(self, name: str, step: int) -> np.ndarray:
         shp = self.dims[name]
+        if name in ("tokens", "targets", "token"):
+            seq = shp[1] if len(shp) > 1 else 1
+            toks = self._host_tokens(step, 0, shp[0], seq + 1)
+            if name == "targets":
+                out = toks[:, 1:seq + 1]
+                if self.model.family == "vlm":
+                    np_ = self.model.vision.n_patches
+                    pad = np.full((shp[0], np_), -1, np.int32)
+                    out = np.concatenate([pad, out[:, :shp[1] - np_]], axis=1)
+                return out[:, :shp[1]]
+            out = toks[:, :seq]
+            return out if len(shp) > 1 else out[:, 0]
         if name == "pos":
             return np.zeros(shp, np.int32)
-        seq = shp[1] if len(shp) > 1 else 1
-        toks = self._host_tokens(step, 0, shp[0], seq + 1)
-        out = toks[:, 1:seq + 1] if name == "targets" else toks[:, :seq]
-        return out if len(shp) > 1 else out[:, 0]
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.data.seed, step, hash(name) & 0xFFFF]))
+        return (rng.standard_normal(shp) * 0.02).astype(np.float32)
 
     def next_batch(self, step: int) -> dict[str, torch.Tensor]:
-        return {name: torch.from_numpy(self._full(name, step)).long().to(self.device)
-                for name in self.dims}
+        out = {}
+        for name in self.dims:
+            a = torch.from_numpy(self._full(name, step))
+            a = a.long() if name in ("tokens", "targets", "token", "pos") else \
+                a.to(dtype_of(self.model.compute_dtype))
+            out[name] = a.to(self.device)
+        return out

@@ -6,6 +6,9 @@ allgathers, then greedy decoding, on one GPU.
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-7b --batch 8 --prompt-len 128
     python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --batch 8 --prompt-len 128
+    python -m repro_torch.launch.serve --arch whisper-base --batch 8 --prompt-len 512
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --smoke --device cpu
 
 Weights are drawn from ``TrainConfig.seed`` in the reference's init scales (no
 checkpoint is read): with --smoke by numpy on the host (``bridge.random_params``),
@@ -13,7 +16,10 @@ otherwise on the device, each rank's shards directly (``bridge.device_params``).
 The local mesh's eight data-parallel ranks
 (``launch.mesh.make_local_mesh``) are stacked on the one device; a batch
 that does not split over them (the default, 4, as in the reference) is
-replicated on every rank.
+replicated on every rank. The stub frontends' inputs are drawn from the
+same seed, after the prompt: phi-3-vision's ``n_patches`` patch embeddings
+ahead of the --prompt-len tokens (the cache holds both), whisper's
+--prompt-len frames beside them.
 """
 from __future__ import annotations
 
@@ -51,8 +57,9 @@ def main(argv: list[str] | None = None) -> None:
     if args.smoke:
         model = reduced(model)
     mesh = make_local_mesh()
+    patches = model.vision.n_patches if model.family == "vlm" else 0
     run = RunConfig(model=model,
-                    shape=ShapeConfig("serve", "prefill", args.prompt_len, args.batch),
+                    shape=ShapeConfig("serve", "prefill", patches + args.prompt_len, args.batch),
                     collective=CollectiveConfig(fsdp_mode=args.fsdp_mode))
     if args.smoke:
         params = bridge.to_torch(bridge.random_params(model, run.train.seed), mesh, run.mesh,
@@ -62,8 +69,16 @@ def main(argv: list[str] | None = None) -> None:
                                       dtype=dtype_of(model.param_dtype), device=device)
     _, _, prefill = make_prefill_step(run, mesh, device=device)
     _, _, decode = make_decode_step(run, mesh, device=device)
-    tokens = torch.from_numpy(np.random.default_rng(run.train.seed).integers(
+    rng = np.random.default_rng(run.train.seed)
+    tokens = torch.from_numpy(rng.integers(
         0, model.vocab_size, (args.batch, args.prompt_len))).to(device)
+    inputs = {}
+    if model.family == "vlm":
+        inputs["patches"] = (args.batch, patches, model.vision.patch_dim)
+    elif model.family == "encdec":
+        inputs["frames"] = (args.batch, args.prompt_len, model.encdec.frame_dim)
+    inputs = {k: (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)) * 0.02).to(
+        device=device, dtype=dtype_of(model.compute_dtype)) for k, shp in inputs.items()}
 
     def sync():
         if device.type == "cuda":
@@ -72,12 +87,13 @@ def main(argv: list[str] | None = None) -> None:
     before = ring_allgather.allgather_launches
     t0 = time.perf_counter()
     seqs = greedy_generate(prefill, decode, params, tokens, args.new_tokens,
-                           args.prompt_len + args.new_tokens)
+                           patches + args.prompt_len + args.new_tokens, inputs)
     sync()
     dt = time.perf_counter() - t0
     total_new = args.batch * args.new_tokens
     print(f"[serve] {model.name} on {device} ({args.fsdp_mode}, dp={mesh.n_ranks}): "
-          f"{args.batch} seqs, {args.prompt_len} prompt + {args.new_tokens} new tokens "
+          f"{args.batch} seqs, {f'{patches} patches + ' if patches else ''}"
+          f"{args.prompt_len} prompt + {args.new_tokens} new tokens "
           f"in {dt:.2f}s ({total_new / dt:.1f} tok/s, prefill included); "
           f"{ring_allgather.allgather_launches - before} ring-allgather kernel launches",
           flush=True)

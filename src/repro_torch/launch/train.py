@@ -13,6 +13,10 @@ supervisor.
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu
     python -m repro_torch.launch.train --arch rwkv6-7b --layers 2 --batch 16 --seq 512
     python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke --device cpu
+    python -m repro_torch.launch.train --arch phi-3-vision-4.2b --layers 2 --batch 8 \
+        --seq 1536
+    python -m repro_torch.launch.train --arch whisper-base --batch 16 --seq 512
+    python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --smoke --device cpu
 
 --prefetch gathers layer i + 1 during layer i (``CollectiveConfig.prefetch``;
 on the card on a side stream; the mcast modes only, as in the reference),
@@ -22,13 +26,15 @@ and block), "dots" (all of it but the products' outputs) or "none".
 --mesh picks the stacked ranks: "local" is ``(data=8, model=1)`` (with
 --multi-pod ``(pod=2, data=4, model=1)``), "production" the reference's
 ``(data=16, model=16)`` (with --multi-pod ``(pod=2, data=16, model=16)``):
-256 or 512 ranks, the dense model tensor- and sequence-parallel over
-``model`` (MoE, rwkv and hybrid run with model=1 only). A global batch that does not split
-over the dp ranks is replicated on each.
+256 or 512 ranks, the dense and vlm models tensor- and sequence-parallel
+over ``model`` (MoE, rwkv, hybrid and encdec run with model=1 only). A
+global batch that does not split over the dp ranks is replicated on each.
 
 --smoke runs the reduced config of the arch (f32, two layers); --layers cuts
-the depth of the full-width one. Weights are drawn from ``TrainConfig.seed``
-in the reference's init scales (no checkpoint is read at the start): with
+the depth of the full-width one (the encdec's two stacks each to that
+depth). phi-3-vision's --seq counts its 1,024 patches and the tokens after
+them; whisper's frames are --seq long. Weights are drawn from
+``TrainConfig.seed`` in the reference's init scales (no checkpoint is read at the start): with
 --smoke by numpy on the host (``bridge.random_params``), otherwise on the
 device, each rank's shards directly (``bridge.device_params``). The data is
 the synthetic pipeline's. The
@@ -86,6 +92,9 @@ def main(argv: list[str] | None = None) -> None:
     else:
         if args.layers:
             model = replace(model, num_layers=args.layers)
+            if model.encdec is not None:
+                model = replace(model, encdec=replace(model.encdec, enc_layers=args.layers,
+                                                      dec_layers=args.layers))
         if args.batch or args.seq:
             shape = ShapeConfig(shape.name, shape.kind, args.seq or shape.seq_len,
                                 args.batch or shape.global_batch)

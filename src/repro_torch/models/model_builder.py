@@ -1,5 +1,5 @@
-"""Model API of the port (dense, moe, rwkv and hybrid families), counterpart
-of ``repro.models.model_builder``:
+"""Model API of the port (dense, moe, vlm, rwkv, hybrid and encdec
+families), counterpart of ``repro.models.model_builder``:
 
     api = build_model(cfg, remat="full", device="cuda")
     loss, metrics = api.loss_fn(params, batch)             # train shapes
@@ -25,27 +25,26 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import device_of
-from repro_torch.models import layers, rglru, rwkv, transformer
+from repro_torch.models import encdec, layers, rglru, rwkv, transformer
 from repro_torch.sharding import tp as TP
 
 XENT_CHUNK = 512
-FAMILIES = ("dense", "moe", "rwkv", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "rwkv", "hybrid", "encdec")
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """The parameter count from the config alone, the reference's
-    arithmetic (``repro.models.model_builder.count_params_analytic``) for
-    the families the port has; the others raise, queued in ROADMAP.md §1,
-    item 12. With ``active_only`` an MoE layer counts its ``top_k`` routed
-    experts in place of all of them, its shared experts and its full router
-    (the reference's ``moe.moe_param_count``); any other count is the same.
-    As the reference's, the rwkv count holds each block's norms and not the
-    final one; the hybrid's counts no norm outside the rec block, five
-    vectors of lru_width a rec block (the block has four) and no unused
-    ``tail_rec`` layer."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md §1, "
-                                  f"item 12); only {FAMILIES}")
+    arithmetic (``repro.models.model_builder.count_params_analytic``). With
+    ``active_only`` an MoE layer counts its ``top_k`` routed experts in
+    place of all of them, its shared experts and its full router (the
+    reference's ``moe.moe_param_count``); any other count is the same. As
+    the reference's, no count holds the final norm nor a dense block's
+    norms; the rwkv count holds each block's norms; the hybrid's counts no
+    norm outside the rec block, five vectors of lru_width a rec block (the
+    block has four) and no unused ``tail_rec`` layer; ``vlm`` adds
+    ``patch_proj``; ``encdec`` is ``encdec.encdec_param_count``."""
+    if cfg.family == "encdec":
+        return encdec.encdec_param_count(cfg)
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = d * h * hd * 2 + d * kvh * hd * 2
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
@@ -56,8 +55,10 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
         mlp = 3 * d * cfg.d_ff
         rec = rglru.rec_block_param_count(cfg) + mlp
         return ng * (2 * rec + attn + mlp) + nt * rec + embed
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         per = attn + d * cfg.d_ff * (3 if cfg.act == "swiglu" else 2)
+        if cfg.family == "vlm":
+            return cfg.num_layers * per + embed + cfg.vision.patch_dim * d
     else:
         m = cfg.moe
         n_routed = m.top_k if active_only else m.n_routed_experts
@@ -130,29 +131,29 @@ class ModelApi:
 def build_model(cfg: ModelConfig, remat: str = "none", *,
                 device: str | torch.device = "cuda") -> ModelApi:
     """remat: "none", "full" (checkpoint each layer's gather and block) or
-    "dots" (the same, keeping every product's output; the rwkv and hybrid
-    stacks run it as "none", as the reference does); any other raises
-    ValueError. The forward, decode and cache functions are the family's
-    (reference ``model_builder.py:131``)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported; only {FAMILIES}")
+    "dots" (the same, keeping every product's output; the rwkv, hybrid and
+    encdec stacks run it as "none", as the reference does); any other
+    raises ValueError. The forward, decode and cache functions are the
+    family's (reference ``model_builder.py:108``, ``:131``); the encdec's
+    head is its untied ``lm_head``, as every untied head."""
     transformer.check_remat(remat)
     dev = device_of(device)
     dt = layers.dtype_of(cfg.param_dtype)
+    dense = (transformer.dense_forward, transformer.dense_decode_step,
+             transformer.dense_init_cache)
     fwd, dec, cache_init = {
-        "dense": (transformer.dense_forward, transformer.dense_decode_step,
-                  transformer.dense_init_cache),
-        "moe": (transformer.dense_forward, transformer.dense_decode_step,
-                transformer.dense_init_cache),
+        "dense": dense, "moe": dense, "vlm": dense,
         "rwkv": (transformer.rwkv_forward, transformer.rwkv_decode_step,
                  transformer.rwkv_init_cache),
         "hybrid": (transformer.hybrid_forward, transformer.hybrid_decode_step,
                    transformer.hybrid_init_cache),
+        "encdec": (encdec.encdec_forward, encdec.encdec_decode_step,
+                   encdec.encdec_init_cache),
     }[cfg.family]
 
     def forward_fn(params, batch):
         x, _, _ = fwd(params, cfg, batch, remat=remat)
-        x = transformer.whole_sequence(x, batch["tokens"].shape[1])
+        x = transformer.whole_sequence(x, transformer.stream_len(cfg, batch))
         return transformer.from_ranks(transformer.final_hidden(params, cfg, x))
 
     def loss_fn(params, batch):
@@ -160,7 +161,7 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
         the three ``moe_*`` metrics (reference ``model_builder.py:166``)."""
         x, aux, _ = fwd(params, cfg, batch, remat=remat)
         x = transformer.final_hidden(params, cfg, x)
-        x = transformer.whole_sequence(x, batch["tokens"].shape[1])
+        x = transformer.whole_sequence(x, transformer.stream_len(cfg, batch))
         targets = transformer.to_ranks(batch["targets"], transformer.n_ranks(params))
         loss = chunked_xent(x, transformer.head_matrix(params, cfg), targets,
                             vocab=cfg.vocab_size)
@@ -172,7 +173,7 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
 
     def prefill_fn(params, batch):
         x, _, cache = fwd(params, cfg, batch, want_cache=True, remat=remat)
-        x = transformer.whole_sequence(x, batch["tokens"].shape[1])
+        x = transformer.whole_sequence(x, transformer.stream_len(cfg, batch))
         logits = transformer.lm_logits(params, cfg, x[:, :, -1:])[:, :, 0]
         return transformer.from_ranks(transformer.whole_logits(logits, cfg)), cache
 
@@ -186,32 +187,48 @@ def build_model(cfg: ModelConfig, remat: str = "none", *,
 
 
 def batch_dims(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
-    """Shapes (no data) of every input of a (cfg, shape) cell of a family
-    the port has: tokens, targets, or a decode step's token and position."""
+    """Shapes (no data) of every input of a (cfg, shape) cell: tokens,
+    targets, or a decode step's token and position; ``encdec`` adds the
+    frames (B, S, frame_dim), ``vlm`` the patches (B, n_patches,
+    patch_dim), its tokens then S - n_patches (reference
+    ``model_builder.py:197``)."""
     b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"token": (b,), "pos": (b,)}
+    out = {}
+    if cfg.family == "encdec":
+        out = {"frames": (b, s, cfg.encdec.frame_dim), "tokens": (b, s)}
+    elif cfg.family == "vlm":
+        np_ = cfg.vision.n_patches
+        out = {"patches": (b, np_, cfg.vision.patch_dim), "tokens": (b, s - np_)}
+    else:
+        out = {"tokens": (b, s)}
     if shape.kind == "train":
-        return {"tokens": (b, s), "targets": (b, s)}
-    if shape.kind == "prefill":
-        return {"tokens": (b, s)}
-    return {"token": (b,), "pos": (b,)}
+        out["targets"] = (b, s)
+    return out
 
 
 def make_dummy_batch(cfg: ModelConfig, shape: ShapeConfig, gen: torch.Generator, *,
                      device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
     """Random inputs of every name of ``batch_dims``: token ids uniform in
-    [0, vocab) (int64), decode positions 0. Drawn in name order from the
-    ``torch.Generator`` ``gen`` on its own device, then moved to ``device``.
-    The ids are not those of the reference's ``make_dummy_batch``, which
-    draws from ``jax.random`` keys; only their shapes, range and dtype
-    class (integer ids) agree."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported; only {FAMILIES}")
+    [0, vocab) (int64), decode positions 0, frames and patches N(0, 1) x
+    0.02 in the compute dtype; ``vlm``'s targets -1 over the patches (no
+    loss there). Drawn in name order from the ``torch.Generator`` ``gen``
+    on its own device, then moved to ``device``. The numbers are not those
+    of the reference's ``make_dummy_batch``, which draws from
+    ``jax.random`` keys; only their shapes, ranges and dtype classes
+    agree."""
     dev = device_of(device)
     out = {}
     for name, shp in batch_dims(cfg, shape).items():
         if name == "pos":
             out[name] = torch.zeros(shp, dtype=torch.long, device=dev)
+        elif name in ("frames", "patches"):
+            x = torch.randn(shp, generator=gen, device=gen.device) * 0.02
+            out[name] = x.to(device=dev, dtype=layers.dtype_of(cfg.compute_dtype))
         else:
             out[name] = torch.randint(0, cfg.vocab_size, shp, generator=gen,
                                       device=gen.device).to(dev)
+    if cfg.family == "vlm" and "targets" in out:
+        out["targets"][:, :cfg.vision.n_patches] = -1
     return out

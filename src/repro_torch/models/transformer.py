@@ -1,4 +1,4 @@
-"""Decoder stacks of the dense, MoE, RWKV and hybrid (RecurrentGemma)
+"""Decoder stacks of the dense, MoE, VLM, RWKV and hybrid (RecurrentGemma)
 families (counterpart of ``repro.models.transformer``).
 
 Every dp rank is real: activations carry a leading rank dim R, rank r holds
@@ -283,13 +283,15 @@ def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos):
 # ----------------------------------------------------------------- LM skeleton
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 whole: bool = False) -> torch.Tensor:
     """tokens (R, B, S) -> (R, B, S, D), each rank from its copy; on a
     physical ``model`` axis (R, B, S / tp, D) where the context runs the
-    sequence in parallel. The table split over the vocabulary: each tp
-    rank looks up the ids in its range (zeros elsewhere), summed over
-    ``model`` by the reduce-scatter to the sequence chunks, or all-reduced.
-    The hybrid family scales the rows by sqrt(d_model), as gemma does."""
+    sequence in parallel, unless ``whole`` (every position on every tp
+    rank). The table split over the vocabulary: each tp rank looks up the
+    ids in its range (zeros elsewhere), summed over ``model`` by the
+    reduce-scatter to the sequence chunks, or all-reduced. The hybrid
+    family scales the rows by sqrt(d_model), as gemma does."""
     emb = plain_gather(params["embed"])                      # (W, V, D)
     ranks = torch.arange(tokens.shape[0], device=emb.device) % emb.shape[0]
     ranks = ranks.view(-1, *([1] * (tokens.dim() - 1)))
@@ -299,7 +301,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     if TP.size() == 1:
         return shard(emb[ranks, tokens], "dp", "sp", None)
     vl = emb.shape[1]
-    sp = TP.seq_split(tokens.shape[2])
+    sp = TP.seq_split(tokens.shape[2]) and not whole
     if vl == cfg.vocab_size:
         return to_residual(emb[ranks, tokens], False, sp)
     lo = TP.rank_index(tokens.shape[0], tokens.device).view(ranks.shape) * vl
@@ -334,6 +336,13 @@ def whole_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if logits.shape[-1] == cfg.vocab_size:
         return logits
     return TP.gather(logits, logits.dim() - 1)
+
+
+def stream_len(cfg: ModelConfig, batch: dict) -> int:
+    """The positions of the residual stream a batch makes: the tokens, and
+    for the ``vlm`` family the patches ahead of them."""
+    s = batch["tokens"].shape[1]
+    return s + batch["patches"].shape[1] if cfg.family == "vlm" else s
 
 
 def whole_sequence(x: torch.Tensor, seq_len: int) -> torch.Tensor:
@@ -467,15 +476,33 @@ def _scan_blocks_prefetch(params, cfg, x, positions, *, remat: str = "none"):
     return x, _mean_aux(cfg, _add_aux(aux, layer_aux)), None
 
 
+def embed_patches(params, cfg: ModelConfig, batch, tokens: torch.Tensor) -> torch.Tensor:
+    """The ``vlm`` stream: ``batch["patches"]`` (B, Np, patch_dim) projected
+    through ``patch_proj`` (replicated: one copy, W = 1, on the matmul
+    kernel), joined ahead of the token embeddings (R, B, Np + S, D)
+    (reference ``transformer.py:262``). On a physical ``model`` axis the
+    token embedding is made whole first, and the joined stream placed on
+    ``model`` by its own length."""
+    x = embed_tokens(params, cfg, tokens, whole=True)
+    patches = to_ranks(batch["patches"], tokens.shape[0]).to(x.dtype)
+    proj = layers.rank_matmul(patches, params["patch_proj"].local[:1])
+    x = torch.cat([proj, x], dim=2)
+    return to_residual(x, False, TP.seq_split(x.shape[2]))
+
+
 def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
-    """batch: tokens (B, S). Returns (hidden (R, B/dp, S', D) or, replicated,
-    (R, B, S', D), S' = S / tp where the sequence runs in parallel; aux
-    metrics ({} but for MoE); cache | None); the cache is {"k", "v"} of
-    (L, B, KV, S, hd), int8 with {"ks", "vs"} (L, B, KV, S, 1) f32 scales
-    where ``kv_cache_dtype`` is "int8"."""
+    """batch: tokens (B, S) [+ patches (B, Np, patch_dim) for ``vlm``, ahead
+    of the tokens]. Returns (hidden (R, B/dp, S', D) or, replicated, (R, B,
+    S', D), S' = the stream's positions (``stream_len``), / tp where the
+    sequence runs in parallel; aux metrics ({} but for MoE); cache | None);
+    the cache is {"k", "v"} of (L, B, KV, S', hd), int8 with {"ks", "vs"}
+    (L, B, KV, S', 1) f32 scales where ``kv_cache_dtype`` is "int8"."""
     tokens = to_ranks(batch["tokens"], n_ranks(params))
-    x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[2], device=x.device)[None, :]
+    if cfg.family == "vlm":
+        x = embed_patches(params, cfg, batch, tokens)
+    else:
+        x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(stream_len(cfg, batch), device=x.device)[None, :]
     x, aux, kvs = _scan_blocks(params, cfg, x, positions, want_kv=want_cache, remat=remat)
     cache = None
     if want_cache:
@@ -534,13 +561,13 @@ def dense_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
 
 
 def check_tp(cfg: ModelConfig) -> None:
-    """The rwkv and hybrid families run at tp = 1: their tensor parallelism
-    over a physical ``model`` axis is queued."""
+    """The rwkv, hybrid and encdec families run at tp = 1: their tensor
+    parallelism over a physical ``model`` axis is queued."""
     if TP.size() > 1:
         raise NotImplementedError(
             f"the {cfg.family} family on a physical model axis (tp = {TP.size()}) is not "
-            "ported: tensor parallelism for rwkv and hybrid is ROADMAP.md §1 item 12; run "
-            "it with model=1")
+            "ported: tensor parallelism for rwkv, hybrid and encdec is ROADMAP.md §1 item 12; "
+            "run it with model=1")
 
 
 def _remat_full(body, remat: str):
@@ -782,15 +809,22 @@ def hybrid_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device)
 
 
 def decode_cache(cfg: ModelConfig, pre: dict, prompt_len: int, cache_len: int) -> dict:
-    """The prefill's cache made the decode cache of ``cache_len`` positions.
-    Dense and MoE: every (L, B, KV, S, .) entry padded along the sequence.
-    RWKV: the states as they are. Hybrid: the rec states as they are (zero
-    trailing states where the depth has none), and each attention layer's
-    last min(S, window) prompt positions written into the ring of
-    min(window, cache_len) slots, position p at slot p % slots."""
-    if cfg.family in ("dense", "moe"):
-        return {k: torch.nn.functional.pad(v, (0, 0, 0, cache_len - prompt_len))
-                for k, v in pre.items()}
+    """The prefill's cache made the decode cache of ``cache_len`` positions;
+    ``prompt_len`` is the prefill's stream length (``stream_len``: the
+    patches too for ``vlm``). Dense, MoE and VLM: every (L, B, KV, S, .)
+    entry padded along the sequence. Encdec: the self-attention's k and v
+    padded, the cross-attention's xk and xv as they are (decode reads every
+    S_enc row). RWKV: the states as they are. Hybrid: the rec states as
+    they are (zero trailing states where the depth has none), and each
+    attention layer's last min(S, window) prompt positions written into
+    the ring of min(window, cache_len) slots, position p at slot p % slots."""
+    def pad(v):
+        return torch.nn.functional.pad(v, (0, 0, 0, cache_len - prompt_len))
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        return {k: pad(v) for k, v in pre.items()}
+    if cfg.family == "encdec":
+        return {k: pad(v) if k in ("k", "v") else v for k, v in pre.items()}
     if cfg.family == "rwkv":
         return pre
     k = pre["attn_k"]

@@ -100,25 +100,33 @@ def make_decode_step(run: RunConfig, mesh: StackedMesh | None, *,
 
 
 def greedy_generate(prefill, decode, params, prompt_tokens: torch.Tensor,
-                    max_new: int, cache_len: int) -> torch.Tensor:
+                    max_new: int, cache_len: int, inputs: dict | None = None) -> torch.Tensor:
     """Greedy generation from steps made by ``make_prefill_step`` (whose
     ``model`` attribute names the cache's handoff) and ``make_decode_step``.
-    Returns (B, S + max_new) tokens: the prompt, then the new tokens.
+    ``inputs`` holds the prefill's other inputs: the ``vlm`` family's
+    ``patches``, the ``encdec`` family's ``frames``. Returns (B, S +
+    max_new) tokens: the prompt, then the new tokens.
 
     The reference's greedy_generate feeds the prompt through decode one token at a
     time; here the prompt goes through the prefill step, the path that
     crosses the paper's gather, and decode continues from its cache
     (``transformer.decode_cache``: the dense cache padded, the rwkv states
-    as they are, the hybrid's window written into its decode rings). For
-    the dense, rwkv and hybrid families the tokens are the same: new token
-    0 is the argmax of the last prompt position's logits either way. For
-    MoE they are the reference's prefill step's and decode step's: the
-    prefill routes with its capacity, which may drop tokens, where decode
-    drops none."""
-    b, s = prompt_tokens.shape
+    as they are, the hybrid's window written into its decode rings, the
+    encdec's self-attention cache padded and its cross K/V as they are),
+    at the prefill's stream length (the patches and the tokens for
+    ``vlm``). For the dense, rwkv and hybrid families the tokens are the
+    same: new token 0 is the argmax of the last prompt position's logits
+    either way. For MoE they are the reference's prefill step's and decode
+    step's: the prefill routes with its capacity, which may drop tokens,
+    where decode drops none. The reference's own generation has no patches
+    and runs the encdec against zero cross K/V, so for those two families
+    the tokens are its prefill step's and decode steps'."""
+    batch = dict(inputs or {}, tokens=prompt_tokens)
+    b = prompt_tokens.shape[0]
+    s = transformer.stream_len(prefill.model, batch)
     if cache_len < s + max_new - 1:
         raise ValueError(f"cache_len {cache_len} < {s + max_new - 1} positions")
-    logits, pre = prefill(params, {"tokens": prompt_tokens})
+    logits, pre = prefill(params, batch)
     cache = transformer.decode_cache(prefill.model, pre, s, cache_len)
     state = ServeState(cache, torch.full((b,), s, dtype=torch.long,
                                          device=prompt_tokens.device))

@@ -154,8 +154,9 @@ def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh: StackedMesh,
 
 def cache_pspecs(cfg: ModelConfig, cache, mesh: StackedMesh, mesh_cfg: MeshConfig):
     """Decode caches, the reference's rules: batch over dp; a dense cache
-    (L, B, KV, S, hd|1), the int8 cache's scales ``ks``/``vs`` too, its
-    sequence over ``model`` where it divides (the flash-decoding layout);
+    (L, B, KV, S, hd|1), the int8 cache's scales ``ks``/``vs`` and the
+    encdec's cross K/V ``xk``/``xv`` too, its sequence over ``model`` where
+    it divides (the flash-decoding layout);
     the hybrid's window rings (G, B, KV, W, hd) whole over ``model``; the
     recurrent states' heads or channels over ``model`` where they divide.
     The stacked backend keeps the cache as the global tensor, batch
@@ -173,7 +174,7 @@ def cache_pspecs(cfg: ModelConfig, cache, mesh: StackedMesh, mesh_cfg: MeshConfi
         def over(dim):   # ``model`` on dim where it divides
             return TP_AXIS if leaf.shape[dim] % tp == 0 else None
 
-        if name in ("k", "v", "ks", "vs"):
+        if name in ("k", "v", "xk", "xv", "ks", "vs"):
             return (None, bspec, None, over(3), None)
         if name in ("attn_k", "attn_v"):
             return (None, bspec, None, None, None)

@@ -101,7 +101,8 @@ def test_codec_zlib_framing(monkeypatch):
 
 def test_checkpoint_roundtrip(tmp_path):
     state = {"a": torch.arange(6, dtype=torch.float32).reshape(2, 3),
-             "b": {"c": torch.ones(4, dtype=torch.bfloat16), "d": torch.tensor(3, dtype=torch.int32)}}
+             "b": {"c": torch.ones(4, dtype=torch.bfloat16),
+                   "d": torch.tensor(3, dtype=torch.int32)}}
     save(state, str(tmp_path), 7)
     assert latest_step(str(tmp_path)) == 7
     restored, manifest = restore(str(tmp_path), 7, state)
@@ -154,7 +155,8 @@ def test_straggler_monitor_matches_reference():
     slow steps, a recovery, and a drift upwards that the EMA follows."""
     dts = [0.1] * 10 + [1.0, 0.1, 0.1, 0.5, 0.35, 0.1] + [0.1 * 1.2 ** i for i in range(20)]
     for threshold in (2.0, 3.0):
-        mon, ref = StragglerMonitor(threshold=threshold), ref_fault.StragglerMonitor(threshold=threshold)
+        mon = StragglerMonitor(threshold=threshold)
+        ref = ref_fault.StragglerMonitor(threshold=threshold)
         flags = [mon.observe(i, dt) for i, dt in enumerate(dts)]
         assert flags == [ref.observe(i, dt) for i, dt in enumerate(dts)]
         assert mon.events == ref.events and mon.ema == ref.ema and any(flags)

@@ -335,14 +335,14 @@ def test_configs_equal_reference(arch):
 
 def test_registry_holds_the_dense_configs():
     assert set(NEW_ARCHS) <= set(arch_names())
-    assert set(arch_names()) <= set(ref_arch_names())
+    assert set(arch_names()) == set(ref_arch_names())
     assert training_sweep_archs() == ("smollm-135m", "yi-9b", "granite-34b")
     for name in SHAPES:
         assert get_shape(name) == SHAPES[name]
     with pytest.raises(KeyError):
         get_shape("train_1m")
     with pytest.raises(KeyError):
-        get_model_config("whisper-base")
+        get_model_config("whisper-large")
 
 
 def _uncounted(cfg) -> int:
@@ -353,8 +353,10 @@ def _uncounted(cfg) -> int:
     depth has no trailing layer, less the count's one vector of lru_width
     too many a rec layer."""
     d = cfg.d_model
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return cfg.num_layers * 2 * d + d
+    if cfg.family == "encdec":
+        return cfg.encdec.enc_layers * 2 * d + cfg.encdec.dec_layers * 3 * d + 2 * d
     if cfg.family == "rwkv":
         return d
     ng, nt = divmod(cfg.num_layers, len(cfg.rglru.pattern))
@@ -365,7 +367,8 @@ def _uncounted(cfg) -> int:
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b", *NEW_ARCHS, "rwkv6-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "phi-3-vision-4.2b", "whisper-base",
+                                  "moonshot-v1-16b-a3b"])
 def test_param_counts_equal_reference(arch):
     """``count_params_analytic`` with and without ``active_only`` and the
     config's ``n_params`` / ``n_active_params``: the reference's, full and

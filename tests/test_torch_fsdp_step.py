@@ -119,7 +119,8 @@ def test_fsdp_step_with_layers_matches_reference(o, policy):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b", "rwkv6-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "phi-3-vision-4.2b", "whisper-base",
+                                  "moonshot-v1-16b-a3b"])
 def test_fsdp_step_from_a_model_config_matches_reference(arch):
     cfg, ref = get_model_config(arch), ref_config(arch)
     assert count_params_analytic(cfg) == ref_count(ref)
@@ -137,12 +138,23 @@ def test_fsdp_step_from_a_model_config_matches_reference(arch):
 
 
 def test_other_families_raise():
+    """Every family is counted now: an encdec built from smollm's widths has
+    the reference's count and FSDP step; what still raises, naming ROADMAP
+    §1 item 12, is the encdec at tp > 1 (``transformer.check_tp``)."""
+    from repro.configs.base import EncDecConfig as RefEncDecConfig
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding.ctx import ShardCtx, use_ctx
     cfg = dataclasses.replace(get_model_config("smollm-135m"), family="encdec",
                               encdec=EncDecConfig())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        count_params_analytic(cfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.simulate_fsdp_step(cfg, p=8, device="cpu")
+    ref = dataclasses.replace(ref_config("smollm-135m"), family="encdec",
+                              encdec=RefEncDecConfig())
+    assert count_params_analytic(cfg) == ref_count(ref)
+    assert_same(engine.simulate_fsdp_step(cfg, p=8, device="cpu"),
+                ref_engine.simulate_fsdp_step(ref, p=8), ctx="encdec")
+    with use_ctx(ShardCtx(mesh=StackedMesh(data=2, model=4))):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            transformer.check_tp(cfg)
 
 
 @pytest.mark.parametrize("policy", ["naive", "mcast", "split"])
