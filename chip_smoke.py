@@ -205,6 +205,29 @@
    ``fam_launches`` derives (28 / 192 / 44 #1, 14 / 96 / 22 #1b, 70 / 384
    + 4 wmma / 84 + 8 f32 #3); the first-step loss bitwise equal in every
    mode;
+3i. the ``model`` axis for the MoE, rwkv, hybrid and encdec families: first
+   reduced deepseek-moe-16b, rwkv6-7b, recurrentgemma-9b (5 layers) and
+   whisper-base in f32 on (data=2, model=4) on the card against the same
+   runs on the CPU, logits within 1e-4 in every mode and the same 8 greedy
+   tokens; then deepseek-moe-16b (4 of 28 layers: EP, 16 experts a tp
+   rank), rwkv6-7b (4 of 32: 16 WKV heads a tp rank), recurrentgemma-9b (its
+   5-layer cut: the LRU width split, 4 heads a tp rank over one kv head)
+   and whisper-base (6 + 6: 2 heads a tp rank; 512 frames + 512 tokens) at
+   full width, drawn on (data=8) and served there first (the yardstick),
+   then moved to (data=2, model=4): a prefill of batch 8 in every mode,
+   logits bitwise xla's, every launch count (#1, #1b, #3 by path, schedule
+   entries) what ``tpf_launches`` derives; greedy generation of 8 tokens
+   (mcast) with its decode steps' counts; prefill ms, decode tok/s, idle,
+   peak memory; the logits and tokens against the yardstick (no limit);
+   the bytes #1 writes at an expert leaf on both meshes (a quarter on
+   (2, 4)), its device ms and bound;
+4i. training the same four (deepseek-moe-16b and rwkv6-7b at 2 layers,
+   recurrentgemma-9b at 5, whisper-base whole) at 16 x 512 on (data=2,
+   model=4), remat="full", AdamW, in every mode: a warm-up, a timed and a
+   profiled step each, every step launching what ``tpf_launches`` derives;
+   the first-step loss bitwise equal in every mode. 3i's and 4i's #1 and
+   #1b call shapes join ``check_call_shapes``, their #3 shapes phase 1's
+   (``tpf_path_cases``);
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
    receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
    Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
@@ -4400,11 +4423,12 @@ class _CallShapes:
 
 
 def check_call_shapes(shapes: _CallShapes) -> tuple[int, float]:
-    """#1 and #1b at every call shape that phases 3h, 3f and 4f gave them
-    (the FSDP gathers of the last three architectures on (data=8); the dp
-    rings of tp groups strided by tp, the sequence and vocabulary gathers,
-    the reduce-scatters and their backwards, phi-3-vision's whole token
-    embedding among them): random values laid out with the call's own
+    """#1 and #1b at every call shape that phases 3h, 3f, 4f, 3i and 4i gave
+    them (the FSDP gathers of the last three architectures on (data=8); the
+    dp rings of tp groups strided by tp, the sequence, vocabulary, head and
+    width gathers, the reduce-scatters and their backwards, phi-3-vision's
+    whole token embedding and the expert leaves' E / tp copies among them):
+    random values laid out with the call's own
     strides, the kernel against its plain version, bitwise; the gather's
     output laid out where the stacked ranks lie. Returns (calls, max abs
     err)."""
@@ -4847,8 +4871,7 @@ def _tree_gathers(cfg, params) -> int:
 
 
 def _held(cfg, params) -> int:
-    n = sum(leaf.local.numel() if is_sharded(leaf.spec, ("data",)) else leaf.local[0].numel()
-            for leaf in tree_leaves(params))
+    n = _unique_params(params)
     if n != cfg.n_params() + _uncounted(cfg):
         raise AssertionError(f"{cfg.name}: {n} weights on the card, the analytic count "
                              f"{cfg.n_params()} and {_uncounted(cfg)} it leaves out")
@@ -5053,14 +5076,15 @@ def _serve_model(tag: str, cfg, batch: dict, launches, new: int, repeats: int,
 
 
 def _train_model(tag: str, cfg, mesh: StackedMesh, shape: ShapeConfig, per: dict,
-                 timed: int, pieces=None) -> dict:
-    """One architecture of phases 4g and 4h at full width, remat="full",
+                 timed: int, pieces=None, want=None) -> dict:
+    """One architecture of phases 4g, 4h and 4i at full width, remat="full",
     AdamW, weights from ``bridge.device_params`` (their count ``_held``'s),
     batches of ``shape`` from the ``SyntheticPipeline``, on ``mesh``, in
     every mode: a warm-up, ``timed`` timed steps and a profiled step, each
-    launching exactly ``per`` in the mcast modes (``_path_want``); the
-    first-step loss bitwise equal in every mode; then ``pieces(cfg)``, the
-    row's device ms of plain-torch pieces. Returns the row."""
+    launching exactly ``per`` in the mcast modes (``_path_want``), or
+    ``want(mode)`` where given; the first-step loss bitwise equal in every
+    mode; then ``pieces(cfg)``, the row's device ms of plain-torch pieces.
+    Returns the row."""
     torch.cuda.reset_peak_memory_stats()
     tree = bridge.device_params(cfg, mesh, MeshConfig(), seed=0, dtype=torch.bfloat16)
     n_params = _held(cfg, tree)
@@ -5072,10 +5096,11 @@ def _train_model(tag: str, cfg, mesh: StackedMesh, shape: ShapeConfig, per: dict
     first, row = {}, {"arch": cfg.name, "ranks": mesh.n_ranks, "modes": {}}
     for mode in MODES:
         torch.cuda.reset_peak_memory_stats()
-        want = _path_want(mesh, mode, gathers=per["ring_allgather"],
-                          transposes=per["ring_allgather_transpose"], matmul=per["matmul"],
-                          wmma=per.get("matmul_wmma", 0), f32=per["matmul_f32"])
-        mrow, _ = _train_steps(cfg, mesh, tree, batches, mode, timed, want, shape)
+        mode_want = want(mode) if want else _path_want(
+            mesh, mode, gathers=per["ring_allgather"],
+            transposes=per["ring_allgather_transpose"], matmul=per["matmul"],
+            wmma=per.get("matmul_wmma", 0), f32=per["matmul_f32"])
+        mrow, _ = _train_steps(cfg, mesh, tree, batches, mode, timed, mode_want, shape)
         mrow["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
         print(f"[{tag}] {cfg.name} " + json.dumps(mrow), flush=True)
         first[mode] = mrow["losses"][0]
@@ -5447,6 +5472,506 @@ def fam_train() -> dict[str, dict]:
     return rows
 
 
+# ------- phases 3i and 4i: the model axis for the MoE, rwkv, hybrid, encdec
+
+TPF_ARCHS = ("deepseek-moe-16b", "rwkv6-7b", "recurrentgemma-9b", "whisper-base")
+TPF_MESH = StackedMesh(data=2, model=4)
+TPF_BASE = StackedMesh(data=8, model=1)   # the yardstick: the same weights and batch
+# served depth, for the script's time: deepseek-moe-16b 4 of 28 layers,
+# rwkv6-7b 4 of 32, recurrentgemma-9b its 5-layer cut (a group and 2
+# trailing rec layers: every layer kind, as 4g); whisper-base whole
+TPF_SERVE_LAYERS = {"deepseek-moe-16b": 4, "rwkv6-7b": 4, "recurrentgemma-9b": 5}
+TPF_TRAIN_LAYERS = {"deepseek-moe-16b": 2, "rwkv6-7b": 2, "recurrentgemma-9b": 5}
+# training batch: TRAIN_SHAPE (16 x 512) but recurrentgemma-9b's 8 x 512: on
+# (2, 4) its mcast step at 16 x 512 asked for 7.81 GiB more with 72 GiB in
+# use (the tied 256,000-row head's vocabulary shards, their gradients and
+# the cross-entropy's f32 tensors, as on 4 ranks in 4g)
+TPF_TRAIN_SHAPE = {"recurrentgemma-9b": ShapeConfig("train", "train", 512, 8)}
+TPF_PROMPT = {"whisper-base": 512}   # tokens a prompt, batch BATCH; 128 for the others
+TPF_FRAMES = 512                     # whisper's frames beside its prompt
+TPF_NEW = 8
+TPF_REPEATS = 2                      # timed prefills a mode; the median is reported
+TPF_TRAIN_TIMED = 1
+TPF_SMALL_SEQ = 16                   # the reduced check's prompt tokens (and frames)
+
+
+def _tpf_cfg(arch: str, *, train: bool = False):
+    cfg = get_model_config(arch)
+    layers = (TPF_TRAIN_LAYERS if train else TPF_SERVE_LAYERS).get(arch)
+    return replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _head_plan(cfg, t: int) -> tuple[bool, bool, int, int]:
+    """(q heads split over ``model``, kv heads split, attention weights
+    gathered over it off whole heads: of wq and wo, of wk and wv), as
+    ``layers.head_plan`` and the rules place them at t tp ranks."""
+    qs = cfg.num_heads % t == 0
+    ks = qs and cfg.num_kv_heads % t == 0
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    return qs, ks, 0 if qs else 2 * int(q % t == 0), 0 if ks else 2 * int(kv % t == 0)
+
+
+def _split(n: int, t: int) -> int:
+    """A dim of n over t tp ranks: n / t where it divides (the rules split
+    it), else n."""
+    return n // t if n % t == 0 else n
+
+
+def tpf_layers(cfg, t: int) -> list[dict]:
+    """Each layer kind of an MoE, rwkv, hybrid or encdec config on a
+    physical ``model`` axis of t ranks, as the model code runs it: ``n``
+    layers of the kind, ``dp`` dp-sharded leaves a layer (a #1 each in the
+    mcast modes), the ``model`` collectives of a forward pass with the
+    stream sequence-parallel (``ag`` gathers, #1; ``rs`` reduce-scatters,
+    #1b) and of a decode step (``dag``, ``drs``), and the products a rank
+    makes, (k, n, copies, f32), of a forward pass (``prods``; the MoE's
+    three expert products ``experts``, batched over the E experts) and of
+    a decode step (``dprods``). A forward pass gathers the normed stream's
+    sequence before each sub-block and reduce-scatters each row-parallel
+    output; decode all-reduces it (#1b then #1). Attention gathers q's (and
+    split kv's) heads in decode, and its weights off whole heads always.
+    rwkv: the time mix's heads split (else its five matrices gathered); the
+    channel mix's value reduce-scattered on d_model and the product
+    gathered back. Hybrid rec layers gather the post-conv width for the
+    f32 gates. The encdec's decoder has a second attention (cross: its q
+    and o alone in decode, the frames' k and v frozen in the cache)."""
+    d, f = cfg.d_model, cfg.d_ff
+    qs, ks, off_q, off_kv = _head_plan(cfg, t)
+    off = off_q + off_kv
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    q, kv = q // t if qs else q, kv // t if ks else kv
+    mlp, fl = int(f % t == 0), _split(f, t)
+    attn = [(d, q, 1, False), (d, kv, 1, False), (d, kv, 1, False), (q, d, 1, False)]
+    attn_dec = (2 * qs + 2 * ks + off, qs)          # q, k, v heads; off-head weights; all-reduce
+    if cfg.family == "moe":
+        m = cfg.moe
+        fs = m.d_ff_expert * m.n_shared_experts
+        shp = int(bool(fs) and fs % t == 0)
+        shared = ([(d, _split(fs, t), 1, False)] * 2 + [(_split(fs, t), d, 1, False)]
+                  if fs else [])
+        prods = attn + [(d, m.n_routed_experts, 1, True)] + shared
+        return [{"n": cfg.num_layers, "dp": _moe_sharded_leaves(cfg), "ag": 2 + off,
+                 "rs": int(qs) + shp, "dag": attn_dec[0] + shp, "drs": attn_dec[1] + shp,
+                 "prods": prods, "dprods": prods,
+                 "experts": [(d, m.d_ff_expert), (d, m.d_ff_expert), (m.d_ff_expert, d)]}]
+    if cfg.family == "rwkv":
+        ts, dl = cfg.rwkv.tokenshift_lora, cfg.rwkv.decay_lora
+        hs = cfg.num_heads % t == 0
+        off5 = 0 if hs else 5 * int(d % t == 0)
+        dh = d // t if hs else d
+        r_split = int(d % t == 0)
+        cm_ag = int(mlp and not r_split) + r_split        # the value all-reduced; the product
+        prods = ([(d, 5 * ts, 1, False), (ts, d, 5, False)] + [(d, dh, 1, False)] * 4
+                 + [(d, dl, 1, False), (dl, d, 1, False), (dh, d, 1, False),
+                    (d, fl, 1, False), (fl, d, 1, False), (d, _split(d, t), 1, False)])
+        return [{"n": cfg.num_layers, "dp": 12, "ag": 2 + off5 + cm_ag, "rs": int(hs) + mlp,
+                 "dag": off5 + int(hs) + cm_ag, "drs": int(hs) + mlp,
+                 "prods": prods, "dprods": prods}]
+    swiglu = [(d, fl, 1, False), (d, fl, 1, False), (fl, d, 1, False)]
+    if cfg.family == "hybrid":
+        ng, nt = transformer.hybrid_layout(cfg)
+        w = cfg.rglru.lru_width
+        ws, wl = int(w % t == 0), _split(w, t)
+        rec = [(d, wl, 1, False), (d, wl, 1, False), (w, wl, 1, True), (w, wl, 1, True),
+               (wl, d, 1, False)] + swiglu
+        attn_l = attn + swiglu
+        return [{"n": 2 * ng + nt, "dp": 8, "ag": 2 + ws, "rs": ws + mlp,
+                 "dag": 2 * ws + mlp, "drs": ws + mlp, "prods": rec, "dprods": rec},
+                {"n": ng, "dp": 7, "ag": 2 + off, "rs": int(qs) + mlp,
+                 "dag": attn_dec[0] + mlp, "drs": attn_dec[1] + mlp,
+                 "prods": attn_l, "dprods": attn_l}]
+    gelu = [(d, fl, 1, False), (fl, d, 1, False)]
+    e = cfg.encdec
+    return [{"n": e.enc_layers, "dp": 6, "ag": 2 + off, "rs": int(qs) + mlp, "dag": 0,
+             "drs": 0, "prods": attn + gelu, "dprods": []},
+            {"n": e.dec_layers, "dp": 10, "ag": 3 + 2 * off, "rs": 2 * int(qs) + mlp,
+             "dag": attn_dec[0] + off_q + 2 * qs + mlp, "drs": 2 * attn_dec[1] + mlp,
+             "prods": attn + attn + gelu, "dprods": attn + [attn[0], attn[3]] + gelu}]
+
+
+def _unrecomputed(cfg, t: int) -> int:
+    """The reduce-scatters a train step's recompute does not run again:
+    torch's checkpoint stops a body's recompute after its last op that
+    keeps a tensor for the backward, so a body that ends with its MLP's
+    reduce-scatter (a hybrid group or trailing rec layer, an encdec layer;
+    d_ff split over ``model``) runs it once. An MoE body ends with the
+    router's metrics, an rwkv one with the chunk of its sequence (an index
+    kept): both run again whole."""
+    mlp = int(cfg.d_ff % t == 0)
+    if cfg.family == "hybrid":
+        return sum(transformer.hybrid_layout(cfg)) * mlp
+    if cfg.family == "encdec":
+        return (cfg.encdec.enc_layers + cfg.encdec.dec_layers) * mlp
+    return 0
+
+
+def tpf_launches(cfg, mesh: StackedMesh, mode: str, kind: str,
+                 seq: int = TRAIN_SHAPE.seq_len) -> dict[str, int]:
+    """#1 (``ring_allgather``), #1b (``ring_allgather_transpose``) and #3
+    (wgmma ``matmul``, ``matmul_wmma``, ``matmul_f32``) launches of one
+    prefill, decode step or train step (``kind``; remat="full") of an MoE,
+    rwkv, hybrid or encdec config on a mesh with a physical ``model`` axis,
+    the prompt (and the encdec's frames) of a length that splits over it,
+    from ``tpf_layers``: a layer's dp gathers (mcast modes, not in decode),
+    its ``model`` collectives and products; a train step runs each
+    checkpointed layer's gathers, collectives and products twice (the
+    recompute; but ``_unrecomputed``), then each gather's transpose (#1b) and
+    each reduce-scatter's transpose (#1), and every product's two backward
+    products. Outside the
+    layers: the embedding's sum over its vocabulary shards where the
+    vocabulary splits (a reduce-scatter to the sequence chunks; the
+    encdec's decoder takes it whole, an all-reduce; decode all-reduces),
+    the final sequence gather (the encdec's encoder output too), the
+    logits' vocabulary gather in serving, and the head: one product a
+    prefill or decode step, four a cross-entropy chunk of ``seq`` positions
+    in training, on the wmma kernel at an odd vocabulary (``head_wmma``)."""
+    t = mesh.tp
+    mc = int(mode != "xla")
+    vs = int(cfg.vocab_size % t == 0)
+    enc = int(cfg.family == "encdec")
+    rows = tpf_layers(cfg, t)
+
+    def products(key: str, f32: bool) -> int:   # a pass's, the experts' among the bf16
+        return sum(r["n"] * (sum(1 for *_, x in r[key] if x == f32)
+                             + (0 if f32 else len(r.get("experts", []))))
+                   for r in rows)
+
+    wmma = head_wmma(cfg, train=kind == "train", seq=seq)
+    if kind == "decode":
+        ag = sum(r["n"] * r["dag"] for r in rows) + 2 * vs
+        rs = sum(r["n"] * r["drs"] for r in rows) + vs
+        bf16, f32, head = products("dprods", False), products("dprods", True), 1
+    elif kind == "prefill":
+        ag = sum(r["n"] * (mc * r["dp"] + r["ag"]) for r in rows) + 1 + vs + enc * (1 + vs)
+        rs = sum(r["n"] * r["rs"] for r in rows) + vs
+        bf16, f32, head = products("prods", False), products("prods", True), 1
+    else:
+        fwd_ag = sum(r["n"] * (mc * r["dp"] + r["ag"]) for r in rows)
+        fwd_rs = sum(r["n"] * r["rs"] for r in rows)
+        outside = (1 + vs) * (1 + enc)   # the outside collectives and their transposes
+        ag = 2 * fwd_ag + fwd_rs + outside
+        rs = 2 * fwd_rs + fwd_ag + outside - _unrecomputed(cfg, t)
+        bf16, f32 = 4 * products("prods", False), 4 * products("prods", True)
+        head = 4 * -(-seq // XENT_CHUNK)
+    return {"ring_allgather": ag, "ring_allgather_transpose": rs,
+            "matmul": bf16 + (0 if wmma else head), "matmul_wmma": wmma, "matmul_f32": f32}
+
+
+def tpf_matmul_cases(cfg, mesh: StackedMesh, m: int, kind: str, *, head_m: int,
+                     chunks: int = 1, cap: int = 0, dtype=torch.bfloat16) -> dict:
+    """Every matmul shape of phases 3i and 4i and its launches, {(batch, m,
+    k, n, a_t, b_t, dtype): launches}, as ``matmul_cases``: ``m`` rows a rank
+    through each layer product of ``tpf_layers`` (the encdec's frames and
+    tokens of one length; rwkv's five token-shift mixes one product of
+    batch 5 R), the MoE's experts at ``cap`` rows each (batch E), ``head_m``
+    rows through the head in each of ``chunks`` chunks, its vocabulary split
+    where it divides. Their launches add up to ``tpf_launches``'."""
+    t, r = mesh.tp, mesh.n_ranks
+    train = kind == "train"
+    cases: dict = {}
+
+    def prod(batch: int, rows: int, k: int, n: int, dt, count: int) -> None:
+        for key, c in (((batch, rows, k, n, False, False, dt), count * (2 if train else 1)),
+                       ((batch, rows, n, k, False, True, dt), count if train else 0),
+                       ((batch, k, rows, n, True, False, dt), count if train else 0)):
+            if c:
+                cases[key] = cases.get(key, 0) + c
+
+    for row in tpf_layers(cfg, t):
+        for k, n, copies, f32 in row["dprods" if kind == "decode" else "prods"]:
+            prod(r * copies, m, k, n, torch.float32 if f32 else dtype, row["n"])
+        for k, n in row.get("experts", []):
+            prod(cfg.moe.n_routed_experts, cap, k, n, dtype, row["n"])
+    prod(r, head_m, cfg.d_model, _split(cfg.vocab_size, t), dtype, chunks)
+    return cases
+
+
+def _tpf_batch(cfg, tokens: int, gen: torch.Generator, device: str) -> dict:
+    """BATCH prompts of ``tokens`` tokens; whisper's as many frames beside
+    them (``_fam_batch``)."""
+    return _fam_batch(cfg, tokens, tokens, gen, device)
+
+
+def tpf_path_cases() -> dict:
+    """Phase 1's matmul shapes of phases 3i and 4i: each config's prefill,
+    decode step and train step on TPF_MESH at full width, and the reduced
+    f32 check's prefill and decode steps there."""
+    cases: dict = {}
+
+    def add(more: dict) -> None:
+        for case, n in more.items():
+            cases[case] = cases.get(case, 0) + n
+
+    dp = TPF_MESH.shape["data"]
+    b = BATCH // dp
+    for arch in TPF_ARCHS:
+        cfg, tcfg = _tpf_cfg(arch), _tpf_cfg(arch, train=True)
+        s = TPF_PROMPT.get(arch, PROMPT)
+        shape = TPF_TRAIN_SHAPE.get(arch, TRAIN_SHAPE)
+        tb, ts = shape.global_batch // dp, shape.seq_len
+        moe = cfg.family == "moe"
+        add(tpf_matmul_cases(cfg, TPF_MESH, b * s, "prefill", head_m=b,
+                             cap=moe_capacity(cfg, BATCH * s) if moe else 0))
+        add(tpf_matmul_cases(cfg, TPF_MESH, b, "decode", head_m=b, cap=BATCH))
+        add(tpf_matmul_cases(tcfg, TPF_MESH, tb * ts, "train",
+                             head_m=tb * min(XENT_CHUNK, ts), chunks=-(-ts // XENT_CHUNK),
+                             cap=moe_capacity(tcfg, shape.global_batch * ts) if moe else 0))
+        small = _tpf_small_cfg(arch)
+        add(tpf_matmul_cases(small, TPF_MESH, b * TPF_SMALL_SEQ, "prefill", head_m=b,
+                             cap=moe_capacity(small, BATCH * TPF_SMALL_SEQ) if moe else 0,
+                             dtype=torch.float32))
+        add(tpf_matmul_cases(small, TPF_MESH, b, "decode", head_m=b, cap=BATCH,
+                             dtype=torch.float32))
+    return cases
+
+
+def _tpf_small_cfg(arch: str):
+    return reduced(get_model_config(arch), layers=5 if arch == "recurrentgemma-9b" else None)
+
+
+def _tpf_want(cfg, mesh: StackedMesh, mode: str, kind: str, *, steps: int = 0,
+              seq: int = TRAIN_SHAPE.seq_len) -> dict[str, int]:
+    """Every count of ``_counts`` for one ``kind`` call (and, after a
+    prefill, ``steps`` decode steps) on a mesh with a physical model axis
+    (``tpf_launches``), with the schedule entries: (dp - 1) of the mode's
+    kind a dp gather and a dp transpose (rounds of broadcasts at dp >
+    N_CHAINS), (tp - 1) ring entries a ``model`` gather and a ``model``
+    reduce-scatter."""
+    n = tpf_launches(cfg, mesh, mode, kind, seq)
+    if steps:
+        dec = tpf_launches(cfg, mesh, mode, "decode", seq)
+        n = {k: n[k] + steps * dec[k] for k in n}
+    dp, tp = mesh.shape["data"], mesh.tp
+    leaves = sum(r["n"] * r["dp"] for r in tpf_layers(cfg, tp)) if mode != "xla" else 0
+    dp_gathers = {"prefill": leaves, "decode": 0, "train": 2 * leaves}[kind]
+    dp_transposes = leaves if kind == "train" else 0
+    entries = {f"entries_{k}": 0 for k in K.entries}
+    transposes = {f"transpose_entries_{k}": 0 for k in K.transpose_entries}
+    if mode != "xla":
+        rounds = dp // min(N_CHAINS, dp) if mode == "mcast_bcast" else 1
+        kind_ = ("bcast" if rounds > 1 else "ring") if mode == "mcast_bcast" else ENTRY_KIND[mode]
+        entries[f"entries_{kind_}"] += dp_gathers * rounds * (dp - 1)
+        transposes[f"transpose_entries_{kind_}"] += dp_transposes * rounds * (dp - 1)
+    entries["entries_ring"] += (n["ring_allgather"] - dp_gathers) * (tp - 1)
+    transposes["transpose_entries_ring"] += (n["ring_allgather_transpose"]
+                                             - dp_transposes) * (tp - 1)
+    return {**{k: 0 for k in PACKET_KERNELS + LAYER_KERNELS + ("ring_step",)}, **n, **entries,
+            **transposes}
+
+
+def check_tpf_small_reference() -> float:
+    """Phase 3i: reduced deepseek-moe-16b, rwkv6-7b, recurrentgemma-9b (5
+    layers, window 32) and whisper-base in f32 on TPF_MESH on the card
+    against the same runs on the host's CPU (the path the CPU tests hold
+    against the JAX package): prefill logits within 1e-4 in every mode, and
+    greedy generation of TPF_NEW tokens (mcast) with the same tokens.
+    Returns the largest logit difference."""
+    worst = 0.0
+    for arch in TPF_ARCHS:
+        cfg = _tpf_small_cfg(arch)
+        tree = bridge.random_params(cfg, seed=2)
+        host = _tpf_batch(cfg, TPF_SMALL_SEQ, torch.Generator().manual_seed(3), "cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = bridge.to_torch(tree, TPF_MESH, MeshConfig(), dtype=torch.float32,
+                                     device=dev)
+            batch = {k: v.to(dev) for k, v in host.items()}
+            inputs = {k: v for k, v in batch.items() if k != "tokens"}
+            for mode in MODES:
+                run = RunConfig(model=cfg, shape=ShapeConfig("p", "prefill", TPF_SMALL_SEQ,
+                                                             BATCH),
+                                collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+                _, _, prefill = make_prefill_step(run, TPF_MESH, device=dev)
+                logits, _ = prefill(params, batch)
+                toks = None
+                if mode == "mcast":
+                    _, _, decode = make_decode_step(run, TPF_MESH, device=dev)
+                    toks = greedy_generate(prefill, decode, params, batch["tokens"], TPF_NEW,
+                                           TPF_SMALL_SEQ + TPF_NEW, inputs).cpu()
+                out[dev, mode] = (logits.cpu(), toks)
+        for mode in MODES:
+            (lc, tc), (lg, tg) = out["cpu", mode], out["cuda", mode]
+            diff = (lc - lg).abs().max().item()
+            worst = max(worst, diff)
+            same = tc is None or torch.equal(tc, tg)
+            if not (diff <= 1e-4 and same):
+                raise AssertionError(f"reduced {arch} on {TPF_MESH} {mode}: card vs CPU logits "
+                                     f"max diff {diff}, tokens equal {same}")
+    return worst
+
+
+def _expert_leaf(params, mesh: StackedMesh) -> dict:
+    """Layer 0's ``w_gate`` gathered over dp in mcast as a prefill gathers
+    it (one #1): the bytes its output holds, over the R ranks' copies
+    (E / tp experts a copy on a model axis); on TPF_MESH its device ms and
+    the bound (the shards read once, the copies written once, at the
+    HBM rate)."""
+    from repro_torch.sharding.fsdp import gather_leaf
+    leaf = params["blocks"]["moe"]["w_gate"]
+    x, spec = leaf.local[:, 0], leaf.spec[1:]
+
+    def gather():
+        return gather_leaf(x, spec, mesh, ("data",), "bidi", N_CHAINS)
+
+    out = gather()
+    row = {"mesh": repr(mesh), "copy_shape": list(out.shape[1:]),
+           "gathered_bytes": out.numel() * out.element_size(),
+           "shard_bytes": x.numel() * x.element_size()}
+    if mesh.tp > 1:
+        row.update(gather_device_ms=_device_ms(gather, 5),
+                   bound_ms=(row["gathered_bytes"] + row["shard_bytes"])
+                   / HBM_BYTES_PER_S * 1e3)
+    del out
+    return row
+
+
+def _tpf_serve_one(arch: str) -> dict:
+    """One architecture of phase 3i: drawn on TPF_BASE by
+    ``bridge.device_params`` (bf16), its mcast prefill and greedy
+    generation there the yardstick; then moved to TPF_MESH (``_remesh``):
+    a prefill in every mode launching ``_tpf_want`` (logits bitwise xla's),
+    greedy generation of TPF_NEW tokens (mcast) launching the prefill's and
+    TPF_NEW - 1 decode steps', TPF_REPEATS timed prefills a mode, the mcast
+    prefill profiled, decode tok/s, peak memory; the logits and tokens
+    against the yardstick (no limit: bf16 sums in another order). For the
+    MoE, the bytes #1 writes at an expert leaf on both meshes."""
+    cfg = _tpf_cfg(arch)
+    s = TPF_PROMPT.get(arch, PROMPT)
+    batch = _tpf_batch(cfg, s, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = batch["tokens"]
+    inputs = {k: v for k, v in batch.items() if k != "tokens"}
+    torch.cuda.reset_peak_memory_stats()
+    params = bridge.device_params(cfg, TPF_BASE, MeshConfig(), seed=0, dtype=torch.bfloat16)
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", s, BATCH),
+                    collective=CollectiveConfig(fsdp_mode="mcast", n_chains=N_CHAINS))
+    _, _, prefill = make_prefill_step(run, TPF_BASE)
+    _, _, decode = make_decode_step(run, TPF_BASE)
+    base_logits, _ = prefill(params, batch)
+    base_out = greedy_generate(prefill, decode, params, tokens, TPF_NEW, s + TPF_NEW, inputs)
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "mesh": repr(TPF_MESH), "prompt": s,
+           "modes": {}}
+    if cfg.family == "moe":
+        row["expert_leaf"] = [_expert_leaf(params, TPF_BASE)]
+    params = _remesh(params, TPF_MESH)
+    torch.cuda.synchronize()
+    row["n_weights"] = _unique_params(params)
+    if row["n_weights"] != cfg.n_params() + _uncounted(cfg):
+        raise AssertionError(f"{cfg.name}: {row['n_weights']} weights on {TPF_MESH}, the "
+                             f"analytic count {cfg.n_params()} and {_uncounted(cfg)}")
+    if cfg.family == "moe":
+        row["expert_leaf"].append(_expert_leaf(params, TPF_MESH))
+        a, b = (r["gathered_bytes"] for r in row["expert_leaf"])
+        if a != TPF_MESH.tp * b:
+            raise AssertionError(f"#1 writes {b} bytes at an expert leaf on {TPF_MESH}, "
+                                 f"{a} on {TPF_BASE}: not a 1/{TPF_MESH.tp}")
+        print(f"[tpf-serve] {cfg.name} expert leaf w_gate: " + json.dumps(row["expert_leaf"]),
+              flush=True)
+    per = {k: tpf_launches(cfg, TPF_MESH, "mcast", k, s) for k in ("prefill", "decode")}
+    print(f"[tpf-serve] {cfg.name} ({cfg.family}) at {cfg.num_layers} layers, "
+          f"{row['n_weights']:,} weights on {TPF_MESH}, batch {BATCH} x {s}: launches derived "
+          f"from the code, mcast: a prefill {json.dumps(per['prefill'])}, a decode step "
+          f"{json.dumps(per['decode'])}", flush=True)
+    ref = None
+    for mode in MODES:
+        torch.cuda.reset_peak_memory_stats()
+        run = RunConfig(model=cfg, shape=ShapeConfig("serve", "prefill", s, BATCH),
+                        collective=CollectiveConfig(fsdp_mode=mode, n_chains=N_CHAINS))
+        _, _, prefill = make_prefill_step(run, TPF_MESH)
+        _, _, decode = make_decode_step(run, TPF_MESH)
+
+        def do_prefill():
+            return prefill(params, batch)
+
+        (logits, _), _, counts = _run(do_prefill)
+        want = _tpf_want(cfg, TPF_MESH, mode, "prefill", seq=s)
+        if counts != want:
+            raise AssertionError(f"{cfg.name} {mode}: prefill launched {counts}, expected {want}")
+        if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name} {mode}: bad logits {tuple(logits.shape)}")
+        ref = logits if ref is None else ref
+        if not torch.equal(logits, ref):
+            raise AssertionError(f"{cfg.name} {mode} prefill on {TPF_MESH} differs from xla")
+        prefill_s = _wall(do_prefill, TPF_REPEATS)
+        mrow = {"prefill_ms_median": statistics.median(prefill_s) * 1e3,
+                "prefill_ms_samples": [t * 1e3 for t in prefill_s],
+                "launches_per_prefill": {k: v for k, v in counts.items() if v}}
+        if mode == "mcast":
+            out, gen_s, gen_counts = _run(lambda: greedy_generate(
+                prefill, decode, params, tokens, TPF_NEW, s + TPF_NEW, inputs))
+            want_gen = _tpf_want(cfg, TPF_MESH, mode, "prefill", steps=TPF_NEW - 1, seq=s)
+            if gen_counts != want_gen:
+                raise AssertionError(f"{cfg.name}: generation launched {gen_counts}, "
+                                     f"expected {want_gen}")
+            if (out.shape != (BATCH, s + TPF_NEW) or not torch.equal(out[:, :s], tokens)
+                    or not torch.equal(out[:, s], logits.argmax(-1))):
+                raise AssertionError(f"{cfg.name}: bad tokens {tuple(out.shape)}")
+            decode_s = gen_s - statistics.median(prefill_s)
+            dev, prof_ms = _device_times(do_prefill)
+            busy = sum(dev.values())
+            mrow.update({"decode_steps": TPF_NEW - 1, "decode_ms": decode_s * 1e3,
+                         "decode_tok_s": BATCH * (TPF_NEW - 1) / decode_s,
+                         "launches_per_decode_step": {
+                             k: (gen_counts[k] - counts[k]) // (TPF_NEW - 1)
+                             for k in MODEL_KERNELS + ("matmul_wmma", "matmul_f32")},
+                         "prefill_device_busy_ms": busy, "prefill_profiled_wall_ms": prof_ms,
+                         "prefill_device_idle_share": 1 - busy / prof_ms,
+                         "prefill_ring_allgather_device_ms": sum(
+                             t for k, t in dev.items() if "ring_allgather_kernel" in k),
+                         "prefill_transpose_device_ms": sum(
+                             t for k, t in dev.items() if "transpose_kernel" in k),
+                         "prefill_matmul_device_ms": sum(
+                             t for k, t in dev.items() if "matmul_" in k),
+                         "greedy_tokens_equal_share_vs_8x1":
+                             (out[:, s:] == base_out[:, s:]).float().mean().item(),
+                         "sample_tokens": out[0, s:].tolist()})
+            top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+            print(f"[tpf-serve] {cfg.name} mcast prefill, top device time (ms): "
+                  + json.dumps({k[:60]: t for k, t in top}), flush=True)
+            del out
+        mrow["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        row["modes"][mode] = mrow
+        print(f"[tpf-serve] {cfg.name} {mode}: " + json.dumps(mrow), flush=True)
+        del logits
+    row.update(max_abs_logit_diff_vs_8x1=(ref.float() - base_logits.float()).abs().max().item(),
+               argmax_equal_share_vs_8x1=(ref.argmax(-1) == base_logits.argmax(-1))
+               .float().mean().item())
+    print(f"[tpf-serve] {cfg.name}: prefill logits bitwise equal in every mode on {TPF_MESH}; "
+          f"against {TPF_BASE}: max abs logit diff {row['max_abs_logit_diff_vs_8x1']}, argmax "
+          f"equal share {row['argmax_equal_share_vs_8x1']}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def tpf_serve() -> dict[str, dict]:
+    """Phase 3i: deepseek-moe-16b (4 of 28 layers: 64 experts split 16 a tp
+    rank), rwkv6-7b (4 of 32: 16 WKV heads a tp rank), recurrentgemma-9b
+    (its 5-layer cut: the LRU width 1,024 a tp rank, 4 of its 16 heads over
+    one kv head) and whisper-base (6 + 6 layers: 2 of its 8 heads a tp
+    rank; 512 frames + 512 tokens) at full width through
+    ``_tpf_serve_one``. Returns each arch's row."""
+    return {arch: _tpf_serve_one(arch) for arch in TPF_ARCHS}
+
+
+def tpf_train() -> dict[str, dict]:
+    """Phase 4i: deepseek-moe-16b and rwkv6-7b at 2 layers,
+    recurrentgemma-9b at 5 and whisper-base whole, full width, batch
+    TRAIN_SHAPE (16 x 512; recurrentgemma-9b 8 x 512, ``TPF_TRAIN_SHAPE``),
+    on TPF_MESH, through ``_train_model``, every
+    step launching ``_tpf_want``'s counts; the first-step loss bitwise
+    equal in every mode."""
+    rows = {}
+    for arch in TPF_ARCHS:
+        cfg, shape = _tpf_cfg(arch, train=True), TPF_TRAIN_SHAPE.get(arch, TRAIN_SHAPE)
+        per = tpf_launches(cfg, TPF_MESH, "mcast", "train", shape.seq_len)
+        rows[arch] = _train_model(
+            "tpf-train", cfg, TPF_MESH, shape, per, TPF_TRAIN_TIMED,
+            want=lambda mode, cfg=cfg, s=shape.seq_len: _tpf_want(cfg, TPF_MESH, mode, "train",
+                                                                   seq=s))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5553,8 +6078,11 @@ def main() -> int:
         for m, head_m in ((40, 1), (1, None)):
             for case, n in subq_matmul_cases(small, 8, m, train=False, head_m=head_m).items():
                 path_cases[case[:-1] + (torch.float32,)] = n
-    # phases 3h and 4h: phi-3-vision-4.2b, whisper-base and moonshot-v1-16b-a3b
+    # phases 3h and 4h: phi-3-vision-4.2b, whisper-base and moonshot-v1-16b-a3b;
+    # phases 3i and 4i: the MoE, rwkv, hybrid and encdec on (data=2, model=4)
     for case, n in fam_path_cases().items():
+        path_cases[case] = path_cases.get(case, 0) + n
+    for case, n in tpf_path_cases().items():
         path_cases[case] = path_cases.get(case, 0) + n
     t0 = time.perf_counter()
     mm_err = check_matmul(path_cases)
@@ -5696,22 +6224,45 @@ def main() -> int:
     print(f"[tp-train] phase 4f: launches {json.dumps(tp_train_counts)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    err = check_tpf_small_reference()
+    print(f"[reference] reduced f32 MoE, rwkv, hybrid and whisper on {TPF_MESH} on the card vs "
+          f"the CPU: max abs logit diff {err}, greedy tokens equal "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()   # counts from here to the read are the model axis's families' serving
+    with shapes:
+        tpf_serve()
+    tpf_serve_counts = _counts()
+    print(f"[tpf-serve] phase 3i: launches {json.dumps(tpf_serve_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()   # counts from here to the read are the model axis's families' training
+    with shapes:
+        tpf_train()
+    tpf_train_counts = _counts()
+    print(f"[tpf-train] phase 4i: launches {json.dumps(tpf_train_counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     shape_cases, shape_err = check_call_shapes(shapes)
     ag_err, agt_err = max(ag_err, shape_err), max(agt_err, shape_err)
     print(f"[kernel] ring_allgather and its transpose == plain at every call shape of phases "
-          f"3h, 3f and 4f: {len(shapes.shapes['ring_allgather'])} gather and "
+          f"3h, 3f, 4f, 3i and 4i: {len(shapes.shapes['ring_allgather'])} gather and "
           f"{len(shapes.shapes['ring_allgather_transpose'])} transpose shapes, {shape_cases} "
           f"calls, max abs err {shape_err} ({time.perf_counter() - t0:.1f} s)", flush=True)
     for name in MODEL_KERNELS:
         if tp_serve_counts[name] == 0 or tp_train_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the model axis's paths")
+        if tpf_serve_counts[name] == 0 or tpf_train_counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the model axis's MoE, rwkv, "
+                                 "hybrid and encdec paths")
     for name in MODEL_KERNELS:
         launches[name] = (serve_counts[name] + train_counts[name] + option_counts[name]
                           + ckpt_counts[name] + moe_serve_counts[name] + moe_train_counts[name]
                           + dense_serve_counts[name] + dense_train_counts[name]
                           + tp_serve_counts[name] + tp_train_counts[name]
                           + subq_serve_counts[name] + subq_train_counts[name]
-                          + fam_serve_counts[name] + fam_train_counts[name])
+                          + fam_serve_counts[name] + fam_train_counts[name]
+                          + tpf_serve_counts[name] + tpf_train_counts[name])
         if train_counts[name] == 0 or option_counts[name] == 0 or ckpt_counts[name] == 0:
             raise AssertionError(f"{name} was not launched on the training path")
         if moe_train_counts[name] == 0:
@@ -5728,8 +6279,13 @@ def main() -> int:
     launches["matmul"] += (moe_serve_counts["matmul_f32"] + moe_train_counts["matmul_f32"]
                            + dense_serve_counts["matmul_wmma"] + dense_train_counts["matmul_wmma"]
                            + subq_serve_counts["matmul_f32"] + subq_train_counts["matmul_f32"]
-                           + sum(c[k] for c in (fam_serve_counts, fam_train_counts)
+                           + sum(c[k] for c in (fam_serve_counts, fam_train_counts,
+                                                 tpf_serve_counts, tpf_train_counts)
                                  for k in ("matmul_wmma", "matmul_f32")))
+    if any(c[k] == 0 for c in (tpf_serve_counts, tpf_train_counts)
+           for k in ("matmul_wmma", "matmul_f32")):
+        raise AssertionError(f"the wmma or f32 matmul was not launched on phases 3i and 4i: "
+                             f"{tpf_serve_counts}, {tpf_train_counts}")
     if any(fam_serve_counts[k] == 0 for k in ("ring_allgather", "ring_allgather_transpose",
                                               "matmul", "matmul_wmma", "matmul_f32")):
         raise AssertionError(f"a kernel was not launched on the last three archs' serving "

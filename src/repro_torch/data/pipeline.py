@@ -4,15 +4,18 @@
 A reproducible token stream per (seed, step): the reference's numpy stream,
 so the batches hold the same token ids as the reference's; the ``vlm``
 targets are -1 over the patches. The stub frontends' frames and patches
-are N(0, 1) x 0.02, drawn in float32 from the reference's key,
-``SeedSequence([seed, step, hash(name) & 0xFFFF])``: Python salts a str's
-hash per process, so they equal the reference's within one process only
-(not across restarts). The step index is the only state. ``next_batch``
+are N(0, 1) x 0.02, drawn in float32 as the reference draws them, from
+``SeedSequence([seed, step, key])``, but with a stable key,
+``zlib.crc32(name) & 0xFFFF``, where the reference takes ``hash(name) &
+0xFFFF``: Python salts a str's hash per process, so the reference's frames
+and patches change from one process to the next. The step index is the
+only state. ``next_batch``
 returns int64 ids, and the frames and patches in the compute dtype, on the
 run's device.
 """
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +32,11 @@ class DataConfig:
     seed: int = 1234
     # markov-ish structure so the loss has signal to descend on
     n_states: int = 64
+
+
+def frame_key(name: str) -> int:
+    """The stable 16-bit key of a frames or patches draw."""
+    return zlib.crc32(name.encode()) & 0xFFFF
 
 
 class SyntheticPipeline:
@@ -68,8 +76,10 @@ class SyntheticPipeline:
             return out if len(shp) > 1 else out[:, 0]
         if name == "pos":
             return np.zeros(shp, np.int32)
+        # the reference keys on hash(name) (src/repro/data/pipeline.py:69),
+        # which Python salts per process; crc32 gives every process one draw
         rng = np.random.default_rng(
-            np.random.SeedSequence([self.data.seed, step, hash(name) & 0xFFFF]))
+            np.random.SeedSequence([self.data.seed, step, frame_key(name)]))
         return (rng.standard_normal(shp) * 0.02).astype(np.float32)
 
     def next_batch(self, step: int) -> dict[str, torch.Tensor]:

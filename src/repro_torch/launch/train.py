@@ -26,9 +26,11 @@ and block), "dots" (all of it but the products' outputs) or "none".
 --mesh picks the stacked ranks: "local" is ``(data=8, model=1)`` (with
 --multi-pod ``(pod=2, data=4, model=1)``), "production" the reference's
 ``(data=16, model=16)`` (with --multi-pod ``(pod=2, data=16, model=16)``):
-256 or 512 ranks, the dense and vlm models tensor- and sequence-parallel
-over ``model`` (MoE, rwkv, hybrid and encdec run with model=1 only). A
-global batch that does not split over the dp ranks is replicated on each.
+256 or 512 ranks, every family tensor- and sequence-parallel over
+``model``: MoE's experts split over it (EP), rwkv's and attention's heads
+and the RG-LRU's width where they divide (whisper's 8 heads at tp = 16 run
+whole on every tp rank, as the reference places them). A global batch that
+does not split over the dp ranks is replicated on each.
 
 --smoke runs the reduced config of the arch (f32, two layers); --layers cuts
 the depth of the full-width one (the encdec's two stacks each to that

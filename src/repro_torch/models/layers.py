@@ -50,6 +50,27 @@ def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def ranked(w: torch.Tensor, r: int) -> torch.Tensor:
+    """A weight of W copies (W, ...), W dividing R, as every rank's (R, ...),
+    rank r reading copy r % W (a view where W is R or 1): the serving
+    layout's tp-split vectors, used element by element."""
+    wr = w.shape[0]
+    if wr == r:
+        return w
+    if wr == 1:
+        return w.expand(r, *w.shape[1:])
+    return w.unsqueeze(0).expand(r // wr, *w.shape).reshape(r, *w.shape[1:])
+
+
+def to_residual(y: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
+    """A block's output (R, B, S, D) -> the residual stream's placement on
+    ``model``: partial sums reduce-scattered to each rank's sequence chunk
+    (``sp``) or all-reduced; a whole value chunked or kept. At tp = 1, y."""
+    if partial:
+        return TP.reduce_scatter(y, 2) if sp else TP.all_reduce(y)
+    return TP.chunk(y, 2) if sp else y
+
+
 # ---------------------------------------------------------------- norms / act
 
 
@@ -90,8 +111,14 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
 def mlp_partial(p: Params, cfg: ModelConfig) -> bool:
     """Whether ``mlp_apply`` gives partial sums over ``model``: its output
     matrix keeps a split of the hidden units."""
-    w = p["w_down"] if "w_down" in p else p["w_out"]
-    return w.shape[-2] < cfg.d_ff
+    return partial_sums(p["w_down"] if "w_down" in p else p["w_out"], cfg.d_ff)
+
+
+def partial_sums(w: torch.Tensor, width: int) -> bool:
+    """Whether a product with the output matrix w (R, k, n), whose k rows
+    are ``width`` whole, gives partial sums over ``model``: w keeps a split
+    of its rows."""
+    return w.shape[-2] < width
 
 
 # ----------------------------------------------------------------------- RoPE
@@ -144,30 +171,38 @@ def head_plan(cfg: ModelConfig) -> HeadPlan:
     return HeadPlan(q_split, kv_split, index)
 
 
-def _whole(w: torch.Tensor, cols: int, dim: int) -> torch.Tensor:
+def whole(w: torch.Tensor, cols: int, dim: int) -> torch.Tensor:
     """w with dim ``dim`` gathered over ``model`` where it is split there."""
     return w if w.shape[dim] == cols else TP.gather(w, dim)
 
 
-def qkv_split(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """x: (R, B, S, D) -> q (R,B,S,H,hd), k/v (R,B,S,KV,hd). On a physical
-    ``model`` axis (``head_plan``): q (R,B,S,H/tp,hd) where heads split, and
-    k/v (R,B,S,KV/tp,hd) where kv heads split too, else every kv head (their
-    weights gathered over ``model`` where the rules split them)."""
-    lead = x.shape[:-1]
+def q_heads(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (R, B, S, D) -> q (R, B, S, H, hd), on a physical ``model`` axis
+    each rank's H/tp heads where heads split (``head_plan``), else every
+    head (``wq`` gathered over ``model`` where the rules split it)."""
     hd = cfg.head_dim
-    if TP.size() == 1:
-        q = rank_matmul(x, p["wq"]).reshape(*lead, cfg.num_heads, hd)
-        k = rank_matmul(x, p["wk"]).reshape(*lead, cfg.num_kv_heads, hd)
-        v = rank_matmul(x, p["wv"]).reshape(*lead, cfg.num_kv_heads, hd)
-        return q, k, v
-    plan = head_plan(cfg)
-    wq = p["wq"] if plan.q_split else _whole(p["wq"], cfg.num_heads * hd, -1)
-    wk, wv = ((p["wk"], p["wv"]) if plan.kv_split else
-              (_whole(p[n], cfg.num_kv_heads * hd, -1) for n in ("wk", "wv")))
-    q = rank_matmul(x, wq)
-    k, v = rank_matmul(x, wk), rank_matmul(x, wv)
-    return (q.reshape(*lead, -1, hd), k.reshape(*lead, -1, hd), v.reshape(*lead, -1, hd))
+    wq = p["wq"]
+    if not head_plan(cfg).q_split:
+        wq = whole(wq, cfg.num_heads * hd, -1)
+    return rank_matmul(x, wq).reshape(*x.shape[:-1], -1, hd)
+
+
+def qkv_split(p: Params, x: torch.Tensor, cfg: ModelConfig, kv_x: torch.Tensor | None = None):
+    """x: (R, B, S, D) -> q (R,B,S,H,hd), k/v (R,B,S',KV,hd), k and v from
+    ``kv_x`` (R, B, S', D) where given (cross-attention), else from x. On a
+    physical ``model`` axis (``head_plan``): q (R,B,S,H/tp,hd) where heads
+    split, and k/v (R,B,S',KV/tp,hd) where kv heads split too, else every kv
+    head (their weights gathered over ``model`` where the rules split
+    them)."""
+    hd = cfg.head_dim
+    q = q_heads(p, x, cfg)
+    kv_x = x if kv_x is None else kv_x
+    wk, wv = p["wk"], p["wv"]
+    if not head_plan(cfg).kv_split:
+        wk, wv = (whole(w, cfg.num_kv_heads * hd, -1) for w in (wk, wv))
+    k = rank_matmul(kv_x, wk).reshape(*kv_x.shape[:-1], -1, hd)
+    v = rank_matmul(kv_x, wv).reshape(*kv_x.shape[:-1], -1, hd)
+    return q, k, v
 
 
 def local_kv(k: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -189,5 +224,5 @@ def out_proj(p: Params, attn_out: torch.Tensor, cfg: ModelConfig | None = None) 
     (``wo`` gathered over ``model`` where the rules split its rows)."""
     wo = p["wo"]
     if cfg is not None and TP.size() > 1 and not head_plan(cfg).q_split:
-        wo = _whole(wo, cfg.num_heads * cfg.head_dim, -2)
+        wo = whole(wo, cfg.num_heads * cfg.head_dim, -2)
     return rank_matmul(attn_out.flatten(-2), wo)

@@ -16,6 +16,15 @@ the three expert weights are taken into one (E, ...) tensor a layer
 (``_OwnBlocks``: one copy of 1/R of the gathered weight), so that each
 product is one launch of the matmul kernel batched over the experts.
 
+On a physical ``model`` axis (tp > 1) the rules split the expert dim over
+``model`` where it divides (EP, the reference's placement): a rank's
+gathered copy holds its tp rank's E/tp experts, and each of those is owned
+by one dp rank of that tp rank (``expert_blocks``). The tokens enter the
+routing whole, in the global (b, s) order (the block hands in the normed
+stream gathered over the sequence); the routed output is then every tp
+rank's, and the shared experts' are tensor-parallel partial sums; both go
+to the residual's placement (``layers.to_residual``).
+
 Every product of a gathered weight runs on the matmul kernel
 (``layers.rank_matmul``): the router (f32), ``w_gate``, ``w_up``,
 ``w_down`` and the shared experts. The dispatch, the combine and the
@@ -23,9 +32,6 @@ routing are plain torch ops, as the reference computes them in ``jnp``
 outside any Pallas kernel. The dispatch and the combine are gathers whose
 backwards are gathers too (``_Gather``): nothing is summed by atomics, so a
 forward and a backward give the same bits on every run.
-
-On a physical ``model`` axis (tp > 1) the reference splits the experts over
-``model`` (EP); the port does not yet, and raises (``check_tp``).
 """
 from __future__ import annotations
 
@@ -36,16 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
-from repro_torch.sharding import tp as TP
 from repro_torch.sharding.ctx import from_ranks, to_ranks
-
-
-def check_tp() -> None:
-    """MoE runs at tp = 1 only: EP over a physical ``model`` axis is queued."""
-    if TP.size() > 1:
-        raise NotImplementedError(
-            f"MoE on a physical model axis (tp = {TP.size()}) is not ported: EP over a "
-            "real `model` axis is ROADMAP.md §1 item 12; run MoE with model=1")
 
 
 def expert_owners(n_experts: int, n_ranks: int, device) -> torch.Tensor:
@@ -58,31 +55,51 @@ def expert_owners(n_experts: int, n_ranks: int, device) -> torch.Tensor:
     return torch.where(e < big, e // (per + 1), extra + (e - big) // max(per, 1))
 
 
+def expert_blocks(n_experts: int, w: torch.Tensor, n_ranks: int):
+    """(copy, slot), each (E,): where expert e's weights lie in an expert
+    leaf w (W, E', ...) of W copies (R gathered ones, or the serving
+    layout's tp copies). Experts not split over ``model`` (E' = E): slot e
+    of its owner's copy, the E experts split over the W copies
+    (``expert_owners``). Split over ``model`` (E' = E / tp): tp rank m =
+    e // E' holds it at slot e % E'; of R copies, its owner is the dp rank
+    d of that tp rank that ``expert_owners`` gives the slot (rank d * tp +
+    m); of tp copies, copy m."""
+    wr, el = w.shape[:2]
+    e = torch.arange(n_experts, device=w.device)
+    if el == n_experts:
+        return expert_owners(n_experts, wr, w.device), e
+    t = n_experts // el
+    m, slot = e // el, e % el
+    if wr == t:
+        return m, slot
+    return expert_owners(el, n_ranks // t, w.device)[slot] * t + m, slot
+
+
 class _OwnBlocks(torch.autograd.Function):
-    """w (R, E, ...) every rank's gathered copy -> (E, ...): expert e's block
-    of its owner's copy. The backward writes the cotangent into zeros laid
-    out as w is (the gathered copy's strides; contiguous where w is expanded),
-    so that the gather's transpose reads it without another copy; nothing of
-    w is kept."""
+    """w (W, E', ...) the experts' copies -> (E, ...): expert e's block,
+    w[copy[e], slot[e]] (``expert_blocks``). The backward writes the
+    cotangent into zeros laid out as w is (the gathered copy's strides;
+    contiguous where w is expanded), so that the gather's transpose reads it
+    without another copy; nothing of w is kept."""
 
     @staticmethod
-    def forward(ctx, w: torch.Tensor, owners: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, w: torch.Tensor, copy: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
         stride = w.stride() if 0 not in w.stride() else None
         ctx.layout = (w.shape, stride, w.dtype, w.device)
-        ctx.save_for_backward(owners)
-        return w[owners, torch.arange(w.shape[1], device=w.device)]
+        ctx.save_for_backward(copy, slot)
+        return w[copy, slot]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
-        (owners,) = ctx.saved_tensors
+        copy, slot = ctx.saved_tensors
         shape, stride, dtype, device = ctx.layout
         if stride is None:
             gw = torch.zeros(shape, dtype=dtype, device=device)
         else:
             gw = torch.empty_strided(shape, stride, dtype=dtype, device=device).zero_()
-        gw[owners, torch.arange(shape[1], device=device)] = g.to(dtype)
-        return gw, None
+        gw[copy, slot] = g.to(dtype)
+        return gw, None, None
 
 
 def _pad_row(t: torch.Tensor) -> torch.Tensor:
@@ -128,14 +145,17 @@ def _mean(t: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
     return t.sum(dims) * (1.0 / math.prod(t.shape[d] for d in dims))
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *, no_drop: bool = False):
-    """x (R, B, S, D), each rank's rows of the global batch; p one layer's
-    gathered MoE weights (R, *global) -> (out (R, B, S, D), aux metrics).
-    Reference: ``src/repro/models/moe.py:53``.
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *, no_drop: bool = False,
+              sp: bool = False):
+    """x (R, B, S, D), each rank's rows of the global batch (on a physical
+    ``model`` axis every position on every tp rank); p one layer's gathered
+    MoE weights (R, *global with the ``model`` split) -> (out, aux
+    metrics): out (R, B, S, D), at tp > 1 placed on the residual stream,
+    each rank's sequence chunk (R, B, S / tp, D) where ``sp``, else every
+    position. Reference: ``src/repro/models/moe.py:53``.
 
     ``no_drop=True`` (decode path): capacity = T so routing never drops —
     single-token decode must be exact, not capacity-truncated."""
-    check_tp()
     m = cfg.moe
     r, d = x.shape[0], x.shape[-1]
     e, k = m.n_routed_experts, m.top_k
@@ -185,10 +205,9 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *, no_drop: bool = False):
     slot_tok = torch.div(slot_choice, k, rounding_mode="floor")    # t for an empty slot
 
     xs = _Gather.apply(xt, slot_tok, 1, choice_slot, k).reshape(e, cap, d)
-    owners = expert_owners(e, r, x.device)
-    w_gate = _OwnBlocks.apply(p["w_gate"], owners)
-    w_up = _OwnBlocks.apply(p["w_up"], owners)
-    w_down = _OwnBlocks.apply(p["w_down"], owners)
+    copy, slot = expert_blocks(e, p["w_gate"], r)
+    w_gate, w_up, w_down = (_OwnBlocks.apply(p[n], copy, slot)
+                            for n in ("w_gate", "w_up", "w_down"))
     h = F.silu(layers.rank_matmul(xs, w_gate)) * layers.rank_matmul(xs, w_up)
     ys = layers.rank_matmul(h, w_down).reshape(n_slots, d)
     slot_gate = _Gather.apply(gates.reshape(n_choices), slot_choice, 1, choice_slot, 1)
@@ -196,8 +215,11 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *, no_drop: bool = False):
     out = _Gather.apply(ys, choice_slot, k, slot_tok, 1)          # (T, D), no atomics
     out = to_ranks(out.reshape(-1, *x.shape[2:]), r)
 
+    out = layers.to_residual(out, False, sp)
     if m.n_shared_experts:
-        out = out + layers.mlp_apply(p["shared"], x, "swiglu")
+        sh = p["shared"]
+        partial = layers.partial_sums(sh["w_down"], m.d_ff_expert * m.n_shared_experts)
+        out = out + layers.to_residual(layers.mlp_apply(sh, x, "swiglu"), partial, sp)
 
     # aux losses (Switch-style load balance + router z-loss)
     frac_tokens = _mean(F.one_hot(expert_idx, e).float(), (0, 1))

@@ -14,6 +14,14 @@ Decode is one step: the state is h (B, lru_width) and the conv's tail.
 The block works per rank: activations (R, B, S, .), every weight the
 rank's gathered copy (R, *global shape), each projection on the matmul
 kernel (``layers.rank_matmul``; the gates' in f32, on its f32 path).
+
+On a physical ``model`` axis (tp > 1) the LRU width W splits over it where
+it divides (``width_split``): ``w_gate_in`` and ``w_rec_in`` give each rank
+its W / tp channels, on which the conv and the scan run as they are (both
+per channel); the two gates (W, W) split their fan-out, so their input,
+the whole post-conv W, is gathered over ``model`` first; ``w_out`` sums
+partial products over it. The block takes the stream's sequence chunk
+where the context runs it sequence-parallel (``sp``).
 """
 from __future__ import annotations
 
@@ -22,8 +30,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.sharding import tp as TP
 
 RGLRU_C = 8.0
+
+
+def width_split(cfg: ModelConfig) -> bool:
+    """Whether the LRU width splits over a physical ``model`` axis."""
+    return TP.size() > 1 and cfg.rglru.lru_width % TP.size() == 0
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None):
@@ -71,15 +85,18 @@ def rec_block_param_count(cfg: ModelConfig) -> int:
 
 
 def rglru_apply(p, x: torch.Tensor, h0=None):
-    """The RG-LRU. x (R, B, S, W) after the conv; gates in f32. Returns (y,
-    h_last (R, B, W) f32)."""
+    """The RG-LRU. x (R, B, S, W') after the conv, W' each rank's channels
+    on a physical ``model`` axis (gathered whole over it for the gates);
+    gates in f32. Returns (y, h_last (R, B, W') f32)."""
+    n = x.shape[0]
     x32 = x.float()
+    gate_in = x32 if x.shape[-1] == p["lru_a_gate"].shape[-2] else TP.gather(x, -1).float()
 
     def vec(name):
-        return p[name][:, None, None, :]                    # (R, 1, 1, W) f32
+        return layers.ranked(p[name], n)[:, None, None, :]     # (R, 1, 1, W') f32
 
-    r = torch.sigmoid(layers.rank_matmul(x32, p["lru_a_gate"]) + vec("lru_a_bias"))
-    i = torch.sigmoid(layers.rank_matmul(x32, p["lru_x_gate"]) + vec("lru_x_bias"))
+    r = torch.sigmoid(layers.rank_matmul(gate_in, p["lru_a_gate"]) + vec("lru_a_bias"))
+    i = torch.sigmoid(layers.rank_matmul(gate_in, p["lru_x_gate"]) + vec("lru_x_bias"))
     log_a = -RGLRU_C * F.softplus(vec("lru_lam")) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * x32)
@@ -87,16 +104,21 @@ def rglru_apply(p, x: torch.Tensor, h0=None):
     return h.to(x.dtype), h_last
 
 
-def rec_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, state=None):
-    """Griffin's recurrent block. x (R, B, S, D); state None or {h (R, B, W)
-    f32, conv (R, B, K - 1, W)}. Returns (x, new state). Reference
-    ``rglru.py:101``."""
+def rec_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, state=None, sp: bool = False):
+    """Griffin's recurrent block. x (R, B, S, D), on a physical ``model``
+    axis (R, B, S / tp, D) where ``sp``; state None or {h (R, B, W') f32,
+    conv (R, B, K - 1, W')}, W' each rank's channels (``width_split``).
+    Returns (x, new state). Reference ``rglru.py:101``."""
+    r = x.shape[0]
     h = layers.rms_norm(x, p["ln"], 1e-6)
+    if sp:
+        h = TP.gather(h, 2)
     gate = layers.activation("gelu", layers.rank_matmul(h, p["w_gate_in"]))
     rec = layers.rank_matmul(h, p["w_rec_in"])
     tail = None if state is None else state["conv"]
-    rec, new_tail = causal_conv1d(rec, p["conv_w"], p["conv_b"], tail)
+    rec, new_tail = causal_conv1d(rec, layers.ranked(p["conv_w"], r),
+                                  layers.ranked(p["conv_b"], r), tail)
     h0 = None if state is None else state["h"]
     rec, h_last = rglru_apply(p, rec, h0)
     out = layers.rank_matmul(gate * rec, p["w_out"])
-    return x + out, {"h": h_last, "conv": new_tail}
+    return x + layers.to_residual(out, width_split(cfg), sp), {"h": h_last, "conv": new_tail}

@@ -14,6 +14,19 @@ The block works per rank, as the dense one does: activations (R, B, S, D),
 every weight the rank's gathered copy (R, *global shape), each projection
 on the matmul kernel (``layers.rank_matmul``). The WKV runs over the R * B
 rows of the global batch, each row with its rank's bonus ``u``.
+
+On a physical ``model`` axis (tp > 1) the heads split over it where they
+divide (``heads_split``): ``wr``, ``wk``, ``wv`` and ``wg`` give each rank
+its H / tp heads, on which the WKV runs as it is; the token-shift and decay
+LoRAs are split over dp only, so they run whole and the rank takes its
+chunk of the decay (``sharding/tp.chunk``), as of the bonus and the
+group norm's scale and bias; ``wo`` sums partial products over ``model``.
+The channel mix splits d_ff (``cm_wk``, ``cm_wv`` partial sums) and, by
+the rules, ``cm_wr``'s output d_model: the value is reduce-scattered on
+d_model before the receptance multiplies it chunk by chunk, and the
+product gathered back. The block takes the stream's sequence chunk where
+the context runs it sequence-parallel (``sp``), gathering the normed
+stream before each mix.
 """
 from __future__ import annotations
 
@@ -22,6 +35,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.sharding import tp as TP
+
+
+def heads_split(cfg: ModelConfig) -> bool:
+    """Whether the time mix's heads split over a physical ``model`` axis
+    (else its four input matrices and ``wo`` are gathered over it whole)."""
+    return TP.size() > 1 and cfg.num_heads % TP.size() == 0
+
 
 def _shift(x: torch.Tensor, prev: torch.Tensor | None = None) -> torch.Tensor:
     """Token shift along the sequence: y_t = x_{t-1}; y_0 = prev (or zeros).
@@ -144,18 +165,31 @@ def _group_norm_heads(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.
 
 def time_mix_apply(p, x: torch.Tensor, cfg: ModelConfig, *, x_prev=None, state=None,
                    chunked: bool = True):
-    """RWKV6 time mix. x (R, B, S, D); state (R, B, H, K, V) f32 or None.
-    Returns (out (R, B, S, D), new state (R, B, H, K, V), last x (R, B, D))."""
+    """RWKV6 time mix. x (R, B, S, D), every position on every tp rank;
+    state (R, B, H', K, V) f32 or None. Returns (out (R, B, S, D), partial
+    sums over ``model`` where the heads split; new state (R, B, H', K, V);
+    last x (R, B, D)), H' each rank's heads (``heads_split``) or H."""
     rk, b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd, d = cfg.head_dim, cfg.d_model
     dt = x.dtype
+    split = heads_split(cfg)
+
+    def w(name, dim=-1):   # gathered over ``model`` where the heads do not split
+        m = p[name]
+        return m if split else layers.whole(m, d, dim)
+
     xr, xk, xv, xw, xg = _time_mix_inputs(p, x, x_prev, cfg)
-    r = layers.rank_matmul(xr, p["wr"])
-    k = layers.rank_matmul(xk, p["wk"])
-    v = layers.rank_matmul(xv, p["wv"])
-    g = F.silu(layers.rank_matmul(xg, p["wg"]))
+    r = layers.rank_matmul(xr, w("wr"))
+    k = layers.rank_matmul(xk, w("wk"))
+    v = layers.rank_matmul(xv, w("wv"))
+    g = F.silu(layers.rank_matmul(xg, w("wg")))
     lw = _decay(p, xw)
-    u = p["bonus"].float()[:, None].expand(rk, b, h, hd).reshape(rk * b, h, hd)
+    bonus, scale, bias = p["bonus"], p["ln_x_scale"], p["ln_x_bias"]
+    if split:   # each rank's heads and channels of the whole-width values
+        lw, bonus, scale, bias = (TP.chunk(lw, -1), TP.chunk(bonus, 1), TP.chunk(scale, 1),
+                                  TP.chunk(bias, 1))
+    h = bonus.shape[1]
+    u = bonus.float()[:, None].expand(rk, b, h, hd).reshape(rk * b, h, hd)
 
     def rows(t):
         return t.float().reshape(rk * b, s, h, hd)
@@ -169,13 +203,18 @@ def time_mix_apply(p, x: torch.Tensor, cfg: ModelConfig, *, x_prev=None, state=N
     else:
         s0 = None if state is None else state.reshape(rk * b, h, hd, hd)
         o, new = wkv_recurrent(rows(r), rows(k), rows(v), rows(lw), u, s0)
-    o = _group_norm_heads(o.reshape(rk, b, s, h, hd), p["ln_x_scale"], p["ln_x_bias"]).to(dt)
-    out = layers.rank_matmul(o * g.to(dt), p["wo"])
+    o = _group_norm_heads(o.reshape(rk, b, s, h, hd), scale, bias).to(dt)
+    out = layers.rank_matmul(o * g.to(dt), w("wo", -2))
     return out.to(dt), new.reshape(rk, b, h, hd, hd), x[:, :, -1]
 
 
-def channel_mix_apply(p, x: torch.Tensor, *, x_prev=None):
-    """RWKV channel mix (squared ReLU). Returns (out, last x)."""
+def channel_mix_apply(p, x: torch.Tensor, cfg: ModelConfig, *, x_prev=None, sp: bool = False):
+    """RWKV channel mix (squared ReLU). x every position on every tp rank.
+    Returns (out, last x): out on the residual stream, each rank's
+    sequence chunk where ``sp``. On a physical ``model`` axis the value's
+    partial sums are reduce-scattered on d_model (``cm_wr`` splits its
+    output d_model), multiplied by the receptance's chunk, and the product
+    gathered on d_model."""
     dt = x.dtype
     sx = _shift(x, x_prev) - x
     xk = x + sx * _per_rank(p["cm_mu_k"].to(dt), x.dim())
@@ -183,22 +222,35 @@ def channel_mix_apply(p, x: torch.Tensor, *, x_prev=None):
     kk = torch.square(F.relu(layers.rank_matmul(xk, p["cm_wk"])))
     vv = layers.rank_matmul(kk, p["cm_wv"])
     rr = torch.sigmoid(layers.rank_matmul(xr, p["cm_wr"]))
-    return rr * vv, x[:, :, -1]
+    r_split = rr.shape[-1] < x.shape[-1]
+    if layers.partial_sums(p["cm_wv"], cfg.d_ff):
+        vv = TP.reduce_scatter(vv, -1) if r_split else TP.all_reduce(vv)
+    elif r_split:
+        vv = TP.chunk(vv, -1)
+    out = rr * vv
+    if r_split:
+        out = TP.gather(out, -1)
+    return layers.to_residual(out, False, sp), x[:, :, -1]
 
 
 def rwkv_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
-                     chunked: bool = True):
-    """One RWKV6 block. x (R, B, S, D); state None or {wkv (R, B, H, K, V),
-    tm_x (R, B, D), cm_x (R, B, D)}. Returns (x, new state). Reference
+                     chunked: bool = True, sp: bool = False):
+    """One RWKV6 block. x (R, B, S, D), on a physical ``model`` axis (R, B,
+    S / tp, D) where ``sp``; state None or {wkv (R, B, H', K, V), tm_x (R,
+    B, D), cm_x (R, B, D)}. Returns (x, new state). Reference
     ``rwkv.py:225``."""
     st_wkv = None if state is None else state["wkv"]
     tm_prev = None if state is None else state["tm_x"]
     cm_prev = None if state is None else state["cm_x"]
     h = layers.rms_norm(x, p["ln1"], 1e-5)
+    if sp:
+        h = TP.gather(h, 2)
     att, new_wkv, tm_x = time_mix_apply(p, h, cfg, x_prev=tm_prev, state=st_wkv,
                                         chunked=chunked)
-    x = x + att.to(x.dtype)
+    x = x + layers.to_residual(att.to(x.dtype), heads_split(cfg), sp)
     h2 = layers.rms_norm(x, p["ln2"], 1e-5)
-    ff, cm_x = channel_mix_apply(p, h2, x_prev=cm_prev)
+    if sp:
+        h2 = TP.gather(h2, 2)
+    ff, cm_x = channel_mix_apply(p, h2, cfg, x_prev=cm_prev, sp=sp)
     x = x + ff.to(x.dtype)
     return x, {"wkv": new_wkv, "tm_x": tm_x.to(x.dtype), "cm_x": cm_x.to(x.dtype)}

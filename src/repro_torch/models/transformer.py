@@ -24,7 +24,10 @@ sequence chunks (#1b), or all-reduced where the sequence does not split
 (decode). The embedding and the head are split over the vocabulary. Decode
 with the cache's sequence split over ``model`` goes through
 flash-decoding; the cache stays the global tensor, each rank reading and
-writing its view (``cache_view``).
+writing its view (``cache_view``). The MoE's experts split over ``model``
+(``moe.py``); the rwkv and hybrid blocks split their heads and the LRU
+width (``rwkv.py``, ``rglru.py``), their recurrent states each rank's
+chunk of the global cache (``rank_chunks``, ``join_ranks``).
 """
 from __future__ import annotations
 
@@ -68,23 +71,42 @@ def layer_slice(blocks: Params, i: int) -> Params:
 
 def keeps_tp(cfg: ModelConfig, path: tuple) -> bool:
     """Whether the model code uses the leaf at ``path`` as its ``model``
-    split: every leaf but an attention weight whose split does not fall on
-    whole heads (``layers.head_plan``), which it gathers over ``model``."""
+    split: every leaf but an attention weight (or an rwkv time-mix matrix)
+    whose split does not fall on whole heads (``layers.head_plan``), which
+    it gathers over ``model``."""
     plan = layers.head_plan(cfg)
-    if path[-1] in ("wq", "wo"):
+    if path[-1] in ("wq", "wo", "wr", "wg"):
         return plan.q_split
     if path[-1] in ("wk", "wv"):
         return plan.kv_split
     return True
 
 
-def to_residual(y: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
-    """A block's output (R, B, S, D) -> the residual stream's placement on
-    ``model``: partial sums reduce-scattered to each rank's sequence chunk
-    (``sp``) or all-reduced; a whole value chunked or kept."""
-    if partial:
-        return TP.reduce_scatter(y, 2) if sp else TP.all_reduce(y)
-    return TP.chunk(y, 2) if sp else y
+def join_ranks(t: torch.Tensor, dim: int, whole: int) -> torch.Tensor:
+    """A per-rank value (R, B, ...) whose dim ``dim`` each tp rank holds as
+    its chunk, or whole where its size is ``whole``, -> the global (B_g,
+    ...): the tp ranks' chunks joined in rank order (tp rank 0's where
+    whole), the dp ranks' rows rank-major (rank 0's where the batch is
+    replicated)."""
+    if TP.size() == 1 or t.shape[dim] == whole:
+        return from_ranks(t)
+    g = TP.groups(t)                                   # (dp, tp, B, ..., X/tp, ...)
+    if not get_ctx().shard_batch:
+        g = g[:1]
+    g = g.movedim(1, dim).flatten(dim, dim + 1)
+    return g.flatten(0, 1)
+
+
+def rank_chunks(c: torch.Tensor, r: int, dim: int, split: bool) -> torch.Tensor:
+    """The inverse of ``join_ranks``: a global (B_g, ...) -> every rank's
+    (R, B, ...), its dp rank's rows and, where ``split``, its tp rank's
+    chunk of dim ``dim`` (of the per-rank tensor); a copy where split."""
+    if not split or TP.size() == 1:
+        return to_ranks(c, r)
+    t = TP.size()
+    g = r // t if get_ctx().shard_batch else 1
+    v = c.unflatten(0, (g, c.shape[0] // g)).unflatten(dim, (t, -1)).movedim(dim, 1)
+    return v.expand(r // t, *v.shape[1:]).reshape(r, *v.shape[2:])
 
 
 # ------------------------------------------------------------------ dense block
@@ -125,36 +147,51 @@ def dense_block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_k
     return x, aux, kv
 
 
-def _dense_block_tp(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_kv: bool):
-    """``dense_block_apply`` tensor- and sequence-parallel over ``model``."""
-    if cfg.family == "moe":
-        moe.check_tp()
-    r, b = x.shape[:2]
-    sp = x.shape[2] != positions.shape[-1]   # the stream holds its sequence chunk
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if sp:
-        h = TP.gather(h, 2)
-    q, k, v = layers.qkv_split(p["attn"], h, cfg)
-    q = apply_positions(q, positions, cfg)
-    k = apply_positions(k, positions, cfg)
+def attention_tp(p, h: torch.Tensor, cfg: ModelConfig, positions, *, causal: bool = True,
+                 window=None, softcap=None, kv_h: torch.Tensor | None = None):
+    """Attention over ``model`` (``layers.head_plan``): h (R, B, S, D), every
+    position on every tp rank (k and v from ``kv_h`` where given:
+    cross-attention) -> (y (R, B, S, D), k, v (R, B, S', KV', hd)): y the
+    output projection's partial sums where heads split, else whole; k and v
+    each rank's kv heads, or every kv head. At tp = 1 the plain block's
+    attention."""
+    r, b = h.shape[:2]
+    q, k, v = layers.qkv_split(p, h, cfg, kv_h)
+    if positions is not None:
+        q = apply_positions(q, positions, cfg)
+        k = apply_positions(k, positions, cfg)
     o = attn.blockwise_attention(
         q.flatten(0, 1), layers.local_kv(k, cfg).flatten(0, 1),
         layers.local_kv(v, cfg).flatten(0, 1),
-        causal=True,
-        window=cfg.attn_window,
-        q_block=cfg.attn_q_block,
-        kv_block=cfg.attn_kv_block,
-        softcap=cfg.attn_logit_softcap,
-    )
-    y = layers.out_proj(p["attn"], o.unflatten(0, (r, b)), cfg)
-    x = x + to_residual(y, layers.head_plan(cfg).q_split, sp)
-    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if sp:
-        h2 = TP.gather(h2, 2)
-    ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))
-    x = x + to_residual(ff, layers.mlp_partial(p["mlp"], cfg), sp)
+        causal=causal, window=window, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
+        softcap=softcap)
+    return layers.out_proj(p, o.unflatten(0, (r, b)), cfg), k, v
+
+
+def whole_input(h: torch.Tensor, sp: bool) -> torch.Tensor:
+    """A normed stream (R, B, S', D) with every position: gathered over
+    ``model`` where it holds its sequence chunk (``sp``)."""
+    return TP.gather(h, 2) if sp else h
+
+
+def _dense_block_tp(p, x: torch.Tensor, cfg: ModelConfig, *, positions, want_kv: bool):
+    """``dense_block_apply`` tensor- and sequence-parallel over ``model``;
+    MoE's experts split over it (``moe.moe_apply``)."""
+    sp = x.shape[2] != positions.shape[-1]   # the stream holds its sequence chunk
+    h = whole_input(layers.rms_norm(x, p["ln1"], cfg.norm_eps), sp)
+    y, k, v = attention_tp(p["attn"], h, cfg, positions, window=cfg.attn_window,
+                           softcap=cfg.attn_logit_softcap)
+    x = x + layers.to_residual(y, layers.head_plan(cfg).q_split, sp)
+    h2 = whole_input(layers.rms_norm(x, p["ln2"], cfg.norm_eps), sp)
+    aux = {}
+    if cfg.family == "moe":
+        ff, aux = moe.moe_apply(p["moe"], h2, cfg, sp=sp)
+        x = x + ff
+    else:
+        ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))
+        x = x + layers.to_residual(ff, layers.mlp_partial(p["mlp"], cfg), sp)
     kv = (k.transpose(2, 3), v.transpose(2, 3)) if want_kv else None  # (R,B,KV',S,hd)
-    return x, {}, kv
+    return x, aux, kv
 
 
 def _mlp_act(cfg: ModelConfig) -> str:
@@ -237,17 +274,56 @@ def _decode_attention_tp(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torc
     return attn.flash_decode_attention(qg, *kv, pg, **kw).reshape(q.shape)
 
 
+def _decode_heads(p, h: torch.Tensor, cfg: ModelConfig, pos):
+    """One decode step's q, k and v: h (R, B, 1, D) the normed stream, every
+    tp rank the whole, at pos (R, B) -> q1 (R, B, H, hd), k1 and v1 (R, B,
+    KV, hd), every head on every tp rank (each rank's heads gathered over
+    ``model`` where they split)."""
+    q, k, v = layers.qkv_split(p, h, cfg)
+    q = apply_positions(q, pos[..., None], cfg)
+    k = apply_positions(k, pos[..., None], cfg)
+    q1, k1, v1 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+    plan = layers.head_plan(cfg)
+    if plan.q_split:
+        q1 = TP.gather(q1, 2)
+    if plan.kv_split:
+        k1, v1 = TP.gather(k1, 2), TP.gather(v1, 2)
+    return q1, k1, v1
+
+
+def heads_out(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A decode step's attention output o (R, B, H, hd), every head on every
+    tp rank -> each rank's heads through ``wo`` (where heads split) and the
+    output on the residual, (R, B, D): all-reduced where heads split."""
+    plan = layers.head_plan(cfg)
+    if plan.q_split:
+        o = TP.chunk(o, 2)   # each tp rank's heads into wo's rows
+    y = layers.out_proj(p, o[:, :, None], cfg)[:, :, 0]
+    return layers.to_residual(y, plan.q_split, False)
+
+
+def decode_attention_tp(p, h: torch.Tensor, cfg: ModelConfig, cache: dict, pos) -> torch.Tensor:
+    """One decode step's attention over ``model``: h (R, B, 1, D) the normed
+    stream, every tp rank the whole; ``cache`` one layer's {"k", "v"} (and
+    int8 scales), written at pos (R, B) (``_write_cache``) and attended with
+    every head (flash-decoding where the cache's sequence splits). Returns
+    the output on the residual, (R, B, D) (``heads_out``)."""
+    q1, k1, v1 = _decode_heads(p, h, cfg, pos)
+    kc, vc = _write_cache(cache, k1, v1, pos)
+    return heads_out(p, _decode_attention_tp(q1, kc, vc, pos, cfg), cfg)
+
+
 def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos):
     """Decode path. x (R, B, D); ``cache`` one layer's {"k", "v"} (global
     batch, KV, S, hd), with {"ks", "vs"} (.., S, 1) f32 scales where it is
     int8, updated in place; pos (R, B). Returns x. MoE routes without drops
     (reference ``transformer.py:97``)."""
     h = layers.rms_norm(x[:, :, None], p["ln1"], cfg.norm_eps)   # (R,B,1,D)
-    q, k, v = layers.qkv_split(p["attn"], h, cfg)
-    q = apply_positions(q, pos[..., None], cfg)
-    k = apply_positions(k, pos[..., None], cfg)
-    q1, k1, v1 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
     if TP.size() == 1:
+        q, k, v = layers.qkv_split(p["attn"], h, cfg)
+        q = apply_positions(q, pos[..., None], cfg)
+        k = apply_positions(k, pos[..., None], cfg)
+        q1, k1, v1 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
         if "ks" in cache:
             kc, vc = _write_cache(cache, k1, v1, pos)
         else:
@@ -257,27 +333,13 @@ def dense_block_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos):
         o = _decode_attention(q1, kc, vc, pos, cfg)
         x = x + layers.out_proj(p["attn"], o[:, :, None])[:, :, 0]
     else:
-        if cfg.family == "moe":
-            moe.check_tp()
-        plan = layers.head_plan(cfg)
-        if plan.q_split:
-            q1 = TP.gather(q1, 2)
-        if plan.kv_split:
-            k1, v1 = TP.gather(k1, 2), TP.gather(v1, 2)
-        kc, vc = _write_cache(cache, k1, v1, pos)
-        o = _decode_attention_tp(q1, kc, vc, pos, cfg)
-        if plan.q_split:
-            o = TP.chunk(o, 2)   # each tp rank's heads into wo's rows
-        y = layers.out_proj(p["attn"], o[:, :, None], cfg)[:, :, 0]
-        x = x + to_residual(y, plan.q_split, False)
+        x = x + decode_attention_tp(p["attn"], h, cfg, cache, pos)
     h2 = layers.rms_norm(x[:, :, None], p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         ff, _ = moe.moe_apply(p["moe"], h2, cfg, no_drop=True)
         return x + ff[:, :, 0]
     ff = layers.mlp_apply(p["mlp"], h2, _mlp_act(cfg))[:, :, 0]
-    if TP.size() > 1:
-        ff = to_residual(ff, layers.mlp_partial(p["mlp"], cfg), False)
-    return x + ff
+    return x + layers.to_residual(ff, layers.mlp_partial(p["mlp"], cfg), False)
 
 
 # ----------------------------------------------------------------- LM skeleton
@@ -295,20 +357,22 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     emb = plain_gather(params["embed"])                      # (W, V, D)
     ranks = torch.arange(tokens.shape[0], device=emb.device) % emb.shape[0]
     ranks = ranks.view(-1, *([1] * (tokens.dim() - 1)))
-    if cfg.family == "hybrid":   # at tp = 1 (``check_tp``)
-        # gemma's embedding scale, in the activations' dtype (reference :175)
-        return emb[ranks, tokens] * torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype)
+    # gemma's embedding scale, in the activations' dtype (reference :175)
+    scale = (torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype)
+             if cfg.family == "hybrid" else None)
     if TP.size() == 1:
-        return shard(emb[ranks, tokens], "dp", "sp", None)
+        x = emb[ranks, tokens]
+        return x if scale is None else x * scale
     vl = emb.shape[1]
     sp = TP.seq_split(tokens.shape[2]) and not whole
     if vl == cfg.vocab_size:
-        return to_residual(emb[ranks, tokens], False, sp)
+        x = emb[ranks, tokens]
+        return layers.to_residual(x if scale is None else x * scale, False, sp)
     lo = TP.rank_index(tokens.shape[0], tokens.device).view(ranks.shape) * vl
     local = tokens - lo
     inside = (local >= 0) & (local < vl)
     x = torch.where(inside[..., None], emb[ranks, local.clamp(0, vl - 1)], 0.0)
-    return to_residual(x, True, sp)
+    return layers.to_residual(x if scale is None else x * scale, True, sp)
 
 
 def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -487,7 +551,7 @@ def embed_patches(params, cfg: ModelConfig, batch, tokens: torch.Tensor) -> torc
     patches = to_ranks(batch["patches"], tokens.shape[0]).to(x.dtype)
     proj = layers.rank_matmul(patches, params["patch_proj"].local[:1])
     x = torch.cat([proj, x], dim=2)
-    return to_residual(x, False, TP.seq_split(x.shape[2]))
+    return layers.to_residual(x, False, TP.seq_split(x.shape[2]))
 
 
 def dense_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
@@ -522,13 +586,7 @@ def _global_kv(kv: torch.Tensor, cfg: ModelConfig, rb: tuple[int, int]) -> torch
     sequence shards (``cache_view``)."""
     if TP.size() == 1:
         return from_ranks(kv.unflatten(0, rb))
-    if kv.shape[2] == cfg.num_kv_heads:
-        return from_ranks(kv)
-    g = TP.groups(kv)                                        # (dp, tp, B, KV/tp, S, hd)
-    if not get_ctx().shard_batch:
-        g = g[:1]
-    g = g.permute(0, 2, 1, 3, 4, 5)
-    return g.reshape(g.shape[0] * g.shape[1], -1, *g.shape[4:])
+    return join_ranks(kv, 2, cfg.num_kv_heads)
 
 
 def dense_decode_step(params, cfg: ModelConfig, cache, token, pos):
@@ -560,16 +618,6 @@ def dense_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
 # ------------------------------------------------- rwkv and hybrid families
 
 
-def check_tp(cfg: ModelConfig) -> None:
-    """The rwkv, hybrid and encdec families run at tp = 1: their tensor
-    parallelism over a physical ``model`` axis is queued."""
-    if TP.size() > 1:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a physical model axis (tp = {TP.size()}) is not "
-            "ported: tensor parallelism for rwkv, hybrid and encdec is ROADMAP.md §1 item 12; "
-            "run it with model=1")
-
-
 def _remat_full(body, remat: str):
     """The reference checkpoints an rwkv or hybrid layer only for
     remat="full"; every other policy ("dots" too) runs the plain body
@@ -578,27 +626,57 @@ def _remat_full(body, remat: str):
     return _remat(body, "full") if remat == "full" else body
 
 
-def _stack_states(states: list[dict]) -> dict:
+def _state_dims(cfg: ModelConfig) -> dict[str, int]:
+    """The recurrent states that ``cache_pspecs`` splits over ``model`` and
+    the model code holds split, each by its dim in a per-rank (R, B, ...)
+    state: rwkv's ``wkv`` by heads where they split, the hybrid's ``h`` and
+    ``conv`` by channels where the LRU width splits."""
+    if cfg.family == "rwkv":
+        return {"wkv": 2} if rwkv.heads_split(cfg) else {}
+    return {"h": 2, "conv": 3} if rglru.width_split(cfg) else {}
+
+
+def _stack_states(states: list[dict], cfg: ModelConfig) -> dict:
     """Per-layer states {name: (R, B, ...)} -> {name: (L, B, ...)} of the
-    global batch."""
-    return {name: torch.stack([from_ranks(st[name]) for st in states]) for name in states[0]}
+    global batch, the tp ranks' chunks joined where they split."""
+    dims = _state_dims(cfg)
+    return {name: torch.stack([join_ranks(st[name], dims[name], -1) if name in dims
+                               else from_ranks(st[name]) for st in states])
+            for name in states[0]}
+
+
+def _rank_states(cache: dict, i: int, cfg: ModelConfig, r: int) -> dict:
+    """Layer i's states of a global cache {name: (L, B, ...)} -> every
+    rank's {name: (R, B, ...)}: its rows, and its chunk where they split."""
+    dims = _state_dims(cfg)
+    return {name: rank_chunks(c[i], r, dims.get(name, 0), name in dims)
+            for name, c in cache.items()}
+
+
+def _write_states(cache: dict, i: int, new: dict, cfg: ModelConfig) -> None:
+    """Every rank's new states written into layer i of the global cache."""
+    dims = _state_dims(cfg)
+    for name, c in cache.items():
+        c[i].copy_(join_ranks(new[name], dims[name], -1) if name in dims
+                   else from_ranks(new[name]))
 
 
 def rwkv_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="none"):
     """RWKV6 stack: each layer gathered, then the block with the chunked WKV
-    (reference ``transformer.py:330``). Returns (hidden (R, B/dp, S, D),
-    {}, cache | None); the cache {wkv (L, B, H, K, V) f32, tm_x (L, B, D),
-    cm_x (L, B, D)} holds no sequence. No prefetch: the reference's
+    (reference ``transformer.py:330``). Returns (hidden (R, B/dp, S, D), on
+    a physical ``model`` axis (R, B/dp, S / tp, D) where the sequence
+    splits; {}; cache | None); the cache {wkv (L, B, H, K, V) f32, tm_x (L,
+    B, D), cm_x (L, B, D)} holds no sequence. No prefetch: the reference's
     ``prefetch_params`` reaches only the dense stack."""
-    check_tp(cfg)
     tokens = to_ranks(batch["tokens"], n_ranks(params))
     x = embed_tokens(params, cfg, tokens)
+    sp = x.shape[2] != tokens.shape[2]
     ctx = get_ctx()
 
     def body(x, layer):
         with use_ctx(ctx):
             bp = maybe_gather_params(layer)
-            return rwkv.rwkv_block_apply(bp, x, cfg, state=None, chunked=True)
+            return rwkv.rwkv_block_apply(bp, x, cfg, state=None, chunked=True, sp=sp)
 
     fn = _remat_full(body, remat)
     states = []
@@ -606,21 +684,19 @@ def rwkv_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="no
         x, st = fn(x, layer_slice(params["blocks"], i))
         if want_cache:
             states.append(st)
-    return x, {}, (_stack_states(states) if want_cache else None)
+    return x, {}, (_stack_states(states, cfg) if want_cache else None)
 
 
 def rwkv_decode_step(params, cfg: ModelConfig, cache, token, pos):
     """token (B,), pos (B,). Returns (logits (B, V), cache updated in place):
     the recurrent WKV step a layer, each layer by the context's gather."""
-    check_tp(cfg)
     r = n_ranks(params)
     x = embed_tokens(params, cfg, to_ranks(token[:, None], r))          # (R,B,1,D)
     for i in range(cfg.num_layers):
         bp = maybe_gather_params(layer_slice(params["blocks"], i))
-        st = {name: to_ranks(c[i], r) for name, c in cache.items()}
-        x, new = rwkv.rwkv_block_apply(bp, x, cfg, state=st, chunked=False)
-        for name, c in cache.items():
-            c[i].copy_(from_ranks(new[name]))
+        x, new = rwkv.rwkv_block_apply(bp, x, cfg, state=_rank_states(cache, i, cfg, r),
+                                       chunked=False)
+        _write_states(cache, i, new, cfg)
     logits = lm_logits(params, cfg, x)[:, :, 0]
     return from_ranks(whole_logits(logits, cfg)), cache
 
@@ -645,30 +721,28 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.num_layers // plen, cfg.num_layers % plen
 
 
-def _hybrid_rec_apply(p, x: torch.Tensor, cfg: ModelConfig, state):
+def _hybrid_rec_apply(p, x: torch.Tensor, cfg: ModelConfig, state, sp: bool = False):
     """A rec layer: the recurrent block, then the SwiGLU MLP (SwiGLU whatever
-    ``cfg.act`` says, as the reference builds it)."""
-    x, st = rglru.rec_block_apply(p["rec"], x, cfg, state=state)
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.mlp_apply(p["mlp"], h, "swiglu"), st
+    ``cfg.act`` says, as the reference builds it); on a physical ``model``
+    axis both tensor-parallel, the stream's sequence split where ``sp``."""
+    x, st = rglru.rec_block_apply(p["rec"], x, cfg, state=state, sp=sp)
+    h = whole_input(layers.rms_norm(x, p["ln2"], cfg.norm_eps), sp)
+    ff = layers.mlp_apply(p["mlp"], h, "swiglu")
+    return x + layers.to_residual(ff, layers.mlp_partial(p["mlp"], cfg), sp), st
 
 
-def _hybrid_attn_apply(p, x: torch.Tensor, cfg: ModelConfig, positions, want_kv: bool):
+def _hybrid_attn_apply(p, x: torch.Tensor, cfg: ModelConfig, positions, want_kv: bool,
+                       sp: bool = False):
     """A local-attention layer (window ``cfg.rglru.window``) and its SwiGLU
-    MLP. Returns (x, (k, v) each (R*B, KV, S, hd) | None)."""
-    r, b = x.shape[:2]
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = layers.qkv_split(p["attn"], h, cfg)
-    q = apply_positions(q, positions, cfg)
-    k = apply_positions(k, positions, cfg)
-    k, v = k.flatten(0, 1), v.flatten(0, 1)
-    o = attn.blockwise_attention(q.flatten(0, 1), k, v, causal=True, window=cfg.rglru.window,
-                                 q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
-    x = x + layers.out_proj(p["attn"], o.unflatten(0, (r, b)))
-    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + layers.mlp_apply(p["mlp"], h2, "swiglu")
-    kv = (k.transpose(1, 2), v.transpose(1, 2)) if want_kv else None
-    return x, kv
+    MLP. Returns (x, (k, v) | None), each (R, B, KV', S, hd), every rank its
+    kv heads (``attention_tp``)."""
+    h = whole_input(layers.rms_norm(x, p["ln1"], cfg.norm_eps), sp)
+    y, k, v = attention_tp(p["attn"], h, cfg, positions, window=cfg.rglru.window)
+    x = x + layers.to_residual(y, layers.head_plan(cfg).q_split, sp)
+    kv = (k.transpose(2, 3), v.transpose(2, 3)) if want_kv else None
+    h2 = whole_input(layers.rms_norm(x, p["ln2"], cfg.norm_eps), sp)
+    ff = layers.mlp_apply(p["mlp"], h2, "swiglu")
+    return x + layers.to_residual(ff, layers.mlp_partial(p["mlp"], cfg), sp), kv
 
 
 def _group(params, g: int) -> dict:
@@ -681,11 +755,13 @@ def hybrid_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="
     trailing rec layer gathered and applied. Returns (hidden, {}, cache |
     None); the cache {rec_a, rec_b: {h (G, B, W) f32, conv (G, B, K-1, W)},
     attn_k, attn_v (G, B, KV, min(S, window), hd) (the prompt's last
-    positions in order), tail: the trailing layers' states or None}. No
-    prefetch (dense stack only)."""
-    check_tp(cfg)
+    positions in order), tail: the trailing layers' states or None}. On a
+    physical ``model`` axis the LRU width, the heads and the MLP split over
+    it, and the stream's sequence where it divides. No prefetch (dense
+    stack only)."""
     tokens = to_ranks(batch["tokens"], n_ranks(params))
     x = embed_tokens(params, cfg, tokens)
+    sp = x.shape[2] != tokens.shape[2]
     positions = torch.arange(tokens.shape[2], device=x.device)[None, :]
     ng, nt = hybrid_layout(cfg)
     ctx = get_ctx()
@@ -693,14 +769,14 @@ def hybrid_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="
     def body(x, group):
         with use_ctx(ctx):
             gp = maybe_gather_params(group)
-            x, st_a = _hybrid_rec_apply(gp["grp_rec_a"], x, cfg, None)
-            x, st_b = _hybrid_rec_apply(gp["grp_rec_b"], x, cfg, None)
-            x, kv = _hybrid_attn_apply(gp["grp_attn"], x, cfg, positions, want_cache)
+            x, st_a = _hybrid_rec_apply(gp["grp_rec_a"], x, cfg, None, sp)
+            x, st_b = _hybrid_rec_apply(gp["grp_rec_b"], x, cfg, None, sp)
+            x, kv = _hybrid_attn_apply(gp["grp_attn"], x, cfg, positions, want_cache, sp)
             return x, st_a, st_b, kv
 
     def tail(x, layer):
         with use_ctx(ctx):
-            return _hybrid_rec_apply(maybe_gather_params(layer), x, cfg, None)
+            return _hybrid_rec_apply(maybe_gather_params(layer), x, cfg, None, sp)
 
     fn, tfn = _remat_full(body, remat), _remat_full(tail, remat)
     groups, tails = [], []
@@ -714,13 +790,12 @@ def hybrid_forward(params, cfg: ModelConfig, batch, *, want_cache=False, remat="
             tails.append(st)
     cache = None
     if want_cache:
-        rb = x.shape[:2]
-        kvs = [torch.stack([from_ranks(grp[2][j].unflatten(0, rb)) for grp in groups])
+        kvs = [torch.stack([join_ranks(grp[2][j], 2, cfg.num_kv_heads) for grp in groups])
                for j in range(2)]
-        cache = {"rec_a": _stack_states([grp[0] for grp in groups]),
-                 "rec_b": _stack_states([grp[1] for grp in groups]),
+        cache = {"rec_a": _stack_states([grp[0] for grp in groups], cfg),
+                 "rec_b": _stack_states([grp[1] for grp in groups], cfg),
                  "attn_k": window_clip(kvs[0], cfg), "attn_v": window_clip(kvs[1], cfg),
-                 "tail": _stack_states(tails) if nt else None}
+                 "tail": _stack_states(tails, cfg) if nt else None}
     return x, {}, cache
 
 
@@ -734,7 +809,9 @@ def window_clip(kv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _ring_attention(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torch.Tensor:
     """q (R, B, H, hd), pos (R, B) against the ring caches (global batch, KV,
     W, hd): slot s holds the largest position p' <= pos with p' % W == s.
-    Returns (R, B, H, hd); a replicated batch's rank 0 attended once."""
+    Returns (R, B, H, hd); a replicated batch's rank 0 attended once. On a
+    physical ``model`` axis every tp rank holds every head: tp rank 0's
+    queries are attended and the result expanded over ``model``."""
     w = kc.shape[2]
 
     def one(q, pos):
@@ -742,42 +819,45 @@ def _ring_attention(q: torch.Tensor, kc, vc, pos, cfg: ModelConfig) -> torch.Ten
         abs_pos = pos[:, None] - ((pos[:, None] - idx[None, :]) % w)
         return attn.ring_decode_attention(q, kc, vc, abs_pos, pos, cfg.rglru.window)
 
+    t = TP.size()
+    qg, pg = (TP.groups(q)[:, 0], TP.groups(pos)[:, 0]) if t > 1 else (q, pos)
     if get_ctx().shard_batch:
-        return one(q.flatten(0, 1), pos.flatten()).unflatten(0, q.shape[:2])
-    o = one(q[0], pos[0])
-    return o.expand(q.shape[0], *o.shape)
+        o = one(qg.flatten(0, 1), pg.flatten()).unflatten(0, qg.shape[:2])
+    else:
+        o = one(qg[0], pg[0])
+        o = o.expand(qg.shape[0], *o.shape)
+    if t > 1:
+        o = o.unsqueeze(1).expand(o.shape[0], t, *o.shape[1:]).reshape(q.shape)
+    return o
 
 
 def hybrid_decode_step(params, cfg: ModelConfig, cache, token, pos):
     """token (B,), pos (B,). Returns (logits (B, V), cache updated in place):
     each group gathered whole by the context's gather, each rec layer one
     RG-LRU step, each attention layer a write at slot pos % W of its ring
-    and ``ring_decode_attention`` (reference ``transformer.py:475``)."""
-    check_tp(cfg)
+    and ``ring_decode_attention`` (reference ``transformer.py:475``). On a
+    physical ``model`` axis the rec states are each rank's channels and
+    the attention runs with every head (``_ring_attention``)."""
     r = n_ranks(params)
     x = embed_tokens(params, cfg, to_ranks(token[:, None], r))          # (R,B,1,D)
     pos_r = to_ranks(pos, r)
     ng, nt = hybrid_layout(cfg)
 
     def rec_step(x, p, states: dict, i: int):
-        st = {name: to_ranks(c[i], r) for name, c in states.items()}
-        x, new = _hybrid_rec_apply(p, x, cfg, st)
-        for name, c in states.items():
-            c[i].copy_(from_ranks(new[name]))
+        x, new = _hybrid_rec_apply(p, x, cfg, _rank_states(states, i, cfg, r))
+        _write_states(states, i, new, cfg)
         return x
 
     def attn_step(x, p, kc, vc):
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = layers.qkv_split(p["attn"], h, cfg)
-        q = apply_positions(q, pos_r[..., None], cfg)
-        k = apply_positions(k, pos_r[..., None], cfg)
+        q1, k1, v1 = _decode_heads(p["attn"], h, cfg, pos_r)
         slot = pos % kc.shape[2]
-        attn.cache_scatter_update(kc, from_ranks(k[:, :, 0]), slot)
-        attn.cache_scatter_update(vc, from_ranks(v[:, :, 0]), slot)
-        o = _ring_attention(q[:, :, 0], kc, vc, pos_r, cfg)
-        x = x + layers.out_proj(p["attn"], o[:, :, None])
+        attn.cache_scatter_update(kc, from_ranks(k1), slot)
+        attn.cache_scatter_update(vc, from_ranks(v1), slot)
+        x = x + heads_out(p["attn"], _ring_attention(q1, kc, vc, pos_r, cfg), cfg)[:, :, None]
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + layers.mlp_apply(p["mlp"], h2, "swiglu")
+        ff = layers.mlp_apply(p["mlp"], h2, "swiglu")
+        return x + layers.to_residual(ff, layers.mlp_partial(p["mlp"], cfg), False)
 
     for g in range(ng):
         gp = maybe_gather_params(_group(params, g))

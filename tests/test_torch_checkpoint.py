@@ -476,6 +476,28 @@ def test_train_launcher_production_mesh(tmp_path, capsys):
     assert "StackedMesh(pod=2, data=16, model=16)" in out and "step     0 loss" in out
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-7b", "recurrentgemma-9b",
+                                  "whisper-base"])
+def test_train_launcher_production_mesh_families(arch, tmp_path, capsys):
+    """--mesh production (data=16, model=16) trains the MoE, rwkv, hybrid and
+    encdec families with their leaves split over ``model`` where they
+    divide (whisper's heads, the reduced MoE's 8 experts and rwkv's 4 heads
+    do not at tp = 16, and run whole on every tp rank): the losses and grad
+    norms it prints are the ``(8, 1)`` local mesh's."""
+    from repro_torch.launch import train
+
+    def losses(mesh: str) -> list[str]:
+        train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                    "--log-every", "1", "--mesh", mesh, "--batch", "2", "--seq", "8",
+                    "--fsdp-mode", "mcast", "--ckpt-dir", str(tmp_path / mesh)])
+        out = capsys.readouterr().out
+        return [line.split(" dt ")[0] for line in out.splitlines() if line.startswith("step")]
+
+    prod = losses("production")
+    assert len(prod) == 2
+    assert prod == losses("local")
+
+
 def test_production_mesh_ranks():
     assert make_production_mesh().n_ranks == 256
     assert make_production_mesh().shape == {"data": 16, "model": 16}

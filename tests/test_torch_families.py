@@ -9,8 +9,8 @@ ported MoE family), reduced and in f32.
   ``encdec_decode_step``.
 - The configs, the analytic counts, ``batch_dims``, the parameter trees
   (leaves, shapes, dtypes, init scales), the specs and the synthetic
-  pipeline (bit-equal to the reference's in one process: its frames and
-  patches are keyed on Python's salted ``hash``).
+  pipeline (tokens bit-equal to the reference's; frames and patches to its
+  draw at the port's stable key, the same in every process).
 - Serving against ``jit_prefill_step`` on Auto ``(8, 1)`` meshes in every
   mode, and phi-3-vision on ``(2, 4)`` with sequence parallelism; then
   prefill-then-decode against the reference's prefill step and its decode
@@ -35,6 +35,9 @@ and caches and its first-step losses are bitwise equal across its modes.
 import dataclasses
 import importlib.util
 import os
+import subprocess
+import sys
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -68,7 +71,7 @@ from repro_torch.runtime.serve_loop import (ServeState, greedy_generate, make_de
 from repro_torch.runtime.train_loop import init_state, make_train_step
 from repro_torch.sharding import specs
 from repro_torch.sharding.fsdp import at_use
-from test_torch_support import (REPO, flatten, one_torch_thread,  # noqa: F401
+from test_torch_support import (REPO, SRC, flatten, one_torch_thread,  # noqa: F401
                                 run_reference, serve_run)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -376,9 +379,12 @@ def test_specs_match_reference():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_pipeline_bit_equal_to_reference(arch):
-    """``SyntheticPipeline`` in this process: every entry of the train and
-    prefill batches bitwise the reference's (the vlm targets -1 over the
-    patches; frames and patches f32)."""
+    """``SyntheticPipeline``: the tokens and targets of the train and prefill
+    batches bitwise the reference's (the vlm targets -1 over the patches);
+    the frames and patches (f32) bitwise the reference's draw formula
+    (``repro.data.pipeline._full``) at the port's stable key,
+    ``zlib.crc32(name) & 0xFFFF``, where the reference keys on the salted
+    ``hash(name)``."""
     cfg, rc = cfg_of(arch), ref_cfg_of(arch)
     for kind in ("train", "prefill"):
         shape = ShapeConfig("t", kind, 32, 4)
@@ -390,10 +396,46 @@ def test_pipeline_bit_equal_to_reference(arch):
             for k in g:
                 assert g[k].dtype == (torch.float32 if k in ("frames", "patches")
                                       else torch.long), k
+                if k in ("frames", "patches"):
+                    key = zlib.crc32(k.encode()) & 0xFFFF
+                    rng = np.random.default_rng(np.random.SeedSequence(
+                        [want.data.seed, step, key]))
+                    ref = (rng.standard_normal(want.dims[k]) * 0.02).astype(np.float32)
+                    np.testing.assert_array_equal(g[k].numpy(), ref, err_msg=k)
+                    continue
                 np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]), err_msg=k)
             if cfg.family == "vlm" and kind == "train":
                 assert (g["targets"][:, :N_PATCHES] == -1).all()
                 assert (g["targets"][:, N_PATCHES:] >= 0).all()
+
+
+_PIPELINE_DRAW = """
+import hashlib, sys
+import torch
+from repro_torch.configs import get_model_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data.pipeline import SyntheticPipeline
+for arch in ("whisper-base", "phi-3-vision-4.2b"):
+    cfg = reduced(get_model_config(arch))
+    b = SyntheticPipeline(cfg, ShapeConfig("t", "train", 32, 4), device="cpu").next_batch(2)
+    for k in sorted(b):
+        print(arch, k, hashlib.sha256(b[k].float().numpy().tobytes()).hexdigest())
+"""
+
+
+def test_pipeline_frames_stable_across_processes():
+    """Two processes with different ``PYTHONHASHSEED`` draw the same frames
+    and patches bitwise (and the same tokens and targets)."""
+    outs = []
+    for seed in ("1", "977"):
+        env = dict(os.environ, PYTHONHASHSEED=seed,
+                   PYTHONPATH=os.pathsep.join([SRC, os.environ.get("PYTHONPATH", "")]))
+        run = subprocess.run([sys.executable, "-c", _PIPELINE_DRAW], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert run.returncode == 0, run.stderr
+        outs.append(run.stdout)
+    assert "frames" in outs[0] and "patches" in outs[0]
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -407,28 +449,6 @@ def test_make_dummy_batch(arch):
             assert v.dtype == (torch.float32 if k in ("frames", "patches") else torch.long)
         if kind == "train" and cfg.family == "vlm":
             assert (a["targets"][:, :N_PATCHES] == -1).all()
-
-
-def test_encdec_raises_at_tp_above_1():
-    """Tensor parallelism of the encdec is queued: on (2, 4) its prefill,
-    decode and train step raise, naming ROADMAP §1 item 12."""
-    cfg, mesh = cfg_of("whisper-base"), StackedMesh(data=2, model=4)
-    params = bridge.to_torch(bridge.random_params(cfg, 0), mesh, MeshConfig(),
-                             dtype=torch.float32, device="cpu")
-    batch = _torch(prompt_of("whisper-base"))
-    _, _, prefill = make_prefill_step(serve_run(cfg, "mcast", B, S_TOK), mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prefill(params, batch)
-    _, _, decode = make_decode_step(serve_run(cfg, "xla", B, 24), mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        decode(params, ServeState(encdec.encdec_init_cache(cfg, B, 24, torch.float32, "cpu"),
-                                  torch.zeros(B, dtype=torch.long)),
-               torch.zeros(B, dtype=torch.long))
-    run = RunConfig(model=cfg, shape=SHAPE, collective=CollectiveConfig(fsdp_mode="mcast"))
-    _, _, step = make_train_step(run, mesh, device="cpu")
-    state = init_state(run, mesh, bridge.random_params(cfg, 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        step(state, SyntheticPipeline(cfg, SHAPE, device="cpu").next_batch(0))
 
 
 # -------------------------------------------------- the reference's runs

@@ -139,12 +139,9 @@ def test_fsdp_step_from_a_model_config_matches_reference(arch):
 
 def test_other_families_raise():
     """Every family is counted now: an encdec built from smollm's widths has
-    the reference's count and FSDP step; what still raises, naming ROADMAP
-    §1 item 12, is the encdec at tp > 1 (``transformer.check_tp``)."""
+    the reference's count and FSDP step (none raises; the encdec runs at tp
+    > 1 too, ``tests/test_torch_encdec_tp.py``)."""
     from repro.configs.base import EncDecConfig as RefEncDecConfig
-    from repro_torch.launch.mesh import StackedMesh
-    from repro_torch.models import transformer
-    from repro_torch.sharding.ctx import ShardCtx, use_ctx
     cfg = dataclasses.replace(get_model_config("smollm-135m"), family="encdec",
                               encdec=EncDecConfig())
     ref = dataclasses.replace(ref_config("smollm-135m"), family="encdec",
@@ -152,9 +149,6 @@ def test_other_families_raise():
     assert count_params_analytic(cfg) == ref_count(ref)
     assert_same(engine.simulate_fsdp_step(cfg, p=8, device="cpu"),
                 ref_engine.simulate_fsdp_step(ref, p=8), ctx="encdec")
-    with use_ctx(ShardCtx(mesh=StackedMesh(data=2, model=4))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            transformer.check_tp(cfg)
 
 
 @pytest.mark.parametrize("policy", ["naive", "mcast", "split"])

@@ -2,8 +2,9 @@
 package's: ``moe_apply`` alone, the serving path on an Auto ``(data=8,
 model=1)`` mesh, the training path on an Auto ``(data=2, model=4)`` mesh
 (the configuration of the reference's ``test_moe_train_multidev``) against
-the port's 2 dp ranks (its MoE runs at tp = 1: EP over a physical
-``model`` axis is queued), and checkpoints crossing between the packages.
+the port's 2 dp ranks (the port's EP over a physical ``model`` axis is
+``tests/test_torch_ep.py``'s), and checkpoints crossing between the
+packages.
 
 ``moe_apply`` runs in-process on one device, as the reference's own MoE
 tests run it; the mesh references run in one subprocess with 8 fake CPU
@@ -434,8 +435,9 @@ def test_decode_and_greedy_match_jax(case):
 
 @pytest.fixture(scope="module")
 def trained(case):
-    # the reference's (2, 4) runs EP over ``model``; the port's MoE runs at
-    # tp = 1 (``moe.check_tp``), so its 2 dp ranks carry the same values
+    # the reference's (2, 4) runs EP over ``model``; the port's 2 dp ranks at
+    # tp = 1 carry the same values (its EP over ``model``:
+    # tests/test_torch_ep.py)
     mesh = StackedMesh(data=2, model=1)
     return mesh, {key: _train(case["train_tree"], mode, mesh, prefetch, remat)
                   for key, mode, prefetch, remat in VARIANTS}

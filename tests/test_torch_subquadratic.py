@@ -366,26 +366,6 @@ def test_device_params_layout_matches_to_torch(arch):
             assert g.std().item() == pytest.approx(spec.scale, rel=0.15), key
 
 
-def test_tp_raises_naming_item_12():
-    """Tensor parallelism of both families is queued: at tp > 1 their
-    prefill raises, naming ROADMAP §1 item 12."""
-    mesh = StackedMesh(data=2, model=4)
-    for arch in ARCHS:
-        cfg = serve_cfg(arch)
-        params = bridge.to_torch(bridge.random_params(cfg, 0), mesh, MeshConfig(),
-                                 dtype=torch.float32, device="cpu")
-        _, _, prefill = make_prefill_step(serve_run(cfg, "mcast", 2, 8), mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            prefill(params, {"tokens": torch.zeros(2, 8, dtype=torch.long)})
-        _, _, decode = make_decode_step(serve_run(cfg, "xla", 2, 8), mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            cache = transformer.hybrid_init_cache if arch != "rwkv6-7b" else \
-                transformer.rwkv_init_cache
-            decode(params, ServeState(cache(cfg, 2, 8, torch.float32, "cpu"),
-                                      torch.zeros(2, dtype=torch.long)),
-                   torch.zeros(2, dtype=torch.long))
-
-
 # -------------------------------------------------- the reference's runs
 
 _BODY = f'''

@@ -6,6 +6,7 @@ device, or in a subprocess with 8 fake CPU devices (``run_reference``) for
 mesh runs, always on a mesh with Auto axis types. Inputs are numpy arrays
 made from a seed and go into both packages.
 """
+import dataclasses
 import os
 import re
 import subprocess
@@ -25,7 +26,7 @@ from repro.configs import reduced as ref_reduced
 from repro.sharding import specs as ref_specs
 from repro_torch import bridge
 from repro_torch.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
-                                 get_model_config, reduced)
+                                 TrainConfig, get_model_config, reduced)
 from repro_torch.core.engine import FabricParams, WorkerParams
 from repro_torch.core.packet import simulate_packet_allgather, simulate_packet_broadcast
 from repro_torch.core.protocol import allgather_time, broadcast_time
@@ -121,6 +122,263 @@ def serve_run(cfg, mode: str, batch: int, seq: int, kind: str = "prefill",
 
 
 SMALL = reduced(get_model_config("smollm-135m"))
+
+
+# ------------------------- the model axis for the MoE, rwkv, hybrid, encdec
+
+TP_MESHES = {"2x4": (2, 4), "4x2": (4, 2)}
+TP_MODES = ["xla", "mcast", "mcast_ring", "mcast_bcast"]
+
+# The reference's runs of ``tp_family_cases``: each case on an Auto mesh,
+# in xla (the port's modes are held against it and bitwise to each other):
+# its prefill; 5 decode steps from that prefill's cache, handed to decode
+# as the port's ``transformer.decode_cache`` hands it (the dense cache and
+# the encdec's self-attention padded, the rwkv states as they are, the
+# hybrid's window into its rings by position); training steps on the same
+# mesh, and where asked on one device (rwkv's grad norm yardstick,
+# ROADMAP §3). A case's "layers" cut the served model, "train_layers" the
+# trained one (None: ``reduced``'s depth).
+TP_FAMILY_BODY = '''
+import dataclasses
+import jax.numpy as jnp
+import torch
+from repro.configs import (CollectiveConfig, MeshConfig, RunConfig, ShapeConfig,
+                           TrainConfig, get_model_config, reduced)
+from repro.optim import adamw
+from repro.runtime.serve_loop import ServeState, jit_decode_step, jit_prefill_step
+from repro.runtime.train_loop import TrainState, jit_train_step, make_train_step
+from repro_torch.configs import get_model_config as port_model_config
+from repro_torch.configs import reduced as port_reduced
+from repro_torch.models.transformer import decode_cache
+
+def put(prefix, tree):
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path)
+        OUT[prefix + key] = np.asarray(leaf)
+
+def mesh_config(shape):
+    class M(MeshConfig):
+        @property
+        def shape(self): return shape
+    return M()
+
+def with_experts(cfg, experts):
+    return cfg if not experts else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, n_routed_experts=experts))
+
+for name, c in CASES.items():
+    cfg = with_experts(reduced(get_model_config(c["arch"]), layers=c["layers"]), c["experts"])
+    train_cfg = with_experts(reduced(get_model_config(c["arch"]), layers=c.get("train_layers")),
+                             c["experts"])
+    mesh = ref_mesh(c["mesh"], ("data", "model"))
+    if "serve" in c:
+        b, s, cache_len, steps = c["serve"]
+        params = jax.tree.map(jnp.asarray, unflatten(IN, name + "/serve/"))
+        batch = {k: IN[name + "/in/" + k] for k in c["inputs"]}
+        _, step = jit_prefill_step(RunConfig(model=cfg, shape=ShapeConfig("p", "prefill", s, b)),
+                                   mesh)
+        logits, cache = step(params, batch)
+        OUT[name + "/logits"] = np.asarray(logits)
+        put(name + "/cache/", cache)
+        port_cfg = port_reduced(port_model_config(c["arch"]), layers=c["layers"])
+        host = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), cache)
+        handed = jax.tree.map(lambda t: t.numpy(), decode_cache(port_cfg, host, s, cache_len))
+        _, dec = jit_decode_step(RunConfig(model=cfg, shape=ShapeConfig("d", "decode",
+                                                                         cache_len, b)), mesh)
+        state = ServeState(handed, np.full((b,), s, np.int32))
+        tok = np.argmax(OUT[name + "/logits"], -1).astype(np.int32)
+        lgs, toks = [], [tok]
+        for _ in range(steps):
+            lg, state = dec(params, state, tok)
+            tok = np.asarray(jnp.argmax(lg, -1).astype(jnp.int32))
+            lgs.append(np.asarray(lg))
+            toks.append(tok)
+        OUT[name + "/decode/logits"] = np.stack(lgs)
+        OUT[name + "/decode/tokens"] = np.stack(toks, 1)
+    if "train" in c:
+        b, s, steps = c["train"]
+        shape = ShapeConfig("t", "train", s, b)
+        runs = {"mesh": jit_train_step(RunConfig(model=train_cfg, shape=shape,
+                                                 mesh=mesh_config(c["mesh"]),
+                                                 train=TrainConfig(steps=5),
+                                                 collective=CollectiveConfig(fsdp_mode="xla",
+                                                                             n_chains=2)),
+                                       mesh)[1]}
+        if c.get("single"):
+            runs["single"] = jax.jit(make_train_step(RunConfig(model=train_cfg, shape=shape,
+                                                               train=TrainConfig(steps=5)),
+                                                     None)[2])
+        for where, jstep in runs.items():
+            params = jax.tree.map(jnp.asarray, unflatten(IN, name + "/train/"))
+            state = TrainState(params, adamw.init(params))
+            for i in range(steps):
+                batch = {k: IN[f"{name}/batch{i}/{k}"] for k in c["batch"]}
+                state, m = jstep(state, batch)
+                for key, val in m.items():
+                    OUT[f"{name}/{where}/{key}{i}"] = np.asarray(val)
+            put(f"{name}/{where}/params/", state.params)
+'''
+
+
+def tp_family_inputs(name: str, case: dict, serve_tree, train_tree, serve_batch: dict,
+                     batches: list) -> dict:
+    """The reference subprocess's inputs of one case of ``TP_FAMILY_BODY``."""
+    out = {}
+    if serve_tree is not None:
+        out.update({f"{name}/serve/{k}": v for k, v in flatten(serve_tree).items()})
+        out.update({f"{name}/in/{k}": v.numpy().astype(np.int32 if k == "tokens" else
+                                                          np.float32)
+                    for k, v in serve_batch.items()})
+    if train_tree is not None:
+        out.update({f"{name}/train/{k}": v for k, v in flatten(train_tree).items()})
+        for i, batch in enumerate(batches):
+            out.update({f"{name}/batch{i}/{k}": v.numpy().astype(
+                np.float32 if v.is_floating_point() else np.int32) for k, v in batch.items()})
+    return out
+
+
+def _clone(tree):
+    if tree is None or torch.is_tensor(tree):
+        return None if tree is None else tree.clone()
+    return {k: _clone(v) for k, v in tree.items()}
+
+
+def tp_serve_port(cfg, tree, mesh: StackedMesh, batch: dict, cache_len: int, steps: int,
+                  modes=TP_MODES) -> dict:
+    """The port's side of a serving case: a prefill in every mode and with
+    ``serve_params_replicated`` (``"repl"``, mcast), then ``steps`` decode
+    steps from the xla prefill's cache (``transformer.decode_cache``):
+    {mode: (logits, cache), "decode": (logits (steps, B, V), tokens (B,
+    steps + 1))}."""
+    from repro_torch.models import transformer
+    from repro_torch.runtime.serve_loop import ServeState
+
+    params = bridge.to_torch(tree, mesh, MeshConfig(), dtype=torch.float32, device="cpu")
+    b, s = batch["tokens"].shape
+    out = {}
+    for mode in list(modes) + ["repl"]:
+        run = serve_run(cfg, "mcast" if mode == "repl" else mode, b, s)
+        if mode == "repl":
+            run = run.replace(collective=dataclasses.replace(run.collective,
+                                                             serve_params_replicated=True))
+        _, _, prefill = make_prefill_step(run, mesh, device="cpu")
+        out[mode] = prefill(params, batch)
+    logits, pre = out["xla"]
+    _, _, decode = make_decode_step(serve_run(cfg, "xla", b, cache_len, "decode"), mesh,
+                                    device="cpu")
+    state = ServeState(transformer.decode_cache(cfg, _clone(pre), s, cache_len),
+                       torch.full((b,), s, dtype=torch.long))
+    tok = logits.argmax(-1)
+    lgs, toks = [], [tok]
+    for _ in range(steps):
+        lg, state = decode(params, state, tok)
+        tok = lg.argmax(-1)
+        lgs.append(lg)
+        toks.append(tok)
+    out["decode"] = (torch.stack(lgs), torch.stack(toks, 1))
+    return out
+
+
+def tp_train_port(cfg, tree, mesh: StackedMesh, batches: list, mode: str):
+    """The port's side of a training case: ``len(batches)`` steps in
+    ``mode`` -> (metrics a step, the global parameters after them)."""
+    from repro_torch.sharding.fsdp import at_use
+
+    b, s = batches[0]["tokens"].shape
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", s, b),
+                    train=TrainConfig(steps=5),
+                    collective=CollectiveConfig(fsdp_mode=mode, n_chains=2))
+    _, _, step = make_train_step(run, mesh, device="cpu")
+    state = init_state(run, mesh, tree, device="cpu")
+    metrics = []
+    for batch in batches:
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    params = flatten(bridge.to_numpy(at_use(state.params, mesh.n_ranks, ("data",)), mesh,
+                                     MeshConfig()))
+    return metrics, params
+
+
+
+
+def check_tpf_launches(monkeypatch, cs, cfg, mesh: StackedMesh, mode: str, batch: dict,
+                       train_shape: ShapeConfig) -> None:
+    """The #1, #1b and #3 launches (by the matmul's path) of a prefill of
+    ``batch``, a decode step from its cache and a train step (remat="full")
+    of ``cfg`` on ``mesh`` in ``mode``, counted on the CPU by spies on
+    ``core.collectives``' ring kernels and the matmul, against
+    ``chip_smoke.tpf_launches`` (the counts phases 3i and 4i assert on the
+    card); the products' shapes against ``chip_smoke.tpf_matmul_cases``.
+    On the card each gather, transpose and product is one launch (a
+    schedule of at most 128 entries)."""
+    from collections import Counter
+
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import collective_matmul as M
+    from repro_torch.models import transformer
+    from repro_torch.runtime.serve_loop import ServeState
+    keys = ("ring_allgather", "ring_allgather_transpose", "matmul", "matmul_wmma", "matmul_f32")
+    counts, shapes = dict.fromkeys(keys, 0), Counter()
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            key = name
+            if name == "matmul":
+                x, w = args[:2]
+                key = {"wgmma": "matmul", "wmma": "matmul_wmma", "f32": "matmul_f32"}[
+                    M.path(x, w)]
+                shapes[(x.shape[0], x.shape[1], x.shape[2], w.shape[2], x.dtype)] += 1
+            counts[key] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for module, name in ((C, "ring_allgather"), (C, "ring_allgather_transpose"), (M, "matmul")):
+        monkeypatch.setattr(module, name, spy(name, getattr(module, name)))
+
+    def take():
+        out, got = dict(counts), Counter(shapes)
+        counts.update(dict.fromkeys(counts, 0))
+        shapes.clear()
+        return out, got
+
+    def want_shapes(cases):
+        out = Counter()
+        for (r, m, k, n, *_, dt), c in cases.items():
+            out[(r, m, k, n, dt)] += c
+        return out
+
+    b, s = batch["tokens"].shape
+    bl = b // mesh.shape["data"]
+    moe = cfg.family == "moe"
+    params = bridge.to_torch(bridge.random_params(cfg, 0), mesh, MeshConfig(),
+                             dtype=torch.bfloat16, device="cpu")
+    run = serve_run(cfg, mode, b, s)
+    _, _, prefill = make_prefill_step(run, mesh, device="cpu")
+    _, _, decode = make_decode_step(run, mesh, device="cpu")
+    take()
+    logits, pre = prefill(params, batch)
+    got, got_shapes = take()
+    assert got == cs.tpf_launches(cfg, mesh, mode, "prefill", s)
+    assert got_shapes == want_shapes(cs.tpf_matmul_cases(
+        cfg, mesh, bl * s, "prefill", head_m=bl, cap=cs.moe_capacity(cfg, b * s) if moe else 0))
+    state = ServeState(transformer.decode_cache(cfg, pre, s, s + 4), torch.full((b,), s))
+    decode(params, state, logits.argmax(-1))
+    got, got_shapes = take()
+    assert got == cs.tpf_launches(cfg, mesh, mode, "decode", s)
+    assert got_shapes == want_shapes(cs.tpf_matmul_cases(cfg, mesh, bl, "decode", head_m=bl,
+                                                         cap=b))
+    tb, seq = train_shape.global_batch, train_shape.seq_len
+    trun = RunConfig(model=cfg, shape=train_shape, collective=CollectiveConfig(fsdp_mode=mode))
+    _, _, step = make_train_step(trun, mesh, device="cpu")
+    tstate = init_state(trun, mesh, bridge.random_params(cfg, 0), device="cpu")
+    take()
+    step(tstate, SyntheticPipeline(cfg, train_shape, device="cpu").next_batch(0))
+    got, got_shapes = take()
+    assert got == cs.tpf_launches(cfg, mesh, mode, "train", seq)
+    tl = tb // mesh.shape["data"]
+    assert got_shapes == want_shapes(cs.tpf_matmul_cases(
+        cfg, mesh, tl * seq, "train", head_m=tl * min(seq, 512), chunks=-(-seq // 512),
+        cap=cs.moe_capacity(cfg, tb * seq) if moe else 0))
 
 
 @pytest.fixture(scope="module")

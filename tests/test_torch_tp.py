@@ -22,7 +22,7 @@ R = 8 stacked ranks, rank d * tp + m.
   ``tests/test_torch_dense_configs.py`` hold ``(data=2, model=4)``): loss
   1e-5, grad_norm 1e-4 relative, parameters 1e-5.
 - A checkpoint saved on ``(2, 4)`` and restored on ``(4, 2)`` and ``(8,
-  1)``, bitwise; MoE at tp > 1 raises; the ring and matmul launches of a
+  1)``, bitwise; the ring and matmul launches of a
   prefill and a decode step, counted on the CPU, against
   ``chip_smoke.tp_launches`` (the counts PERF.md predicts for phase 3f).
 """
@@ -345,20 +345,6 @@ def test_checkpoint_across_dp_tp_splits(tmp_path):
         wq = at_use(back.params, mesh.n_ranks, ("data",))["blocks"]["attn"]["wq"].local
         assert wq.shape == (8, cfg.num_layers, cfg.d_model // d,
                             cfg.num_heads * cfg.head_dim // m)
-
-
-# ------------------------------------------------------------------- MoE
-
-
-def test_moe_raises_on_a_physical_model_axis():
-    cfg = reduced(get_model_config("deepseek-moe-16b"))
-    mesh = StackedMesh(data=2, model=4)
-    params = bridge.to_torch(bridge.random_params(cfg, 0), mesh, MeshConfig(),
-                             dtype=torch.float32, device="cpu")
-    run = RunConfig(model=cfg, shape=ShapeConfig("p", "prefill", 8, 8))
-    _, _, prefill = make_prefill_step(run, mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prefill(params, {"tokens": torch.zeros(8, 8, dtype=torch.long)})
 
 
 # ----------------------------------------------------------- launch counts
