@@ -109,17 +109,17 @@
    (before the counts are zeroed: its products are f32), the reduced f32
    replicated step against a single-rank run (loss 1e-5, grad_norm 1e-4,
    relative);
-3d. serving deepseek-moe-16b at full width and 14 of its 28 layers (for
+3d. serving deepseek-moe-16b at full width and 8 of its 28 layers (for
    the script's time; d_model 2048, 64
    routed experts top-6 and 2 shared, bf16, weights drawn on the card by
    ``bridge.device_params``) on (data=8,
    model=1): prefill of a 128-token prompt for batch 8 (capacity 120),
    then greedy generation of 8 tokens, in every mode, logits and tokens
-   bitwise ``xla``'s; a prefill launches 154 gathers in each mcast mode
-   (11 sharded leaves x 14 layers: 1,078 bidi / 1,078 ring / 4,312 bcast
-   entries), no transpose, 141 bf16 matmuls (10 a layer: the attention
+   bitwise ``xla``'s; a prefill launches 88 gathers in each mcast mode
+   (11 sharded leaves x 8 layers: 616 bidi / 616 ring / 2,464 bcast
+   entries), no transpose, 81 bf16 matmuls (10 a layer: the attention
    projections, the three expert products batched over the experts, the
-   three shared-expert products; and the head) and 14 f32 ones (the
+   three shared-expert products; and the head) and 8 f32 ones (the
    router); a decode step the same matmuls and no gather kernel. Prefill
    ms per mode, decode tok/s once (every mode decodes through the plain
    gather), busy ms, idle share and peak memory, medians of 3.
@@ -228,6 +228,20 @@
    the first-step loss bitwise equal in every mode. 3i's and 4i's #1 and
    #1b call shapes join ``check_call_shapes``, their #3 shapes phase 1's
    (``tpf_path_cases``);
+7. the runtime's last modules on phase 4e's yi-9b cell (2 layers, 16 x
+   512, (data=8), mcast, remat="full", no prefetch): (a) ``make_compressor``
+   (optim/compression.py, blockwise int8 with error feedback) over the
+   cell's gradient tree on the card, bitwise equal to the same gradients
+   compressed on the CPU, with its device ms; (b) one train step under the
+   collective counters (launch/collective_stats.py): its bytes and counts
+   by kind equal to the meta dry-run of the same cell
+   (``launch/dryrun.measure_step``) and to the bytes that its #1 and #1b
+   calls imply (their recorded shapes; as many as ``_train_launches``
+   says); (c) the dry-run's predicted peak of the whole process beside
+   ``torch.cuda.max_memory_allocated`` of that step (after
+   ``reset_peak_memory_stats``, less what was allocated before the state),
+   within 10 %; the card's total memory, which the dry-run's ``fits``
+   holds a rank's peak against;
 5. the packet-level reliable Broadcast (core/packet.py) with the leaves'
    receive datapath on the card: A, 512 hosts x 64 MiB, 8 workers, 1e-3
    Bernoulli loss per leaf, seed 0; B, 64 hosts x 64 MiB, 1 worker (the
@@ -462,7 +476,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model_builder import XENT_CHUNK  # noqa: E402
 from repro_torch.sharding.ctx import use_ctx  # noqa: E402
 from repro_torch.sharding.fsdp import flatten_bucket  # noqa: E402
-from repro_torch.sharding.specs import is_sharded, tree_leaves  # noqa: E402
+from repro_torch.sharding.specs import is_sharded, tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 tensor / f32 FMA
@@ -3862,9 +3876,10 @@ MOE_PROMPT, MOE_NEW = 128, 8    # batch BATCH: T = 1,024 tokens a prefill, capac
 MOE_REPEATS = 3                 # host-clock samples per timed MoE call; the median is reported
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_TIMED = 2
-# served at 14 of its 28 layers: with every phase at full depth the script
-# took 1,008 s on an H100 (3d 79 s), against its 1,200 s limit
-MOE_SERVE_LAYERS = 14
+# served at 8 of its 28 layers: with every phase at full depth the script
+# took 1,008 s on an H100 (3d 79 s), against its 1,200 s limit; at 14 layers
+# and with phase 7 it took 1,025.5 s (3d 40.0 s)
+MOE_SERVE_LAYERS = 8
 # the reduced reference's prompt: batch 8 x 8 = 64 tokens at top-2 of 8
 # experts, capacity 20 of the 16 an expert gets on average (tokens drop)
 MOE_SMALL_SEQ = 8
@@ -5169,7 +5184,7 @@ FAM_FRAMES = 512
 FAM_NEW = 8
 FAM_REPEATS = 2                # timed prefills a mode; the median is reported
 # moonshot-v1-16b-a3b is served at full width and 4 of its 48 layers, for
-# the script's time (phase 3d serves the family's deepseek-moe-16b at 14)
+# the script's time (phase 3d serves the family's deepseek-moe-16b at 8)
 FAM_SERVE_LAYERS = {"moonshot-v1-16b-a3b": 4}
 # training depth: phi-3-vision and moonshot 2 layers, whisper-base whole
 FAM_TRAIN_LAYERS = {"phi-3-vision-4.2b": 2, "moonshot-v1-16b-a3b": 2}
@@ -5803,9 +5818,11 @@ def check_tpf_small_reference() -> float:
 def _expert_leaf(params, mesh: StackedMesh) -> dict:
     """Layer 0's ``w_gate`` gathered over dp in mcast as a prefill gathers
     it (one #1): the bytes its output holds, over the R ranks' copies
-    (E / tp experts a copy on a model axis); on TPF_MESH its device ms and
-    the bound (the shards read once, the copies written once, at the
-    HBM rate)."""
+    (E / tp experts a copy on a model axis); on TPF_MESH its device ms, the
+    bound (the shards read once, the copies written once, at the HBM
+    rate), and the device ms of #1's plain version and of the library call
+    (``plain_allgather_local``, one tensor op) on the shards and schedule
+    that the gather hands the kernel."""
     from repro_torch.sharding.fsdp import gather_leaf
     leaf = params["blocks"]["moe"]["w_gate"]
     x, spec = leaf.local[:, 0], leaf.spec[1:]
@@ -5818,9 +5835,19 @@ def _expert_leaf(params, mesh: StackedMesh) -> dict:
            "gathered_bytes": out.numel() * out.element_size(),
            "shard_bytes": x.numel() * x.element_size()}
     if mesh.tp > 1:
+        seen, saved = [], C.ring_allgather
+        C.ring_allgather = lambda y, sched, o=None: seen.append((y, sched)) or saved(y, sched, o)
+        try:
+            gather()
+        finally:
+            C.ring_allgather = saved
+        (y, sched), = seen
         row.update(gather_device_ms=_device_ms(gather, 5),
                    bound_ms=(row["gathered_bytes"] + row["shard_bytes"])
-                   / HBM_BYTES_PER_S * 1e3)
+                   / HBM_BYTES_PER_S * 1e3,
+                   kernel_shards=list(y.shape), schedule_entries=len(sched),
+                   plain_device_ms=_device_ms(lambda: K.ring_allgather_plain(y, sched), 5),
+                   library_device_ms=_device_ms(lambda: C.plain_allgather_local(y), 5))
     del out
     return row
 
@@ -5970,6 +5997,147 @@ def tpf_train() -> dict[str, dict]:
                                                                    seq=s))
         torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------ phase 7: compression, counters, the dry-run
+
+RT_ARCH = "yi-9b"
+RT_LAYERS = 2
+RT_MESH = StackedMesh(data=8, model=1)
+RT_PEAK_TOL = 0.10   # the dry-run's predicted peak against the card's
+
+
+def _cpu_tree(tree):
+    return tree_map(lambda s: s._replace(local=s.local.detach().cpu()), tree)
+
+
+def _tree_equal(a, b, what: str) -> int:
+    n = 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if not torch.equal(x.local.cpu(), y.local):
+            raise AssertionError(f"{what}: the card's compression differs from the CPU's")
+        n += 1
+    return n
+
+
+class _CallList:
+    """Every ``ring_allgather`` and ``ring_allgather_transpose`` call of
+    ``core/collectives.py`` while installed, and every plain gather
+    (``plain_allgather_local``, the embedding's and the head's in the mcast
+    modes): (kind, shards' shape (..., P, n), itemsize), a plain gather
+    whose result needs a gradient adding its backward's reduce-scatter."""
+
+    def __enter__(self):
+        self.calls = []
+        self.saved = (C.ring_allgather, C.ring_allgather_transpose, C.plain_allgather_local)
+
+        def gather(x, schedule, out=None):
+            self.calls.append(("all-gather", tuple(x.shape), x.element_size()))
+            return self.saved[0](x, schedule, out)
+
+        def transpose(g, schedule):
+            self.calls.append(("reduce-scatter", tuple(g.shape[:-3]) + tuple(g.shape[-2:]),
+                               g.element_size()))
+            return self.saved[1](g, schedule)
+
+        def plain(x):
+            out = self.saved[2](x)
+            self.calls.append(("all-gather", tuple(x.shape), x.element_size()))
+            if out.requires_grad:
+                self.calls.append(("reduce-scatter", tuple(x.shape), x.element_size()))
+            return out
+
+        C.ring_allgather, C.ring_allgather_transpose, C.plain_allgather_local = (
+            gather, transpose, plain)
+        return self
+
+    def __exit__(self, *exc):
+        C.ring_allgather, C.ring_allgather_transpose, C.plain_allgather_local = self.saved
+
+    def implied(self) -> dict[str, dict[str, int]]:
+        """The collective bytes (hlo_stats's ring formulas) and counts these
+        calls imply: a gather of shards (..., P, n), and a reduce-scatter to
+        them, move (P - 1) n elements a rank."""
+        out = {"per_device_bytes": {}, "counts": {}}
+        for kind, shape, itemsize in self.calls:
+            p, n = shape[-2], shape[-1]
+            per = (p - 1) * n * itemsize
+            out["per_device_bytes"][kind] = out["per_device_bytes"].get(kind, 0) + per
+            out["counts"][kind] = out["counts"].get(kind, 0) + 1
+        return out
+
+
+
+def runtime_phase() -> dict:
+    """Phase 7 (see the module docstring). Returns its row."""
+    from repro_torch.launch import collective_stats, dryrun
+    from repro_torch.optim.compression import make_compressor
+
+    cfg = replace(get_model_config(RT_ARCH), num_layers=RT_LAYERS)
+    run = _train_run(cfg, TRAIN_SHAPE, "mcast")
+    row = {"arch": cfg.name, "layers": RT_LAYERS, "mesh": repr(RT_MESH)}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tree = bridge.device_params(cfg, RT_MESH, MeshConfig(), seed=0, dtype=torch.bfloat16)
+    _, _, step = make_train_step(run, RT_MESH)
+    state = init_state(run, RT_MESH, tree)
+    del tree
+    batch = SyntheticPipeline(cfg, TRAIN_SHAPE).next_batch(0)
+
+    # (a) the compressor on the card against the CPU, bitwise
+    t0 = time.perf_counter()
+    _, _, grads = step.value_and_grad(state, batch)
+    comp, err = make_compressor(state.params)
+    g_hat, new_err = comp(grads, err)
+    comp_cpu, err_cpu = make_compressor(_cpu_tree(state.params))
+    want_g, want_err = comp_cpu(_cpu_tree(grads), err_cpu)
+    leaves = _tree_equal(g_hat, want_g, "g_hat") + _tree_equal(new_err, want_err, "error")
+    row["compression"] = {"leaves_bitwise": leaves,
+                          "device_ms": _device_ms(lambda: comp(grads, err), 3),
+                          "cpu_s": time.perf_counter() - t0}
+    del grads, err, g_hat, new_err, want_g, want_err, comp_cpu, err_cpu
+    torch.cuda.synchronize()
+
+    # (b) one step under the counters; (c) its peak
+    want = _train_launches(cfg, RT_MESH, "mcast")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with collective_stats.counting(n_devices=RT_MESH.n_ranks) as st, _CallList() as calls:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    got = st.as_dict()
+    launched = _counts()
+    meta = dryrun.measure_step(run, RT_MESH)
+    dry = meta["collectives"].as_dict()
+    implied = calls.implied()
+    for name, other in (("the meta dry-run", dry), ("the calls' shapes", implied)):
+        if (got["per_device_bytes"] != other["per_device_bytes"]
+                or got["counts"] != other["counts"]):
+            raise AssertionError(f"phase 7: counted {got} != {name}'s {other}")
+    plain = sum(1 for k, _, _ in calls.calls if k == "all-gather") - launched["ring_allgather"]
+    if not (launched["ring_allgather"] == want["ring_allgather"]
+            and launched["ring_allgather_transpose"] == want["ring_allgather_transpose"]
+            and got["counts"].get("all-gather") == want["ring_allgather"] + plain
+            and got["counts"].get("reduce-scatter") == want["ring_allgather_transpose"] + plain):
+        raise AssertionError(f"phase 7: counts {got['counts']} against launches {want}")
+    predicted = meta["memory_analysis"]["process_peak_bytes"]
+    gap = (predicted - peak) / peak
+    mem = torch.cuda.get_device_properties(0).total_memory
+    row.update({"collectives": got, "plain_gathers": plain,
+                "total_bytes_equal_dryrun": got["total_bytes"]
+                == dry["total_bytes"], "launches": {k: launched[k] for k in MODEL_KERNELS},
+                "predicted_peak_bytes": predicted, "max_memory_allocated_step": peak,
+                "peak_gap": gap, "dryrun_s": meta["lower_s"] + meta["compile_s"],
+                "dryrun_flops": meta["flops"], "card_total_memory": mem,
+                "card": torch.cuda.get_device_name(0)})
+    print("[runtime] " + json.dumps(row), flush=True)
+    if abs(gap) > RT_PEAK_TOL:
+        raise AssertionError(f"phase 7: the dry-run predicts {predicted} bytes, the step "
+                             f"peaked at {peak} ({gap:+.3f})")
+    del state, batch
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -6242,6 +6410,9 @@ def main() -> int:
     tpf_train_counts = _counts()
     print(f"[tpf-train] phase 4i: launches {json.dumps(tpf_train_counts)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    runtime_phase()
+    print(f"[runtime] phase 7 passed ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     shape_cases, shape_err = check_call_shapes(shapes)
     ag_err, agt_err = max(ag_err, shape_err), max(agt_err, shape_err)

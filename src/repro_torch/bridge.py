@@ -236,6 +236,18 @@ def random_params(cfg: ModelConfig, seed: int) -> dict:
     return tree_map(draw, _param_table(cfg))
 
 
+def _draw(t: torch.Tensor, leaf: _Leaf, gen: torch.Generator) -> None:
+    """Fill ``t`` in place from ``leaf``'s init distribution."""
+    if leaf.dist == "ones":
+        t.fill_(1.0)
+    elif not leaf.scale:
+        t.zero_()
+    elif leaf.dist == "uniform":
+        t.uniform_(leaf.shift, leaf.shift + leaf.scale, generator=gen)
+    else:
+        t.normal_(0.0, float(leaf.scale), generator=gen)
+
+
 def device_params(cfg: ModelConfig, mesh: StackedMesh | None, mesh_cfg: MeshConfig, *,
                   seed: int, dtype: torch.dtype, device: str | torch.device = "cuda"):
     """A tree of ``Stacked`` leaves as ``to_torch`` lays it out, drawn on
@@ -246,13 +258,14 @@ def device_params(cfg: ModelConfig, mesh: StackedMesh | None, mesh_cfg: MeshConf
     zero and, with the router, float32), but not its numbers: this is not
     the numpy draw. The reference's launchers draw on their device too
     (``init_state``); a host draw of deepseek-moe-16b's 16.9 B parameters
-    would take 67.6 GB of float32."""
+    would take 67.6 GB of float32. On the meta device (the dry-run,
+    ``launch/dryrun.py``) the leaves are laid out and nothing is drawn."""
     dev = device_of(device)
     dp = dp_axes(mesh_cfg)
     if mesh is not None and mesh.dp_rank_axes != dp:
         raise ValueError(f"{mesh} must stack exactly the dp axes {dp}")
     n = 1 if mesh is None else mesh.n_ranks
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
 
     def leaf(path, spec_leaf: _Leaf) -> Stacked:
         spec = () if mesh is None else _leaf_spec(path, spec_leaf, mesh, dp)
@@ -262,14 +275,8 @@ def device_params(cfg: ModelConfig, mesh: StackedMesh | None, mesh_cfg: MeshConf
         if axes:
             shape = [math.prod(mesh.shape[a] for a in axes), *_local_shape(shape, spec, mesh)]
         t = torch.empty(shape, dtype=dt, device=dev)
-        if spec_leaf.dist == "ones":
-            t.fill_(1.0)
-        elif not spec_leaf.scale:
-            t.zero_()
-        elif spec_leaf.dist == "uniform":
-            t.uniform_(spec_leaf.shift, spec_leaf.shift + spec_leaf.scale, generator=gen)
-        else:
-            t.normal_(0.0, float(spec_leaf.scale), generator=gen)
+        if gen is not None:
+            _draw(t, spec_leaf, gen)
         if mesh is None:
             return Stacked(t.expand(n, *shape), spec)
         return Stacked(expand_ranks(t, spec, mesh, n), spec, mesh)

@@ -35,6 +35,13 @@ it. The launch reads the cotangent once and writes the (..., P, n) result
 once, (P * P + P) * n * itemsize bytes, with no copy of the cotangent and
 no copy of the diagonal. The ring reduce-scatters are the same transpose
 applied to each rank's own full contribution.
+
+Each collective records itself where it executes (``_gathered`` and
+``_reduced``: the Functions' forwards and backwards, concurrent AG/RS, the
+plain gather and its backward, the broadcast's steps) into
+``launch/collective_stats.py``'s counters, from its result's shape alone
+and the rows a rank holds of it (``over_axis`` says how many; a backward
+keeps its forward's).
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import torch
 from repro_torch.device import SideStream
 from repro_torch.kernels.ring_allgather import (readable, ring_allgather,
                                                 ring_allgather_transpose)
+from repro_torch.launch import collective_stats as stats
 from repro_torch.launch.mesh import StackedMesh
 
 # ((step, direction, split, rounds, active_round), ...) in launch order; split
@@ -75,16 +83,29 @@ def _transposed(g: torch.Tensor, schedule: Schedule) -> torch.Tensor:
     return ring_allgather_transpose(g.reshape(*g.shape[:-1], p, g.shape[-1] // p), schedule)
 
 
+def _gathered(out: torch.Tensor, rows: int) -> torch.Tensor:
+    """``out`` (..., P, P * n), an executed all-gather's result, ``rows`` of
+    its leading rows a rank's, recorded."""
+    stats.record_stacked("all-gather", out.shape, out.element_size(), rows)
+    return out
+
+
+def _reduced(out: torch.Tensor, rows: int) -> torch.Tensor:
+    """``out`` (..., P, n), an executed reduce-scatter's result, recorded."""
+    stats.record_stacked("reduce-scatter", out.shape, out.element_size(), rows)
+    return out
+
+
 class _RingGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, schedule: Schedule) -> torch.Tensor:
-        ctx.schedule = schedule
-        return _flat(ring_allgather(readable(x), schedule))
+        ctx.schedule, ctx.rows = schedule, stats.rows()
+        return _gathered(_flat(ring_allgather(readable(x), schedule)), ctx.rows)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
-        return _transposed(g, ctx.schedule), None
+        return _reduced(_transposed(g, ctx.schedule), ctx.rows), None
 
 
 class _RingReduceScatter(torch.autograd.Function):
@@ -93,13 +114,13 @@ class _RingReduceScatter(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, schedule: Schedule) -> torch.Tensor:
-        ctx.schedule = schedule
-        return _transposed(x, schedule)
+        ctx.schedule, ctx.rows = schedule, stats.rows()
+        return _reduced(_transposed(x, schedule), ctx.rows)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
-        return _flat(ring_allgather(readable(g), ctx.schedule)), None
+        return _gathered(_flat(ring_allgather(readable(g), ctx.schedule)), ctx.rows), None
 
 
 def _ring_schedule(p: int, direction: int = +1) -> Schedule:
@@ -153,10 +174,18 @@ def bidi_ring_reduce_scatter_local(x: torch.Tensor) -> torch.Tensor:
 
 
 def plain_allgather_local(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's copy of the concatenated shards, as one tensor op."""
+    """Every rank's copy of the concatenated shards, as one tensor op. Its
+    backward (autograd's sum over the copies) is the reduce-scatter, which
+    a hook on the result records while the counters are open."""
     p, n = x.shape[-2:]
     full = x.reshape(*x.shape[:-2], 1, p * n)
-    return full.expand(*x.shape[:-2], p, p * n).contiguous()
+    rows = stats.rows()
+    out = _gathered(full.expand(*x.shape[:-2], p, p * n).contiguous(), rows)
+    if out.requires_grad and stats.recording():
+        shape, itemsize = x.shape, x.element_size()
+        out.register_hook(lambda g: stats.record_stacked("reduce-scatter", shape, itemsize,
+                                                         rows))
+    return out
 
 
 def pipelined_broadcast_local(x: torch.Tensor, *, root: int = 0,
@@ -175,6 +204,9 @@ def pipelined_broadcast_local(x: torch.Tensor, *, root: int = 0,
     if n % n_chunks:
         raise ValueError(f"{n} elements do not split into {n_chunks} chunks")
     root %= p
+    for _ in range(n_chunks + p - 2):   # one ppermute of a chunk a step
+        stats.record_stacked("collective-permute", (*x.shape[:-1], n // n_chunks),
+                             x.element_size(), stats.rows())
     xc = x.reshape(*x.shape[:-1], n_chunks, n // n_chunks)
     dist = [(d - root) % p for d in range(p)]
     out = torch.zeros_like(xc)
@@ -236,12 +268,13 @@ def _concurrent_ag_rs(ag: torch.Tensor, rs: torch.Tensor,
     reduce-scatter on the current stream."""
     ag, schedule = ag.contiguous(), _ring_schedule(ag.shape[-2])
     if not overlap:
-        return _flat(ring_allgather(ag, schedule)), _transposed(rs, schedule)
+        return (_gathered(_flat(ring_allgather(ag, schedule)), 1),
+                _reduced(_transposed(rs, schedule), 1))
     side = SideStream(ag.device)
     gathered, done = side.issue(ring_allgather, ag, schedule)
     reduced = _transposed(rs, schedule)
     side.join(done)
-    return _flat(gathered), reduced
+    return _gathered(_flat(gathered), 1), _reduced(reduced, 1)
 
 
 def over_axis(x: torch.Tensor, mesh: StackedMesh, axis: str,
@@ -264,9 +297,11 @@ def over_axis(x: torch.Tensor, mesh: StackedMesh, axis: str,
         sizes = [mesh.shape[a] for a in mesh.rank_axes]
         i = mesh.rank_axes.index(axis)
     a, p = math.prod(sizes[:i]), sizes[i]
-    b = math.prod(sizes[i + 1:]) * math.prod(x.shape[1:-1])
+    rows = math.prod(x.shape[1:-1])   # a rank's rows, each a group of the view
+    b = math.prod(sizes[i + 1:]) * rows
     y = x.reshape(a, p, b, x.shape[-1]).transpose(1, 2)
-    out = gather(y)
+    with stats.per_rank_rows(rows):
+        out = gather(y)
     return out.transpose(1, 2).reshape(*x.shape[:-1], out.shape[-1])
 
 

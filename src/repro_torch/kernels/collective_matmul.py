@@ -40,10 +40,12 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import collectives as C
 from repro_torch.kernels import build
 from repro_torch.kernels.ring_allgather import ring_step
+from repro_torch.launch import collective_stats as stats
 from repro_torch.launch.mesh import StackedMesh
 
 launches = 0         # the wgmma + TMA kernel (bf16)
@@ -147,10 +149,19 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     """(R, M, K) @ (R, K, N) -> (R, M, N) in x.dtype, into ``out`` when given
     (any strides whose elements do not overlap). Launches the kernel that
     ``path`` picks for CUDA tensors, runs the plain version for CPU
-    tensors, and raises for any other device."""
+    tensors, gives meta tensors (the dry-run) the empty output of
+    ``rank_matmul``'s fake, which ``FlopCounterMode`` counts, and raises
+    for any other device."""
     global launches, launches_wmma, launches_f32
     if x.is_cpu and w.is_cpu:
         return matmul_plain(x, w, out=out)
+    if x.is_meta:
+        _check(x, w)
+        if out is not None:
+            _check_out(x, w, out)
+            return out
+        with torch.no_grad():
+            return rank_matmul(x, w)
     if not x.is_cuda:
         raise ValueError(f"matmul runs on cuda or cpu tensors, got {x.device}")
     _check(x, w)
@@ -202,6 +213,20 @@ def _rank_matmul_backward(ctx, dy: torch.Tensor):
 
 
 rank_matmul.register_autograd(_rank_matmul_backward, setup_context=_rank_matmul_setup)
+
+
+@rank_matmul.register_fake
+def _rank_matmul_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The output of a product on meta or fake tensors: no data."""
+    _check(x, w)
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.rank_matmul)
+def _rank_matmul_flops(x_shape, w_shape, *args, **kwargs) -> int:
+    """2 R M K N: the count ``FlopCounterMode`` gives ``torch.bmm``."""
+    r, m, k = x_shape
+    return 2 * r * m * k * w_shape[2]
 
 
 # ------------------------------------------------------ allgather-matmul
@@ -301,6 +326,9 @@ class _AllgatherMatmul(torch.autograd.Function):
         global allgather_launches
         ctx.mm = matmul if use_pallas else matmul_plain
         ctx.save_for_backward(x, w)
+        *lead, p, m, k = x.shape
+        ctx.rows = stats.rows()
+        stats.record_stacked("all-gather", (*lead, p, p * m * k), x.element_size(), ctx.rows)
         if not use_pallas:
             return _allgather_matmul(x, w, matmul_plain)
         if x.device.type == "cpu":
@@ -319,8 +347,8 @@ class _AllgatherMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # every rank's full contribution g_d w^T, then the gather's transpose
             contrib = ctx.mm(g, w.t().expand(g.shape[0], n, k))
-            dx = C._transposed(contrib.view(*lead, p, p * m * k),
-                               C._ring_schedule(p)).view(x.shape)
+            dx = C._reduced(C._transposed(contrib.view(*lead, p, p * m * k),
+                                          C._ring_schedule(p)), ctx.rows).view(x.shape)
         if ctx.needs_input_grad[1]:
             rows = x.reshape(-1, 1, p * m, k)
             per_rank = [ctx.mm(rows[i].transpose(1, 2).expand(p, k, p * m), gi)

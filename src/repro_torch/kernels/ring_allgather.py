@@ -54,12 +54,14 @@ engine, staged chunks drained in order through a two-slot staging ring
 staged.nbytes.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version only for a CPU tensor. ``allgather_launches``,
-``allgather_transpose_launches``, ``launches`` (the one-step launches of
-the gather's kernel) and ``drain_launches`` count kernel launches; ``entries`` and
-``transpose_entries`` count the schedule entries that the ``ring_allgather``
-and ``ring_allgather_transpose`` launches ran, by kind: "ring", "bidi" (a
-split inside the slot) and "bcast" (a round mask). The kernels are built
+version only for a CPU tensor; a meta tensor (``launch/dryrun.py``) gets
+an empty result of the right shape and dtype, and counts no launch.
+``allgather_launches``, ``allgather_transpose_launches``, ``launches``
+(the one-step launches of the gather's kernel) and ``drain_launches``
+count kernel launches; ``entries`` and ``transpose_entries`` count the
+schedule entries that the ``ring_allgather`` and ``ring_allgather_transpose``
+launches ran, by kind: "ring", "bidi" (a split inside the slot) and "bcast"
+(a round mask). The kernels are built
 with ``nvcc`` into ``build/`` at their first launch and bound once
 (``kernels/build.py``).
 """
@@ -263,11 +265,15 @@ def ring_step(buf: torch.Tensor, step: int, *, direction: int = 1,
     """One ring step, in place on ``buf`` (..., P, P, n); see ``ring_step_plain``.
     For a CUDA tensor one launch of the gather's kernel
     (``csrc/ring_allgather.cu``) runs this one entry on ``buf`` and installs
-    nothing; a CPU tensor takes the plain version; any other device raises."""
+    nothing; a CPU tensor takes the plain version; a meta tensor (the
+    dry-run) is returned as it is; any other device raises."""
     global launches
     if buf.is_cpu:
         return ring_step_plain(buf, step, direction=direction, split=split,
                                rounds=rounds, active_round=active_round)
+    if buf.is_meta:
+        _check(buf, step, direction, split, rounds, active_round)
+        return buf
     if not buf.is_cuda:
         raise ValueError(f"ring_step runs on cuda or cpu tensors, got {buf.device}")
     p, n, lay = _buf_layout(buf)
@@ -354,10 +360,13 @@ def ring_allgather(x: torch.Tensor, schedule: tuple,
     (..., P, P, n), a new buffer if None; see ``ring_allgather_plain``. For
     a CUDA tensor one launch of the kernel installs the shards and runs
     every entry (one more launch per further 128 entries); a CPU tensor
-    takes the plain version; any other device raises."""
+    takes the plain version; a meta tensor (the dry-run) gets the buffer,
+    which holds no data there; any other device raises."""
     global allgather_launches
     if x.is_cpu:
         return ring_allgather_plain(x, schedule, out)
+    if x.is_meta:
+        return _gather_out(x, out)
     if not x.is_cuda:
         raise ValueError(f"ring_allgather runs on cuda or cpu tensors, got {x.device}")
     xlay = _groups(x, 1)
@@ -461,11 +470,15 @@ def ring_allgather_transpose(g: torch.Tensor, schedule: tuple) -> torch.Tensor:
     a CUDA tensor one launch of the kernel runs every entry and writes the
     result (one more launch per further 128 entries); g is read, never
     written (copied first where it is not contiguous, or where the
-    launches work in place). A CPU tensor takes the plain version; any
-    other device raises."""
+    launches work in place). A CPU tensor takes the plain version; a meta
+    tensor (the dry-run) gets an empty result of its shape; any other
+    device raises."""
     global allgather_transpose_launches
     if g.is_cpu:
         return ring_allgather_transpose_plain(g, schedule)
+    if g.is_meta:
+        _check_buf(g)
+        return g.new_empty((*g.shape[:-3], *g.shape[-2:]))
     if not g.is_cuda:
         raise ValueError(f"ring_allgather_transpose runs on cuda or cpu tensors, got {g.device}")
     buf = g if _groups(g, 2) is not None else g.contiguous()

@@ -203,10 +203,17 @@ def cache_scatter_update(cache: torch.Tensor, new: torch.Tensor,
     sequence, pos relative to each shard's first position, so that only
     the shard that owns it writes. Updates the cache in place (the
     reference's scatter is in place under donation; the cache may be a
-    view of a larger one) and returns it."""
-    keep = (pos >= 0) & (pos < cache.shape[-2])
-    lead = keep.nonzero(as_tuple=True)
-    cache[(*lead, slice(None), pos[keep])] = new[keep].to(cache.dtype)
+    view of a larger one) and returns it. A dropped position writes back
+    the value its clamped slot holds, so that the write is one scatter of
+    every row, with no data-dependent shape: no host sync on the card, and
+    it runs on meta tensors (the dry-run)."""
+    s = cache.shape[-2]
+    keep = (pos >= 0) & (pos < s)
+    at = pos.clamp(0, s - 1)
+    lead = torch.meshgrid(*(torch.arange(n, device=pos.device) for n in pos.shape),
+                          indexing="ij")
+    index = (*lead, slice(None), at)
+    cache[index] = torch.where(keep[..., None, None], new.to(cache.dtype), cache[index])
     return cache
 
 

@@ -68,7 +68,11 @@ def make_ctx(run: RunConfig, mesh: StackedMesh | None, *,
 def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
                     device: str | torch.device = "cuda"):
     """Returns (api, ctx, train_step). train_step: (state, batch) ->
-    (state, metrics); the state is updated in place and returned."""
+    (state, metrics); the state is updated in place and returned. Its
+    ``value_and_grad`` attribute, (state, batch) -> (loss, metrics, grads),
+    is what a step computes before the update (one microbatch), the
+    gradients in the trainable layout: the seam for a transform between
+    backward and the optimizer (``optim/compression.py``)."""
     cfg, tc = run.model, run.train
     api = build_model(cfg, remat=tc.remat, device=device)
     ctx = make_ctx(run, mesh)
@@ -112,6 +116,11 @@ def make_train_step(run: RunConfig, mesh: StackedMesh | None, *,
             metrics["loss"] = loss
         return TrainState(params, opt), metrics
 
+    def grads_of(state: TrainState, batch):
+        with use_ctx(ctx):
+            return value_and_grad(state, batch)
+
+    train_step.value_and_grad = grads_of
     return api, ctx, train_step
 
 
